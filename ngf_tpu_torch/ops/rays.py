@@ -1,0 +1,71 @@
+"""Ray-AABB clipping and fixed-step sampling along rays.
+
+Port of `ngf_tpu/ops/rays.py:19-94` (reference
+`InfoInv/models/FieldBase.py:118-137`). Randomness is injected: the caller
+passes the per-ray jitter tensor, and evaluation passes none.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _safe_dirs(rays_d: torch.Tensor) -> torch.Tensor:
+    # Exactly-zero direction components become 1e-6 (`FieldBase.py:122`).
+    return torch.where(rays_d == 0, torch.full_like(rays_d, 1e-6), rays_d)
+
+
+def ray_aabb_tmin(
+    rays_o: torch.Tensor, rays_d: torch.Tensor, aabb: torch.Tensor, near: float, far: float
+) -> torch.Tensor:
+    """Entry distance of each ray into the AABB, clamped to [near, far]
+    (`ngf_tpu/ops/rays.py:19-42`). rays (N, 3), aabb (2, 3) -> (N,)."""
+    vec = _safe_dirs(rays_d)
+    rate_a = (aabb[1] - rays_o) / vec
+    rate_b = (aabb[0] - rays_o) / vec
+    t_min = torch.minimum(rate_a, rate_b).amax(dim=-1)
+    return t_min.clamp(near, far)
+
+
+def ray_aabb_range(
+    rays_o: torch.Tensor, rays_d: torch.Tensor, aabb: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unclamped slab test (t_min, t_max); a ray hits the box iff
+    t_max > t_min (`ngf_tpu/ops/rays.py:45-56`)."""
+    vec = _safe_dirs(rays_d)
+    rate_a = (aabb[1] - rays_o) / vec
+    rate_b = (aabb[0] - rays_o) / vec
+    t_min = torch.minimum(rate_a, rate_b).amax(dim=-1)
+    t_max = torch.maximum(rate_a, rate_b).amin(dim=-1)
+    return t_min, t_max
+
+
+def stratified_sample(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    aabb: torch.Tensor,
+    near: float,
+    far: float,
+    n_samples: int,
+    step_size: float,
+    jitter: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fixed-step samples from the AABB entry point
+    (`ngf_tpu/ops/rays.py:59-94`): z = t_min + step_size * (arange(S) + u).
+
+    Args:
+      rays_o, rays_d: (N, 3).
+      jitter: optional (N, 1) per-ray offsets u in [0, 1) (one per ray, not
+        per sample, as at train time in the reference); None at eval.
+
+    Returns:
+      pts (N, S, 3), z_vals (N, S), and the in-AABB mask (N, S).
+    """
+    t_min = ray_aabb_tmin(rays_o, rays_d, aabb, near, far)
+    rng = torch.arange(n_samples, dtype=rays_o.dtype, device=rays_o.device)[None, :]
+    if jitter is not None:
+        rng = rng + jitter
+    z_vals = t_min[:, None] + step_size * rng
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    inbbox = ((pts >= aabb[0]) & (pts <= aabb[1])).all(dim=-1)
+    return pts, z_vals, inbbox
