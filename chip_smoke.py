@@ -9,12 +9,27 @@
    256 x 256 x 96 plane, N = 4096 rays x 884 samples, the density channels
    0:24 and the appearance channels 24:96, float32 and bfloat16) against its
    plain PyTorch version, timed beside its bound and ``F.grid_sample``.
-3. Render phase: a random InfoInv tri-plane model at full width, saved as a
+3. Row-gather phase: ``gather_rows`` against its plain version (exact) at
+   the Pallas probes' shapes (`tools/probe_pallas.py`) and at the
+   trainer's (rays (491520, 6) and rgbs (491520, 3) gathered at 4096 ids),
+   timed beside its bound and ``torch.index_select``.
+4. Backward phase: ``bilinear_gather_2d_backward`` at the train step's
+   shapes (a 256 x 256 x 96 plane gradient, N = 4096 rays x 512 samples of
+   the lego geometry, channels 0:24 and 24:96) against its plain version,
+   timed beside its bound and the backward of ``F.grid_sample``.
+5. Render phase: a random InfoInv tri-plane model at full width, saved as a
    checkpoint with the lego geometry, rendered through ``main_torch.main``
    (render-only, one 800 x 800 synthetic test view, 4096-ray chunks). The
    kernel's launch count over that run must be 6 per chunk; one chunk is
    rendered again with the plain sampler and compared, timed, and profiled
    (device time by op, torch.profiler).
+6. Train phase: ``main_torch.main`` in training mode with
+   ``configs/synthetic_infoinv_tpu.txt --group_size 0`` at full width (30
+   synthetic 128 x 128 views, one test view), 300 steps. Each step must
+   launch 6 gathers, 6 gather backwards and 2 row gathers; the losses must
+   be finite and fall; the checkpoint and the final evaluation's PNG must
+   exist. Then one step on one batch with the kernels and with the plain
+   sampler, compared; then ms per step, rays/s, peak memory and a profile.
 
 Prints per-phase lines, then the card line, a JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Any failure raises: the script
@@ -47,9 +62,31 @@ F32_TOL = 1e-5
 BF16_REL_TOL = 2.0 ** -7
 BF16_ABS_TOL = 1e-6
 RENDER_TOL = 1e-4
+# Plane gradients, kernel against plain version: both add each texel's
+# float32 terms atomically, in orders that differ, so they agree to a few
+# float32 roundings of the texel's largest partial sum; 1e-5 of the largest
+# gradient holds that with room.
+GRAD_REL_TOL = 1e-5
+# A train step's plane gradients, kernels against the plain sampler: the
+# forward's rounding differences (<= 1e-7) pass through the decoders'
+# backward into every cotangent, and a texel's gradient is a sum of
+# thousands of terms of both signs that mostly cancel, so the rounding of
+# the terms shows relative to the net result (6.5e-5 of the largest
+# gradient on the H100 with most samples shaded); 1e-3 of the largest.
+STEP_GRAD_REL_TOL = 1e-3
+STEP_LOSS_RTOL = 1e-5
 
 RAYS_PER_CHUNK = 4096
 WH = 800
+# The train step of `configs/synthetic_infoinv_tpu.txt`: 4096-ray batches of
+# 884 samples compacted to open_sample_cap 512; 30 views of 128 x 128.
+TRAIN_CONFIG = "configs/synthetic_infoinv_tpu.txt"
+TRAIN_RAYS, TRAIN_CAP, TRAIN_VIEWS, TRAIN_WH = 4096, 512, 30, 128
+# From the random start the loss sits on a plateau (density below the
+# shading threshold) for about 130 steps, then falls: 300 steps make the
+# falling-loss check meaningful, at about 60 ms a step.
+TRAIN_ITERS = 300
+PROBE_ROWS, PROBE_D, PROBE_B = 512, 128, 256
 
 
 def check(cond: bool, msg: str) -> None:
@@ -144,6 +181,143 @@ def kernel_phase(device: torch.device, n_points: int) -> list[dict]:
             }
             print("[kernel] " + json.dumps(row))
             rows.append(row)
+    return rows
+
+
+def bytes_bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def row_gather_phase(device: torch.device, n_train: int) -> list[dict]:
+    """gather_rows against its plain version (exact) and torch.index_select,
+    at the probes' shapes and at the trainer's batch assembly."""
+    from ngf_tpu_torch.ops.cuda_kernels import gather_rows
+    from ngf_tpu_torch.ops.gather import gather_rows_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    ids = torch.randperm(n_train, generator=gen, device=device)[:TRAIN_RAYS]
+    cases = [
+        ("probe", torch.arange(PROBE_ROWS * PROBE_D, dtype=torch.float32, device=device)
+         .reshape(PROBE_ROWS, PROBE_D), torch.arange(PROBE_B, device=device) * 7 % PROBE_ROWS),
+        ("rays", torch.randn((n_train, 6), generator=gen, device=device), ids),
+        ("rgbs", torch.rand((n_train, 3), generator=gen, device=device), ids),
+    ]
+    rows = []
+    for name, tab, idx in cases:
+        got = gather_rows(tab, idx)
+        ref = gather_rows_plain(tab, idx)
+        check(torch.equal(got, ref), f"gather_rows {name} differs from tab[idx]")
+        B, D = got.shape
+        # Each gathered row read once and written once, each index read once.
+        bound_ms, bound_by = bytes_bound_ms(B * (2 * D * 4 + idx.element_size()), 0.0)
+        row = {
+            "case": name, "table": list(tab.shape), "B": B, "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: gather_rows(tab, idx), reps=100, warmup=5),
+            "device_ms": kernel_device_ms(lambda: gather_rows(tab, idx), "gather_rows_kernel"),
+            "plain_ms": cuda_ms(lambda: gather_rows_plain(tab, idx), reps=100, warmup=5),
+            "library_ms": cuda_ms(lambda: torch.index_select(tab, 0, idx), reps=100, warmup=5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        print("[rows] " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time of the kernels named ``kernel`` per call of
+    ``fn()``, by torch.profiler: for a launch whose host-side call takes
+    longer than the kernel, ``cuda_ms`` measures the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and kernel in e.key
+    ) / 1e3 / reps
+
+
+def train_coords(device: torch.device) -> torch.Tensor:
+    """(TRAIN_RAYS, TRAIN_CAP, 2) xy-plane coordinates as a train step
+    fetches them: rays of the lego geometry through the middle of the
+    800 x 800 view, marched at the geometry's 884 steps, the first
+    TRAIN_CAP samples inside the box kept (``open_sample_cap``), normalised
+    and projected. A strided view, as in the render path."""
+    from ngf_tpu_torch.fields.triplane import triplane_project
+    from ngf_tpu_torch.ops.rays import stratified_sample
+    from ngf_tpu_torch.render.volume import normalize_coord
+    from ngf_tpu_torch.utils.grid import cal_n_samples, grid_step_size
+
+    aabb = torch.tensor([[-1.5] * 3, [1.5] * 3], device=device)
+    step = grid_step_size(aabb.tolist(), [256] * 3, 0.5)
+    rays = chunk_rays(WH, TRAIN_RAYS, device)
+    pts, _, valid = stratified_sample(
+        rays[:, :3], rays[:, 3:], aabb, 2.0, 6.0, cal_n_samples([256] * 3, 0.5), step
+    )
+    order = torch.argsort((~valid).int(), dim=-1, stable=True)[:, :TRAIN_CAP]
+    pts = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
+    return triplane_project(normalize_coord(pts, aabb))[0]
+
+
+def backward_phase(device: torch.device) -> list[dict]:
+    """bilinear_gather_2d_backward against its plain version and the
+    backward of F.grid_sample, at the train step's shapes."""
+    from ngf_tpu_torch.ops.cuda_kernels import bilinear_gather_2d_backward
+    from ngf_tpu_torch.ops.grid_sample import grid_sample_2d_backward_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    coords = train_coords(device)
+    n = coords.shape[0] * coords.shape[1]
+    H = W = 256
+    print(f"[backward] N={n} points ({coords.shape[0]} rays x {coords.shape[1]} samples)")
+    rows = []
+    for name, ch in (("density", slice(0, 24)), ("appearance", slice(24, 96))):
+        C = ch.stop - ch.start
+        g = torch.randn((*coords.shape[:-1], C), generator=gen, device=device)
+        got = torch.zeros((H, W, 96), device=device)
+        bilinear_gather_2d_backward(g, coords, got, ch.start)
+        ref = torch.zeros_like(got)
+        grid_sample_2d_backward_plain(g, coords, ref, ch.start)
+        scale = ref.abs().max().item()
+        max_err = (got - ref).abs().max().item()
+        check(max_err <= GRAD_REL_TOL * scale, f"{name} backward err {max_err} vs max {scale}")
+        outside = torch.ones(96, dtype=torch.bool, device=device)
+        outside[ch] = False
+        check(not got[..., outside].any().item(), f"{name} backward wrote outside {ch}")
+
+        # The library's plane gradient: aten's grid_sample backward, input
+        # gradient only, on the permuted plane.
+        lib_in = torch.zeros((1, C, H, W), device=device)
+        lib_grid = coords.reshape(1, n, 1, 2).contiguous()
+        lib_g = g.reshape(n, C).t().contiguous().view(1, C, n, 1)
+
+        def library():
+            return torch.ops.aten.grid_sampler_2d_backward(
+                lib_g, lib_in, lib_grid, 0, 0, True, [True, False])[0]
+
+        lib_err = (library()[0].permute(1, 2, 0) - got[..., ch]).abs().max().item()
+        check(lib_err <= GRAD_REL_TOL * scale, f"{name} backward vs grid_sample {lib_err}")
+        del ref
+        row = {
+            "fetch": name, "C": C, "max_abs_err": max_err, "max_abs_grad": scale,
+            "ms": cuda_ms(lambda: bilinear_gather_2d_backward(g, coords, got, ch.start), reps=20),
+            "plain_ms": cuda_ms(lambda: grid_sample_2d_backward_plain(g, coords, got, ch.start),
+                                reps=3),
+            "library_ms": cuda_ms(library, reps=10),
+        }
+        # g and the coords read once, the plane gradient's channels read
+        # and written once; 8 flops per value (4 products, 4 adds) and ~30
+        # per point of index and weight math.
+        row["bound_ms"], row["bound_by"] = bytes_bound_ms(
+            n * C * 4 + 8 * n + 2 * H * W * C * 4, 8 * n * C + 30 * n)
+        print("[backward] " + json.dumps(row))
+        rows.append(row)
     return rows
 
 
@@ -275,9 +449,127 @@ def render_phase(
     return result
 
 
-def profile_chunk(render, reps: int = 3) -> None:
-    """Where one render chunk's device time goes: torch.profiler over
-    ``reps`` calls of ``render()``, ops sorted by device time."""
+def train_phase(
+    device: torch.device, iters: int = TRAIN_ITERS, views: int = TRAIN_VIEWS,
+    wh: int = TRAIN_WH, extra: tuple[str, ...] = (),
+) -> dict:
+    """Training CLI at full width, then one step with the kernels against
+    the plain sampler, then its time, memory and profile. ``extra`` argv
+    shrinks the run for the CPU test."""
+    import main_torch
+    from ngf_tpu_torch.config import config_parser
+    from ngf_tpu_torch.data import load_dataset
+    from ngf_tpu_torch.ops import cuda_kernels
+    from ngf_tpu_torch.train.loop import TriPlaneTrainer
+    from ngf_tpu_torch.utils.checkpoint import load_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [
+            "--config", os.path.join(os.path.dirname(os.path.abspath(__file__)), TRAIN_CONFIG),
+            "--group_size", "0", "--n_iters", str(iters),
+            "--datadir", f"synthetic:views={views},wh={wh},test_views=1",
+            "--render_test", "1", "--basedir", tmp, "--expname", "train",
+            "--progress_refresh_rate", "10", "--device", device.type, *extra,
+        ]
+        args = config_parser(argv)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = main_torch.main(argv)
+        main_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in cuda_kernels.KERNELS.items()}
+        mses = stats["train_mses"]
+        eval_chunks = -(-wh * wh // args.eval_chunk)
+        print(f"[train] main_torch.main: {main_s:.3f} s ({stats['wall_time_s']:.3f} s in the "
+              f"train loop), {iters} steps, launches {launches}, test psnr {stats['test_psnrs']}")
+        print(f"[train] mse per step {mses}")
+        check(len(mses) == iters and all(math.isfinite(m) for m in mses), f"losses {mses}")
+        first, last = sum(mses[:5]) / 5, sum(mses[-5:]) / 5
+        check(last < first, f"mse of the last 5 steps {last} >= first 5 {first}")
+        check(len(stats["test_psnrs"]) == 1 and math.isfinite(stats["test_psnrs"][0]),
+              f"test psnr {stats['test_psnrs']}")
+        run = os.path.join(tmp, "train")
+        for f in ("model.npz", "imgs_test_all/000.png"):
+            check(os.path.isfile(os.path.join(run, f)), f"training wrote no {f}")
+        result = {"main_s": main_s, "launches": launches, "mses": mses,
+                  "test_psnr": stats["test_psnrs"][0]}
+        if device.type == "cuda":
+            steps = args.microbatch * iters
+            want = {"bilinear_gather_2d": 6 * steps + 6 * eval_chunks,
+                    "bilinear_gather_2d_backward": 6 * steps, "gather_rows": 2 * iters}
+            check(launches == want, f"launches {launches}, expected {want}")
+            result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        params = load_checkpoint(os.path.join(run, "model.npz"), device)[0]
+
+    # One batch of a smaller training set through the same configuration.
+    ds = load_dataset("synthetic", f"synthetic:views=1,wh={wh}", split="train", is_stack=False)
+    trainer = TriPlaneTrainer(args, ds, init_params=params, device=device)
+    rays, rgbs = trainer.next_batch()
+    result["compare"] = {"trained": compare_step(trainer, rays, rgbs)}
+    # The same with the density bias of `make_checkpoint` (mean opacity
+    # near 0.5): most samples are shaded, so both fetches carry gradient.
+    with torch.no_grad():
+        trainer.params["density_decoder"]["mlp"]["layers"][-1]["b"].fill_(
+            density_bias(trainer.model_cfg))
+    result["compare"]["opaque"] = compare_step(trainer, rays, rgbs, need_appearance=True)
+    if device.type == "cuda":
+        step = lambda: trainer.train_step(*trainer.next_batch(), trainer.gen)  # noqa: E731
+        torch.cuda.reset_peak_memory_stats(device)
+        ms = cuda_ms(step, reps=5, warmup=1)
+        step_peak = torch.cuda.max_memory_allocated(device) / 2**30
+        print(f"[train] {ms:.3f} ms/step ({1e3 * args.batch_size / ms:.0f} rays/s), peak "
+              f"{step_peak:.2f} GiB in the timed steps, {result['peak_gib']:.2f} GiB over "
+              f"main_torch.main")
+        result.update(step_ms=ms, step_peak_gib=step_peak)
+        profile_chunk(step, reps=2, unit="step")
+    return result
+
+
+def compare_step(trainer, rays, rgbs, need_appearance: bool = False) -> dict:
+    """One step's MSE and plane gradients with the kernels and with the
+    plain sampler on the same batch and jitter; also the share of sample
+    rows whose fetch cotangent is all zero, by fetch."""
+    from ngf_tpu_torch.ops.grid_sample import grid_sample_2d_plain
+
+    dd = trainer.model_cfg.density_dim
+    zero_rows: dict[str, list[float]] = {}
+
+    def record(fetch):
+        return lambda g: zero_rows.setdefault(fetch, []).append(
+            (g == 0).all(-1).float().mean().item())
+
+    def plain(p, c, name):
+        out = grid_sample_2d_plain(p, c)
+        if out.requires_grad:
+            out.register_hook(record("density" if p.shape[-1] == dd else "appearance"))
+        return out
+
+    planes = ("plane_xy", "plane_yz", "plane_xz")
+    mse, grads = {}, {}
+    for how, fn in (("kernels", None), ("plain", plain)):
+        gen = torch.Generator(device=rays.device).manual_seed(SEED)
+        mse[how] = trainer.compute_grads(rays, rgbs, gen, sample_fn=fn).item()
+        grads[how] = {n: trainer.params[n].grad.clone() for n in planes}
+    trainer.optimizer.zero_grad()
+    scale = max(grads["plain"][n].abs().max().item() for n in planes)
+    err = max((grads["kernels"][n] - grads["plain"][n]).abs().max().item() for n in planes)
+    app_scale = max(grads["plain"][n][..., dd:].abs().max().item() for n in planes)
+    out = {"mse": mse, "max_abs_grad": scale, "max_abs_err": err,
+           "max_abs_appearance_grad": app_scale,
+           "zero_row_share": {k: sum(v) / len(v) for k, v in zero_rows.items()}}
+    print("[train] step, kernels vs plain sampler: " + json.dumps(out))
+    check(abs(mse["kernels"] - mse["plain"]) <= STEP_LOSS_RTOL * abs(mse["plain"]),
+          f"step mse {mse}")
+    check(scale > 0 and err <= STEP_GRAD_REL_TOL * scale, f"plane grad err {err} vs max {scale}")
+    check(app_scale > 0 or not need_appearance, "no appearance gradient")
+    return out
+
+
+def profile_chunk(fn, reps: int = 3, unit: str = "chunk") -> None:
+    """Where the device time of one call of ``fn`` (a render chunk or a
+    train step) goes: torch.profiler over ``reps`` calls, ops sorted by
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -285,7 +577,7 @@ def profile_chunk(render, reps: int = 3) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            render()
+            fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / reps
     events = prof.key_averages()
@@ -295,8 +587,8 @@ def profile_chunk(render, reps: int = 3) -> None:
         e.self_device_time_total for e in events
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation
     ) / 1e3 / reps
-    print(f"[profile] {wall_ms:.3f} ms/chunk on the host clock under the profiler, "
-          f"{device_ms:.3f} ms/chunk of device time, idle share "
+    print(f"[profile] {wall_ms:.3f} ms/{unit} on the host clock under the profiler, "
+          f"{device_ms:.3f} ms/{unit} of device time, idle share "
           f"{max(0.0, 1.0 - device_ms / wall_ms):.3f}")
 
 
@@ -314,23 +606,38 @@ def main() -> int:
     print(f"[device] kernels built and loaded in {build_s:.3f} s (set-up)")
 
     rows = kernel_phase(device, RAYS_PER_CHUNK * 884)
+    row_rows = row_gather_phase(device, TRAIN_VIEWS * TRAIN_WH * TRAIN_WH)
+    bwd_rows = backward_phase(device)
     render = render_phase(device)
+    train = train_phase(device)
 
-    main_row = next(r for r in rows if r["fetch"] == "appearance" and r["dtype"] == "float32")
-    kernels = [{
-        "name": "bilinear_gather_2d",
-        "route": "cuda",
-        "source": "ngf_tpu_torch/ops/kernels/bilinear_gather.cu",
-        "replaces": "ngf_tpu/ops/pallas_kernels.py:57",
-        "launches": render["launches"]["bilinear_gather_2d"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "float32"),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "at": "appearance fetch: plane 256x256x96 float32, channels 24:96, N=3620864",
-    }]
+    def entry(name, source, replaces, row, max_abs_err, at):
+        by_path = {"render": render["launches"][name], "train": train["launches"][name]}
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max_abs_err,
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "at": at,
+        }
+
+    kernels = [
+        entry("bilinear_gather_2d", "ngf_tpu_torch/ops/kernels/bilinear_gather.cu",
+              "ngf_tpu/ops/pallas_kernels.py:57",
+              next(r for r in rows if r["fetch"] == "appearance" and r["dtype"] == "float32"),
+              max(r["max_abs_err"] for r in rows if r["dtype"] == "float32"),
+              "appearance fetch: plane 256x256x96 float32, channels 24:96, N=3620864"),
+        entry("bilinear_gather_2d_backward", "ngf_tpu_torch/ops/kernels/bilinear_gather_backward.cu",
+              "ngf_tpu/ops/grid_sample.py:421",
+              next(r for r in bwd_rows if r["fetch"] == "appearance"),
+              max(r["max_abs_err"] for r in bwd_rows),
+              "appearance fetch: plane gradient 256x256x96 float32, channels 24:96, "
+              f"N={TRAIN_RAYS * TRAIN_CAP}"),
+        entry("gather_rows", "ngf_tpu_torch/ops/kernels/gather_rows.cu",
+              "tools/probe_pallas.py:21,44,68",
+              next(r for r in row_rows if r["case"] == "rays"), 0.0,
+              f"rays table ({TRAIN_VIEWS * TRAIN_WH * TRAIN_WH}, 6) float32 at {TRAIN_RAYS} ids"),
+    ]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

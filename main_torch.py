@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""CLI of the PyTorch/CUDA port (`ngf_tpu_torch`): render-only evaluation of
-a checkpoint, the counterpart of `main.py:22-35,120-194`:
+"""CLI of the PyTorch/CUDA port (`ngf_tpu_torch`), the counterpart of
+`main.py`: dense InfoInv training, and render-only evaluation of a
+checkpoint.
 
+    python main_torch.py --config configs/synthetic_infoinv_tpu.txt \\
+        --group_size 0 --n_iters 300 [--device cpu]
     python main_torch.py --config configs/lego_infoinv.txt \\
         --render_only 1 --render_test 1 --ckpt path/to/model.npz [--device cpu]
 
-It reads the same ``configs/*.txt`` and the same ``.npz`` checkpoints as
-`main.py`, and runs on the GPU unless ``--device cpu`` is given. Training is
-not ported yet.
+It reads the same ``configs/*.txt`` and writes and reads the same ``.npz``
+checkpoints as `main.py`, and runs on the GPU unless ``--device cpu`` is
+given. Training covers the open stage: options the port does not carry yet
+(events inside ``n_iters``, ``group_size > 0``, the gauge subsystem,
+bfloat16, resume) raise, naming ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import sys
 
@@ -28,11 +34,84 @@ def main(argv=None):
 
     if args.render_only and (args.render_test or args.render_path):
         return run_test(args)
-    raise NotImplementedError(
-        "training is not ported to ngf_tpu_torch yet (ROADMAP.md queue 1, item 1, "
-        "'Training with the K2 backward kernel'); use --render_only 1 with "
-        "--render_test 1 or --render_path 1"
+    return run_train(args)
+
+
+def _logfolder(args):
+    if args.add_timestamp:
+        stamp = datetime.datetime.now().strftime("-%Y%m%d-%H%M%S")
+        return f"{args.basedir}/{args.expname}{stamp}"
+    return f"{args.basedir}/{args.expname}"
+
+
+def _full_f32_products():
+    # Full float32 products, as the reference computes them.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def run_train(args):
+    """Train, save ``model.npz``, then the final evaluations
+    (`main.py:45-117`). Returns the trainer's statistics with the test
+    PSNRs under ``test_psnrs`` (empty when no test views were rendered)."""
+    from ngf_tpu_torch.data import load_dataset
+    from ngf_tpu_torch.render.evaluation import evaluation, evaluation_path
+    from ngf_tpu_torch.train.loop import TriPlaneTrainer, check_ported
+    from ngf_tpu_torch.utils.device import resolve_device
+
+    if args.ckpt:
+        raise NotImplementedError(
+            "resuming training from --ckpt is not ported to ngf_tpu_torch yet: see "
+            "ROADMAP.md queue 1, 'resume'"
+        )
+    if args.export_mesh:
+        raise NotImplementedError(
+            "export_mesh is not ported to ngf_tpu_torch yet: see ROADMAP.md, items still missing"
+        )
+    check_ported(args)
+    device = resolve_device(args.device)
+    _full_f32_products()
+
+    train_dataset = load_dataset(
+        args.dataset_name, args.datadir, split="train",
+        downsample=args.downsample_train, is_stack=False,
     )
+    test_dataset = load_dataset(
+        args.dataset_name, args.datadir, split="test",
+        downsample=args.downsample_test, is_stack=True,
+    )
+    logfolder = _logfolder(args)
+    os.makedirs(logfolder, exist_ok=True)
+    trainer = TriPlaneTrainer(args, train_dataset, test_dataset, logfolder, device=device)
+    stats = trainer.run()
+    print(f"training done: { {k: v for k, v in stats.items() if k != 'train_mses'} }")
+
+    # The final evaluations march the full geometry-derived sample count
+    # with no compaction (`main.py:92-95`).
+    render_fn = trainer.make_eval_render_fn(full=True)
+    psnrs = []
+    if args.render_train:
+        train_stack = load_dataset(
+            args.dataset_name, args.datadir, split="train",
+            downsample=args.downsample_train, is_stack=True,
+        )
+        train_psnrs = evaluation(
+            train_stack, render_fn, f"{logfolder}/imgs_train_all", n_vis=-1,
+            chunk=args.eval_chunk, compute_extra_metrics=bool(args.compute_extra_metrics),
+        )
+        print(f"======> {args.expname} train all psnr: {np.mean(train_psnrs)} <========")
+    if args.render_test:
+        psnrs = evaluation(
+            test_dataset, render_fn, f"{logfolder}/imgs_test_all", n_vis=-1,
+            chunk=args.eval_chunk, compute_extra_metrics=bool(args.compute_extra_metrics),
+        )
+        print(f"======> {args.expname} test all psnr: {np.mean(psnrs)} <========")
+    if args.render_path and test_dataset.render_path is not None:
+        evaluation_path(
+            test_dataset, render_fn, test_dataset.render_path,
+            f"{logfolder}/imgs_path_all", chunk=args.eval_chunk,
+        )
+    return {**stats, "test_psnrs": psnrs}
 
 
 def run_test(args):
@@ -48,9 +127,7 @@ def run_test(args):
     from ngf_tpu_torch.utils.grid import grid_n_samples
 
     device = resolve_device(args.device)
-    # Full float32 products, as the reference computes them.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _full_f32_products()
 
     if not args.ckpt or not os.path.exists(args.ckpt):
         print("the ckpt path does not exists!!")

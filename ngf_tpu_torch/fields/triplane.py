@@ -1,11 +1,12 @@
-"""Tri-plane fields: InfoInv and learned-gauge variants, forward only.
+"""Tri-plane fields: InfoInv and learned-gauge variants.
 
-Port of `ngf_tpu/fields/triplane.py:44-259` (reference
+Port of `ngf_tpu/fields/triplane.py:44-259,313-319` (reference
 `InfoInv/models/Field.py`, `TriPlane/models/Field.py`). Planes are
 channels-last (H, W, C). Every plane fetch goes through
 :func:`ngf_tpu_torch.ops.grid_sample.grid_sample_2d`, which launches the
-``bilinear_gather_2d`` CUDA kernel on the card. The channel slice of a fetch
-is passed to it as a view, without a copy.
+``bilinear_gather_2d`` CUDA kernel on the card, and its backward kernel for
+the plane gradient. A fetch names its channels of the whole plane, so
+neither the slice nor its gradient is copied.
 """
 
 from __future__ import annotations
@@ -146,12 +147,17 @@ def _plane_feats(params: Params, cfg: TriPlaneConfig, xy, yz, xz, channels: slic
     """(`ngf_tpu/fields/triplane.py:192-211`). Coordinates stay float32
     through the sampler: a bfloat16 coordinate moves a stencil by up to half
     a texel at 256-res planes. Only the plane values run in the compute
-    dtype; in float32 the channel slice reaches the sampler as a view."""
-    smp = _sampler(sample_fn)
+    dtype; in float32 the whole plane reaches the sampler with the channel
+    range, so a fetch's gradient lands in its channels of the plane's."""
     dt = cfg.dtype
 
     def sample(name, c):
-        return smp(params[name][..., channels].to(dt), c, name)
+        plane, ch = params[name], channels
+        if plane.dtype != dt:  # the compute-dtype copy of the slice (evaluation)
+            plane, ch = plane[..., ch].to(dt), slice(None)
+        if sample_fn is None:
+            return grid_sample_2d(plane, c, ch)
+        return sample_fn(plane[..., ch], c, name)
 
     return sample("plane_xy", xy), sample("plane_yz", yz), sample("plane_xz", xz)
 
@@ -203,3 +209,13 @@ def triplane_rgb(
         _cast(params["rgb_decoder"], cfg), feat, viewdirs.to(feat.dtype), cfg.view_pe
     )
     return rgb.float()
+
+
+def density_l1(params: Params) -> torch.Tensor:
+    """L1 regularizer over all three planes (`ngf_tpu/fields/triplane.py:313-319`,
+    `InfoInv/models/Field.py:107-110`)."""
+    return (
+        params["plane_xy"].abs().mean()
+        + params["plane_yz"].abs().mean()
+        + params["plane_xz"].abs().mean()
+    )

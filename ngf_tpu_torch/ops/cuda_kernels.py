@@ -3,14 +3,19 @@
 The sources live in ``ngf_tpu_torch/ops/kernels/``. On first use each one is
 compiled with ``nvcc`` for ``sm_90a`` (Hopper) into a shared library with a
 plain C interface under ``ngf_tpu_torch/_build/`` and loaded with
-``ctypes``; a source's library is named by a hash of its text, so an edited
-source is rebuilt. Nothing is compiled or loaded when this module is
-imported: the CPU tests import it on machines without ``nvcc`` or a card.
+``ctypes``; a source's library is named by a hash of its text and of the
+headers beside it, so an edited source or header is rebuilt. Nothing is
+compiled or loaded when this module is imported: the CPU tests import it on
+machines without ``nvcc`` or a card.
 
 Every wrapper launches its kernel on PyTorch's current stream, raises on an
 input the kernel does not take and on a refused launch, and counts its
 launches in a plain integer attribute (``bilinear_gather_2d.launches``) so
 that a run can show which path its work took.
+
+Kernels: ``bilinear_gather_2d`` (K1, the tri-plane fetch),
+``bilinear_gather_2d_backward`` (K2, its plane gradient) and ``gather_rows``
+(the trainer's batch assembly).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -61,7 +67,8 @@ def build(name: str) -> Path:
     library.
     """
     src = KERNEL_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(KERNEL_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     lib = BUILD_DIR / f"lib{name}-{digest[:12]}.so"
     if lib.exists():
         return lib
@@ -96,13 +103,26 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             vp, i32, i32, i64, i32, vp, i64, i64, vp, i64, i32, vp,
         ]
         lib.ngf_bilinear_gather_2d.restype = i32
+    elif name == "bilinear_gather_backward":
+        lib.ngf_bilinear_gather_2d_backward.argtypes = [
+            vp, i64, i32, vp, i64, i64, vp, i32, i32, i64, i64, vp,
+        ]
+        lib.ngf_bilinear_gather_2d_backward.restype = i32
+    elif name == "gather_rows":
+        lib.ngf_gather_rows.argtypes = [vp, i64, i32, i64, vp, i32, i64, vp, vp]
+        lib.ngf_gather_rows.restype = i32
 
 
 def build_all() -> float:
-    """Build and load every kernel of the port; returns the seconds taken."""
+    """Build every kernel of the port, one ``nvcc`` per source all started
+    together, then load them; returns the seconds taken."""
     t0 = time.perf_counter()
-    for src in sorted(KERNEL_DIR.glob("*.cu")):
-        _load(src.stem)
+    names = [src.stem for src in sorted(KERNEL_DIR.glob("*.cu"))]
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for fut in [pool.submit(build, n) for n in names]:
+            fut.result()
+    for name in names:
+        _load(name)
     return time.perf_counter() - t0
 
 
@@ -113,6 +133,14 @@ def _check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 
 _GATHER_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_plane(plane: torch.Tensor, what: str) -> None:
+    H, W, _ = plane.shape
+    if H < 2 or W < 2:
+        raise ValueError(f"{what} must be at least 2x2, got {H}x{W}")
+    if plane.stride(2) != 1 or plane.stride(0) != W * plane.stride(1):
+        raise ValueError(f"unsupported {what} strides {plane.stride()} for {tuple(plane.shape)}")
 
 
 def bilinear_gather_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
@@ -137,11 +165,8 @@ def bilinear_gather_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
             f"plane must be (H, W, C) float32/bfloat16, got {tuple(plane.shape)} "
             f"{plane.dtype}"
         )
+    _check_plane(plane, "plane")
     H, W, C = plane.shape
-    if H < 2 or W < 2:
-        raise ValueError(f"plane must be at least 2x2, got {H}x{W}")
-    if plane.stride(2) != 1 or plane.stride(0) != W * plane.stride(1):
-        raise ValueError(f"unsupported plane strides {plane.stride()} for {tuple(plane.shape)}")
     if coords.dtype != torch.float32 or coords.shape[-1] != 2:
         raise ValueError(
             f"coords must be (..., 2) float32, got {tuple(coords.shape)} {coords.dtype}"
@@ -167,8 +192,115 @@ def bilinear_gather_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
 
 bilinear_gather_2d.launches = 0
 
+
+def bilinear_gather_2d_backward(
+    g: torch.Tensor, coords: torch.Tensor, grad_plane: torch.Tensor, channel_offset: int = 0
+) -> None:
+    """CUDA kernel for the plane gradient of ``grid_sample_2d``
+    (``kernels/bilinear_gather_backward.cu``): adds, in place, the gradient
+    of a gather of channels ``channel_offset : channel_offset + C`` into
+    those channels of ``grad_plane``.
+
+    Args:
+      g: (..., C) float32 CUDA tensor, the gradient of the gather's output.
+      coords: (..., 2) float32 CUDA tensor, the gather's coordinates.
+      grad_plane: (H, W, C_total) float32 CUDA tensor, channels contiguous
+        and rows ``W`` texels apart: the whole plane's gradient.
+      channel_offset: first channel of the gather within the plane.
+    """
+    tensors = (g, coords, grad_plane)
+    if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
+        raise ValueError(
+            "bilinear_gather_2d_backward needs g, coords and grad_plane on one CUDA "
+            f"device, got {[str(t.device) for t in tensors]}"
+        )
+    if grad_plane.dim() != 3 or grad_plane.dtype != torch.float32:
+        raise ValueError(
+            f"grad_plane must be (H, W, C) float32, got {tuple(grad_plane.shape)} {grad_plane.dtype}"
+        )
+    _check_plane(grad_plane, "grad_plane")
+    H, W, c_total = grad_plane.shape
+    C = g.shape[-1]
+    if not 0 <= channel_offset <= c_total - C:
+        raise ValueError(f"channels {channel_offset}:{channel_offset + C} outside 0:{c_total}")
+    if coords.dtype != torch.float32 or coords.shape[-1] != 2:
+        raise ValueError(f"coords must be (..., 2) float32, got {tuple(coords.shape)} {coords.dtype}")
+    if g.dtype != torch.float32 or g.shape[:-1] != coords.shape[:-1]:
+        raise ValueError(
+            f"g must be float32 of shape {(*coords.shape[:-1], C)}, got {tuple(g.shape)} {g.dtype}"
+        )
+    flat_c = coords.reshape(-1, 2)
+    flat_g = g.reshape(-1, C)
+    if flat_g.stride(1) != 1:
+        flat_g = flat_g.contiguous()
+    n = flat_c.shape[0]
+    if n == 0 or C == 0:
+        return
+    dst = grad_plane[..., channel_offset:]
+    lib = _load("bilinear_gather_backward")
+    with torch.cuda.device(grad_plane.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.ngf_bilinear_gather_2d_backward(
+            flat_g.data_ptr(), flat_g.stride(0), C,
+            flat_c.data_ptr(), flat_c.stride(0), flat_c.stride(1),
+            dst.data_ptr(), H, W, grad_plane.stride(1), n, stream,
+        )
+    _check(lib, code, "bilinear_gather_2d_backward launch")
+    bilinear_gather_2d_backward.launches += 1
+
+
+bilinear_gather_2d_backward.launches = 0
+
+_INDEX_BYTES = {torch.int64: 8, torch.int32: 4}
+
+
+def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """CUDA kernel for the row gather ``tab[idx]`` (``kernels/gather_rows.cu``).
+
+    Args:
+      tab: (R, D) float32 CUDA tensor with contiguous rows.
+      idx: (B,) int64 or int32 CUDA tensor of row ids in [0, R); a row whose
+        id lies outside comes back as NaN.
+
+    Returns:
+      (B, D) float32.
+    """
+    if not (tab.is_cuda and idx.is_cuda) or tab.device != idx.device:
+        raise ValueError(
+            f"gather_rows needs tab and idx on one CUDA device, got {tab.device} and {idx.device}"
+        )
+    if tab.dim() != 2 or tab.dtype != torch.float32 or tab.stride(1) != 1:
+        raise ValueError(
+            f"tab must be (R, D) float32 with contiguous rows, got {tuple(tab.shape)} "
+            f"{tab.dtype} strides {tab.stride()}"
+        )
+    if idx.dim() != 1 or idx.dtype not in _INDEX_BYTES:
+        raise ValueError(f"idx must be (B,) int64 or int32, got {tuple(idx.shape)} {idx.dtype}")
+    R, D = tab.shape
+    idx = idx.contiguous()
+    out = torch.empty((idx.shape[0], D), dtype=tab.dtype, device=tab.device)
+    if out.numel() == 0:
+        return out
+    lib = _load("gather_rows")
+    with torch.cuda.device(tab.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.ngf_gather_rows(
+            tab.data_ptr(), R, D, tab.stride(0), idx.data_ptr(), _INDEX_BYTES[idx.dtype],
+            idx.shape[0], out.data_ptr(), stream,
+        )
+    _check(lib, code, "gather_rows launch")
+    gather_rows.launches += 1
+    return out
+
+
+gather_rows.launches = 0
+
 # Every wrapper with a launch counter, by kernel name.
-KERNELS = {"bilinear_gather_2d": bilinear_gather_2d}
+KERNELS = {
+    "bilinear_gather_2d": bilinear_gather_2d,
+    "bilinear_gather_2d_backward": bilinear_gather_2d_backward,
+    "gather_rows": gather_rows,
+}
 
 
 def reset_launch_counts() -> None:

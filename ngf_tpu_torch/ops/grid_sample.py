@@ -8,8 +8,14 @@ and volumes (D, H, W, C), as in the JAX package.
 
 ``grid_sample_2d`` is the hot op of every tri-plane fetch. On a CUDA tensor it
 launches the hand-written kernel ``bilinear_gather_2d``
-(`ngf_tpu_torch/ops/cuda_kernels.py`); on a CPU tensor it runs the plain
-version below. There is no fallback between the two.
+(`ngf_tpu_torch/ops/cuda_kernels.py`) and, for the plane gradient, its
+backward ``bilinear_gather_2d_backward``; on a CPU tensor it runs the plain
+versions below. There is no fallback between the two.
+
+A fetch names its channels of the whole plane (``channels``), so its
+gradient lands in those channels of the whole plane's gradient: no slice is
+copied either way. Within one forward pass, the fetches of a plane wrapped
+by :func:`share_plane_grad` add into one gradient buffer.
 """
 
 from __future__ import annotations
@@ -80,22 +86,144 @@ def grid_sample_2d_plain(plane: torch.Tensor, coords: torch.Tensor) -> torch.Ten
     return out.to(plane.dtype).reshape(*batch_shape, C)
 
 
-def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample of an (H, W, C) plane at (..., 2) coords in [-1, 1]
-    (`ngf_tpu/ops/grid_sample.py:216-253`).
+def grid_sample_2d_backward_plain(
+    g: torch.Tensor, coords: torch.Tensor, grad_plane: torch.Tensor, channel_offset: int = 0
+) -> None:
+    """Plain PyTorch version of the ``bilinear_gather_2d_backward`` kernel.
 
-    Equivalent to ``F.grid_sample(plane.permute(2, 0, 1)[None],
+    Adds, in place, the plane gradient of a gather of channels
+    ``channel_offset : channel_offset + C`` into those channels of
+    ``grad_plane``: each point's ``w_tap * g`` into its four stencil texels
+    (the taps of `_axis_patch_weights`) with ``index_add_``, in float32. The
+    explicit form of the plane branch of `ngf_tpu/ops/grid_sample.py:421-501`.
+
+    Args:
+      g: (..., C) gradient of the gather's output.
+      coords: (..., 2) the gather's coordinates.
+      grad_plane: (H, W, C_total) float32, contiguous.
+    """
+    H, W, c_total = grad_plane.shape
+    C = g.shape[-1]
+    if not 0 <= channel_offset <= c_total - C:
+        raise ValueError(f"channels {channel_offset}:{channel_offset + C} outside 0:{c_total}")
+    coords = coords.reshape(-1, 2).float()
+    g = g.reshape(-1, C).float()
+    xs, wx0, wx1 = _axis_patch_weights(_unnormalize(coords[:, 0], W), W)
+    ys, wy0, wy1 = _axis_patch_weights(_unnormalize(coords[:, 1], H), H)
+    dst = grad_plane.view(H * W, c_total)[:, channel_offset : channel_offset + C]
+    idx = ys * W + xs
+    for off, w in ((0, wy0 * wx0), (1, wy0 * wx1), (W, wy1 * wx0), (W + 1, wy1 * wx1)):
+        dst.index_add_(0, idx + off, g * w[:, None])
+
+
+class _PlaneGradSlot:
+    """The one float32 gradient buffer that every fetch of one plane in one
+    forward pass adds into."""
+
+    def __init__(self) -> None:
+        self.buf: torch.Tensor | None = None
+
+    def buffer(self, shape, device) -> torch.Tensor:
+        if self.buf is None:
+            self.buf = torch.zeros(shape, dtype=torch.float32, device=device)
+        return self.buf
+
+
+class _PlaneGradSink(torch.autograd.Function):
+    """Identity on a plane. Its backward runs after the backward of every
+    fetch of its output (autograd runs a node once all its consumers are
+    done) and hands on the buffer they filled, plus any other gradient."""
+
+    @staticmethod
+    def forward(ctx, plane, slot):
+        ctx.slot = slot
+        ctx.set_materialize_grads(False)
+        return plane.view_as(plane)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf, ctx.slot.buf = ctx.slot.buf, None
+        if g is not None:
+            buf = g if buf is None else buf.add_(g)
+        return buf, None
+
+
+def share_plane_grad(plane: torch.Tensor) -> torch.Tensor:
+    """The plane, as a tensor whose fetches (:func:`grid_sample_2d`) within
+    one forward pass all add into one gradient buffer: the density (0:24)
+    and appearance (24:96) fetches of a tri-plane write their channels of
+    the same (H, W, C) float32 buffer, with no copy and no sum of two
+    buffers. Call it once per plane and forward pass."""
+    slot = _PlaneGradSlot()
+    out = _PlaneGradSink.apply(plane, slot)
+    out._grad_slot = slot
+    return out
+
+
+class _BilinearGather(torch.autograd.Function):
+    """``grid_sample_2d`` of channels ``c0:c1`` with the plane gradient by
+    the backward kernel (CUDA) or its plain version (CPU). No coordinate
+    gradient: :func:`grid_sample_2d` routes coordinates that need one."""
+
+    @staticmethod
+    def forward(ctx, plane, coords, c0, c1, slot):
+        view = plane[..., c0:c1]
+        out = cuda_kernels.bilinear_gather_2d(view, coords) if plane.is_cuda else grid_sample_2d_plain(view, coords)
+        ctx.save_for_backward(coords)
+        ctx.plane_meta = (plane.shape, plane.dtype, plane.device, c0, slot)
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None or not ctx.needs_input_grad[0]:
+            return None, None, None, None, None
+        (coords,) = ctx.saved_tensors
+        shape, dtype, device, c0, slot = ctx.plane_meta
+        grad = slot.buffer(shape, device) if slot is not None else torch.zeros(
+            shape, dtype=torch.float32, device=device
+        )
+        if device.type == "cuda":
+            if dtype != torch.float32:
+                raise NotImplementedError(
+                    f"the plane gradient of a {dtype} plane is not ported: see ROADMAP.md "
+                    "queue 1, 'bfloat16 training'"
+                )
+            cuda_kernels.bilinear_gather_2d_backward(g, coords, grad, c0)
+        else:
+            grid_sample_2d_backward_plain(g, coords, grad, c0)
+        return (None if slot is not None else grad), None, None, None, None
+
+
+def grid_sample_2d(
+    plane: torch.Tensor, coords: torch.Tensor, channels: slice = slice(None)
+) -> torch.Tensor:
+    """Bilinear sample of channels ``channels`` of an (H, W, C) plane at
+    (..., 2) coords in [-1, 1] (`ngf_tpu/ops/grid_sample.py:216-253`).
+
+    Equivalent to ``F.grid_sample(plane[..., channels].permute(2, 0, 1)[None],
     coords.view(1, -1, 1, 2), align_corners=True)``. A CUDA plane launches
-    the ``bilinear_gather_2d`` kernel (or raises); a CPU plane takes
-    :func:`grid_sample_2d_plain`.
+    the ``bilinear_gather_2d`` kernel (or raises) and, in the backward,
+    ``bilinear_gather_2d_backward``; a CPU plane takes the plain versions.
+    Coordinates that need a gradient (the gauge variant) take the plain
+    version with autograd on the CPU and raise on the card: the kernel has
+    no coordinate gradient yet (ROADMAP.md queue 1, item 3).
     """
     if plane.device != coords.device:
         raise ValueError(f"plane on {plane.device} but coords on {coords.device}")
-    if plane.is_cuda:
-        return cuda_kernels.bilinear_gather_2d(plane, coords)
-    if plane.device.type != "cpu":
+    if plane.device.type not in ("cuda", "cpu"):
         raise ValueError(f"grid_sample_2d runs on cuda or cpu, not {plane.device}")
-    return grid_sample_2d_plain(plane, coords)
+    c0, c1, step = channels.indices(plane.shape[-1])
+    if step != 1 or c1 <= c0:
+        raise ValueError(f"channels must be a non-empty contiguous slice, got {channels}")
+    if coords.requires_grad and torch.is_grad_enabled():
+        if plane.is_cuda:
+            raise NotImplementedError(
+                "coordinate gradients of the CUDA gather are not ported: see ROADMAP.md "
+                "queue 1, item 3, 'Gauge training'"
+            )
+        return grid_sample_2d_plain(plane[..., c0:c1], coords)
+    return _BilinearGather.apply(plane, coords, c0, c1, getattr(plane, "_grad_slot", None))
 
 
 def grid_sample_3d(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

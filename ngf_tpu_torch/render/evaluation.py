@@ -53,6 +53,7 @@ def evaluation(
     n_vis: int = 5,
     chunk: int = 4096,
     compute_extra_metrics: bool = True,
+    prtx: str = "",
 ) -> list[float]:
     """Render held-out views, meter them, dump images. Returns the PSNRs
     (`ngf_tpu/render/evaluation.py:62-144`)."""
@@ -88,7 +89,7 @@ def evaluation(
                 l_vgg.append(rgb_lpips(gt, rgb, "vgg"))
 
         if save_path is not None:
-            _write_view(save_path, f"{out_i:03d}.png", (rgb * 255).astype(np.uint8), depth_vis)
+            _write_view(save_path, f"{prtx}{out_i:03d}.png", (rgb * 255).astype(np.uint8), depth_vis)
 
     if save_path is not None and n_img:
         _skip_videos("evaluation")
@@ -97,12 +98,12 @@ def evaluation(
         if compute_extra_metrics:
             stats = [np.mean(psnrs), np.mean(ssims), np.mean(l_alex), np.mean(l_vgg)]
             if np.isnan(stats[2]) or np.isnan(stats[3]):
-                with open(os.path.join(save_path, "lpips_unavailable.txt"), "w") as f:
+                with open(os.path.join(save_path, f"{prtx}lpips_unavailable.txt"), "w") as f:
                     f.write("LPIPS not computed: the port has no LPIPS weights yet. "
                             "mean.txt slots 3-4 are NaN.\n")
         else:
             stats = [np.mean(psnrs)]
-        np.savetxt(os.path.join(save_path, "mean.txt"), np.asarray(stats))
+        np.savetxt(os.path.join(save_path, f"{prtx}mean.txt"), np.asarray(stats))
     return psnrs
 
 

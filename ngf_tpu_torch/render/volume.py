@@ -1,14 +1,16 @@
-"""Dense-masked volume rendering of tri-plane fields, evaluation path.
+"""Dense-masked volume rendering of tri-plane fields, for evaluation and
+training.
 
 Port of `ngf_tpu/render/volume.py:57-132,375-508` (reference
 `InfoInv/models/FieldBase.py:228-282`): every sample is evaluated densely and
 invalid contributions are zeroed by masks, which composites to the same
 outputs as the reference's ragged boolean indexing. The optional
 ``sample_cap`` compaction keeps the first ``sample_cap`` valid samples per
-ray in marching order (a stable argsort).
+ray in marching order (a stable argsort). Training passes a
+``torch.Generator`` for the per-ray jitter and the random background.
 
-Only the dense path (``group_size == 0``) is ported; training's jitter and
-random background come with the training slice.
+Only the dense path (``group_size == 0``) is ported, without ``rgb_cap`` or
+``mask_stride``.
 """
 
 from __future__ import annotations
@@ -26,15 +28,16 @@ from ..fields.triplane import (
     triplane_rgb,
 )
 from ..ops.compositing import raw2alpha
-from ..ops.grid_sample import grid_sample_3d
+from ..ops.grid_sample import grid_sample_3d, share_plane_grad
 from ..ops.rays import stratified_sample
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static rendering configuration (`ngf_tpu/render/volume.py:57-110`):
-    the fields of the dense evaluation path. The JAX package's ``rgb_cap``
-    and ``mask_stride`` come with the training slice that sets them."""
+    the fields of the dense path. ``rgb_cap`` and ``mask_stride`` are
+    carried for the trainer's configuration; only their defaults (0, 1) are
+    ported."""
 
     aabb: tuple[tuple[float, float, float], tuple[float, float, float]]
     near: float = 2.0
@@ -45,6 +48,8 @@ class RenderConfig:
     ray_march_weight_thres: float = 1e-4
     white_bg: bool = True
     sample_cap: int = 0  # 0 = dense (no compaction)
+    rgb_cap: int = 0  # top-K shading: not ported yet
+    mask_stride: int = 1  # strided occupancy lookup: not ported yet
     group_size: int = 0  # grouped path: not ported yet
 
     def aabb_tensor(self, device) -> torch.Tensor:
@@ -78,9 +83,9 @@ def render_rays(
     alpha_volume: torch.Tensor | None = None,
     alpha_aabb: torch.Tensor | None = None,
     sample_fn=None,
+    generator: torch.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Render a chunk of rays for evaluation
-    (`ngf_tpu/render/volume.py:375-508` with ``is_train=False``).
+    """Render a chunk of rays (`ngf_tpu/render/volume.py:375-508`).
 
     Args:
       rays: (N, 6) [origin, unit direction], on the params' device.
@@ -90,20 +95,35 @@ def render_rays(
       alpha_aabb: (2, 3) AABB of the alpha volume (defaults to the field's).
       sample_fn: optional ``(plane, coords, name) -> feats`` replacing
         ``grid_sample_2d`` for every plane fetch.
+      generator: a training render (``is_train=True`` in the JAX package):
+        one uniform jitter per ray and, when not ``white_bg``, the random
+        background are drawn from it, on the rays' device. None renders
+        deterministically, as evaluation does.
 
     Returns:
-      dict with 'rgb_map' (N, 3), 'depth_map' (N,) and 'acc_map' (N,).
+      dict with 'rgb_map' (N, 3), 'depth_map' (N,, no gradient) and
+      'acc_map' (N,).
     """
     if rcfg.group_size > 0:
         raise NotImplementedError(
             "group_size > 0 (grouped compaction) is not ported yet: see "
             "ROADMAP.md queue 1, item 2, 'Occupancy events and the grouped path'"
         )
+    if rcfg.rgb_cap != 0 or rcfg.mask_stride > 1:
+        raise NotImplementedError(
+            f"rgb_cap={rcfg.rgb_cap}, mask_stride={rcfg.mask_stride}: only dense shading "
+            "and per-sample occupancy (0, 1) are ported; see ROADMAP.md queue 1, "
+            "'rgb_cap and mask_stride'"
+        )
     aabb = rcfg.aabb_tensor(rays.device)
     rays_o, viewdirs = rays[:, 0:3], rays[:, 3:6]
 
+    jitter = None
+    if generator is not None:
+        # One uniform offset per ray (`ngf_tpu/ops/rays.py:89-90`).
+        jitter = torch.rand((rays.shape[0], 1), generator=generator, device=rays.device)
     pts, z_vals, valid = stratified_sample(
-        rays_o, viewdirs, aabb, rcfg.near, rcfg.far, rcfg.n_samples, rcfg.step_size
+        rays_o, viewdirs, aabb, rcfg.near, rcfg.far, rcfg.n_samples, rcfg.step_size, jitter
     )
     # Forward differences with a trailing zero (`FieldBase.py:235`).
     dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1)
@@ -121,6 +141,13 @@ def render_rays(
     n, s = z_vals.shape
     vmask = valid.to(pts.dtype)
 
+    if torch.is_grad_enabled():
+        # The density and appearance fetches of a plane add into one
+        # gradient buffer.
+        params = {
+            k: share_plane_grad(v) if k.startswith("plane_") and v.requires_grad else v
+            for k, v in params.items()
+        }
     xy, yz, xz = triplane_project(normalize_coord(pts, aabb))
     xy, yz, xz = triplane_gauge(params, model_cfg, xy, yz, xz, iteration, sample_fn)
 
@@ -136,10 +163,15 @@ def render_rays(
 
     if rcfg.white_bg:
         rgb_map = rgb_map + (1.0 - acc_map[..., None])
+    elif generator is not None:
+        # A white background for the whole batch with probability 1/2
+        # (`ngf_tpu/render/volume.py:494-499`, `FieldBase.py:270`).
+        mix = (torch.rand((), generator=generator, device=rays.device) < 0.5).to(rgb_map.dtype)
+        rgb_map = rgb_map + mix * (1.0 - acc_map[..., None])
     rgb_map = rgb_map.clamp(0.0, 1.0)
 
     depth_map = (weight * z_vals).sum(dim=-1)
     # As `ngf_tpu/render/volume.py:503-506` has it: the last ray component
     # (the z of the direction) fills the missed transmittance.
-    depth_map = depth_map + (1.0 - acc_map) * rays[..., -1]
+    depth_map = (depth_map + (1.0 - acc_map) * rays[..., -1]).detach()
     return {"rgb_map": rgb_map, "depth_map": depth_map, "acc_map": acc_map}

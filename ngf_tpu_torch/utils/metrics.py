@@ -1,5 +1,5 @@
 """Evaluation metrics: port of `ngf_tpu/utils/metrics.py` (reference
-`InfoInv/utils.py:10,85-155`). SSIM is the mipnerf separable-Gaussian
+`InfoInv/utils.py:10,85-175`). SSIM is the mipnerf separable-Gaussian
 formulation on the host with scipy. LPIPS needs pretrained backbones that
 the port does not carry yet: it returns NaN, as the JAX package does when it
 has no weights."""
@@ -10,6 +10,7 @@ import warnings
 
 import numpy as np
 import scipy.signal
+import torch
 
 
 def mse2psnr(mse: float) -> float:
@@ -78,3 +79,14 @@ def rgb_lpips(np_gt: np.ndarray, np_im: np.ndarray, net_name: str = "alex") -> f
             stacklevel=2,
         )
     return float("nan")
+
+
+def tv_loss_2d(x: torch.Tensor, weight: float = 1.0) -> torch.Tensor:
+    """Total variation over an (H, W, C) plane (`ngf_tpu/utils/metrics.py:81-91`,
+    `InfoInv/utils.py:159-175` in channels-last form)."""
+    h, w, c = x.shape
+    count_h = (h - 1) * w * c
+    count_w = h * (w - 1) * c
+    h_tv = ((x[1:] - x[:-1]) ** 2).sum()
+    w_tv = ((x[:, 1:] - x[:, :-1]) ** 2).sum()
+    return weight * 2.0 * (h_tv / count_h + w_tv / count_w)

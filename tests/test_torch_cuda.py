@@ -1,5 +1,7 @@
-"""The port's CUDA kernel on the card: ``bilinear_gather_2d`` against its
-plain PyTorch version, alone and inside the render path.
+"""The port's CUDA kernels on the card against their plain PyTorch
+versions: ``bilinear_gather_2d`` alone and inside the render path, its
+backward ``bilinear_gather_2d_backward`` alone and through autograd, and
+``gather_rows``.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports neither JAX nor `ngf_tpu`, so it runs on a GPU machine
@@ -9,7 +11,9 @@ without them:
 
 Tolerances: float32 1e-5 (the same four float32 products summed in another
 order); bfloat16 one unit in the last place, at most 2^-7 of the value, since
-both round one float32 sum; rendered outputs 1e-4.
+both round one float32 sum; rendered outputs 1e-4; plane gradients 1e-5 of
+the largest gradient (float32 atomics add in another order); row gathers
+exactly.
 """
 
 import dataclasses
@@ -22,7 +26,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 from ngf_tpu_torch.fields import triplane as tt  # noqa: E402
-from ngf_tpu_torch.ops import cuda_kernels  # noqa: E402
+from ngf_tpu_torch.ops import cuda_kernels, gather  # noqa: E402
 from ngf_tpu_torch.ops import grid_sample as gs  # noqa: E402
 from ngf_tpu_torch.render import volume as tv  # noqa: E402
 
@@ -41,7 +45,8 @@ def cuda():
 
 def test_build_from_source(cuda):
     assert cuda_kernels.build_all() >= 0.0
-    assert any(cuda_kernels.BUILD_DIR.glob("libbilinear_gather-*.so"))
+    for name in ("bilinear_gather", "bilinear_gather_backward", "gather_rows"):
+        assert any(cuda_kernels.BUILD_DIR.glob(f"lib{name}-*.so")), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -87,6 +92,100 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         cuda_kernels.bilinear_gather_2d(torch.zeros((4, 4, 3), device=cuda), coords.double())
     with pytest.raises(ValueError):
         cuda_kernels.bilinear_gather_2d(torch.zeros((4, 4, 3), device=cuda), coords.cpu())
+
+
+def _ray_coords(g, cuda, n_rays=64, m=80, res=64):
+    """Ray-consecutive coordinates half a texel apart (the atomics of the
+    backward then meet on shared texels), some leaving [-1, 1]."""
+    start = torch.rand((n_rays, 1, 2), generator=g, device=cuda) * 2.2 - 1.1
+    d = torch.randn((n_rays, 1, 2), generator=g, device=cuda)
+    d = d / d.abs().amax(-1, keepdim=True)
+    t = torch.arange(m, device=cuda, dtype=torch.float32)[None, :, None]
+    return start + d * t * (1.0 / (res - 1))
+
+
+@pytest.mark.parametrize("channels", [slice(0, 24), slice(24, 96)])
+def test_backward_kernel_matches_plain(cuda, channels):
+    """The kernel adds into its channels of a prefilled whole-plane
+    gradient, as the plain version does. Tolerance 1e-5 of the largest
+    gradient: float32 atomics sum each texel's terms in another order."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    coords = _ray_coords(g, cuda)
+    coords[0, :2] = torch.tensor([[-1.0, -1.0], [1.0, 1.0]], device=cuda)
+    C = channels.stop - channels.start
+    grad_out = torch.randn((*coords.shape[:-1], C), generator=g, device=cuda)
+    prefill = torch.randn((64, 64, 96), generator=g, device=cuda)
+    got, want = prefill.clone(), prefill.clone()
+    before = cuda_kernels.bilinear_gather_2d_backward.launches
+    cuda_kernels.bilinear_gather_2d_backward(grad_out, coords, got, channels.start)
+    assert cuda_kernels.bilinear_gather_2d_backward.launches == before + 1
+    gs.grid_sample_2d_backward_plain(grad_out, coords, want, channels.start)
+    tol = 1e-5 * (want - prefill).abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+    outside = torch.ones(96, dtype=torch.bool)
+    outside[channels] = False
+    assert torch.equal(got[..., outside], prefill[..., outside])
+
+
+def test_autograd_plane_gradient_through_kernels(cuda):
+    """Density and appearance fetches of one shared plane: forward and
+    backward kernels launch once per fetch, and the plane gradient equals
+    the plain versions' on the CPU."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    plane = torch.randn((64, 64, 96), generator=g, device=cuda)
+    coords = _ray_coords(g, cuda)
+    weights = torch.randn((*coords.shape[:-1], 96), generator=g, device=cuda)
+
+    def plane_grad(p0, c, w):
+        p = p0.clone().requires_grad_(True)
+        shared = gs.share_plane_grad(p)
+        loss = sum((gs.grid_sample_2d(shared, c, ch) * w[..., ch]).sum()
+                   for ch in (slice(0, 24), slice(24, 96)))
+        loss.backward()
+        return p.grad
+
+    counts = (cuda_kernels.bilinear_gather_2d.launches,
+              cuda_kernels.bilinear_gather_2d_backward.launches)
+    got = plane_grad(plane, coords, weights)
+    assert cuda_kernels.bilinear_gather_2d.launches == counts[0] + 2
+    assert cuda_kernels.bilinear_gather_2d_backward.launches == counts[1] + 2
+    want = plane_grad(plane.cpu(), coords.cpu(), weights.cpu())
+    assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_coordinate_gradient_on_the_card_raises(cuda):
+    plane = torch.zeros((4, 4, 3), device=cuda, requires_grad=True)
+    coords = torch.zeros((5, 2), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gs.grid_sample_2d(plane, coords)
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
+def test_gather_rows_matches_plain(cuda, index_dtype):
+    """The probes' own shapes (`tools/probe_pallas.py:29-36`) and the
+    trainer's row widths; an index out of range gives a NaN row."""
+    tab = torch.arange(512 * 128, dtype=torch.float32, device=cuda).reshape(512, 128)
+    idx = (torch.arange(256, device=cuda) * 7 % 512).to(index_dtype)
+    before = cuda_kernels.gather_rows.launches
+    assert torch.equal(gather.gather_rows(tab, idx), gather.gather_rows_plain(tab, idx))
+    assert cuda_kernels.gather_rows.launches == before + 1
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for d in (6, 3):
+        tab = torch.randn((1000, d), generator=g, device=cuda)
+        idx = torch.randint(0, 1000, (300,), generator=g, device=cuda).to(index_dtype)
+        assert torch.equal(gather.gather_rows(tab, idx), tab[idx])
+    bad = torch.tensor([0, 1000, -1], device=cuda).to(index_dtype)
+    out = cuda_kernels.gather_rows(tab, bad)
+    assert torch.equal(out[0], tab[0]) and bool(out[1:].isnan().all())
+
+
+def test_gather_rows_refuses_what_the_kernel_does_not_take(cuda):
+    tab = torch.zeros((8, 6), device=cuda)
+    idx = torch.zeros((4,), dtype=torch.int64, device=cuda)
+    for t, i in ((tab.double(), idx), (tab.t(), idx), (tab, idx.float()), (tab, idx.cpu()),
+                 (tab[None], idx), (tab, idx[None])):
+        with pytest.raises(ValueError):
+            cuda_kernels.gather_rows(t, i)
 
 
 def test_render_path_goes_through_kernel(cuda):
