@@ -35,11 +35,13 @@ def init_linear(
     init: str = "torch",
     zero_bias: bool = False,
     bias: bool = True,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Params:
     """One float32 linear layer: {'w': (in, out), 'b': (out,)?}
     (`ngf_tpu/fields/decoders.py:31-60`); ``init`` is 'torch' or
-    'xavier_uniform' (gain 1)."""
+    'xavier_uniform' (gain 1). ``device`` None is the generator's, as in
+    every initialiser here."""
+    device = gen.device if device is None else device
     if init == "torch":
         bound = 1.0 / math.sqrt(in_dim)
     elif init == "xavier_uniform":
@@ -69,7 +71,7 @@ def apply_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def init_mlp(gen: torch.Generator, dims: list[int], device: torch.device | str = "cpu") -> Params:
+def init_mlp(gen: torch.Generator, dims: list[int], device: torch.device | str | None = None) -> Params:
     """Sequential linear stack with torch init and a zero last bias
     (`ngf_tpu/fields/decoders.py:73-96`)."""
     layers = []
@@ -91,7 +93,7 @@ def init_rgb_decoder(
     feat_dim: int,
     view_pe: int = 6,
     middle_dim: int = 128,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Params:
     """`rgb_decoder.__init__` (`ngf_tpu/fields/decoders.py:106-119`)."""
     input_dim = feat_dim + 3 + 2 * view_pe * 3
@@ -113,7 +115,7 @@ def apply_rgb_decoder(
 
 
 def init_density_decoder(
-    gen: torch.Generator, feat_dim: int, middle_dim: int = 32, device: torch.device | str = "cpu"
+    gen: torch.Generator, feat_dim: int, middle_dim: int = 32, device: torch.device | str | None = None
 ) -> Params:
     """`density_decoder.__init__` (`ngf_tpu/fields/decoders.py:133-135`)."""
     return {"mlp": init_mlp(gen, [feat_dim, middle_dim, middle_dim, 1], device=device)}

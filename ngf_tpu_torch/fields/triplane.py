@@ -74,11 +74,12 @@ class TriPlaneConfig:
 
 
 def init_triplane(
-    cfg: TriPlaneConfig, gen: torch.Generator, device: torch.device | str = "cpu"
+    cfg: TriPlaneConfig, gen: torch.Generator, device: torch.device | str | None = None
 ) -> Params:
     """Parameter tree (`ngf_tpu/fields/triplane.py:91-120`): planes ~
     init_scale * N(0, 1), gauge grids zero, decoders with torch init.
-    ``gen`` must live on ``device``."""
+    ``gen`` must live on ``device``; None takes the generator's device."""
+    device = gen.device if device is None else device
     res, dim = cfg.plane_res, cfg.plane_dim
 
     def plane():

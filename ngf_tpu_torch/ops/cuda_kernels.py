@@ -11,7 +11,10 @@ machines without ``nvcc`` or a card.
 Every wrapper launches its kernel on PyTorch's current stream, raises on an
 input the kernel does not take and on a refused launch, and counts its
 launches in a plain integer attribute (``bilinear_gather_2d.launches``) so
-that a run can show which path its work took.
+that a run can show which path its work took. The launch path is lean, since
+a small kernel's call costs more host time than device time: no lock once a
+library is loaded, no device switch when the tensor's device is current, the
+raw stream handle instead of a stream object (:func:`_launch`).
 
 Kernels: ``bilinear_gather_2d`` (K1, the tri-plane fetch),
 ``bilinear_gather_2d_backward`` (K2, its plane gradient) and ``gather_rows``
@@ -85,13 +88,18 @@ def build(name: str) -> Path:
     return lib
 
 
-def _load(name: str) -> ctypes.CDLL:
-    with _lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(str(build(name)))
-            _declare(name, lib)
-            _libs[name] = lib
-        return _libs[name]
+def _lib(name: str) -> ctypes.CDLL:
+    """The library of ``kernels/<name>.cu``: built and loaded under the lock
+    on first use, a dict lookup after."""
+    lib = _libs.get(name)
+    if lib is None:
+        with _lock:
+            if name not in _libs:
+                lib = ctypes.CDLL(str(build(name)))
+                _declare(name, lib)
+                _libs[name] = lib
+            lib = _libs[name]
+    return lib
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
@@ -105,7 +113,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ngf_bilinear_gather_2d.restype = i32
     elif name == "bilinear_gather_backward":
         lib.ngf_bilinear_gather_2d_backward.argtypes = [
-            vp, i64, i32, vp, i64, i64, vp, i32, i32, i64, i64, vp,
+            vp, i64, i32, vp, i64, i64, vp, i32, i32, i64, i64, i32, vp,
         ]
         lib.ngf_bilinear_gather_2d_backward.restype = i32
     elif name == "gather_rows":
@@ -122,14 +130,26 @@ def build_all() -> float:
         for fut in [pool.submit(build, n) for n in names]:
             fut.result()
     for name in names:
-        _load(name)
+        _lib(name)
     return time.perf_counter() - t0
 
 
-def _check(lib: ctypes.CDLL, code: int, what: str) -> None:
-    if code != 0:
+def _launch(lib: ctypes.CDLL, entry, device: int, what: str, *args) -> None:
+    """Call the C entry point ``entry(*args, stream)`` with the raw handle of
+    PyTorch's current stream on ``device``, switching the current device only
+    when it is another; raise on a refused launch."""
+    if device == torch._C._cuda_getDevice():
+        code = entry(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            code = entry(*args, torch._C._cuda_getCurrentRawStream(device))
+    if code:
         msg = lib.ngf_cuda_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+        raise RuntimeError(f"{what} launch: CUDA error {code} ({msg})")
+
+
+def _on_one_device(*tensors: torch.Tensor) -> bool:
+    return all(t.is_cuda for t in tensors) and len({t.get_device() for t in tensors}) == 1
 
 
 _GATHER_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -155,7 +175,7 @@ def bilinear_gather_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
     Returns:
       (..., C) in the plane's dtype.
     """
-    if not (plane.is_cuda and coords.is_cuda) or plane.device != coords.device:
+    if not _on_one_device(plane, coords):
         raise ValueError(
             f"bilinear_gather_2d needs plane and coords on one CUDA device, got "
             f"{plane.device} and {coords.device}"
@@ -174,23 +194,33 @@ def bilinear_gather_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
     batch_shape = coords.shape[:-1]
     flat = coords.reshape(-1, 2)
     n = flat.shape[0]
-    out = torch.empty((n, C), dtype=plane.dtype, device=plane.device)
+    out = plane.new_empty((n, C))
     if n == 0 or C == 0:
         return out.reshape(*batch_shape, C)
-    lib = _load("bilinear_gather")
-    with torch.cuda.device(plane.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.ngf_bilinear_gather_2d(
-            plane.data_ptr(), H, W, plane.stride(1), C,
-            flat.data_ptr(), flat.stride(0), flat.stride(1),
-            out.data_ptr(), n, _GATHER_DTYPES[plane.dtype], stream,
-        )
-    _check(lib, code, "bilinear_gather_2d launch")
+    lib = _lib("bilinear_gather")
+    _launch(
+        lib, lib.ngf_bilinear_gather_2d, plane.get_device(), "bilinear_gather_2d",
+        plane.data_ptr(), H, W, plane.stride(1), C,
+        flat.data_ptr(), flat.stride(0), flat.stride(1),
+        out.data_ptr(), n, _GATHER_DTYPES[plane.dtype],
+    )
     bilinear_gather_2d.launches += 1
     return out.reshape(*batch_shape, C)
 
 
 bilinear_gather_2d.launches = 0
+
+
+def backward_lanes(C: int, channel_offset: int, texel_stride: int, g_stride: int,
+                   g_ptr: int, dst_ptr: int) -> int:
+    """Channels per load and atomic of the backward kernel: 4 (float4) when
+    every such access is 16-byte aligned — C, the channel offset, the texel
+    stride and g's row stride multiples of 4 floats, both base pointers of
+    16 bytes — and 1 (scalar) otherwise."""
+    if (C % 4 or channel_offset % 4 or texel_stride % 4 or g_stride % 4
+            or g_ptr % 16 or dst_ptr % 16):
+        return 1
+    return 4
 
 
 def bilinear_gather_2d_backward(
@@ -208,11 +238,10 @@ def bilinear_gather_2d_backward(
         and rows ``W`` texels apart: the whole plane's gradient.
       channel_offset: first channel of the gather within the plane.
     """
-    tensors = (g, coords, grad_plane)
-    if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
+    if not _on_one_device(g, coords, grad_plane):
         raise ValueError(
             "bilinear_gather_2d_backward needs g, coords and grad_plane on one CUDA "
-            f"device, got {[str(t.device) for t in tensors]}"
+            f"device, got {[str(t.device) for t in (g, coords, grad_plane)]}"
         )
     if grad_plane.dim() != 3 or grad_plane.dtype != torch.float32:
         raise ValueError(
@@ -220,6 +249,8 @@ def bilinear_gather_2d_backward(
         )
     _check_plane(grad_plane, "grad_plane")
     H, W, c_total = grad_plane.shape
+    if H * W >= 2**31:
+        raise ValueError(f"grad_plane of {H}x{W} texels: the kernel indexes texels in 32 bits")
     C = g.shape[-1]
     if not 0 <= channel_offset <= c_total - C:
         raise ValueError(f"channels {channel_offset}:{channel_offset + C} outside 0:{c_total}")
@@ -236,16 +267,18 @@ def bilinear_gather_2d_backward(
     n = flat_c.shape[0]
     if n == 0 or C == 0:
         return
-    dst = grad_plane[..., channel_offset:]
-    lib = _load("bilinear_gather_backward")
-    with torch.cuda.device(grad_plane.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.ngf_bilinear_gather_2d_backward(
-            flat_g.data_ptr(), flat_g.stride(0), C,
-            flat_c.data_ptr(), flat_c.stride(0), flat_c.stride(1),
-            dst.data_ptr(), H, W, grad_plane.stride(1), n, stream,
-        )
-    _check(lib, code, "bilinear_gather_2d_backward launch")
+    texel_stride = grad_plane.stride(1)
+    dst = grad_plane.data_ptr() + 4 * channel_offset
+    lanes = backward_lanes(C, channel_offset, texel_stride, flat_g.stride(0),
+                           flat_g.data_ptr(), dst)
+    lib = _lib("bilinear_gather_backward")
+    _launch(
+        lib, lib.ngf_bilinear_gather_2d_backward, grad_plane.get_device(),
+        "bilinear_gather_2d_backward",
+        flat_g.data_ptr(), flat_g.stride(0), C,
+        flat_c.data_ptr(), flat_c.stride(0), flat_c.stride(1),
+        dst, H, W, texel_stride, n, lanes,
+    )
     bilinear_gather_2d_backward.launches += 1
 
 
@@ -265,30 +298,33 @@ def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Returns:
       (B, D) float32.
     """
-    if not (tab.is_cuda and idx.is_cuda) or tab.device != idx.device:
+    # Every check reads as few tensor attributes as it can: this kernel's
+    # call costs more host time than device time.
+    device = tab.get_device()
+    if not (tab.is_cuda and idx.is_cuda) or idx.get_device() != device:
         raise ValueError(
             f"gather_rows needs tab and idx on one CUDA device, got {tab.device} and {idx.device}"
         )
-    if tab.dim() != 2 or tab.dtype != torch.float32 or tab.stride(1) != 1:
+    if tab.dtype is not torch.float32 or tab.dim() != 2 or tab.stride(1) != 1:
         raise ValueError(
             f"tab must be (R, D) float32 with contiguous rows, got {tuple(tab.shape)} "
             f"{tab.dtype} strides {tab.stride()}"
         )
-    if idx.dim() != 1 or idx.dtype not in _INDEX_BYTES:
+    idx_bytes = _INDEX_BYTES.get(idx.dtype)
+    if idx_bytes is None or idx.dim() != 1:
         raise ValueError(f"idx must be (B,) int64 or int32, got {tuple(idx.shape)} {idx.dtype}")
     R, D = tab.shape
-    idx = idx.contiguous()
-    out = torch.empty((idx.shape[0], D), dtype=tab.dtype, device=tab.device)
-    if out.numel() == 0:
+    B = idx.shape[0]
+    if idx.stride(0) != 1:
+        idx = idx.contiguous()
+    out = tab.new_empty((B, D))
+    if B == 0 or D == 0:
         return out
-    lib = _load("gather_rows")
-    with torch.cuda.device(tab.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.ngf_gather_rows(
-            tab.data_ptr(), R, D, tab.stride(0), idx.data_ptr(), _INDEX_BYTES[idx.dtype],
-            idx.shape[0], out.data_ptr(), stream,
-        )
-    _check(lib, code, "gather_rows launch")
+    lib = _lib("gather_rows")
+    _launch(
+        lib, lib.ngf_gather_rows, device, "gather_rows",
+        tab.data_ptr(), R, D, tab.stride(0), idx.data_ptr(), idx_bytes, B, out.data_ptr(),
+    )
     gather_rows.launches += 1
     return out
 

@@ -22,11 +22,13 @@ def gather_rows_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``idx`` (B,) of the (R, D) table ``tab``, as a (B, D) tensor."""
+    """Rows ``idx`` (B,) of the (R, D) table ``tab``, as a (B, D) tensor.
+    The trainer assembles each batch with one call on its (N, 9) table of
+    rays and colours."""
+    if tab.is_cuda:  # the kernel's wrapper checks that idx is on tab's device
+        return cuda_kernels.gather_rows(tab, idx)
     if tab.device != idx.device:
         raise ValueError(f"tab on {tab.device} but idx on {idx.device}")
-    if tab.is_cuda:
-        return cuda_kernels.gather_rows(tab, idx)
     if tab.device.type != "cpu":
         raise ValueError(f"gather_rows runs on cuda or cpu, not {tab.device}")
     return gather_rows_plain(tab, idx)

@@ -16,6 +16,7 @@ Only the dense path (``group_size == 0``) is ported, without ``rgb_cap`` or
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -53,7 +54,16 @@ class RenderConfig:
     group_size: int = 0  # grouped path: not ported yet
 
     def aabb_tensor(self, device) -> torch.Tensor:
-        return torch.tensor(self.aabb, dtype=torch.float32, device=device)
+        return _aabb_tensor(self.aabb, torch.device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _aabb_tensor(aabb, device: torch.device) -> torch.Tensor:
+    """One read-only copy of each box per device, so that a train step
+    copies nothing from the host for it. Made outside inference mode, so a
+    training render may use a box that an evaluation made first."""
+    with torch.inference_mode(False):
+        return torch.tensor(aabb, dtype=torch.float32, device=device)
 
 
 def normalize_coord(xyz: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:

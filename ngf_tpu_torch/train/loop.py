@@ -7,9 +7,10 @@ TV) with microbatch accumulation, the run loop with its logs and
 checkpoint, and the final evaluation renderer.
 
 Differences from the JAX trainer:
-- The training rays and colours live on the device; each batch is
-  ``gather_rows(all_rays, ids)`` and ``gather_rows(all_rgbs, ids)`` (the
-  ``gather_rows`` CUDA kernel on the card) at the numpy sampler's ids.
+- The training rays and colours live on the device as one (N, 9) table,
+  and so do the sampler's ids (one copy of each epoch's permutation): each
+  batch is one ``gather_rows`` of the table (the ``gather_rows`` CUDA
+  kernel on the card) at a slice of those ids, with no copy from the host.
 - PyTorch runs eagerly, one step at a time: the TPU machinery (event
   prewarm, AOT compiles, ``steps_per_call`` scans, block prefetch) is not
   ported, and ``steps_per_call`` has no effect.
@@ -30,7 +31,7 @@ import torch
 from ..config import TrainArgs
 from ..convert import named_leaves
 from ..data.dataset import RayDataset
-from ..data.sampler import SimpleSampler
+from ..data.sampler import DeviceSampler
 from ..fields.triplane import TriPlaneConfig, density_l1, init_triplane
 from ..ops.gather import gather_rows
 from ..render.evaluation import evaluation
@@ -140,9 +141,11 @@ class TriPlaneTrainer:
         if args.filter_rays:
             keep = filter_rays_bbox(all_rays, self.aabb)
             all_rays, all_rgbs = all_rays[keep], all_rgbs[keep]
-        self.all_rays = torch.from_numpy(all_rays).to(self.device)
-        self.all_rgbs = torch.from_numpy(all_rgbs).to(self.device)
-        self.sampler = SimpleSampler(all_rays.shape[0], args.batch_size, args.seed)
+        # One (N, 9) table, rays in columns 0:6 and colours in 6:9, so that
+        # a batch is one row gather; ``all_rays`` and ``all_rgbs`` are views.
+        self.batch_table = torch.from_numpy(np.concatenate([all_rays, all_rgbs], 1)).to(self.device)
+        self.all_rays, self.all_rgbs = self.batch_table[:, :6], self.batch_table[:, 6:]
+        self.sampler = DeviceSampler(all_rays.shape[0], args.batch_size, args.seed, self.device)
         self._make_optimizer()
 
     # ------------------------------------------------------------------ setup
@@ -253,12 +256,12 @@ class TriPlaneTrainer:
         return mse
 
     def next_batch(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The sampler's next ids, gathered from the device-resident training
-        set (`ngf_tpu/train/loop.py:1438-1451`)."""
-        ids = torch.from_numpy(self.sampler.nextids())
-        if self.device.type == "cuda":
-            ids = ids.pin_memory().to(self.device, non_blocking=True)
-        return gather_rows(self.all_rays, ids), gather_rows(self.all_rgbs, ids)
+        """(rays (B, 6), rgbs (B, 3)) at the sampler's next ids: one row
+        gather of the device-resident table at ids already on the device
+        (`ngf_tpu/train/loop.py:1438-1451`). Both are views of one (B, 9)
+        tensor."""
+        rows = gather_rows(self.batch_table, self.sampler.nextids())
+        return rows[:, :6], rows[:, 6:]
 
     # ------------------------------------------------------------------ run
 
@@ -277,35 +280,40 @@ class TriPlaneTrainer:
         pending: list[torch.Tensor] = []
         mses: list[float] = []
         t0 = time.time()
-        while self.iteration < args.n_iters:
-            pending.append(self.train_step(*self.next_batch(), self.gen))
-            it = self.iteration
-            log_now = log_path is not None and it % args.progress_refresh_rate == 0
-            vis_now = (
-                args.N_vis != 0 and args.vis_every > 0 and it % args.vis_every == 0
-                and self.test_dataset is not None and self.logfolder
-            )
-            if log_now or vis_now or it == args.n_iters:
-                mses += torch.stack(pending).tolist()
-                pending = []
-            if log_now:
-                train_psnr = np.mean([mse2psnr(m) for m in mses[-50:]])
-                with open(log_path, "a") as f:
-                    f.write(
-                        f"Iteration {it:05d}: train_psnr = {train_psnr:.2f}"
-                        f" test_psnr = {float(np.mean(psnrs_test)):.2f} mse = {mses[-1]:.6f}\n"
-                    )
-            if vis_now:
-                psnrs_test = evaluation(
-                    self.test_dataset, self.make_eval_render_fn(iteration=it),
-                    os.path.join(self.logfolder, "imgs_vis"), n_vis=args.N_vis,
-                    prtx=f"{it:06d}_", chunk=args.eval_chunk, compute_extra_metrics=False,
-                ) or [0.0]
-                if log_path:
+        # A profiler span around the steps (`chip_smoke.py` counts the
+        # host-to-device copies inside it).
+        with torch.profiler.record_function("train_loop"):
+            while self.iteration < args.n_iters:
+                pending.append(self.train_step(*self.next_batch(), self.gen))
+                it = self.iteration
+                log_now = log_path is not None and it % args.progress_refresh_rate == 0
+                vis_now = (
+                    args.N_vis != 0 and args.vis_every > 0 and it % args.vis_every == 0
+                    and self.test_dataset is not None and self.logfolder
+                )
+                if log_now or vis_now or it == args.n_iters:
+                    mses += torch.stack(pending).tolist()
+                    pending = []
+                if log_now:
+                    train_psnr = np.mean([mse2psnr(m) for m in mses[-50:]])
                     with open(log_path, "a") as f:
-                        f.write(f"Iteration {it:05d}: test/psnr = {float(np.mean(psnrs_test)):.2f}\n")
-            if args.save_every > 0 and it % args.save_every == 0 and it < args.n_iters and self.logfolder:
-                self.save(os.path.join(self.logfolder, "model.npz"))
+                        f.write(
+                            f"Iteration {it:05d}: train_psnr = {train_psnr:.2f}"
+                            f" test_psnr = {float(np.mean(psnrs_test)):.2f} mse = {mses[-1]:.6f}\n"
+                        )
+                if vis_now:
+                    psnrs_test = evaluation(
+                        self.test_dataset, self.make_eval_render_fn(iteration=it),
+                        os.path.join(self.logfolder, "imgs_vis"), n_vis=args.N_vis,
+                        prtx=f"{it:06d}_", chunk=args.eval_chunk, compute_extra_metrics=False,
+                    ) or [0.0]
+                    if log_path:
+                        with open(log_path, "a") as f:
+                            f.write(f"Iteration {it:05d}: test/psnr = "
+                                    f"{float(np.mean(psnrs_test)):.2f}\n")
+                save_now = args.save_every > 0 and it % args.save_every == 0
+                if save_now and it < args.n_iters and self.logfolder:
+                    self.save(os.path.join(self.logfolder, "model.npz"))
         wall = time.time() - t0
         if self.logfolder:
             self.save(os.path.join(self.logfolder, "model.npz"))
@@ -315,6 +323,7 @@ class TriPlaneTrainer:
             "final_train_mse": mses[-1] if mses else None,
             "rays_per_sec": args.batch_size * self.iteration / max(wall, 1e-9),
             "train_mses": mses,
+            "id_uploads": self.sampler.uploads,
         }
 
     def make_eval_render_fn(self, iteration: int | None = None, full: bool = False):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card against their plain PyTorch
 versions: ``bilinear_gather_2d`` alone and inside the render path, its
-backward ``bilinear_gather_2d_backward`` alone and through autograd, and
-``gather_rows``.
+backward ``bilinear_gather_2d_backward`` alone (runs of shared stencils,
+zero rows, both lane widths, strided g) and through autograd, and
+``gather_rows``, alone and as the trainer's one-launch batch.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports neither JAX nor `ngf_tpu`, so it runs on a GPU machine
@@ -125,6 +126,105 @@ def test_backward_kernel_matches_plain(cuda, channels):
     outside = torch.ones(96, dtype=torch.bool)
     outside[channels] = False
     assert torch.equal(got[..., outside], prefill[..., outside])
+
+
+def _k2_inputs(case, g, cuda):
+    """(coords (N, 2), cotangent (N, C), channel offset) of a backward case.
+    The vector kernel owns tiles of 224 points for C = 72 and 672 for
+    C = 24, in segments of 16. Ray-consecutive points half a texel apart
+    step by one texel along x (or y, or both) or not at all."""
+    n, C, c0 = 5000, 72, 24
+    coords = _ray_coords(g, cuda).reshape(-1, 2)[:n]
+    if case == "runs_across_tiles":
+        # Points 400..499 in one texel: a run across segment ends and the
+        # tile end at 448.
+        coords[400:500] = 0.31 + 1e-3 * torch.rand((100, 2), generator=g, device=cuda)
+    elif case == "run_spans_a_tile":
+        coords[:1100] = -0.52 + 1e-3 * torch.rand((1100, 2), generator=g, device=cuda)
+    elif case == "outside":
+        coords = torch.rand((n, 2), generator=g, device=cuda) * 3.0 - 1.5
+    elif case == "scalar_lanes":
+        C, c0 = 10, 3
+    elif case == "density_offset_0":
+        C, c0 = 24, 0
+    elif case == "density_run_spans_a_tile":
+        C, c0 = 24, 0
+        coords[:1100] = 0.77 + 1e-3 * torch.rand((1100, 2), generator=g, device=cuda)
+    elif case == "ragged_n":
+        n = 1001
+        coords = coords[:n]
+    grad_out = torch.randn((n, C), generator=g, device=cuda)
+    if case == "zero_rows":
+        grad_out[torch.rand(n, generator=g, device=cuda) < 0.9] = 0.0
+    elif case == "strided_g_aligned":
+        grad_out = torch.randn((n, 100), generator=g, device=cuda)[:, 8 : 8 + C]
+    elif case == "strided_g_unaligned":
+        grad_out = torch.randn((n, 100), generator=g, device=cuda)[:, 1 : 1 + C]
+    return coords, grad_out, c0
+
+
+@pytest.mark.parametrize("case", [
+    "runs_across_tiles", "run_spans_a_tile", "zero_rows", "outside", "scalar_lanes",
+    "density_offset_0", "ragged_n", "strided_g_aligned", "strided_g_unaligned",
+    "density_run_spans_a_tile",
+])
+def test_backward_kernel_cases(cuda, case):
+    """The run-merged scatter against its plain version, 1e-5 of the
+    largest gradient, into a prefilled stride-96 buffer; channels outside
+    the fetch stay as they were."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    coords, grad_out, c0 = _k2_inputs(case, g, cuda)
+    C = grad_out.shape[-1]
+    prefill = torch.randn((64, 64, 96), generator=g, device=cuda)
+    got, want = prefill.clone(), prefill.clone()
+    before = cuda_kernels.bilinear_gather_2d_backward.launches
+    cuda_kernels.bilinear_gather_2d_backward(grad_out, coords, got, c0)
+    assert cuda_kernels.bilinear_gather_2d_backward.launches == before + 1
+    gs.grid_sample_2d_backward_plain(grad_out, coords, want, c0)
+    tol = 1e-5 * (want - prefill).abs().max().item()
+    assert tol > 0 and (got - want).abs().max().item() <= tol
+    outside = torch.ones(96, dtype=torch.bool)
+    outside[c0 : c0 + C] = False
+    assert torch.equal(got[..., outside], prefill[..., outside])
+
+
+@pytest.mark.parametrize("c0,C", [(24, 72), (0, 24), (3, 10)])
+def test_backward_kernel_zero_cotangent_leaves_the_buffer(cuda, c0, C):
+    """All-zero rows make no atomic: the buffer keeps its exact bits, -0.0
+    included (adding +0.0 would turn -0.0 into +0.0)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    coords = _ray_coords(g, cuda)
+    buf = torch.randn((64, 64, 96), generator=g, device=cuda)
+    buf[::2] = -0.0
+    got = buf.clone()
+    cuda_kernels.bilinear_gather_2d_backward(
+        torch.zeros((*coords.shape[:-1], C), device=cuda), coords, got, c0)
+    assert torch.equal(got.view(torch.int32), buf.view(torch.int32))
+
+
+def test_batch_is_one_row_gather(cuda):
+    """The trainer's batch is one ``gather_rows`` launch of its (N, 9) table
+    at ids already on the card, equal to ``all_rays[ids]`` and
+    ``all_rgbs[ids]`` of the numpy sampler's ids; one id upload per epoch."""
+    from ngf_tpu_torch.config import TrainArgs
+    from ngf_tpu_torch.data import load_dataset
+    from ngf_tpu_torch.data.sampler import SimpleSampler
+    from ngf_tpu_torch.train.loop import TriPlaneTrainer
+
+    datadir = "synthetic:views=2,wh=16,test_views=1"
+    args = TrainArgs(dataset_name="synthetic", datadir=datadir, plane_res=32, nSamples=48,
+                     step_ratio=1.0, batch_size=96, n_iters=12, group_size=0, device="cuda")
+    ds = load_dataset("synthetic", datadir, split="train", is_stack=False)
+    trainer = TriPlaneTrainer(args, ds, device=cuda)
+    total = trainer.batch_table.shape[0]
+    ref = SimpleSampler(total, 96, args.seed)
+    for _ in range(12):
+        before = cuda_kernels.gather_rows.launches
+        rays, rgbs = trainer.next_batch()
+        assert cuda_kernels.gather_rows.launches == before + 1
+        ids = torch.from_numpy(ref.nextids()).to(cuda)
+        assert torch.equal(rays, trainer.all_rays[ids]) and torch.equal(rgbs, trainer.all_rgbs[ids])
+    assert trainer.sampler.uploads == -(-12 // (total // 96))
 
 
 def test_autograd_plane_gradient_through_kernels(cuda):
