@@ -5,10 +5,14 @@
 
 1. Device: requires CUDA, prints the card and its power limit, builds every
    kernel of the port from the sources in this checkout.
-2. Kernel phase: ``bilinear_gather_2d`` at the render path's shapes (a
-   256 x 256 x 96 plane, N = 4096 rays x 884 samples, the density channels
-   0:24 and the appearance channels 24:96, float32 and bfloat16) against its
-   plain PyTorch version, timed beside its bound and ``F.grid_sample``.
+2. Kernel phase: K1's one-plane call ``bilinear_gather_2d`` at the render
+   path's shapes (a 256 x 256 x 96 plane, N = 4096 rays x 884 random
+   points, the density channels 0:24 and the appearance channels 24:96,
+   float32 and bfloat16), then K1 as the dense path calls it,
+   ``bilinear_gather_planes`` (three such planes, split 24) on random
+   points, a render chunk's lego samples and a train step's; each against
+   its plain PyTorch version, timed beside its bound and ``F.grid_sample``,
+   the fused rows with their tap loads per point.
 3. Row-gather phase: ``gather_rows`` against its plain version (exact) at
    the Pallas probes' shapes (`tools/probe_pallas.py`) and at the
    trainer's (rays (491520, 6) and rgbs (491520, 3) gathered at 4096 ids),
@@ -26,13 +30,13 @@
 5. Render phase: a random InfoInv tri-plane model at full width, saved as a
    checkpoint with the lego geometry, rendered through ``main_torch.main``
    (render-only, one 800 x 800 synthetic test view, 4096-ray chunks). The
-   kernel's launch count over that run must be 6 per chunk; one chunk is
+   gather's launch count over that run must be 1 per chunk; one chunk is
    rendered again with the plain sampler and compared, timed, and profiled
    (device time by op, torch.profiler).
 6. Train phase: ``main_torch.main`` in training mode with
    ``configs/synthetic_infoinv_tpu.txt --group_size 0`` at full width (30
    synthetic 128 x 128 views, one test view), 300 steps, under the profiler.
-   Each step must launch 6 gathers, 6 gather backwards and 1 row gather;
+   Each step must launch 1 gather, 6 gather backwards and 1 row gather;
    the steps may copy to the card only the ids, once per epoch; the losses
    must be finite and fall; the checkpoint and the final evaluation's PNG
    must exist. Then one step on one batch with the kernels and with the
@@ -192,6 +196,105 @@ def kernel_phase(device: torch.device, n_points: int) -> list[dict]:
                 "fetch": name, "dtype": str(dtype).replace("torch.", ""), "C": C,
                 "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            print("[kernel] " + json.dumps(row))
+            rows.append(row)
+    return rows + fused_rows(device)
+
+
+# K1's segment: the consecutive points one thread walks (bilinear_gather.cu).
+K1_SEG = 32
+CORNERS = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), (-1.0, 1.0, 1.0), (1.0, -1.0, 1.0))
+
+
+def fused_rows(device: torch.device) -> list[dict]:
+    """``bilinear_gather_planes`` as the dense path calls it, once per
+    render chunk and train step: three 256 x 256 x 96 planes, split 24,
+    float32 and bfloat16, at the projections of four point sets (random
+    points in [-r, r]^3, a render chunk's 4096 x 884 lego samples, a train
+    step's 4096 x 512 on the same middle rays, and on rays scattered over
+    the view as a training batch's are), each set's first four points moved
+    to corners of the cube; and the random points on one plane fetched
+    three times (a working set the L2 holds). Against ``grid_sample_planes_plain`` (float32 1e-5,
+    bfloat16 one ulp) and one batched ``F.grid_sample`` of the stacked
+    planes, timed
+    beside its bound, with the tap loads per point and channel group that
+    the kernel's reuse along runs leaves (``run_lengths``)."""
+    from ngf_tpu_torch.fields.triplane import triplane_project
+    from ngf_tpu_torch.ops.cuda_kernels import bilinear_gather_planes
+    from ngf_tpu_torch.ops.grid_sample import grid_sample_planes_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    planes = [0.1 * torch.randn((256, 256, 96), generator=gen, device=device) for _ in range(3)]
+    r = 1.0 / math.sqrt(0.9)
+    random = (2.0 * torch.rand((RAYS_PER_CHUNK * 884, 3), generator=gen, device=device) - 1.0) * r
+    # The third random case fetches one plane three times: a 25 MB float32
+    # working set, which the 50 MB L2 holds, where three planes (75 MB) do
+    # not.
+    cases = [("random", random, (0, 1, 2)), ("random, one plane", random, (0, 0, 0)),
+             ("render chunk", lego_points(device, cap=None), (0, 1, 2)),
+             ("train step", lego_points(device), (0, 1, 2)),
+             ("train batch", lego_points(device, scattered=True), (0, 1, 2))]
+    rows = []
+    for case, xyz, which in cases:
+        flat = xyz.reshape(-1, 3)
+        flat[:4] = torch.tensor(CORNERS, device=device)
+        coords = triplane_project(xyz)
+        n = flat.shape[0]
+        taps = [run_lengths(c, 256, 256, K1_SEG) for c in coords]
+        print(f"[kernel] fused, {case}: N={n} points, runs by plane {json.dumps(taps)}")
+        distinct = len(set(which))
+        for dtype in (torch.float32, torch.bfloat16):
+            cast = [p.to(dtype) for p in planes]
+            ps = [cast[i] for i in which]
+            got = bilinear_gather_planes(ps, coords, split=24)
+            torch.cuda.synchronize()
+            ref = grid_sample_planes_plain(ps, coords, split=24)
+            max_err = 0.0
+            for a, b, what in zip(got, ref, ("density", "appearance")):
+                err = (a.float() - b.float()).abs()
+                max_err = max(max_err, err.max().item())
+                if dtype == torch.float32:
+                    check(err.max().item() <= F32_TOL, f"fused {case} {what} f32 err {max_err}")
+                else:
+                    bad = (err > BF16_REL_TOL * b.float().abs() + BF16_ABS_TOL).sum().item()
+                    check(bad == 0, f"fused {case} {what} bf16: {bad} values beyond 2^-7")
+            full = torch.cat([a.reshape(n, 3, -1) for a in got], -1)
+            for i, (p, c) in enumerate(zip(ps, coords)):
+                c = c.reshape(n, 2)
+                for k in range(len(CORNERS)):
+                    texel = p[int(c[k, 1] > 0) * 255, int(c[k, 0] > 0) * 255]
+                    check(torch.equal(full[k, i], texel), f"fused {case} corner {k} plane {i}")
+            del got, ref, full
+
+            # The library's same function: one batched grid_sample of the
+            # three planes, each at its own coordinates.
+            lib_planes = torch.stack([p.permute(2, 0, 1) for p in ps]).contiguous()
+            lib_grid = torch.stack([c.reshape(n, 2) for c in coords]).to(dtype).view(3, n, 1, 2)
+
+            def library():
+                return F.grid_sample(lib_planes, lib_grid, mode="bilinear",
+                                     padding_mode="zeros", align_corners=True)
+
+            ms = cuda_ms(lambda: bilinear_gather_planes(ps, coords, split=24), reps=20)
+            plain_ms = cuda_ms(lambda: grid_sample_planes_plain(ps, coords, split=24), reps=3)
+            library_ms = cuda_ms(library, reps=10)
+            del lib_planes, lib_grid
+            itemsize = ps[0].element_size()
+            # Output written once, the points (the three projections are
+            # views of one xyz) and each distinct plane read once; 7 flops
+            # per output value and ~30 per point and plane of index and
+            # weight math.
+            bound_ms, bound_by = bytes_bound_ms(
+                n * 3 * 96 * itemsize + 12 * n + distinct * 256 * 256 * 96 * itemsize,
+                7 * n * 3 * 96 + 30 * n * 3)
+            row = {
+                "fetch": "fused", "case": case, "dtype": str(dtype).replace("torch.", ""),
+                "N": n, "C": 96, "split": 24, "max_abs_err": max_err, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bound_share": bound_ms / ms,
+                "taps_per_point": sum(t["taps_per_point"] for t in taps) / 3,
+                "mean_run": sum(t["mean_run"] for t in taps) / 3,
             }
             print("[kernel] " + json.dumps(row))
             rows.append(row)
@@ -399,35 +502,55 @@ def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
     ) / 1e3 / reps
 
 
-def train_coords(device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(TRAIN_RAYS, TRAIN_CAP, 2) plane coordinates xy, yz, xz as a train
-    step fetches them: rays of the lego geometry through the middle of the
-    800 x 800 view, marched at the geometry's 884 steps, the first
-    TRAIN_CAP samples inside the box kept (``open_sample_cap``), normalised
-    and projected. Strided views, as in the render path."""
-    from ngf_tpu_torch.fields.triplane import triplane_project
+def lego_points(device: torch.device, cap: int | None = TRAIN_CAP,
+                scattered: bool = False) -> torch.Tensor:
+    """(TRAIN_RAYS, samples, 3) points in [-1, 1]^3 as a fetch takes them:
+    rays of the lego geometry through the middle of the 800 x 800 view (a
+    render chunk's), or ``scattered`` over the whole view at random (a
+    training batch's), marched and normalised. With ``cap`` (a train step:
+    the trainer's 886 steps) the first ``cap`` samples inside the box are
+    kept (``open_sample_cap``); None keeps all of an evaluation's 884 steps,
+    as a render chunk fetches them."""
     from ngf_tpu_torch.ops.rays import stratified_sample
     from ngf_tpu_torch.render.volume import normalize_coord
-    from ngf_tpu_torch.utils.grid import cal_n_samples, grid_step_size
+    from ngf_tpu_torch.utils.grid import cal_n_samples, grid_n_samples, grid_step_size
 
     aabb = torch.tensor([[-1.5] * 3, [1.5] * 3], device=device)
     step = grid_step_size(aabb.tolist(), [256] * 3, 0.5)
-    rays = chunk_rays(WH, TRAIN_RAYS, device)
+    n_samples = cal_n_samples([256] * 3, 0.5) if cap else grid_n_samples(aabb.tolist(), step)
+    if scattered:
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        rays = chunk_rays(WH, WH * WH, device)
+        rays = rays[torch.randperm(WH * WH, generator=gen, device=device)[:TRAIN_RAYS]]
+    else:
+        rays = chunk_rays(WH, TRAIN_RAYS, device)
     pts, _, valid = stratified_sample(
-        rays[:, :3], rays[:, 3:], aabb, 2.0, 6.0, cal_n_samples([256] * 3, 0.5), step
+        rays[:, :3], rays[:, 3:], aabb, 2.0, 6.0, n_samples, step
     )
-    order = torch.argsort((~valid).int(), dim=-1, stable=True)[:, :TRAIN_CAP]
-    pts = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
-    return triplane_project(normalize_coord(pts, aabb))
+    if cap:
+        order = torch.argsort((~valid).int(), dim=-1, stable=True)[:, :cap]
+        pts = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
+    return normalize_coord(pts, aabb)
 
 
-def run_lengths(coords: torch.Tensor, H: int, W: int) -> dict:
+def train_coords(device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(TRAIN_RAYS, TRAIN_CAP, 2) plane coordinates xy, yz, xz as a train
+    step fetches them (:func:`lego_points`), projected: strided views, as
+    in the render path."""
+    from ngf_tpu_torch.fields.triplane import triplane_project
+
+    return triplane_project(lego_points(device))
+
+
+def run_lengths(coords: torch.Tensor, H: int, W: int, seg: int = 16) -> dict:
     """Plain PyTorch: the mean length of the runs of equal stencil starts in
-    point order, and the tap adds per point and channel group that the
-    backward kernel makes before skipping zero sums: 4 at the end of each
-    16-point segment, and inside one 2 for a step of one texel along x or y
-    (two texels carry over) and 4 for any other new start. A scatter
-    without merging makes 4."""
+    point order, and the tap accesses per point and channel group of a
+    kernel whose threads walk ``seg`` consecutive points: 4 at each
+    segment's end (the backward's adds, before zero sums are skipped) or
+    start (the gather's loads), and inside a segment 2 for a step of one
+    texel along x or y (two texels carry over), 4 for any other new start
+    and none for the same start. K2 walks 16 points, K1 32; a kernel
+    without reuse makes 4."""
     from ngf_tpu_torch.ops.grid_sample import _axis_patch_weights, _unnormalize
 
     flat = coords.reshape(-1, 2)
@@ -436,9 +559,9 @@ def run_lengths(coords: torch.Tensor, H: int, W: int) -> dict:
     start = ys * W + xs
     n = start.numel()
     d = start[1:] - start[:-1]
-    inside = torch.arange(1, n, device=start.device) % 16 != 0
+    inside = torch.arange(1, n, device=start.device) % seg != 0
     step = (d.abs() == 1) | (d.abs() == W)
-    taps = (4 * -(-n // 16) + 2 * (inside & step).sum().item()
+    taps = (4 * -(-n // seg) + 2 * (inside & step).sum().item()
             + 4 * (inside & ~step & (d != 0)).sum().item())
     return {"mean_run": n / (1 + (d != 0).sum().item()), "taps_per_point": taps / n}
 
@@ -613,8 +736,10 @@ def render_phase(
         check(os.path.isfile(os.path.join(out_dir, "000.png")), "no rendered PNG")
         check(os.path.isfile(os.path.join(out_dir, "mean.txt")), "no mean.txt")
         if device.type == "cuda":
-            check(launches["bilinear_gather_2d"] == 6 * n_chunks,
-                  f"{launches['bilinear_gather_2d']} gather launches for {n_chunks} chunks")
+            # One three-plane gather per chunk, and no other.
+            check(launches["bilinear_gather_planes"] == n_chunks
+                  and launches["bilinear_gather_2d"] == 0,
+                  f"gather launches {launches} for {n_chunks} chunks")
 
         params, model_cfg, rcfg = load_model(ckpt, device)
     rays = chunk_rays(wh, chunk, device)
@@ -633,17 +758,36 @@ def render_phase(
         result = {"psnr": psnrs[0], "main_s": main_s, "launches": launches,
                   "chunks": n_chunks, "render_err": errs, "mean_acc": acc}
         if device.type == "cuda":
+            # Over the CLI run and the two renders above (the plain
+            # sampler's intermediates decide it); then one kernel chunk's.
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            chunk_peak = chunk_peak_gib(params, model_cfg, rcfg, rays)
             ms = cuda_ms(lambda: render_rays(params, model_cfg, rcfg, rays), reps=5, warmup=1)
             plain_ms = cuda_ms(
                 lambda: render_rays(params, model_cfg, rcfg, rays, sample_fn=plain),
                 reps=3, warmup=1,
             )
-            peak = torch.cuda.max_memory_allocated(device) / 2**30
             print(f"[render] {ms:.3f} ms/chunk ({1e3 * rays.shape[0] / ms:.0f} rays/s) with the "
-                  f"kernel, {plain_ms:.3f} ms/chunk with the plain sampler, peak {peak:.2f} GiB")
-            result.update(chunk_ms=ms, chunk_plain_ms=plain_ms, peak_gib=peak)
+                  f"kernel, {plain_ms:.3f} ms/chunk with the plain sampler, peak {peak:.2f} GiB, "
+                  f"{chunk_peak:.2f} GiB in one kernel chunk")
+            result.update(chunk_ms=ms, chunk_plain_ms=plain_ms, peak_gib=peak,
+                          chunk_peak_gib=chunk_peak)
             profile_chunk(lambda: render_rays(params, model_cfg, rcfg, rays))
     return result
+
+
+def chunk_peak_gib(params, model_cfg, rcfg, rays: torch.Tensor) -> float:
+    """Peak device memory, GiB, while one chunk renders with the kernels,
+    counted from what is allocated before it (the model, the rays)."""
+    from ngf_tpu_torch.render.volume import render_rays
+
+    with torch.inference_mode():
+        render_rays(params, model_cfg, rcfg, rays)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(rays.device)
+        render_rays(params, model_cfg, rcfg, rays)
+        torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(rays.device) / 2**30
 
 
 def train_phase(
@@ -699,7 +843,7 @@ def train_phase(
                   "test_psnr": stats["test_psnrs"][0]}
         if cuda:
             steps = args.microbatch * iters
-            want = {"bilinear_gather_2d": 6 * steps + 6 * eval_chunks,
+            want = {"bilinear_gather_planes": steps + eval_chunks, "bilinear_gather_2d": 0,
                     "bilinear_gather_2d_backward": 6 * steps, "gather_rows": iters}
             check(launches == want, f"launches {launches}, expected {want}")
             result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
@@ -874,11 +1018,13 @@ def main(argv: list[str] | None = None) -> int:
     if set(phases) != set(PHASES):
         print(card)
         return 0
-    rows, bwd_rows, render, train = out["kernel"], out["backward"], out["render"], out["train"]
+    rows, bwd_rows, train = out["kernel"], out["backward"], out["train"]
     row_cases = out["rows"]["cases"]
 
-    def entry(name, source, replaces, row, max_abs_err, at):
-        by_path = {"render": render["launches"][name], "train": train["launches"][name]}
+    def entry(name, source, replaces, row, max_abs_err, at, counters=None):
+        counters = counters or (name,)
+        by_path = {path: sum(out[path]["launches"][c] for c in counters)
+                   for path in ("render", "train")}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -888,12 +1034,15 @@ def main(argv: list[str] | None = None) -> int:
         }
 
     step_rows = [r for state in train["compare"].values() for r in state.get("backward", [])]
+    fused = [r for r in rows if r["fetch"] == "fused"]
     kernels = [
-        entry("bilinear_gather_2d", "ngf_tpu_torch/ops/kernels/bilinear_gather.cu",
-              "ngf_tpu/ops/pallas_kernels.py:57",
-              next(r for r in rows if r["fetch"] == "appearance" and r["dtype"] == "float32"),
+        entry("bilinear_gather_planes", "ngf_tpu_torch/ops/kernels/bilinear_gather.cu",
+              "ngf_tpu/ops/pallas_kernels.py:58",
+              next(r for r in fused if r["case"] == "train step" and r["dtype"] == "float32"),
               max(r["max_abs_err"] for r in rows if r["dtype"] == "float32"),
-              "appearance fetch: plane 256x256x96 float32, channels 24:96, N=3620864"),
+              "fused fetch: three planes 256x256x96 float32, split 24, "
+              f"N={TRAIN_RAYS * TRAIN_CAP}, train step coordinates",
+              ("bilinear_gather_planes", "bilinear_gather_2d")),
         entry("bilinear_gather_2d_backward", "ngf_tpu_torch/ops/kernels/bilinear_gather_backward.cu",
               "ngf_tpu/ops/grid_sample.py:421",
               next(r for r in bwd_rows if r["fetch"] == "appearance" and r["case"] == "train"),
@@ -905,6 +1054,9 @@ def main(argv: list[str] | None = None) -> int:
               next(r for r in row_cases if r["case"] == "rays"), 0.0,
               f"rays table ({TRAIN_VIEWS * TRAIN_WH * TRAIN_WH}, 6) float32 at {TRAIN_RAYS} ids"),
     ]
+    kernels[0]["rows"] = [
+        {k: r[k] for k in ("case", "dtype", "ms", "bound_ms", "plain_ms", "library_ms",
+                           "taps_per_point")} for r in fused]
     kernels[1]["random_coords_ms"] = next(
         r["ms"] for r in bwd_rows if r["fetch"] == "appearance" and r["case"] == "random")
     kernels[1]["step_cotangent_ms"] = {

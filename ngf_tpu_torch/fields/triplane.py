@@ -1,12 +1,16 @@
 """Tri-plane fields: InfoInv and learned-gauge variants.
 
-Port of `ngf_tpu/fields/triplane.py:44-259,313-319` (reference
+Port of `ngf_tpu/fields/triplane.py:44-303,313-319` (reference
 `InfoInv/models/Field.py`, `TriPlane/models/Field.py`). Planes are
-channels-last (H, W, C). Every plane fetch goes through
-:func:`ngf_tpu_torch.ops.grid_sample.grid_sample_2d`, which launches the
-``bilinear_gather_2d`` CUDA kernel on the card, and its backward kernel for
-the plane gradient. A fetch names its channels of the whole plane, so
-neither the slice nor its gradient is copied.
+channels-last (H, W, C). A fetch takes the three planes at their three
+projections in one call of :func:`ngf_tpu_torch.ops.grid_sample.grid_sample_planes`,
+which launches the ``bilinear_gather_planes`` CUDA kernel once on the card
+and its backward kernel for the plane gradients, and returns (..., 3, C)
+features that are the decoder input as they lie. A fetch names its channels
+of the whole plane, so neither the slice nor its gradient is copied. The
+fused pair :func:`triplane_density_and_rgbfeat` /
+:func:`triplane_rgb_from_feats` fetches all channels once and splits them
+into both decoders' inputs.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.encoding import infoinv_modulate
-from ..ops.grid_sample import grid_sample_2d
+from ..ops.grid_sample import grid_sample_planes
 from .decoders import (
     Params,
     apply_density_decoder,
@@ -115,8 +119,8 @@ def triplane_project(xyz: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, tor
     return xyz[..., 0:2], xyz[..., 1:3], xyz[..., 0::2]
 
 
-def _sampler(sample_fn):
-    return (lambda p, c, name: grid_sample_2d(p, c)) if sample_fn is None else sample_fn
+_PLANES = ("plane_xy", "plane_yz", "plane_xz")
+_GAUGES = ("gauge_xy", "gauge_yz", "gauge_xz")
 
 
 def triplane_gauge(
@@ -124,14 +128,18 @@ def triplane_gauge(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Learned gauge deformation with cross-plane coupling, forward only
     (`ngf_tpu/fields/triplane.py:141-189`, `TriPlane/models/Field.py:53-75`).
-    Before ``gauge_start`` the offsets are multiplied by 0."""
+    Before ``gauge_start`` the offsets are multiplied by 0. The three (G, G, 2)
+    gauge grids are fetched in one three-plane gather, or one by one through
+    ``sample_fn``."""
     if cfg.variant != "gauge":
         return xy, yz, xz
-    smp = _sampler(sample_fn)
     active = float(iteration >= cfg.gauge_start)
-    dxy = smp(params["gauge_xy"], xy, "gauge_xy") * active
-    dyz = smp(params["gauge_yz"], yz, "gauge_yz") * active
-    dxz = smp(params["gauge_xz"], xz, "gauge_xz") * active
+    grids, coords = [params[n] for n in _GAUGES], (xy, yz, xz)
+    if sample_fn is None:
+        offsets = grid_sample_planes(grids, coords)[0].unbind(-2)
+    else:
+        offsets = [sample_fn(g, c, n) for g, c, n in zip(grids, coords, _GAUGES)]
+    dxy, dyz, dxz = (d * active for d in offsets)
     target_xy = torch.stack(
         [xy[..., 0] + dxy[..., 0] + dxz[..., 0], xy[..., 1] + dxy[..., 1] + dyz[..., 0]], dim=-1
     )
@@ -144,28 +152,46 @@ def triplane_gauge(
     return target_xy, target_yz, target_xz
 
 
-def _plane_feats(params: Params, cfg: TriPlaneConfig, xy, yz, xz, channels: slice, sample_fn=None):
-    """(`ngf_tpu/fields/triplane.py:192-211`). Coordinates stay float32
-    through the sampler: a bfloat16 coordinate moves a stencil by up to half
-    a texel at 256-res planes. Only the plane values run in the compute
-    dtype; in float32 the whole plane reaches the sampler with the channel
-    range, so a fetch's gradient lands in its channels of the plane's."""
+def _plane_feats(
+    params: Params, cfg: TriPlaneConfig, xy, yz, xz, channels: slice, split: int | None = None,
+    sample_fn=None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Channels ``channels`` of the three planes at their projections
+    (`ngf_tpu/fields/triplane.py:192-211`) as (..., 3, C) features, split at
+    ``split`` as :func:`grid_sample_planes` returns them: one gather of all
+    three planes, or one ``sample_fn(plane[..., channels], coords, name)``
+    call per plane. Coordinates stay float32 through the sampler: a bfloat16
+    coordinate moves a stencil by up to half a texel at 256-res planes. Only
+    the plane values run in the compute dtype, each plane's channels cast
+    once per call (evaluation); in float32 the whole plane reaches the
+    sampler with the channel range, so a fetch's gradient lands in its
+    channels of the plane's."""
     dt = cfg.dtype
-
-    def sample(name, c):
-        plane, ch = params[name], channels
-        if plane.dtype != dt:  # the compute-dtype copy of the slice (evaluation)
-            plane, ch = plane[..., ch].to(dt), slice(None)
-        if sample_fn is None:
-            return grid_sample_2d(plane, c, ch)
-        return sample_fn(plane[..., ch], c, name)
-
-    return sample("plane_xy", xy), sample("plane_yz", yz), sample("plane_xz", xz)
+    planes = [params[n] for n in _PLANES]
+    if planes[0].dtype != dt:
+        planes, channels = [p[..., channels].to(dt) for p in planes], slice(None)
+    coords = (xy, yz, xz)
+    if sample_fn is None:
+        return grid_sample_planes(planes, coords, channels, split)
+    full = torch.stack(
+        [sample_fn(p[..., channels], c, n) for p, c, n in zip(planes, coords, _PLANES)], dim=-2
+    )
+    return (full, None) if split is None else (full[..., :split], full[..., split:])
 
 
 def _pe_coords(xy: torch.Tensor, yz: torch.Tensor) -> torch.Tensor:
     # InfoInv/models/Field.py:54 — xyz reassembled from the projections.
     return torch.cat([xy, yz[..., 1:]], dim=-1)
+
+
+def _decoder_input(feats: torch.Tensor, cfg: TriPlaneConfig, xyz, freqs: int) -> torch.Tensor:
+    """(..., 3, C) plane features as the (..., 3C) decoder input, in the
+    order of a ``cat`` of the three planes. With InfoInv, times PE(xyz): one
+    encoding broadcast over the planes, element by element the product of
+    the JAX package's three ``infoinv_modulate`` calls."""
+    if cfg.infoinv:
+        feats = infoinv_modulate(feats, xyz[..., None, :], freqs)
+    return feats.reshape(*feats.shape[:-2], -1)
 
 
 def _cast(tree: Params, cfg: TriPlaneConfig) -> Params:
@@ -179,14 +205,7 @@ def _cast(tree: Params, cfg: TriPlaneConfig) -> Params:
     return tree.to(dt)
 
 
-def triplane_density(params: Params, cfg: TriPlaneConfig, xy, yz, xz, sample_fn=None) -> torch.Tensor:
-    """Density (..., ) after the softplus shift
-    (`ngf_tpu/fields/triplane.py:220-240`)."""
-    fxy, fyz, fxz = _plane_feats(params, cfg, xy, yz, xz, slice(0, cfg.density_dim), sample_fn)
-    if cfg.infoinv:
-        xyz = _pe_coords(xy, yz)
-        fxy, fyz, fxz = (infoinv_modulate(f, xyz, cfg.density_pe) for f in (fxy, fyz, fxz))
-    feat = torch.cat([fxy, fyz, fxz], dim=-1)
+def _density_from_feats(params: Params, cfg: TriPlaneConfig, feat: torch.Tensor) -> torch.Tensor:
     dec = _cast(params["density_decoder"], cfg)
     if cfg.variant == "gauge":
         raw = apply_linear(dec, feat)[..., 0]
@@ -195,19 +214,51 @@ def triplane_density(params: Params, cfg: TriPlaneConfig, xy, yz, xz, sample_fn=
     return feature2density(raw.float(), cfg.density_shift)
 
 
+def triplane_density(params: Params, cfg: TriPlaneConfig, xy, yz, xz, sample_fn=None) -> torch.Tensor:
+    """Density (..., ) after the softplus shift
+    (`ngf_tpu/fields/triplane.py:220-240`)."""
+    feats, _ = _plane_feats(params, cfg, xy, yz, xz, slice(0, cfg.density_dim), None, sample_fn)
+    xyz = _pe_coords(xy, yz) if cfg.infoinv else None
+    return _density_from_feats(params, cfg, _decoder_input(feats, cfg, xyz, cfg.density_pe))
+
+
 def triplane_rgb(
     params: Params, cfg: TriPlaneConfig, xy, yz, xz, viewdirs, sample_fn=None
 ) -> torch.Tensor:
     """RGB (..., 3) in float32 (`ngf_tpu/fields/triplane.py:243-259`)."""
-    fxy, fyz, fxz = _plane_feats(
-        params, cfg, xy, yz, xz, slice(cfg.density_dim, cfg.plane_dim), sample_fn
+    feats, _ = _plane_feats(
+        params, cfg, xy, yz, xz, slice(cfg.density_dim, cfg.plane_dim), None, sample_fn
     )
-    if cfg.infoinv:
-        xyz = _pe_coords(xy, yz)
-        fxy, fyz, fxz = (infoinv_modulate(f, xyz, cfg.rgb_pe) for f in (fxy, fyz, fxz))
-    feat = torch.cat([fxy, fyz, fxz], dim=-1)
+    xyz = _pe_coords(xy, yz) if cfg.infoinv else None
+    return triplane_rgb_from_feats(
+        params, cfg, _decoder_input(feats, cfg, xyz, cfg.rgb_pe), viewdirs
+    )
+
+
+def triplane_density_and_rgbfeat(
+    params: Params, cfg: TriPlaneConfig, xy, yz, xz, sample_fn=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused fetch (`ngf_tpu/fields/triplane.py:262-292`): one gather of all
+    plane channels per point and plane, split into the density and
+    appearance decoders' inputs. Returns (density (...,), rgb_feat
+    (..., 3 * rgb_dim) already InfoInv-modulated); decode rgb with
+    :func:`triplane_rgb_from_feats`. Without ``sample_fn`` this is one
+    launch of the gather kernel that writes both inputs in place."""
+    dfeat, rfeat = _plane_feats(
+        params, cfg, xy, yz, xz, slice(0, cfg.plane_dim), cfg.density_dim, sample_fn
+    )
+    xyz = _pe_coords(xy, yz) if cfg.infoinv else None
+    sigma = _density_from_feats(params, cfg, _decoder_input(dfeat, cfg, xyz, cfg.density_pe))
+    return sigma, _decoder_input(rfeat, cfg, xyz, cfg.rgb_pe)
+
+
+def triplane_rgb_from_feats(
+    params: Params, cfg: TriPlaneConfig, feats: torch.Tensor, viewdirs: torch.Tensor
+) -> torch.Tensor:
+    """RGB (..., 3) in float32 from pre-fetched, already modulated
+    appearance features (`ngf_tpu/fields/triplane.py:295-303`)."""
     rgb = apply_rgb_decoder(
-        _cast(params["rgb_decoder"], cfg), feat, viewdirs.to(feat.dtype), cfg.view_pe
+        _cast(params["rgb_decoder"], cfg), feats, viewdirs.to(feats.dtype), cfg.view_pe
     )
     return rgb.float()
 

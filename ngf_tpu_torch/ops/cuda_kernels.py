@@ -16,9 +16,10 @@ a small kernel's call costs more host time than device time: no lock once a
 library is loaded, no device switch when the tensor's device is current, the
 raw stream handle instead of a stream object (:func:`_launch`).
 
-Kernels: ``bilinear_gather_2d`` (K1, the tri-plane fetch),
-``bilinear_gather_2d_backward`` (K2, its plane gradient) and ``gather_rows``
-(the trainer's batch assembly).
+Kernels: ``bilinear_gather_planes`` (K1, the tri-plane fetch: up to three
+planes in one launch, split into the two decoders' inputs) with its
+one-plane call ``bilinear_gather_2d``, ``bilinear_gather_2d_backward`` (K2,
+its plane gradient) and ``gather_rows`` (the trainer's batch assembly).
 """
 
 from __future__ import annotations
@@ -107,10 +108,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     lib.ngf_cuda_error_string.argtypes = [i32]
     lib.ngf_cuda_error_string.restype = ctypes.c_char_p
     if name == "bilinear_gather":
-        lib.ngf_bilinear_gather_2d.argtypes = [
-            vp, i32, i32, i64, i32, vp, i64, i64, vp, i64, i32, vp,
+        lib.ngf_bilinear_gather_planes.argtypes = [
+            ctypes.POINTER(i64), i32, i32, i32, i32, i32, vp, vp, i64, i32, i32, vp,
         ]
-        lib.ngf_bilinear_gather_2d.restype = i32
+        lib.ngf_bilinear_gather_planes.restype = i32
     elif name == "bilinear_gather_backward":
         lib.ngf_bilinear_gather_2d_backward.argtypes = [
             vp, i64, i32, vp, i64, i64, vp, i32, i32, i64, i64, i32, vp,
@@ -153,6 +154,7 @@ def _on_one_device(*tensors: torch.Tensor) -> bool:
 
 
 _GATHER_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_GATHER_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 
 
 def _check_plane(plane: torch.Tensor, what: str) -> None:
@@ -163,8 +165,59 @@ def _check_plane(plane: torch.Tensor, what: str) -> None:
         raise ValueError(f"unsupported {what} strides {plane.stride()} for {tuple(plane.shape)}")
 
 
+def gather_lanes(dtype: torch.dtype, C: int, split: int, texel_strides, ptrs) -> int:
+    """Channels per load and store of the gather kernel: 16 bytes' worth (4
+    float32 or 8 bfloat16) when every such access is 16-byte aligned — C,
+    the split and each plane's texel stride multiples of it, every plane
+    pointer (offset to its first fetched channel) and output pointer of 16
+    bytes — and 1 (scalar) otherwise."""
+    v = 16 // _GATHER_ITEMSIZE[dtype]
+    if C % v or split % v or any(t % v for t in texel_strides) or any(p % 16 for p in ptrs):
+        return 1
+    return v
+
+
+def _gather(planes, flats, c0: int, C: int, split: int, out_a, out_b, what: str) -> None:
+    """Launch the gather kernel on checked planes and (N, 2) coordinates."""
+    H, W, _ = planes[0].shape
+    itemsize = planes[0].element_size()
+    plane_ptrs = [p.data_ptr() + itemsize * c0 for p in planes]
+    desc = []
+    for plane, ptr, flat in zip(planes, plane_ptrs, flats):
+        desc += [ptr, plane.stride(1), flat.data_ptr(), flat.stride(0), flat.stride(1)]
+    out_ptrs = [out_a.data_ptr()] + ([out_b.data_ptr()] if out_b is not None else [])
+    lanes = gather_lanes(planes[0].dtype, C, split, [p.stride(1) for p in planes],
+                         plane_ptrs + out_ptrs)
+    lib = _lib("bilinear_gather")
+    _launch(
+        lib, lib.ngf_bilinear_gather_planes, planes[0].get_device(), what,
+        (ctypes.c_longlong * len(desc))(*desc), len(planes), H, W, C, split,
+        out_ptrs[0], out_ptrs[1] if out_b is not None else None, flats[0].shape[0],
+        _GATHER_DTYPES[planes[0].dtype], lanes,
+    )
+
+
+def _check_gather_plane(plane: torch.Tensor, what: str) -> None:
+    if plane.dim() != 3 or plane.dtype not in _GATHER_DTYPES:
+        raise ValueError(
+            f"{what} must be (H, W, C) float32/bfloat16, got {tuple(plane.shape)} {plane.dtype}"
+        )
+    _check_plane(plane, what)
+    H, W, _ = plane.shape
+    if H * W >= 2**31:
+        raise ValueError(f"{what} of {H}x{W} texels: the kernel indexes texels in 32 bits")
+
+
+def _check_coords(coords: torch.Tensor) -> None:
+    if coords.dtype != torch.float32 or coords.shape[-1] != 2:
+        raise ValueError(
+            f"coords must be (..., 2) float32, got {tuple(coords.shape)} {coords.dtype}"
+        )
+
+
 def bilinear_gather_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """CUDA kernel for ``grid_sample_2d`` (``kernels/bilinear_gather.cu``).
+    """CUDA kernel for ``grid_sample_2d`` (``kernels/bilinear_gather.cu``):
+    the one-plane, unsplit call of :func:`bilinear_gather_planes`' kernel.
 
     Args:
       plane: (H, W, C) float32 or bfloat16 CUDA tensor, H, W >= 2, channels
@@ -180,35 +233,80 @@ def bilinear_gather_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
             f"bilinear_gather_2d needs plane and coords on one CUDA device, got "
             f"{plane.device} and {coords.device}"
         )
-    if plane.dim() != 3 or plane.dtype not in _GATHER_DTYPES:
-        raise ValueError(
-            f"plane must be (H, W, C) float32/bfloat16, got {tuple(plane.shape)} "
-            f"{plane.dtype}"
-        )
-    _check_plane(plane, "plane")
-    H, W, C = plane.shape
-    if coords.dtype != torch.float32 or coords.shape[-1] != 2:
-        raise ValueError(
-            f"coords must be (..., 2) float32, got {tuple(coords.shape)} {coords.dtype}"
-        )
+    _check_gather_plane(plane, "plane")
+    _check_coords(coords)
+    C = plane.shape[-1]
     batch_shape = coords.shape[:-1]
     flat = coords.reshape(-1, 2)
-    n = flat.shape[0]
-    out = plane.new_empty((n, C))
-    if n == 0 or C == 0:
+    out = plane.new_empty((flat.shape[0], C))
+    if flat.shape[0] == 0 or C == 0:
         return out.reshape(*batch_shape, C)
-    lib = _lib("bilinear_gather")
-    _launch(
-        lib, lib.ngf_bilinear_gather_2d, plane.get_device(), "bilinear_gather_2d",
-        plane.data_ptr(), H, W, plane.stride(1), C,
-        flat.data_ptr(), flat.stride(0), flat.stride(1),
-        out.data_ptr(), n, _GATHER_DTYPES[plane.dtype],
-    )
+    _gather([plane], [flat], 0, C, C, out, None, "bilinear_gather_2d")
     bilinear_gather_2d.launches += 1
     return out.reshape(*batch_shape, C)
 
 
 bilinear_gather_2d.launches = 0
+
+
+def bilinear_gather_planes(
+    planes, coords, channels: slice = slice(None), split: int | None = None
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """CUDA kernel for ``grid_sample_2d`` of channels ``channels`` of up to
+    three planes in one launch, split into two outputs
+    (``kernels/bilinear_gather.cu``).
+
+    Args:
+      planes: 1 to 3 (H, W, C_total) float32 or bfloat16 CUDA tensors of one
+        shape and dtype, channels contiguous and rows ``W`` texels apart.
+      coords: as many (..., 2) float32 CUDA tensors of one shape, the
+        coordinates of each plane; strided views qualify as they are.
+      channels: the contiguous channel range c0:c1 fetched from each plane.
+      split: channels c0:c0+split go to the first output and the rest to the
+        second; None keeps all C = c1 - c0 in the first.
+
+    Returns:
+      (out_a (..., P, split), out_b (..., P, C - split)) in the planes' dtype,
+      out_b None without a split.
+    """
+    planes, coords = tuple(planes), tuple(coords)
+    P = len(planes)
+    if not 1 <= P <= 3 or len(coords) != P:
+        raise ValueError(f"bilinear_gather_planes takes 1 to 3 planes and as many coords, "
+                         f"got {P} and {len(coords)}")
+    if not _on_one_device(*planes, *coords):
+        raise ValueError(
+            "bilinear_gather_planes needs planes and coords on one CUDA device, got "
+            f"{[str(t.device) for t in planes + coords]}"
+        )
+    for plane in planes:
+        _check_gather_plane(plane, "plane")
+        if plane.shape != planes[0].shape or plane.dtype != planes[0].dtype:
+            raise ValueError(f"planes differ: {[(tuple(p.shape), p.dtype) for p in planes]}")
+    for c in coords:
+        _check_coords(c)
+        if c.shape != coords[0].shape:
+            raise ValueError(f"coords differ in shape: {[tuple(c.shape) for c in coords]}")
+    c0, c1, step = channels.indices(planes[0].shape[-1])
+    C = c1 - c0
+    if step != 1 or C <= 0:
+        raise ValueError(f"channels must be a non-empty contiguous slice, got {channels}")
+    if split is not None and not 0 < split < C:
+        raise ValueError(f"split {split} outside 1..{C - 1}")
+    s = C if split is None else split
+    batch_shape = coords[0].shape[:-1]
+    flats = [c.reshape(-1, 2) for c in coords]
+    n = flats[0].shape[0]
+    out_a = planes[0].new_empty((n, P, s))
+    out_b = planes[0].new_empty((n, P, C - s)) if s < C else None
+    if n > 0:
+        _gather(planes, flats, c0, C, s, out_a, out_b, "bilinear_gather_planes")
+        bilinear_gather_planes.launches += 1
+    return (out_a.reshape(*batch_shape, P, s),
+            None if out_b is None else out_b.reshape(*batch_shape, P, C - s))
+
+
+bilinear_gather_planes.launches = 0
 
 
 def backward_lanes(C: int, channel_offset: int, texel_stride: int, g_stride: int,
@@ -333,6 +431,7 @@ gather_rows.launches = 0
 
 # Every wrapper with a launch counter, by kernel name.
 KERNELS = {
+    "bilinear_gather_planes": bilinear_gather_planes,
     "bilinear_gather_2d": bilinear_gather_2d,
     "bilinear_gather_2d_backward": bilinear_gather_2d_backward,
     "gather_rows": gather_rows,

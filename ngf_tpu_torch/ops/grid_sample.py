@@ -6,16 +6,17 @@ padding, and torch's coordinate order (``coords[..., 0]`` indexes the W axis,
 ``coords[..., 1]`` H, ``coords[..., 2]`` D). Planes are channels-last (H, W, C)
 and volumes (D, H, W, C), as in the JAX package.
 
-``grid_sample_2d`` is the hot op of every tri-plane fetch. On a CUDA tensor it
-launches the hand-written kernel ``bilinear_gather_2d``
-(`ngf_tpu_torch/ops/cuda_kernels.py`) and, for the plane gradient, its
-backward ``bilinear_gather_2d_backward``; on a CPU tensor it runs the plain
-versions below. There is no fallback between the two.
+``grid_sample_planes`` is the hot op of every tri-plane fetch: the three
+planes at their three projections in one call, split into the density and
+appearance decoders' inputs. On CUDA tensors it launches the hand-written
+kernel ``bilinear_gather_planes`` (`ngf_tpu_torch/ops/cuda_kernels.py`) and,
+for the plane gradients, its backward ``bilinear_gather_2d_backward``; on CPU
+tensors it runs the plain versions below. There is no fallback between the
+two. ``grid_sample_2d`` is its one-plane call.
 
 A fetch names its channels of the whole plane (``channels``), so its
 gradient lands in those channels of the whole plane's gradient: no slice is
-copied either way. Within one forward pass, the fetches of a plane wrapped
-by :func:`share_plane_grad` add into one gradient buffer.
+copied either way, and both outputs of a plane add into one buffer.
 """
 
 from __future__ import annotations
@@ -116,114 +117,125 @@ def grid_sample_2d_backward_plain(
         dst.index_add_(0, idx + off, g * w[:, None])
 
 
-class _PlaneGradSlot:
-    """The one float32 gradient buffer that every fetch of one plane in one
-    forward pass adds into."""
-
-    def __init__(self) -> None:
-        self.buf: torch.Tensor | None = None
-
-    def buffer(self, shape, device) -> torch.Tensor:
-        if self.buf is None:
-            self.buf = torch.zeros(shape, dtype=torch.float32, device=device)
-        return self.buf
-
-
-class _PlaneGradSink(torch.autograd.Function):
-    """Identity on a plane. Its backward runs after the backward of every
-    fetch of its output (autograd runs a node once all its consumers are
-    done) and hands on the buffer they filled, plus any other gradient."""
-
-    @staticmethod
-    def forward(ctx, plane, slot):
-        ctx.slot = slot
-        ctx.set_materialize_grads(False)
-        return plane.view_as(plane)
-
-    @staticmethod
-    def backward(ctx, g):
-        buf, ctx.slot.buf = ctx.slot.buf, None
-        if g is not None:
-            buf = g if buf is None else buf.add_(g)
-        return buf, None
+def grid_sample_planes_plain(
+    planes, coords, channels: slice = slice(None), split: int | None = None
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plain PyTorch version of the ``bilinear_gather_planes`` kernel: one
+    :func:`grid_sample_2d_plain` of channels ``channels`` per plane, written
+    into the kernel's split layout (``out_a`` (..., P, split), ``out_b``
+    (..., P, C - split), ``out_b`` None without a split)."""
+    full = torch.stack(
+        [grid_sample_2d_plain(p[..., channels], c) for p, c in zip(planes, coords)], dim=-2
+    )
+    if split is None:
+        return full, None
+    return full[..., :split].contiguous(), full[..., split:].contiguous()
 
 
-def share_plane_grad(plane: torch.Tensor) -> torch.Tensor:
-    """The plane, as a tensor whose fetches (:func:`grid_sample_2d`) within
-    one forward pass all add into one gradient buffer: the density (0:24)
-    and appearance (24:96) fetches of a tri-plane write their channels of
-    the same (H, W, C) float32 buffer, with no copy and no sum of two
-    buffers. Call it once per plane and forward pass."""
-    slot = _PlaneGradSlot()
-    out = _PlaneGradSink.apply(plane, slot)
-    out._grad_slot = slot
-    return out
-
-
-class _BilinearGather(torch.autograd.Function):
-    """``grid_sample_2d`` of channels ``c0:c1`` with the plane gradient by
-    the backward kernel (CUDA) or its plain version (CPU). No coordinate
-    gradient: :func:`grid_sample_2d` routes coordinates that need one."""
+class _BilinearGatherPlanes(torch.autograd.Function):
+    """``grid_sample_planes`` of channels ``c0:c1``, split at ``split``: one
+    launch of the gather kernel (CUDA) or its plain version (CPU) forward;
+    each plane's gradient in one float32 (H, W, C) buffer, into which the
+    backward kernel (CUDA) or its plain version (CPU) adds each output's
+    channels. No coordinate gradient: :func:`grid_sample_planes` routes
+    coordinates that need one."""
 
     @staticmethod
-    def forward(ctx, plane, coords, c0, c1, slot):
-        view = plane[..., c0:c1]
-        out = cuda_kernels.bilinear_gather_2d(view, coords) if plane.is_cuda else grid_sample_2d_plain(view, coords)
-        ctx.save_for_backward(coords)
-        ctx.plane_meta = (plane.shape, plane.dtype, plane.device, c0, slot)
-        ctx.set_materialize_grads(False)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        if g is None or not ctx.needs_input_grad[0]:
-            return None, None, None, None, None
-        (coords,) = ctx.saved_tensors
-        shape, dtype, device, c0, slot = ctx.plane_meta
-        grad = slot.buffer(shape, device) if slot is not None else torch.zeros(
-            shape, dtype=torch.float32, device=device
-        )
-        if device.type == "cuda":
-            if dtype != torch.float32:
-                raise NotImplementedError(
-                    f"the plane gradient of a {dtype} plane is not ported: see ROADMAP.md "
-                    "queue 1, 'bfloat16 training'"
-                )
-            cuda_kernels.bilinear_gather_2d_backward(g, coords, grad, c0)
+    def forward(ctx, c0, c1, split, *tensors):
+        P = len(tensors) // 2
+        planes, coords = tensors[:P], tensors[P:]
+        if not planes[0].is_cuda:
+            out_a, out_b = grid_sample_planes_plain(planes, coords, slice(c0, c1), split)
+        elif P == 1 and split is None:
+            out_a, out_b = cuda_kernels.bilinear_gather_2d(planes[0][..., c0:c1], coords[0]), None
+            out_a = out_a.unsqueeze(-2)
         else:
-            grid_sample_2d_backward_plain(g, coords, grad, c0)
-        return (None if slot is not None else grad), None, None, None, None
+            out_a, out_b = cuda_kernels.bilinear_gather_planes(planes, coords, slice(c0, c1), split)
+        ctx.save_for_backward(*coords)
+        ctx.meta = (c0, out_a.shape[-1], [(p.shape, p.dtype, p.device) for p in planes])
+        ctx.set_materialize_grads(False)
+        return out_a, out_b
+
+    @staticmethod
+    def backward(ctx, g_a, g_b):
+        coords = ctx.saved_tensors
+        c0, split, planes = ctx.meta
+        grads = []
+        for i, (shape, dtype, device) in enumerate(planes):
+            if not ctx.needs_input_grad[3 + i] or (g_a is None and g_b is None):
+                grads.append(None)
+                continue
+            if device.type == "cuda":
+                if dtype != torch.float32:
+                    raise NotImplementedError(
+                        f"the plane gradient of a {dtype} plane is not ported: see ROADMAP.md "
+                        "queue 1, 'bfloat16 training'"
+                    )
+                scatter = cuda_kernels.bilinear_gather_2d_backward
+            else:
+                scatter = grid_sample_2d_backward_plain
+            grad = torch.zeros(shape, dtype=torch.float32, device=device)
+            if g_a is not None:
+                scatter(g_a[..., i, :], coords[i], grad, c0)
+            if g_b is not None:
+                scatter(g_b[..., i, :], coords[i], grad, c0 + split)
+            grads.append(grad)
+        return (None, None, None, *grads, *([None] * len(planes)))
+
+
+def grid_sample_planes(
+    planes, coords, channels: slice = slice(None), split: int | None = None
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Bilinear samples of channels ``channels`` of up to three (H, W, C)
+    planes of one shape, each at its own (..., 2) coords in [-1, 1], split
+    into two outputs: ``out_a`` (..., P, split) and ``out_b`` (..., P,
+    C - split), or ``out_a`` (..., P, C) and None without a split.
+
+    ``out_a[..., i, :]`` is ``grid_sample_2d(planes[i], coords[i],
+    channels)[..., :split]``. For the tri-plane's density (0:24) and
+    appearance (24:96) channels, viewed as (..., 72) and (..., 216), the two
+    outputs are the decoders' inputs in the order of a ``torch.cat`` of the
+    three planes. CUDA planes launch the ``bilinear_gather_planes`` kernel
+    once (or raise) and, in the backward, ``bilinear_gather_2d_backward``
+    once per plane and output; CPU planes take the plain versions.
+    Coordinates that need a gradient (the gauge variant) take the plain
+    version with autograd on the CPU and raise on the card: the kernel has
+    no coordinate gradient yet (ROADMAP.md queue 1, item 3).
+    """
+    planes, coords = tuple(planes), tuple(coords)
+    device = planes[0].device
+    if any(t.device != device for t in planes + coords):
+        raise ValueError(f"planes and coords on {[str(t.device) for t in planes + coords]}")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"grid_sample_planes runs on cuda or cpu, not {device}")
+    c0, c1, step = channels.indices(planes[0].shape[-1])
+    if step != 1 or c1 <= c0:
+        raise ValueError(f"channels must be a non-empty contiguous slice, got {channels}")
+    if split is not None and not 0 < split < c1 - c0:
+        raise ValueError(f"split {split} outside 1..{c1 - c0 - 1}")
+    if torch.is_grad_enabled() and any(c.requires_grad for c in coords):
+        if device.type == "cuda":
+            raise NotImplementedError(
+                "coordinate gradients of the CUDA gather are not ported: see ROADMAP.md "
+                "queue 1, item 3, 'Gauge training'"
+            )
+        return grid_sample_planes_plain(planes, coords, slice(c0, c1), split)
+    return _BilinearGatherPlanes.apply(c0, c1, split, *planes, *coords)
 
 
 def grid_sample_2d(
     plane: torch.Tensor, coords: torch.Tensor, channels: slice = slice(None)
 ) -> torch.Tensor:
     """Bilinear sample of channels ``channels`` of an (H, W, C) plane at
-    (..., 2) coords in [-1, 1] (`ngf_tpu/ops/grid_sample.py:216-253`).
+    (..., 2) coords in [-1, 1] (`ngf_tpu/ops/grid_sample.py:216-253`): the
+    one-plane call of :func:`grid_sample_planes`.
 
     Equivalent to ``F.grid_sample(plane[..., channels].permute(2, 0, 1)[None],
     coords.view(1, -1, 1, 2), align_corners=True)``. A CUDA plane launches
     the ``bilinear_gather_2d`` kernel (or raises) and, in the backward,
     ``bilinear_gather_2d_backward``; a CPU plane takes the plain versions.
-    Coordinates that need a gradient (the gauge variant) take the plain
-    version with autograd on the CPU and raise on the card: the kernel has
-    no coordinate gradient yet (ROADMAP.md queue 1, item 3).
     """
-    if plane.device != coords.device:
-        raise ValueError(f"plane on {plane.device} but coords on {coords.device}")
-    if plane.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"grid_sample_2d runs on cuda or cpu, not {plane.device}")
-    c0, c1, step = channels.indices(plane.shape[-1])
-    if step != 1 or c1 <= c0:
-        raise ValueError(f"channels must be a non-empty contiguous slice, got {channels}")
-    if coords.requires_grad and torch.is_grad_enabled():
-        if plane.is_cuda:
-            raise NotImplementedError(
-                "coordinate gradients of the CUDA gather are not ported: see ROADMAP.md "
-                "queue 1, item 3, 'Gauge training'"
-            )
-        return grid_sample_2d_plain(plane[..., c0:c1], coords)
-    return _BilinearGather.apply(plane, coords, c0, c1, getattr(plane, "_grad_slot", None))
+    return grid_sample_planes((plane,), (coords,), channels)[0].squeeze(-2)
 
 
 def grid_sample_3d(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

@@ -7,12 +7,10 @@
 // the 2-texel stencil starts at clip(floor(c), 0, size - 2); a stencil slot's
 // weight is the bilinear weight its texel has in the *unclipped* stencil, or 0
 // if it is not part of it (`_axis_patch_weights`, grid_sample.py:38-57). That
-// is zero padding without any out-of-bounds access.
+// is zero padding without any out-of-bounds access. A point's four taps are
+// (y0, x0), (y0, x1), (y1, x0), (y1, x1) with weights wy * wx.
 
 #pragma once
-
-// Points a block owns; one thread computes one point's taps.
-constexpr int STENCIL_POINTS = 64;
 
 // One axis of the clipped stencil. c is the raw coordinate in [-1, 1];
 // returns the stencil start and the two slot weights. Values beyond one texel
@@ -28,30 +26,4 @@ __device__ __forceinline__ int axis_stencil(float c, int size, float* w0, float*
     *w0 = (start == c0 ? 1.0f - frac : 0.0f) + (start == c0 + 1 ? frac : 0.0f);
     *w1 = (start + 1 == c0 ? 1.0f - frac : 0.0f) + (start + 1 == c0 + 1 ? frac : 0.0f);
     return start;
-}
-
-// The four taps of the points [first, first + npts) into shared memory:
-// element offsets (texel * texel_stride) and weights, in the order
-// (y0, x0), (y0, x1), (y1, x0), (y1, x1). Threads below npts each do one
-// point; the caller synchronises before reading.
-__device__ __forceinline__ void stencil_taps(
-    const float* __restrict__ coords, long long coord_stride_n, long long coord_stride_k,
-    int H, int W, long long texel_stride, long long first, int npts,
-    long long (*s_off)[STENCIL_POINTS], float (*s_w)[STENCIL_POINTS]) {
-    if (threadIdx.x < npts) {
-        const float* cp = coords + (first + threadIdx.x) * coord_stride_n;
-        float wx0, wx1, wy0, wy1;
-        int xs = axis_stencil(cp[0], W, &wx0, &wx1);
-        int ys = axis_stencil(cp[coord_stride_k], H, &wy0, &wy1);
-        long long t00 = ((long long)ys * W + xs) * texel_stride;
-        long long down = (long long)W * texel_stride;
-        s_off[0][threadIdx.x] = t00;
-        s_off[1][threadIdx.x] = t00 + texel_stride;
-        s_off[2][threadIdx.x] = t00 + down;
-        s_off[3][threadIdx.x] = t00 + down + texel_stride;
-        s_w[0][threadIdx.x] = wy0 * wx0;
-        s_w[1][threadIdx.x] = wy0 * wx1;
-        s_w[2][threadIdx.x] = wy1 * wx0;
-        s_w[3][threadIdx.x] = wy1 * wx1;
-    }
 }

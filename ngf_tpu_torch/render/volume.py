@@ -24,12 +24,14 @@ import torch
 from ..fields.triplane import (
     TriPlaneConfig,
     triplane_density,
+    triplane_density_and_rgbfeat,
     triplane_gauge,
     triplane_project,
     triplane_rgb,
+    triplane_rgb_from_feats,
 )
 from ..ops.compositing import raw2alpha
-from ..ops.grid_sample import grid_sample_3d, share_plane_grad
+from ..ops.grid_sample import grid_sample_3d
 from ..ops.rays import stratified_sample
 
 
@@ -103,8 +105,10 @@ def render_rays(
       alpha_volume: optional (D, H, W) occupancy grid, z-major; samples with
         trilinear alpha == 0 are culled (`FieldBase.py:238-244`).
       alpha_aabb: (2, 3) AABB of the alpha volume (defaults to the field's).
-      sample_fn: optional ``(plane, coords, name) -> feats`` replacing
-        ``grid_sample_2d`` for every plane fetch.
+      sample_fn: optional ``(plane, coords, name) -> feats`` replacing the
+        gather for every plane fetch, one plane and one of the density and
+        appearance channel ranges at a time; None fetches all channels of
+        the three planes in one gather.
       generator: a training render (``is_train=True`` in the JAX package):
         one uniform jitter per ray and, when not ``white_bg``, the random
         background are drawn from it, on the rays' device. None renders
@@ -151,24 +155,30 @@ def render_rays(
     n, s = z_vals.shape
     vmask = valid.to(pts.dtype)
 
-    if torch.is_grad_enabled():
-        # The density and appearance fetches of a plane add into one
-        # gradient buffer.
-        params = {
-            k: share_plane_grad(v) if k.startswith("plane_") and v.requires_grad else v
-            for k, v in params.items()
-        }
     xy, yz, xz = triplane_project(normalize_coord(pts, aabb))
     xy, yz, xz = triplane_gauge(params, model_cfg, xy, yz, xz, iteration, sample_fn)
 
-    sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn) * vmask
+    # Appearance is decoded at every sample whose density is fetched, so
+    # without a sampler of the caller's both come from one fetch of all
+    # channels (the same values as two fetches); a ``sample_fn`` sees the
+    # density and appearance fetches of each plane apart, as the JAX
+    # package's dense path makes them.
+    if sample_fn is None:
+        sigma, rgb_feat = triplane_density_and_rgbfeat(params, model_cfg, xy, yz, xz)
+    else:
+        sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn)
+    sigma = sigma * vmask
     _, weight, _ = raw2alpha(sigma, dists * rcfg.distance_scale)
     acc_map = weight.sum(dim=-1)
 
     # rgb only where the blend weight clears the threshold (`FieldBase.py:261-265`).
     rgb_mask = (weight > rcfg.ray_march_weight_thres).to(pts.dtype)
     views = viewdirs[:, None, :].expand(n, s, 3)
-    rgb = triplane_rgb(params, model_cfg, xy, yz, xz, views, sample_fn) * rgb_mask[..., None]
+    if sample_fn is None:
+        rgb = triplane_rgb_from_feats(params, model_cfg, rgb_feat, views)
+    else:
+        rgb = triplane_rgb(params, model_cfg, xy, yz, xz, views, sample_fn)
+    rgb = rgb * rgb_mask[..., None]
     rgb_map = (weight[..., None] * rgb).sum(dim=-2)
 
     if rcfg.white_bg:

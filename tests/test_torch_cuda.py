@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card against their plain PyTorch
-versions: ``bilinear_gather_2d`` alone and inside the render path, its
-backward ``bilinear_gather_2d_backward`` alone (runs of shared stencils,
-zero rows, both lane widths, strided g) and through autograd, and
+versions: the gather ``bilinear_gather_planes`` (three planes, split
+outputs, both lane widths, runs of shared stencils) and its one-plane call
+``bilinear_gather_2d``, alone and inside the render path (one launch per
+chunk), its backward ``bilinear_gather_2d_backward`` alone (runs of shared
+stencils, zero rows, both lane widths, strided g) and through autograd, and
 ``gather_rows``, alone and as the trainer's one-launch batch.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
@@ -228,29 +230,122 @@ def test_batch_is_one_row_gather(cuda):
 
 
 def test_autograd_plane_gradient_through_kernels(cuda):
-    """Density and appearance fetches of one shared plane: forward and
-    backward kernels launch once per fetch, and the plane gradient equals
+    """A split fetch of three planes: one forward launch, and the backward
+    kernel once per plane and output (6), each plane's gradient equal to
     the plain versions' on the CPU."""
     g = torch.Generator(device=cuda).manual_seed(5)
-    plane = torch.randn((64, 64, 96), generator=g, device=cuda)
-    coords = _ray_coords(g, cuda)
-    weights = torch.randn((*coords.shape[:-1], 96), generator=g, device=cuda)
+    planes = [torch.randn((64, 64, 96), generator=g, device=cuda) for _ in range(3)]
+    coords = [_ray_coords(g, cuda) for _ in range(3)]
+    wa = torch.randn((*coords[0].shape[:-1], 3, 24), generator=g, device=cuda)
+    wb = torch.randn((*coords[0].shape[:-1], 3, 72), generator=g, device=cuda)
 
-    def plane_grad(p0, c, w):
-        p = p0.clone().requires_grad_(True)
-        shared = gs.share_plane_grad(p)
-        loss = sum((gs.grid_sample_2d(shared, c, ch) * w[..., ch]).sum()
-                   for ch in (slice(0, 24), slice(24, 96)))
-        loss.backward()
-        return p.grad
+    def plane_grads(ps, cs, a, b):
+        ps = [p.clone().requires_grad_(True) for p in ps]
+        dens, app = gs.grid_sample_planes(ps, cs, split=24)
+        ((dens * a).sum() + (app * b).sum()).backward()
+        return [p.grad for p in ps]
 
-    counts = (cuda_kernels.bilinear_gather_2d.launches,
+    counts = (cuda_kernels.bilinear_gather_planes.launches,
               cuda_kernels.bilinear_gather_2d_backward.launches)
-    got = plane_grad(plane, coords, weights)
-    assert cuda_kernels.bilinear_gather_2d.launches == counts[0] + 2
-    assert cuda_kernels.bilinear_gather_2d_backward.launches == counts[1] + 2
-    want = plane_grad(plane.cpu(), coords.cpu(), weights.cpu())
-    assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    got = plane_grads(planes, coords, wa, wb)
+    assert cuda_kernels.bilinear_gather_planes.launches == counts[0] + 1
+    assert cuda_kernels.bilinear_gather_2d_backward.launches == counts[1] + 6
+    want = plane_grads([p.cpu() for p in planes], [c.cpu() for c in coords], wa.cpu(), wb.cpu())
+    for a, b in zip(got, want):
+        assert (a.cpu() - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+def _gather_case(case, g, cuda):
+    """(planes, coords, channels, split) of a three-plane gather case: the
+    projections of ray-consecutive points half a texel apart (runs of equal
+    stencil starts and one-texel steps, some leaving [-1, 1]) as strided
+    views, N = 5001, not a multiple of any tile."""
+    xyz = torch.cat([_ray_coords(g, cuda, m=80).reshape(-1, 2),
+                     torch.rand((64 * 80, 1), generator=g, device=cuda) * 2.2 - 1.1], -1)
+    xyz = xyz[:5001]
+    coords = [xyz[:, 0:2], xyz[:, 1:3], xyz[:, 0::2]]
+    C, channels, split = 96, slice(None), 24
+    if case == "split_16":
+        C, split = 64, 16
+    elif case == "no_split":
+        split = None
+    elif case == "one_plane_c2":
+        C, split = 2, None
+        coords = coords[:1]
+    elif case == "scalar_lanes":
+        channels, split = slice(3, 13), 5
+    elif case == "random_coords":
+        xyz.uniform_(-1.1, 1.1, generator=g)
+    elif case == "one_texel_runs":
+        # Long runs inside one texel, across segment and tile ends.
+        xyz[100:900] = 0.31 + 1e-3 * torch.rand((800, 3), generator=g, device=cuda)
+    xyz[:3] = torch.tensor([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0], [-1.0, 1.0, 1.0]], device=cuda)
+    planes = [torch.randn((48, 64, C), generator=g, device=cuda) for _ in coords]
+    return planes, coords, channels, split
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["split_24", "split_16", "no_split", "one_plane_c2",
+                                  "scalar_lanes", "random_coords", "one_texel_runs"])
+def test_planes_kernel_matches_plain(cuda, dtype, case):
+    """The three-plane gather against its plain version: float32 1e-5,
+    bfloat16 one ulp; the corners hit their texels."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    planes, coords, channels, split = _gather_case(case, g, cuda)
+    planes = [p.to(dtype) for p in planes]
+    before = cuda_kernels.bilinear_gather_planes.launches
+    got = cuda_kernels.bilinear_gather_planes(planes, coords, channels, split)
+    assert cuda_kernels.bilinear_gather_planes.launches == before + 1
+    want = gs.grid_sample_planes_plain(planes, coords, channels, split)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert a.dtype == dtype and a.shape == b.shape and a.is_contiguous()
+        err = (a.float() - b.float()).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= F32_TOL
+        else:
+            assert bool((err <= 2.0 ** -7 * b.float().abs() + 1e-6).all())
+    full = torch.cat([o for o in got if o is not None], -1)
+    for i, (plane, c) in enumerate(zip(planes, coords)):
+        H, W, _ = plane.shape
+        for n in range(3):  # corners: each coordinate -1 or +1
+            texel = plane[int(c[n, 1] > 0) * (H - 1), int(c[n, 0] > 0) * (W - 1)]
+            assert torch.equal(full[n, i], texel[channels])
+
+
+def test_planes_lanes_follow_alignment(cuda):
+    """16-byte lanes where C, the split, the texel stride and the pointers
+    allow them; the scalar branch for an odd channel offset."""
+    plane = torch.zeros((4, 4, 96), device=cuda)
+    assert cuda_kernels.gather_lanes(torch.float32, 96, 24, [96], [plane.data_ptr()]) == 4
+    assert cuda_kernels.gather_lanes(torch.bfloat16, 96, 24, [96], [plane.data_ptr()]) == 8
+    assert cuda_kernels.gather_lanes(torch.float32, 10, 5, [96], [plane.data_ptr() + 12]) == 1
+
+
+def test_planes_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    p = torch.zeros((4, 4, 8), device=cuda)
+    c = torch.zeros((5, 2), device=cuda)
+    bad = [
+        ((), ()),  # no plane
+        ((p,) * 4, (c,) * 4),  # four planes
+        ((p, p), (c,)),  # coords missing
+        ((p, torch.zeros((4, 5, 8), device=cuda)), (c, c)),  # shapes differ
+        ((p, p.bfloat16()), (c, c)),  # dtypes differ
+        ((p, p), (c, torch.zeros((6, 2), device=cuda))),  # coords differ
+        ((p.cpu(),), (c.cpu(),)),  # not on the card
+        ((p.half(),), (c,)),  # float16
+        ((p.transpose(0, 1),), (c,)),  # rows not W texels apart
+        ((p,), (c.double(),)),
+    ]
+    for planes, coords in bad:
+        with pytest.raises(ValueError):
+            cuda_kernels.bilinear_gather_planes(planes, coords)
+    for channels, split in ((slice(0, 8, 2), None), (slice(3, 3), None), (slice(None), 0),
+                            (slice(None), 8), (slice(0, 4), 5)):
+        with pytest.raises(ValueError):
+            cuda_kernels.bilinear_gather_planes((p,), (c,), channels, split)
 
 
 def test_coordinate_gradient_on_the_card_raises(cuda):
@@ -297,9 +392,11 @@ def test_render_path_goes_through_kernel(cuda):
     d = torch.randn((256, 3), generator=g, device=cuda)
     d = d / d.norm(dim=-1, keepdim=True)
     rays = torch.cat([-3.5 * d + 0.3 * torch.randn((256, 3), generator=g, device=cuda), d], -1)
-    before = cuda_kernels.bilinear_gather_2d.launches
+    before = (cuda_kernels.bilinear_gather_planes.launches,
+              cuda_kernels.bilinear_gather_2d.launches)
     got = tv.render_rays(params, cfg, rcfg, rays)
-    assert cuda_kernels.bilinear_gather_2d.launches == before + 6
+    assert (cuda_kernels.bilinear_gather_planes.launches,
+            cuda_kernels.bilinear_gather_2d.launches) == (before[0] + 1, before[1])
     plain = tv.render_rays(params, cfg, rcfg, rays,
                            sample_fn=lambda p, c, name: gs.grid_sample_2d_plain(p, c))
     assert 0.02 < got["acc_map"].mean().item() < 0.98

@@ -135,9 +135,9 @@ def test_plain_backward_matches_duobwd_nocoord(fetch):
 
 
 def test_shared_plane_gradient_is_the_sum_of_both_fetches():
-    """Density and appearance fetches of one shared plane add into one
-    buffer; the result is both JAX plane cotangents summed, plus any other
-    gradient of the plane (here an L1 term)."""
+    """The density and appearance outputs of one split fetch of a plane add
+    into one buffer; the result is both JAX plane cotangents summed, plus
+    any other gradient of the plane (here an L1 term)."""
     plane, coords = _plane(6), _scattered_coords(7)
     rng = np.random.default_rng(8)
     gs = {k: rng.normal(size=(coords.shape[0], s.stop - s.start)).astype(np.float32)
@@ -145,10 +145,9 @@ def test_shared_plane_gradient_is_the_sum_of_both_fetches():
     want = sum(_jax_plane_cot(j_gs.grid_sample_2d, plane, coords, gs[k], s) for k, s in SPLITS.items())
     want = want + 0.5 * np.sign(plane)
     p = torch.from_numpy(plane).requires_grad_(True)
-    shared = t_gs.share_plane_grad(p)
-    c = torch.from_numpy(coords)
-    loss = sum((t_gs.grid_sample_2d(shared, c, s) * torch.from_numpy(gs[k])).sum()
-               for k, s in SPLITS.items())
+    dens, app = t_gs.grid_sample_planes((p,), (torch.from_numpy(coords),), split=24)
+    loss = ((dens[:, 0] * torch.from_numpy(gs["density"])).sum()
+            + (app[:, 0] * torch.from_numpy(gs["appearance"])).sum())
     (loss + 0.5 * p.abs().sum()).backward()
     np.testing.assert_allclose(p.grad.numpy(), want, atol=GRAD_TOL, rtol=0)
 
