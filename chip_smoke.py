@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`ngf_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernel,rows,backward,render,train]
+    python3 chip_smoke.py [--phases kernel,rows,backward,render,train,occupancy,staged]
 
 1. Device: requires CUDA, prints the card and its power limit, builds every
    kernel of the port from the sources in this checkout.
@@ -43,6 +43,24 @@
    plain sampler, compared, on the trained weights and on opaque ones, with
    the backward kernel run alone on the step's own cotangents; then ms per
    step, rays/s, peak memory and a profile.
+7. Occupancy phase: K3 ``occupancy_lookup`` against its plain version, byte
+   for byte, on random points in [-1.05, 1.05]^3, on texel centres and
+   edges, and on a masked train step's query points (4096 lego rays x 222,
+   two a group) at 128^3 and 256^3, a dilated ball for the volume; K4
+   ``group_compact`` against its plain version, exactly, at the train
+   step's shapes (4096 rays, 111 groups of 8) with capacity 64 and 16, and
+   at an evaluation chunk's (all 111 groups); each timed beside its bound
+   and a library call.
+8. Staged phase: ``main_torch.main`` on ``configs/synthetic_infoinv_tpu.txt``
+   as it is (grouped path, 1600 steps, the mask event at 600, 30 synthetic
+   128 x 128 views, one test view). The event must run once (its voxels,
+   kept rays, measured capacity); the launches of K1, K2, ``gather_rows``,
+   K3 and K4 over the run must equal the counts worked out from the steps,
+   the event and the evaluation chunks; the losses must fall in both
+   stages; the checkpoint must carry its mask. Then one masked step with
+   the kernels against the plain sampler, the open and masked stages'
+   ms/step, and the checkpoint rendered once by the render-only CLI (K3 on
+   the dense path).
 
 Prints per-phase lines, then the card line, a JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Any failure raises: the script
@@ -105,6 +123,12 @@ TRAIN_RAYS, TRAIN_CAP, TRAIN_VIEWS, TRAIN_WH = 4096, 512, 30, 128
 # falling-loss check meaningful, at about 60 ms a step.
 TRAIN_ITERS = 300
 PROBE_ROWS, PROBE_D, PROBE_B = 512, 128, 256
+# The staged recipe's grouped step: groups of 8 of 886 samples padded to
+# 888, 111 groups a ray, two occupancy queries a group.
+GROUP, N_GROUPS = 8, 111
+# Index and weight arithmetic of one occupancy lookup (normalise, three
+# axes, eight tap weights): about 60 float32 operations.
+K3_OPS_PER_POINT = 60
 
 
 def check(cond: bool, msg: str) -> None:
@@ -844,7 +868,8 @@ def train_phase(
         if cuda:
             steps = args.microbatch * iters
             want = {"bilinear_gather_planes": steps + eval_chunks, "bilinear_gather_2d": 0,
-                    "bilinear_gather_2d_backward": 6 * steps, "gather_rows": iters}
+                    "bilinear_gather_2d_backward": 6 * steps, "gather_rows": iters,
+                    "occupancy_lookup": 0, "group_compact": 0}
             check(launches == want, f"launches {launches}, expected {want}")
             result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
             result["loop"] = loop_profile(prof)
@@ -881,7 +906,7 @@ def train_phase(
     return result
 
 
-def compare_step(trainer, rays, rgbs, need_appearance: bool = False) -> dict:
+def compare_step(trainer, rays, rgbs, need_appearance: bool = False, case: str | None = None) -> dict:
     """One step's MSE and plane gradients with the kernels and with the
     plain sampler on the same batch and jitter; also the share of sample
     rows whose fetch cotangent is all zero, by fetch. On the card, the
@@ -926,8 +951,9 @@ def compare_step(trainer, rays, rgbs, need_appearance: bool = False) -> dict:
     check(app_scale > 0 or not need_appearance, "no appearance gradient")
     if rays.is_cuda:
         H, W, c_total = trainer.params["plane_xy"].shape
+        case = case or ("opaque step" if need_appearance else "trained step")
         out["backward"] = [
-            backward_row(fetch, "opaque step" if need_appearance else "trained step", g, c,
+            backward_row(fetch, case, g, c,
                          0 if fetch == "density" else dd, H, W, c_total)
             for fetch, (g, c) in sorted(cotangents.items(), reverse=True)
         ]
@@ -978,7 +1004,315 @@ def profile_chunk(fn, reps: int = 3, unit: str = "chunk") -> None:
           f"{max(0.0, 1.0 - device_ms / wall_ms):.3f}")
 
 
-PHASES = ("kernel", "rows", "backward", "render", "train")
+def ball_volume(res: int, device: torch.device, seed: int = SEED) -> torch.Tensor:
+    """(res, res, res) uint8 occupancy like an event's: a ball of radius 0.6
+    in [-1, 1]^3 with 2% of the voxels flipped, dilated by one voxel."""
+    from ngf_tpu_torch.ops.grid_sample import max_pool_3d
+
+    ax = torch.linspace(-1.0, 1.0, res, device=device)
+    z, y, x = torch.meshgrid(ax, ax, ax, indexing="ij")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    vol = (x * x + y * y + z * z < 0.36) ^ (torch.rand(x.shape, generator=gen, device=device) < 0.02)
+    return (max_pool_3d(vol.float(), 3) > 0).to(torch.uint8)
+
+
+def grouped_samples(device: torch.device, scattered: bool = True, train: bool = True):
+    """(rays, z (n, s_pad), valid (n, s_pad)) of the grouped path before
+    its occupancy test: TRAIN_RAYS lego rays (a training batch's, scattered,
+    or a render chunk's middle rays), the trainer's 886 jittered samples or
+    an evaluation's 884, the trailing sample invalid, padded to groups of 8,
+    as ``_render_rays_grouped`` makes them."""
+    from ngf_tpu_torch.ops.rays import stratified_sample
+    from ngf_tpu_torch.utils.grid import cal_n_samples, grid_n_samples, grid_step_size
+
+    aabb = torch.tensor([[-1.5] * 3, [1.5] * 3], device=device)
+    step = grid_step_size(aabb.tolist(), [256] * 3, 0.5)
+    S = cal_n_samples([256] * 3, 0.5) if train else grid_n_samples(aabb.tolist(), step)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    if scattered:
+        rays = chunk_rays(WH, WH * WH, device)
+        rays = rays[torch.randperm(WH * WH, generator=gen, device=device)[:TRAIN_RAYS]]
+    else:
+        rays = chunk_rays(WH, TRAIN_RAYS, device)
+    jitter = torch.rand((TRAIN_RAYS, 1), generator=gen, device=device) if train else None
+    _, z, valid = stratified_sample(rays[:, :3], rays[:, 3:], aabb, 2.0, 6.0, S, step, jitter)
+    valid[:, S - 1] = False
+    pad = -(-S // GROUP) * GROUP - S
+    z = torch.cat([z, z[:, -1:].expand(-1, pad)], 1)
+    valid = torch.cat([valid, valid.new_zeros((TRAIN_RAYS, pad))], 1)
+    return rays, z, valid
+
+
+def query_points(rays: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The grouped path's occupancy query points: two a group, at its
+    quarter and three-quarter samples."""
+    zq = z[:, GROUP // 4 :: GROUP // 2]
+    return rays[:, None, :3] + rays[:, None, 3:] * zq[..., None]
+
+
+def k3_row(case: str, vol: torch.Tensor, pts: torch.Tensor, aabb, time_it: bool) -> dict:
+    """K3 on one point set against its plain version, byte for byte; timed
+    beside its bound and ``F.grid_sample`` of the float volume."""
+    from ngf_tpu_torch.ops.cuda_kernels import occupancy_lookup
+    from ngf_tpu_torch.ops.grid_sample import normalize_coord, occupancy_lookup_plain
+
+    got = occupancy_lookup(vol, pts, aabb)
+    torch.cuda.synchronize()
+    ref = occupancy_lookup_plain(vol, pts, aabb)
+    bad = (got != ref).sum().item()
+    check(bad == 0, f"K3 {case}: {bad} of {ref.numel()} lookups differ from the plain version")
+    row = {"case": case, "volume": list(vol.shape), "N": ref.numel(),
+           "occupied_share": ref.float().mean().item(), "mismatches": bad, "max_abs_err": 0.0}
+    if time_it:
+        coords = pts if aabb is None else normalize_coord(pts, aabb)
+        lib_vol = vol.float()[None, None]
+        lib_grid = coords.reshape(1, -1, 1, 1, 3).contiguous()
+
+        def library():
+            return F.grid_sample(lib_vol, lib_grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+
+        lib = library()[0, 0, :, 0, 0] > 0
+        check(torch.equal(lib.reshape(ref.shape), ref), f"K3 {case} vs F.grid_sample > 0")
+        n = ref.numel()
+        # Each point read once (12 bytes) and its byte written once, the
+        # volume read once.
+        bound_ms, bound_by = bytes_bound_ms(13 * n + vol.numel(), K3_OPS_PER_POINT * n)
+        row.update(ms=cuda_ms(lambda: occupancy_lookup(vol, pts, aabb), reps=50),
+                   plain_ms=cuda_ms(lambda: occupancy_lookup_plain(vol, pts, aabb), reps=3),
+                   library_ms=cuda_ms(library, reps=20), bound_ms=bound_ms, bound_by=bound_by)
+    print("[occupancy] K3 " + json.dumps(row))
+    return row
+
+
+def k4_bound_ms(valid: torch.Tensor, capg: int) -> tuple[float, str]:
+    """K4's least time on this data: the validity bytes of the groups up to
+    each ray's capg-th valid group (or all), the depths of its held groups
+    and of group 0 once for its pad slots, read once; the outputs written
+    once; one operation per validity byte."""
+    n, s_pad = valid.shape
+    ng = s_pad // GROUP
+    cnt = valid.view(n, ng, GROUP).any(-1).int().cumsum(-1)
+    full = cnt[:, -1] >= capg
+    walked = torch.where(full, (cnt < capg).sum(-1) + 1, torch.full_like(cnt[:, -1], ng))
+    held = cnt[:, -1].clamp(max=capg)
+    nbytes = (GROUP * walked.sum().item() + 4 * GROUP * (held.sum().item() + (~full).sum().item())
+              + n * capg * (4 + 1 + 8 * GROUP))
+    return bytes_bound_ms(nbytes, GROUP * walked.sum().item())
+
+
+def k4_row(case: str, z: torch.Tensor, valid: torch.Tensor, capg: int) -> dict:
+    """K4 against its plain version, exactly; timed beside its bound and a
+    stable ``torch.argsort`` of the group keys (the library's compaction
+    order)."""
+    from ngf_tpu_torch.ops.compaction import group_compact_plain
+    from ngf_tpu_torch.ops.cuda_kernels import group_compact
+
+    got = group_compact(z, valid, GROUP, capg)
+    torch.cuda.synchronize()
+    ref = group_compact_plain(z, valid, GROUP, capg)
+    for a, b, what in zip(got, ref, ("idx", "got", "z_c", "vmask")):
+        check(a.dtype == b.dtype and torch.equal(a, b), f"K4 {case}: {what} differs from plain")
+    n, s_pad = z.shape
+    groups = valid.view(n, s_pad // GROUP, GROUP).any(-1)
+    key = (~groups).int()
+    bound_ms, bound_by = k4_bound_ms(valid, capg)
+    row = {
+        "case": case, "n": n, "groups": s_pad // GROUP, "capg": capg,
+        "truncated_share": (groups.sum(-1) > capg).float().mean().item(),
+        "mean_valid_groups": groups.sum(-1).float().mean().item(), "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: group_compact(z, valid, GROUP, capg), reps=50),
+        "plain_ms": cuda_ms(lambda: group_compact_plain(z, valid, GROUP, capg), reps=5),
+        "library_ms": cuda_ms(lambda: torch.argsort(key, dim=-1, stable=True), reps=20),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    print("[occupancy] K4 " + json.dumps(row))
+    return row
+
+
+def occupancy_phase(device: torch.device) -> dict:
+    """K3 and K4 against their plain versions on the card at the staged
+    recipe's shapes, timed."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    aabb = torch.tensor([[-1.5] * 3, [1.5] * 3], device=device)
+    rays, z, valid = grouped_samples(device)
+    q = query_points(rays, z)
+    n_q = q.shape[0] * q.shape[1]
+    k3 = []
+    for res in (128, 256):
+        vol = ball_volume(res, device)
+        rand = (torch.rand((n_q, 3), generator=gen, device=device) * 2.0 - 1.0) * 1.05
+        lattice = torch.floor(torch.rand((n_q, 3), generator=gen, device=device) * res)
+        half = 0.5 * torch.randint(-1, 2, (n_q, 3), generator=gen, device=device)
+        k3.append(k3_row(f"random {res}^3", vol, rand, None, time_it=False))
+        k3.append(k3_row(f"texel centres and edges {res}^3", vol,
+                         (lattice + half) * (2.0 / (res - 1)) - 1.0, None, time_it=False))
+        k3.append(k3_row(f"train step query {res}^3", vol, q, aabb, time_it=True))
+        # The same points read where they lie in the padded samples: a view.
+        pts = rays[:, None, :3] + rays[:, None, 3:] * z[..., None]
+        k3.append(k3_row(f"train step query, strided view {res}^3", vol,
+                         pts[:, GROUP // 4 :: GROUP // 2], aabb, time_it=False))
+    # K4 on the train step's samples, culled by the 128^3 ball as the
+    # masked step culls them, at the open cap's 64 groups and at 16 (below
+    # many rays' count); and on an evaluation chunk's samples, all groups.
+    occ = ball_volume(128, device)
+    from ngf_tpu_torch.ops.cuda_kernels import occupancy_lookup
+
+    masked = (valid.view(TRAIN_RAYS, -1, GROUP // 2) & occupancy_lookup(occ, q, aabb)[..., None])
+    masked = masked.view(TRAIN_RAYS, -1)
+    k4 = [k4_row("train step, open (capg 64)", z, valid, 64),
+          k4_row("train step, masked (capg 64)", z, masked, 64),
+          k4_row("train step, masked (capg 16)", z, masked, 16)]
+    _, z_e, valid_e = grouped_samples(device, scattered=False, train=False)
+    k4.append(k4_row("evaluation chunk (all groups)", z_e, valid_e, z_e.shape[1] // GROUP))
+    return {"k3": k3, "k4": k4}
+
+
+def staged_phase(
+    device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRAIN_WH, extra: tuple[str, ...] = (),
+) -> dict:
+    """``main_torch.main`` on the staged recipe as the config has it, its
+    event, launches, losses and checkpoint checked; then one masked step
+    with the kernels against the plain sampler, the two stages' ms/step,
+    and the checkpoint through the render-only CLI. ``extra`` argv shrinks
+    the run for the CPU test."""
+    import main_torch
+    from ngf_tpu_torch.config import config_parser
+    from ngf_tpu_torch.data import load_dataset
+    from ngf_tpu_torch.ops import cuda_kernels
+    from ngf_tpu_torch.train.loop import TriPlaneTrainer
+    from ngf_tpu_torch.train.occupancy import AlphaGrid
+    from ngf_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cuda = device.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [
+            "--config", os.path.join(os.path.dirname(os.path.abspath(__file__)), TRAIN_CONFIG),
+            "--datadir", f"synthetic:views={views},wh={wh},test_views=1", "--render_test", "1",
+            "--basedir", tmp, "--expname", "staged", "--progress_refresh_rate", "100",
+            "--device", device.type, *extra,
+        ]
+        args = config_parser(argv)
+        iters = args.n_iters
+        event_it = min(e for e in args.update_AlphaMask_list if 0 < e <= iters)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = main_torch.main(argv)
+        main_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in cuda_kernels.KERNELS.items()}
+        mses, events = stats["train_mses"], stats["events"]
+        print(f"[staged] main_torch.main: {main_s:.3f} s ({stats['wall_time_s']:.3f} s in the "
+              f"train loop), {iters} steps, launches {launches}, test psnr {stats['test_psnrs']}")
+        print(f"[staged] events {json.dumps(events)}")
+        check(len(mses) == iters and all(math.isfinite(m) for m in mses), f"losses {mses}")
+        for name, part in (("open", mses[:event_it]), ("masked", mses[event_it:])):
+            k = max(1, min(20, len(part) // 4))
+            first, last = sum(part[:k]) / k, sum(part[-k:]) / k
+            check(last < first, f"{name} stage: mse of the last {k} steps {last} >= first {first}")
+        check(len(events) == 1 and events[0]["iteration"] == event_it, f"events {events}")
+        ev = events[0]
+        # Something occupied, and at the recipe's size on the card something
+        # culled (a tiny run's field can be uniform).
+        check(0 < ev["voxels"] <= ev["grid_voxels"]
+              and (ev["voxels"] < ev["grid_voxels"] or not cuda), f"voxels {ev['voxels']}")
+        check(0 < ev["rays_kept"] <= ev["rays_before"], f"rays {ev}")
+        check(32 <= ev["sample_cap"] <= ev["n_samples"]
+              and (ev["sample_cap"] % 32 == 0 or ev["sample_cap"] == ev["n_samples"])
+              and ev["capg"] == -(-ev["sample_cap"] // args.group_size), f"capacity {ev}")
+        psnr = stats["test_psnrs"]
+        check(len(psnr) == 1 and math.isfinite(psnr[0]), f"test psnr {psnr}")
+        run = os.path.join(tmp, "staged")
+        for f in ("model.npz", "imgs_test_all/000.png"):
+            check(os.path.isfile(os.path.join(run, f)), f"training wrote no {f}")
+        ckpt = os.path.join(run, "model.npz")
+        params, _, vol, vaabb = load_checkpoint(ckpt, device)
+        r = args.alpha_grid_res
+        check(vol is not None and tuple(vol.shape) == (r, r, r)
+              and int(vol.sum().item()) == ev["voxels"], "model.npz without the event's mask")
+        result = {"main_s": main_s, "launches": launches, "mses": mses, "event": ev,
+                  "test_psnr": psnr[0], "loop_s": stats["wall_time_s"],
+                  "shaded_groups_p999": stats["shaded_groups_p999"]}
+        if cuda:
+            result["launches_want"] = want = staged_launches(args, ev, event_it, wh)
+            check(launches == want, f"launches {launches}, expected {want}")
+            result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+
+        # The checkpoint through the render-only CLI: the dense path with
+        # its mask, one K1 and one K3 launch per chunk.
+        cuda_kernels.reset_launch_counts()
+        psnrs = main_torch.main([
+            "--render_only", "1", "--render_test", "1", "--ckpt", ckpt, "--dataset_name",
+            "synthetic", "--datadir", f"synthetic:wh={wh},test_views=1", "--eval_chunk",
+            str(args.eval_chunk), "--compute_extra_metrics", "0", "--expname", "render",
+            "--device", device.type,
+        ])
+        r_launches = {k: fn.launches for k, fn in cuda_kernels.KERNELS.items()}
+        chunks = -(-wh * wh // args.eval_chunk)
+        print(f"[staged] render-only CLI on the checkpoint: psnr {psnrs}, launches {r_launches}")
+        check(len(psnrs) == 1 and math.isfinite(psnrs[0]), f"render-only psnr {psnrs}")
+        if cuda:
+            check(r_launches["occupancy_lookup"] == chunks
+                  and r_launches["bilinear_gather_planes"] == chunks
+                  and r_launches["group_compact"] == 0, f"render-only launches {r_launches}")
+        result["render"] = {"psnr": psnrs[0], "launches": r_launches, "chunks": chunks}
+
+    # One batch of one view through the same configuration: a masked
+    # grouped step with the kernels against the plain sampler, then the
+    # open and the masked stages' ms/step.
+    ds = load_dataset("synthetic", f"synthetic:views=1,wh={wh}", split="train", is_stack=False)
+    trainer = TriPlaneTrainer(args, ds, init_params=params, device=device)
+    step = lambda: trainer.train_step(*trainer.next_batch(), trainer.gen)  # noqa: E731
+    if cuda:
+        result["open_step_ms"] = cuda_ms(step, reps=10, warmup=2)
+    trainer._event_update_alpha_mask(first=True)  # this view's rays and the L1 weight
+    trainer.alpha = AlphaGrid.from_volume(vol, vaabb)
+    trainer._auto_cap = ev["sample_cap"]
+    rays, rgbs = trainer.next_batch()
+    result["compare"] = compare_step(trainer, rays, rgbs, case="masked step")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+        result["masked_step_ms"] = cuda_ms(step, reps=10, warmup=2)
+        result["masked_step_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        print(f"[staged] open stage {result['open_step_ms']:.3f} ms/step (cap "
+              f"{args.open_sample_cap}), masked stage {result['masked_step_ms']:.3f} ms/step "
+              f"(cap {ev['sample_cap']}, capg {ev['capg']}), event phases "
+              f"{json.dumps(ev['phases_s'])}, peak {result['peak_gib']:.2f} GiB over the run")
+        profile_chunk(step, reps=2, unit="masked step")
+    return result
+
+
+def staged_launches(args, ev: dict, event_it: int, wh: int) -> dict:
+    """The launches the staged run must make: per step (microbatch chunks)
+    one K1, six K2, one K4 and, after the event, one K3, and one
+    ``gather_rows``; the event's K1 (grid chunks), K3 (filter and count
+    chunks) and ``gather_rows`` (the rebuilt table, the count subsample);
+    per evaluation chunk one K1, one K4 and, after the event, one K3."""
+    iters, micro = args.n_iters, max(1, args.microbatch)
+    r = args.alpha_grid_res
+    grid_chunks = -(-r ** 3 // (256 * 256 * 8))
+    filter_chunks = -(-ev["rays_before"] // 51200)
+    counted = min(ev["rays_kept"], 65536) if args.sample_cap == -1 else 0
+    count_chunks = -(-counted // 16384)
+    chunks = -(-wh * wh // args.eval_chunk)  # one test view
+    vis = [v for v in range(args.vis_every, iters + 1, args.vis_every)] if (
+        args.N_vis != 0 and args.vis_every > 0) else []
+    # An evaluation at the event's iteration runs before the event.
+    masked_evals = sum(v > event_it for v in vis) + 1  # and the final one
+    evals = len(vis) + 1
+    return {
+        "bilinear_gather_planes": micro * iters + grid_chunks + evals * chunks,
+        "bilinear_gather_2d": 0,
+        "bilinear_gather_2d_backward": 6 * micro * iters,
+        "gather_rows": iters + int(ev["refiltered"]) + int(ev["rays_kept"] > 65536),
+        "occupancy_lookup": (micro * (iters - event_it) + filter_chunks + count_chunks
+                             + masked_evals * chunks),
+        "group_compact": micro * iters + evals * chunks,
+    }
+
+
+PHASES = ("kernel", "rows", "backward", "render", "train", "occupancy", "staged")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1008,6 +1342,8 @@ def main(argv: list[str] | None = None) -> int:
         "backward": lambda: backward_phase(device),
         "render": lambda: render_phase(device),
         "train": lambda: train_phase(device),
+        "occupancy": lambda: occupancy_phase(device),
+        "staged": lambda: staged_phase(device),
     }
     out = {}
     for phase in PHASES:
@@ -1021,10 +1357,14 @@ def main(argv: list[str] | None = None) -> int:
     rows, bwd_rows, train = out["kernel"], out["backward"], out["train"]
     row_cases = out["rows"]["cases"]
 
+    # Each main path's launches, counted from 0 just before it.
+    paths = {"render": out["render"]["launches"], "train": out["train"]["launches"],
+             "staged": out["staged"]["launches"],
+             "staged render-only": out["staged"]["render"]["launches"]}
+
     def entry(name, source, replaces, row, max_abs_err, at, counters=None):
         counters = counters or (name,)
-        by_path = {path: sum(out[path]["launches"][c] for c in counters)
-                   for path in ("render", "train")}
+        by_path = {path: sum(counts[c] for c in counters) for path, counts in paths.items()}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1034,6 +1374,8 @@ def main(argv: list[str] | None = None) -> int:
         }
 
     step_rows = [r for state in train["compare"].values() for r in state.get("backward", [])]
+    step_rows += out["staged"]["compare"].get("backward", [])
+    k3, k4 = out["occupancy"]["k3"], out["occupancy"]["k4"]
     fused = [r for r in rows if r["fetch"] == "fused"]
     kernels = [
         entry("bilinear_gather_planes", "ngf_tpu_torch/ops/kernels/bilinear_gather.cu",
@@ -1053,6 +1395,16 @@ def main(argv: list[str] | None = None) -> int:
               "tools/probe_pallas.py:21,44,68",
               next(r for r in row_cases if r["case"] == "rays"), 0.0,
               f"rays table ({TRAIN_VIEWS * TRAIN_WH * TRAIN_WH}, 6) float32 at {TRAIN_RAYS} ids"),
+        entry("occupancy_lookup", "ngf_tpu_torch/ops/kernels/occupancy_lookup.cu",
+              "ngf_tpu/ops/grid_sample.py:526",
+              next(r for r in k3 if r["case"] == "train step query 128^3"), 0.0,
+              f"masked train step: {TRAIN_RAYS} x {2 * N_GROUPS} query points, 128^3 uint8 "
+              "volume, byte for byte"),
+        entry("group_compact", "ngf_tpu_torch/ops/kernels/group_compact.cu",
+              "ngf_tpu/ops/compaction.py:26",
+              next(r for r in k4 if r["case"] == "train step, masked (capg 64)"), 0.0,
+              f"masked train step: {TRAIN_RAYS} rays x {N_GROUPS} groups of {GROUP}, capg 64, "
+              "exact"),
     ]
     kernels[0]["rows"] = [
         {k: r[k] for k in ("case", "dtype", "ms", "bound_ms", "plain_ms", "library_ms",
@@ -1061,6 +1413,10 @@ def main(argv: list[str] | None = None) -> int:
         r["ms"] for r in bwd_rows if r["fetch"] == "appearance" and r["case"] == "random")
     kernels[1]["step_cotangent_ms"] = {
         r["case"]: r["ms"] for r in step_rows if r["fetch"] == "appearance"}
+    kernels[3]["rows"] = [{k: r[k] for k in ("case", "ms", "bound_ms", "plain_ms", "library_ms")}
+                          for r in k3 if "ms" in r]
+    kernels[4]["rows"] = [{k: r[k] for k in ("case", "capg", "ms", "bound_ms", "plain_ms",
+                                             "library_ms")} for r in k4]
     kernels[2]["batch_ms"] = out["rows"]["batch"]["ms"]
     kernels[2]["batch_two_call_ms"] = out["rows"]["batch"]["two_call_ms"]
     print(card)

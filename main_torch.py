@@ -1,18 +1,17 @@
 #!/usr/bin/env python3
 """CLI of the PyTorch/CUDA port (`ngf_tpu_torch`), the counterpart of
-`main.py`: dense InfoInv training, and render-only evaluation of a
-checkpoint.
+`main.py`: InfoInv training (the staged recipe: grouped renderer, occupancy
+mask events), and render-only evaluation of a checkpoint.
 
-    python main_torch.py --config configs/synthetic_infoinv_tpu.txt \\
-        --group_size 0 --n_iters 300 [--device cpu]
+    python main_torch.py --config configs/synthetic_infoinv_tpu.txt [--device cpu]
     python main_torch.py --config configs/lego_infoinv.txt \\
         --render_only 1 --render_test 1 --ckpt path/to/model.npz [--device cpu]
 
 It reads the same ``configs/*.txt`` and writes and reads the same ``.npz``
-checkpoints as `main.py`, and runs on the GPU unless ``--device cpu`` is
-given. Training covers the open stage: options the port does not carry yet
-(events inside ``n_iters``, ``group_size > 0``, the gauge subsystem,
-bfloat16, resume) raise, naming ROADMAP.md.
+checkpoints (with their occupancy mask) as `main.py`, and runs on the GPU
+unless ``--device cpu`` is given. Options the port does not carry yet (the
+gauge subsystem, bfloat16, ``rgb_cap != 0``, resume) raise, naming
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -138,6 +137,9 @@ def run_test(args):
         downsample=args.downsample_test, is_stack=True,
     )
     params, meta, alpha_volume, alpha_aabb = load_checkpoint(args.ckpt, device)
+    if alpha_volume is not None:
+        # The uint8 copy the occupancy lookup (K3) reads, made once.
+        alpha_volume = (alpha_volume > 0).to(torch.uint8)
     model_cfg = TriPlaneConfig(**meta["model_cfg"])
     rcfg = RenderConfig(
         aabb=tuple(map(tuple, meta["aabb"])),

@@ -19,7 +19,9 @@ raw stream handle instead of a stream object (:func:`_launch`).
 Kernels: ``bilinear_gather_planes`` (K1, the tri-plane fetch: up to three
 planes in one launch, split into the two decoders' inputs) with its
 one-plane call ``bilinear_gather_2d``, ``bilinear_gather_2d_backward`` (K2,
-its plane gradient) and ``gather_rows`` (the trainer's batch assembly).
+its plane gradient), ``gather_rows`` (the trainer's batch assembly),
+``occupancy_lookup`` (K3, the alpha-mask test) and ``group_compact`` (K4,
+the grouped renderer's per-ray compaction).
 """
 
 from __future__ import annotations
@@ -120,6 +122,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "gather_rows":
         lib.ngf_gather_rows.argtypes = [vp, i64, i32, i64, vp, i32, i64, vp, vp]
         lib.ngf_gather_rows.restype = i32
+    elif name == "occupancy_lookup":
+        lib.ngf_occupancy_lookup.argtypes = [
+            vp, i64, i64, i64, i64, i64, vp, vp, i32, i32, i32, vp, vp,
+        ]
+        lib.ngf_occupancy_lookup.restype = i32
+    elif name == "group_compact":
+        lib.ngf_group_compact.argtypes = [vp, i64, vp, i64, i32, i32, i32, i32, vp, vp, vp, vp, vp]
+        lib.ngf_group_compact.restype = i32
 
 
 def build_all() -> float:
@@ -429,12 +439,125 @@ def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 gather_rows.launches = 0
 
+
+def occupancy_lookup(
+    volume: torch.Tensor, points: torch.Tensor, aabb: torch.Tensor | None = None
+) -> torch.Tensor:
+    """CUDA kernel K3 (``kernels/occupancy_lookup.cu``): is each point in
+    occupied space of a binary volume, ``grid_sample_3d(...) > 0``.
+
+    Args:
+      volume: (D, H, W) uint8 CUDA tensor, contiguous, z-major.
+      points: (..., 3) float32 CUDA tensor; up to three dimensions are read
+        with their strides as they lie (``pts[:, 2::4]`` needs no copy).
+      aabb: (2, 3) float32 CUDA tensor, the volume's box (the kernel
+        normalises the points with it), or None for points that are
+        coordinates in [-1, 1].
+
+    Returns:
+      (...) bool.
+    """
+    tensors = (volume, points) if aabb is None else (volume, points, aabb)
+    if not _on_one_device(*tensors):
+        raise ValueError(
+            "occupancy_lookup needs volume, points and aabb on one CUDA device, got "
+            f"{[str(t.device) for t in tensors]}"
+        )
+    if volume.dtype != torch.uint8 or volume.dim() != 3 or not volume.is_contiguous():
+        raise ValueError(
+            f"volume must be (D, H, W) uint8 and contiguous, got {tuple(volume.shape)} {volume.dtype}"
+        )
+    if points.dtype != torch.float32 or points.dim() < 1 or points.shape[-1] != 3:
+        raise ValueError(f"points must be (..., 3) float32, got {tuple(points.shape)} {points.dtype}")
+    if aabb is not None:
+        if aabb.dtype != torch.float32 or aabb.shape != (2, 3):
+            raise ValueError(f"aabb must be (2, 3) float32, got {tuple(aabb.shape)} {aabb.dtype}")
+        aabb = aabb.contiguous()
+    batch_shape = points.shape[:-1]
+    if points.dim() == 3:
+        p3 = points
+    elif points.dim() == 2:
+        p3 = points[None]
+    else:
+        p3 = points.reshape(-1, 3)[None]
+    out = torch.empty(batch_shape, dtype=torch.bool, device=volume.device)
+    A, B, _ = p3.shape
+    if A * B == 0:
+        return out
+    D, H, W = volume.shape
+    lib = _lib("occupancy_lookup")
+    _launch(
+        lib, lib.ngf_occupancy_lookup, volume.get_device(), "occupancy_lookup",
+        p3.data_ptr(), A, B, p3.stride(0), p3.stride(1), p3.stride(2),
+        None if aabb is None else aabb.data_ptr(), volume.data_ptr(), D, H, W, out.data_ptr(),
+    )
+    occupancy_lookup.launches += 1
+    return out
+
+
+occupancy_lookup.launches = 0
+
+
+def group_compact(
+    z_vals: torch.Tensor, valid: torch.Tensor, group: int, capg: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """CUDA kernel K4 (``kernels/group_compact.cu``): per ray, the first
+    ``capg`` groups of ``group`` consecutive samples holding a valid sample.
+
+    Args:
+      z_vals: (n, s_pad) float32 CUDA tensor, samples contiguous;
+        s_pad = ng * group.
+      valid: (n, s_pad) bool CUDA tensor, samples contiguous.
+
+    Returns:
+      idx (n, capg) int32, got (n, capg) bool, z_c (n, capg * group)
+      float32 and vmask (n, capg * group) float32, as
+      ``group_compact_plain`` (``ngf_tpu_torch/ops/compaction.py``) gives
+      them.
+    """
+    if not _on_one_device(z_vals, valid):
+        raise ValueError(
+            f"group_compact needs z_vals and valid on one CUDA device, got {z_vals.device} "
+            f"and {valid.device}"
+        )
+    if z_vals.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise ValueError(f"z_vals must be float32 and valid bool, got {z_vals.dtype}, {valid.dtype}")
+    if z_vals.dim() != 2 or valid.shape != z_vals.shape:
+        raise ValueError(f"z_vals and valid must be (n, s_pad), got {tuple(z_vals.shape)} "
+                         f"and {tuple(valid.shape)}")
+    if z_vals.stride(1) != 1 or valid.stride(1) != 1:
+        raise ValueError("z_vals and valid need contiguous samples")
+    n, s_pad = z_vals.shape
+    if group < 1 or capg < 1 or s_pad % group:
+        raise ValueError(f"group {group} and capg {capg} for {s_pad} samples")
+    dev = z_vals.device
+    idx = torch.empty((n, capg), dtype=torch.int32, device=dev)
+    got = torch.empty((n, capg), dtype=torch.bool, device=dev)
+    z_c = torch.empty((n, capg * group), dtype=torch.float32, device=dev)
+    vmask = torch.empty((n, capg * group), dtype=torch.float32, device=dev)
+    if n == 0:
+        return idx, got, z_c, vmask
+    lib = _lib("group_compact")
+    _launch(
+        lib, lib.ngf_group_compact, z_vals.get_device(), "group_compact",
+        z_vals.data_ptr(), z_vals.stride(0), valid.data_ptr(), valid.stride(0), n,
+        s_pad // group, group, capg, idx.data_ptr(), got.data_ptr(), z_c.data_ptr(),
+        vmask.data_ptr(),
+    )
+    group_compact.launches += 1
+    return idx, got, z_c, vmask
+
+
+group_compact.launches = 0
+
 # Every wrapper with a launch counter, by kernel name.
 KERNELS = {
     "bilinear_gather_planes": bilinear_gather_planes,
     "bilinear_gather_2d": bilinear_gather_2d,
     "bilinear_gather_2d_backward": bilinear_gather_2d_backward,
     "gather_rows": gather_rows,
+    "occupancy_lookup": occupancy_lookup,
+    "group_compact": group_compact,
 }
 
 

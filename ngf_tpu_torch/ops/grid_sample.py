@@ -17,11 +17,16 @@ two. ``grid_sample_2d`` is its one-plane call.
 A fetch names its channels of the whole plane (``channels``), so its
 gradient lands in those channels of the whole plane's gradient: no slice is
 copied either way, and both outputs of a plane add into one buffer.
+
+``occupancy_lookup`` is the trilinear alpha-mask test ``> 0``: the
+``occupancy_lookup`` kernel (K3) on CUDA tensors, ``occupancy_lookup_plain``
+on CPU tensors. ``max_pool_3d`` dilates the mask.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_kernels
 
@@ -243,8 +248,9 @@ def grid_sample_3d(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     (`ngf_tpu/ops/grid_sample.py:559-613`): torch 5D ``grid_sample`` with
     align_corners=True and zero padding; coords[..., 0] -> W, 1 -> H, 2 -> D.
 
-    Plain PyTorch: its only consumer is the occupancy lookup of checkpoints
-    that carry a mask, which tests the result ``> 0``.
+    The plain trilinear reference. No path runs it: every consumer of the
+    occupancy volume tests the result ``> 0`` and calls
+    :func:`occupancy_lookup` (the K3 kernel on the card) instead.
     """
     D, H, W, C = volume.shape
     flat = volume.reshape(D * H * W, C)
@@ -278,3 +284,83 @@ def grid_sample_3d(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
                 tap = flat[idx] * w[..., None]
                 out = tap if out is None else out + tap
     return out
+
+
+def normalize_coord(xyz: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
+    """Map AABB coords to [-1, 1] (`InfoInv/models/FieldBase.py:88-89`)."""
+    inv_size = 2.0 / (aabb[1] - aabb[0])
+    return (xyz - aabb[0]) * inv_size - 1.0
+
+
+def _lookup_axis(c: torch.Tensor, size: int):
+    """Per-axis (c0, frac) of the occupancy lookup: the unnormalised
+    coordinate, clamped to [-2, size+1] with NaN sent to -2 (both leave
+    every tap of the axis outside, as they are without the clamp), its floor
+    as an integer and its fraction."""
+    c = _unnormalize(c, size)
+    c = torch.where(c >= -2.0, c, torch.full_like(c, -2.0)).clamp(max=size + 1.0)
+    c0f = torch.floor(c)
+    return c0f.long(), c - c0f
+
+
+def occupancy_lookup_plain(
+    volume: torch.Tensor, points: torch.Tensor, aabb: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Plain PyTorch version of the ``occupancy_lookup`` kernel (K3).
+
+    ``grid_sample_3d(volume[..., None], coords)[..., 0] > 0`` for a volume of
+    non-negative values, computed as the kernel computes it: a point is
+    occupied iff one of its eight trilinear taps lies inside the volume, has
+    a value > 0 and a weight ``wx * wy * wz > 0`` (the float32 products of
+    `grid_sample_3d`, in its order).
+
+    Args:
+      volume: (D, H, W) occupancy, z-major (any dtype; uint8 on the path).
+      points: (..., 3) float32; with ``aabb`` world points, normalised with
+        :func:`normalize_coord`, else coordinates in [-1, 1] (x -> W).
+      aabb: optional (2, 3) float32 box of the volume.
+
+    Returns:
+      (...) bool.
+    """
+    D, H, W = volume.shape
+    coords = points.float() if aabb is None else normalize_coord(points.float(), aabb)
+    x0, fx = _lookup_axis(coords[..., 0], W)
+    y0, fy = _lookup_axis(coords[..., 1], H)
+    z0, fz = _lookup_axis(coords[..., 2], D)
+    flat = volume.reshape(-1) > 0
+    hit = torch.zeros(coords.shape[:-1], dtype=torch.bool, device=coords.device)
+    for dz in (0, 1):
+        wz, zi = (fz if dz else 1.0 - fz), z0 + dz
+        for dy in (0, 1):
+            wy, yi = (fy if dy else 1.0 - fy), y0 + dy
+            for dx in (0, 1):
+                wx, xi = (fx if dx else 1.0 - fx), x0 + dx
+                inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H) & (zi >= 0) & (zi < D)
+                idx = (zi.clamp(0, D - 1) * H + yi.clamp(0, H - 1)) * W + xi.clamp(0, W - 1)
+                hit |= inb & (wx * wy * wz > 0) & flat[idx]
+    return hit
+
+
+def occupancy_lookup(
+    volume: torch.Tensor, points: torch.Tensor, aabb: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Occupancy of (..., 3) points in a z-major (D, H, W) uint8 volume with
+    the semantics of ``grid_sample_3d(...) > 0`` (`ngf_tpu/render/volume.py:42-54`,
+    the trilinear lookup every occupancy consumer tests ``> 0``). A CUDA
+    volume launches the ``occupancy_lookup`` kernel (K3) once, which reads
+    strided point views as they are; a CPU volume takes
+    :func:`occupancy_lookup_plain`. There is no fallback between the two.
+    Returns (...) bool."""
+    if volume.is_cuda:
+        return cuda_kernels.occupancy_lookup(volume, points, aabb)
+    if volume.device.type != "cpu" or points.device != volume.device:
+        raise ValueError(f"occupancy_lookup on {volume.device} with points on {points.device}")
+    return occupancy_lookup_plain(volume, points, aabb)
+
+
+def max_pool_3d(volume: torch.Tensor, kernel: int = 3) -> torch.Tensor:
+    """3D max pool of a (D, H, W) volume, stride 1, 'same' padding of
+    ``kernel // 2`` (`ngf_tpu/ops/grid_sample.py:678-695`): the library's
+    ``F.max_pool3d``, as `InfoInv/models/FieldBase.py:188` calls it."""
+    return F.max_pool3d(volume[None, None], kernel, stride=1, padding=kernel // 2)[0, 0]

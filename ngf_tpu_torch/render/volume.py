@@ -1,16 +1,22 @@
-"""Dense-masked volume rendering of tri-plane fields, for evaluation and
-training.
+"""Volume rendering of tri-plane fields, for evaluation and training.
 
-Port of `ngf_tpu/render/volume.py:57-132,375-508` (reference
+Port of `ngf_tpu/render/volume.py` (reference
 `InfoInv/models/FieldBase.py:228-282`): every sample is evaluated densely and
 invalid contributions are zeroed by masks, which composites to the same
-outputs as the reference's ragged boolean indexing. The optional
-``sample_cap`` compaction keeps the first ``sample_cap`` valid samples per
-ray in marching order (a stable argsort). Training passes a
+outputs as the reference's ragged boolean indexing. Training passes a
 ``torch.Generator`` for the per-ray jitter and the random background.
 
-Only the dense path (``group_size == 0``) is ported, without ``rgb_cap`` or
-``mask_stride``.
+Two paths, as in the JAX package:
+- dense (``group_size == 0``): the optional ``sample_cap`` compaction keeps
+  the first ``sample_cap`` valid samples per ray in marching order (a stable
+  argsort);
+- grouped (``group_size > 0``, the trainer's default): samples keep or drop
+  in groups of G consecutive samples, compacted per ray by the ``group_compact``
+  kernel (K4), with the occupancy mask queried once or twice per group by
+  the ``occupancy_lookup`` kernel (K3) and the planes fetched by K1.
+An occupancy volume is tested with :func:`occupancy_lookup` on both paths.
+Not ported: ``rgb_cap`` (top-K shading) and ``mask_stride > 1`` on the dense
+path; both raise.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import dataclasses
 import functools
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..fields.triplane import (
@@ -30,17 +37,22 @@ from ..fields.triplane import (
     triplane_rgb,
     triplane_rgb_from_feats,
 )
+from ..ops.compaction import group_compact
 from ..ops.compositing import raw2alpha
-from ..ops.grid_sample import grid_sample_3d
+from ..ops.grid_sample import normalize_coord, occupancy_lookup
 from ..ops.rays import stratified_sample
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static rendering configuration (`ngf_tpu/render/volume.py:57-110`):
-    the fields of the dense path. ``rgb_cap`` and ``mask_stride`` are
-    carried for the trainer's configuration; only their defaults (0, 1) are
-    ported."""
+    """Static rendering configuration (`ngf_tpu/render/volume.py:57-110`).
+    ``rgb_cap`` and ``mask_stride`` are carried for the trainer's
+    configuration; only their defaults (0, 1) are ported. ``run_len``,
+    ``tile_q``, ``pair_gather`` and ``duo_bwd`` choose TPU gather
+    formulations of the same values: every one of them fetches through K1
+    here, and only their preconditions are kept. (``fused_fetch`` is not a
+    field: both of its values give the same values through the one fused
+    fetch.)"""
 
     aabb: tuple[tuple[float, float, float], tuple[float, float, float]]
     near: float = 2.0
@@ -53,7 +65,11 @@ class RenderConfig:
     sample_cap: int = 0  # 0 = dense (no compaction)
     rgb_cap: int = 0  # top-K shading: not ported yet
     mask_stride: int = 1  # strided occupancy lookup: not ported yet
-    group_size: int = 0  # grouped path: not ported yet
+    group_size: int = 0  # 0 = dense path, G > 0 = grouped path
+    run_len: int = 4
+    tile_q: int = 2
+    pair_gather: bool = False
+    duo_bwd: bool = False
 
     def aabb_tensor(self, device) -> torch.Tensor:
         return _aabb_tensor(self.aabb, torch.device(device))
@@ -68,12 +84,6 @@ def _aabb_tensor(aabb, device: torch.device) -> torch.Tensor:
         return torch.tensor(aabb, dtype=torch.float32, device=device)
 
 
-def normalize_coord(xyz: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
-    """Map AABB coords to [-1, 1] (`InfoInv/models/FieldBase.py:88-89`)."""
-    inv_size = 2.0 / (aabb[1] - aabb[0])
-    return (xyz - aabb[0]) * inv_size - 1.0
-
-
 def _compact(order_key: torch.Tensor, cap: int, *arrays: torch.Tensor):
     """Stable-sort samples so valid ones (key 0) come first; keep ``cap``
     (`ngf_tpu/render/volume.py:119-132`)."""
@@ -83,6 +93,31 @@ def _compact(order_key: torch.Tensor, cap: int, *arrays: torch.Tensor):
         idx = order if a.dim() == order.dim() else order[..., None].expand(-1, -1, a.shape[-1])
         outs.append(torch.gather(a, 1, idx))
     return outs
+
+
+def _occupancy_bytes(volume: torch.Tensor) -> torch.Tensor:
+    """The (D, H, W) uint8 volume the occupancy lookup reads: a {0, 1}
+    volume of another dtype (a checkpoint's float32 mask) is tested ``> 0``."""
+    if volume.dtype != torch.uint8:
+        volume = (volume > 0).to(torch.uint8)
+    return volume.contiguous()
+
+
+def _ray_jitter(generator: torch.Generator, n: int, device) -> torch.Tensor:
+    """One uniform offset per ray (`ngf_tpu/ops/rays.py:89-90`)."""
+    return torch.rand((n, 1), generator=generator, device=device)
+
+
+def _background(rgb_map, acc_map, white_bg: bool, generator, device):
+    """Composite the background and clamp (`ngf_tpu/render/volume.py:347-353,494-501`):
+    white, or in training without a white background white for the whole
+    batch with probability 1/2 (`FieldBase.py:270`)."""
+    if white_bg:
+        rgb_map = rgb_map + (1.0 - acc_map[..., None])
+    elif generator is not None:
+        mix = (torch.rand((), generator=generator, device=device) < 0.5).to(rgb_map.dtype)
+        rgb_map = rgb_map + mix * (1.0 - acc_map[..., None])
+    return rgb_map.clamp(0.0, 1.0)
 
 
 def render_rays(
@@ -102,8 +137,9 @@ def render_rays(
     Args:
       rays: (N, 6) [origin, unit direction], on the params' device.
       iteration: drives the gauge schedule.
-      alpha_volume: optional (D, H, W) occupancy grid, z-major; samples with
-        trilinear alpha == 0 are culled (`FieldBase.py:238-244`).
+      alpha_volume: optional (D, H, W) occupancy grid, z-major: uint8 as
+        the trainer's ``AlphaGrid.occ``, or any {0, 1} tensor; samples in
+        unoccupied space are culled (`FieldBase.py:238-244`).
       alpha_aabb: (2, 3) AABB of the alpha volume (defaults to the field's).
       sample_fn: optional ``(plane, coords, name) -> feats`` replacing the
         gather for every plane fetch, one plane and one of the density and
@@ -116,26 +152,28 @@ def render_rays(
 
     Returns:
       dict with 'rgb_map' (N, 3), 'depth_map' (N,, no gradient) and
-      'acc_map' (N,).
+      'acc_map' (N,); a grouped training render adds 'shaded_groups' (N,)
+      int32.
     """
-    if rcfg.group_size > 0:
+    if rcfg.rgb_cap != 0:
         raise NotImplementedError(
-            "group_size > 0 (grouped compaction) is not ported yet: see "
-            "ROADMAP.md queue 1, item 2, 'Occupancy events and the grouped path'"
+            f"rgb_cap={rcfg.rgb_cap}: only dense shading (0) is ported; see ROADMAP.md "
+            "queue 1, 'rgb_cap and mask_stride'"
         )
-    if rcfg.rgb_cap != 0 or rcfg.mask_stride > 1:
+    if rcfg.group_size > 0:
+        return _render_rays_grouped(
+            params, model_cfg, rcfg, rays, iteration=iteration, alpha_volume=alpha_volume,
+            alpha_aabb=alpha_aabb, sample_fn=sample_fn, generator=generator,
+        )
+    if rcfg.mask_stride > 1:
         raise NotImplementedError(
-            f"rgb_cap={rcfg.rgb_cap}, mask_stride={rcfg.mask_stride}: only dense shading "
-            "and per-sample occupancy (0, 1) are ported; see ROADMAP.md queue 1, "
-            "'rgb_cap and mask_stride'"
+            f"mask_stride={rcfg.mask_stride}: only per-sample occupancy (1) is ported on the "
+            "dense path; see ROADMAP.md queue 1, 'rgb_cap and mask_stride'"
         )
     aabb = rcfg.aabb_tensor(rays.device)
     rays_o, viewdirs = rays[:, 0:3], rays[:, 3:6]
 
-    jitter = None
-    if generator is not None:
-        # One uniform offset per ray (`ngf_tpu/ops/rays.py:89-90`).
-        jitter = torch.rand((rays.shape[0], 1), generator=generator, device=rays.device)
+    jitter = None if generator is None else _ray_jitter(generator, rays.shape[0], rays.device)
     pts, z_vals, valid = stratified_sample(
         rays_o, viewdirs, aabb, rcfg.near, rcfg.far, rcfg.n_samples, rcfg.step_size, jitter
     )
@@ -143,10 +181,9 @@ def render_rays(
     dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1)
 
     if alpha_volume is not None:
-        # Trilinear occupancy lookup (`ngf_tpu/render/volume.py:42-54,449-452`).
+        # Occupancy lookup (`ngf_tpu/render/volume.py:42-54,449-452`): K3.
         a_aabb = aabb if alpha_aabb is None else alpha_aabb
-        alphas = grid_sample_3d(alpha_volume[..., None], normalize_coord(pts, a_aabb))[..., 0]
-        valid = valid & (alphas > 0)
+        valid = valid & occupancy_lookup(_occupancy_bytes(alpha_volume), pts, a_aabb)
 
     if rcfg.sample_cap and rcfg.sample_cap < rcfg.n_samples:
         order_key = (~valid).to(torch.int32)
@@ -179,19 +216,141 @@ def render_rays(
     else:
         rgb = triplane_rgb(params, model_cfg, xy, yz, xz, views, sample_fn)
     rgb = rgb * rgb_mask[..., None]
-    rgb_map = (weight[..., None] * rgb).sum(dim=-2)
-
-    if rcfg.white_bg:
-        rgb_map = rgb_map + (1.0 - acc_map[..., None])
-    elif generator is not None:
-        # A white background for the whole batch with probability 1/2
-        # (`ngf_tpu/render/volume.py:494-499`, `FieldBase.py:270`).
-        mix = (torch.rand((), generator=generator, device=rays.device) < 0.5).to(rgb_map.dtype)
-        rgb_map = rgb_map + mix * (1.0 - acc_map[..., None])
-    rgb_map = rgb_map.clamp(0.0, 1.0)
+    rgb_map = _background((weight[..., None] * rgb).sum(dim=-2), acc_map, rcfg.white_bg,
+                          generator, rays.device)
 
     depth_map = (weight * z_vals).sum(dim=-1)
     # As `ngf_tpu/render/volume.py:503-506` has it: the last ray component
     # (the z of the direction) fills the missed transmittance.
     depth_map = (depth_map + (1.0 - acc_map) * rays[..., -1]).detach()
     return {"rgb_map": rgb_map, "depth_map": depth_map, "acc_map": acc_map}
+
+
+def _check_grouped_knobs(rcfg: RenderConfig) -> None:
+    """The preconditions of the JAX package's gather formulations
+    (`ngf_tpu/render/volume.py:266-286`); every one fetches through K1 here."""
+    G = rcfg.group_size
+    if rcfg.pair_gather:
+        if G % 2:
+            raise ValueError("pair_gather requires an even group_size")
+    elif rcfg.duo_bwd:
+        if G % 2:
+            raise ValueError("duo_bwd requires an even group_size")
+    elif rcfg.tile_q > 0 and rcfg.run_len > 1 and G % rcfg.run_len:
+        raise ValueError(
+            f"tiled runs require group_size % run_len == 0, got {G} % {rcfg.run_len}"
+        )
+
+
+def _render_rays_grouped(
+    params: Any,
+    model_cfg: TriPlaneConfig,
+    rcfg: RenderConfig,
+    rays: torch.Tensor,
+    *,
+    iteration: int,
+    alpha_volume: torch.Tensor | None,
+    alpha_aabb: torch.Tensor | None,
+    sample_fn,
+    generator: torch.Generator | None,
+) -> dict[str, torch.Tensor]:
+    """The group-compacted path (`ngf_tpu/render/volume.py:170-372`).
+
+    The same masked-compute semantics as the dense path, with the JAX
+    package's differences: samples keep or drop in groups of G consecutive
+    samples, at most ``ceil(sample_cap / G)`` groups a ray (all with
+    ``sample_cap`` 0); the trailing-zero dist is folded into the valid mask,
+    so every dist is the constant ``step_size``; the occupancy mask is
+    queried at two points a group (its quarter and three-quarter samples)
+    for an even G >= 4, else at its centre sample. Fetches go through K1
+    (one launch), the occupancy through K3 (one launch) and the compaction
+    through K4 (one launch).
+    """
+    _check_grouped_knobs(rcfg)
+    aabb = rcfg.aabb_tensor(rays.device)
+    rays_o, viewdirs = rays[:, 0:3], rays[:, 3:6]
+    n = rays.shape[0]
+    S, G = rcfg.n_samples, rcfg.group_size
+    ng = -(-S // G)
+    s_pad = ng * G
+
+    jitter = None if generator is None else _ray_jitter(generator, n, rays.device)
+    _, z_vals, valid = stratified_sample(
+        rays_o, viewdirs, aabb, rcfg.near, rcfg.far, S, rcfg.step_size, jitter
+    )
+    # The trailing-zero dist contributes alpha 0: the last sample is invalid.
+    valid[:, S - 1] = False
+    if s_pad > S:  # edge padding for the depths, zeros for the mask
+        z_vals = torch.cat([z_vals, z_vals[:, -1:].expand(n, s_pad - S)], dim=1)
+        valid = torch.cat([valid, valid.new_zeros((n, s_pad - S))], dim=1)
+
+    if alpha_volume is not None:
+        a_aabb = aabb if alpha_aabb is None else alpha_aabb
+        if G >= 4 and G % 2 == 0:
+            # Two queries a group, each serving G/2 samples.
+            zq, per = z_vals[:, G // 4 :: G // 2], G // 2
+        else:
+            zq, per = z_vals[:, G // 2 :: G], G
+        # The query points, computed as stratified_sample computes every
+        # sample point (so equal to them bit for bit).
+        q = rays_o[:, None, :] + viewdirs[:, None, :] * zq[..., None]
+        occ = occupancy_lookup(_occupancy_bytes(alpha_volume), q, a_aabb)
+        valid = (valid.view(n, -1, per) & occ[..., None]).view(n, s_pad)
+
+    cap = rcfg.sample_cap if rcfg.sample_cap else S
+    capg = min(ng, -(-cap // G))
+    _, _, z_c, vmask = group_compact(z_vals, valid, G, capg)
+
+    pts_c = rays_o[:, None, :] + viewdirs[:, None, :] * z_c[..., None]
+    xy, yz, xz = triplane_project(normalize_coord(pts_c, aabb))
+    xy, yz, xz = triplane_gauge(params, model_cfg, xy, yz, xz, iteration, sample_fn)
+    if sample_fn is None:
+        sigma, rgb_feat = triplane_density_and_rgbfeat(params, model_cfg, xy, yz, xz)
+    else:
+        sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn)
+    sigma = sigma * vmask
+    # One float32 step length for every sample (`volume.py:311`).
+    _, weight, _ = raw2alpha(sigma, float(np.float32(rcfg.step_size * rcfg.distance_scale)))
+    acc_map = weight.sum(dim=-1)
+
+    rgb_mask = (weight > rcfg.ray_march_weight_thres).to(weight.dtype) * vmask
+    views = viewdirs[:, None, :].expand(n, capg * G, 3)
+    if sample_fn is None:
+        rgb = triplane_rgb_from_feats(params, model_cfg, rgb_feat, views)
+    else:
+        rgb = triplane_rgb(params, model_cfg, xy, yz, xz, views, sample_fn)
+    rgb_map = _background(((weight * rgb_mask)[..., None] * rgb).sum(dim=-2), acc_map,
+                          rcfg.white_bg, generator, rays.device)
+
+    depth_map = (weight * z_c).sum(dim=-1)
+    depth_map = (depth_map + (1.0 - acc_map) * rays[..., -1]).detach()
+    out = {"rgb_map": rgb_map, "depth_map": depth_map, "acc_map": acc_map}
+    if generator is not None:
+        # Per ray, the groups whose best blend weight clears the shading
+        # threshold (`volume.py:359-371`): the statistic behind rgb_cap -2.
+        best = weight.detach().reshape(n, capg, G).amax(-1)
+        out["shaded_groups"] = (best > rcfg.ray_march_weight_thres).sum(-1, dtype=torch.int32)
+    return out
+
+
+def compute_alpha_grid_chunk(
+    params: Any,
+    model_cfg: TriPlaneConfig,
+    xyz: torch.Tensor,
+    aabb: torch.Tensor,
+    step_size: float,
+    alpha_volume: torch.Tensor | None = None,
+    alpha_aabb: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Alpha 1 - exp(-sigma * step_size) at (M, 3) points
+    (`ngf_tpu/render/volume.py:511-539`, `InfoInv/models/FieldBase.py:140-159`),
+    the gauge at iteration -1. With a previous occupancy volume, points it
+    culls get alpha 0 (K3). One K1 launch of the density channels."""
+    xy, yz, xz = triplane_project(normalize_coord(xyz, aabb))
+    xy, yz, xz = triplane_gauge(params, model_cfg, xy, yz, xz, -1)
+    sigma = triplane_density(params, model_cfg, xy, yz, xz)
+    if alpha_volume is not None:
+        a_aabb = aabb if alpha_aabb is None else alpha_aabb
+        mask = occupancy_lookup(_occupancy_bytes(alpha_volume), xyz, a_aabb)
+        sigma = sigma * mask.to(xyz.dtype)
+    return 1.0 - torch.exp(-sigma * float(np.float32(step_size)))

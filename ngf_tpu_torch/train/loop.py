@@ -1,10 +1,12 @@
-"""Dense InfoInv training: the open stage of `ngf_tpu/train/loop.py`.
+"""InfoInv training: `TriPlaneTrainer` of `ngf_tpu/train/loop.py`.
 
-Port of the part of `TriPlaneTrainer` (reference `InfoInv/main.py:191-360`)
-that trains without occupancy events: the geometry and samples, the bbox ray
-filter and the epoch sampler, the optimizer, the loss (MSE + L1 + optional
-TV) with microbatch accumulation, the run loop with its logs and
-checkpoint, and the final evaluation renderer.
+Port of the InfoInv recipe of `TriPlaneTrainer` (reference
+`InfoInv/main.py:191-360`): the geometry and samples, the bbox ray filter and
+the epoch sampler, the optimizer, the loss (MSE + L1 + optional TV) with
+microbatch accumulation, the grouped or dense renderer, the occupancy mask
+events (grid, L1 switch, ray refilter, measured sample capacity), the run
+loop with its logs, evaluations and checkpoint, and the final evaluation
+renderer.
 
 Differences from the JAX trainer:
 - The training rays and colours live on the device as one (N, 9) table,
@@ -14,9 +16,12 @@ Differences from the JAX trainer:
 - PyTorch runs eagerly, one step at a time: the TPU machinery (event
   prewarm, AOT compiles, ``steps_per_call`` scans, block prefetch) is not
   ported, and ``steps_per_call`` has no effect.
-- Not ported yet, and refused with a pointer to ROADMAP.md: occupancy and
-  upsample events inside ``n_iters``, ``group_size > 0``, the gauge
-  subsystem, ``compute_dtype bfloat16``, resume, data-parallel meshes.
+- At a mask event the (N, 9) table is rebuilt on the kept rays with one
+  ``gather_rows`` launch, and the occupancy tests are the K3 kernel on the
+  grid's uint8 copy.
+- Not ported yet, and refused with a pointer to ROADMAP.md: the gauge
+  subsystem (and with it shrink and upsample events), ``compute_dtype
+  bfloat16``, ``rgb_cap != 0``, resume, data-parallel meshes.
 """
 
 from __future__ import annotations
@@ -39,7 +44,14 @@ from ..render.volume import RenderConfig, render_rays
 from ..utils.checkpoint import save_checkpoint
 from ..utils.grid import cal_n_samples, grid_n_samples, grid_step_size, n_to_reso
 from ..utils.metrics import mse2psnr, tv_loss_2d
-from .occupancy import filter_rays_bbox
+from .occupancy import (
+    AlphaGrid,
+    auto_sample_cap,
+    filter_rays_alpha,
+    filter_rays_bbox,
+    occupied_samples_per_ray,
+    update_alpha_mask,
+)
 from .state import TriPlaneOptimizer
 
 
@@ -71,27 +83,20 @@ def check_ported(args: TrainArgs) -> None:
             "Ortho_weight > 0: the reference's vector_comp_diffs is dead code for "
             "tri-plane models; no equivalent is defined."
         )
-    events = [e for e in args.update_AlphaMask_list or [] if 0 < e <= args.n_iters]
-    if args.subsystem == "triplane":
-        events += [e for e in args.upsamp_list or [] if 0 < e <= args.n_iters]
-    if events:
-        raise _not_ported(
-            f"training with occupancy/upsample events inside n_iters={args.n_iters} "
-            f"(at {sorted(events)})",
-            "queue 1, item 2, 'Occupancy events and the grouped path'",
-        )
-    if args.group_size > 0:
-        raise _not_ported(
-            f"group_size={args.group_size} (grouped compaction); use --group_size 0",
-            "queue 1, item 2, 'Occupancy events and the grouped path'",
-        )
     if args.subsystem != "infoinv":
         raise _not_ported(
-            f"training the {args.subsystem!r} (learned gauge) subsystem",
+            f"training the {args.subsystem!r} (learned gauge) subsystem, with its shrink and "
+            "upsample events",
             "queue 1, item 3, 'Gauge training'",
         )
     if args.compute_dtype != "float32":
         raise _not_ported(f"compute_dtype {args.compute_dtype} in training", "queue 1, 'bfloat16 training'")
+    if args.rgb_cap != 0:
+        raise _not_ported(f"rgb_cap {args.rgb_cap} (top-K shading) in training",
+                          "queue 1, 'rgb_cap and mask_stride'")
+    if args.group_size == 0 and args.mask_stride > 1:
+        raise _not_ported(f"mask_stride {args.mask_stride} on the dense path",
+                          "queue 1, 'rgb_cap and mask_stride'")
     if args.mesh_shape:
         raise _not_ported(f"mesh_shape {args.mesh_shape!r}", "queue 1, item 5, 'Parallel modes'")
     if args.batch_size % max(1, args.microbatch):
@@ -134,6 +139,13 @@ class TriPlaneTrainer:
         self.params = _leaf_params(params, self.device)
         self.l1_weight = args.L1_weight_initial
         self.iteration = 0
+        self.alpha: AlphaGrid | None = None
+        self._auto_cap: int | None = None
+        # Running max over the steps of the per-batch ~p99.9 of
+        # ``shaded_groups`` (`ngf_tpu/train/loop.py:459-465`), on the device.
+        self.rgb_stat = torch.zeros((), dtype=torch.int32, device=self.device)
+        # One record per mask event: what it produced and its phases' seconds.
+        self.events: list[dict] = []
 
         # Bbox ray filter and sampler (`ngf_tpu/train/loop.py:183-199`).
         all_rays = np.asarray(train_dataset.all_rays, np.float32).reshape(-1, 6)
@@ -174,22 +186,15 @@ class TriPlaneTrainer:
 
     def _effective_sample_cap(self) -> int:
         """``sample_cap = -1`` (auto) is ``open_sample_cap`` before the first
-        occupancy grid, and this slice trains the open stage only
-        (`ngf_tpu/train/loop.py:313-326`)."""
+        occupancy grid, then ``masked_sample_cap`` when set, else the
+        capacity the mask event measured (`ngf_tpu/train/loop.py:313-326`)."""
         if self.args.sample_cap != -1:
             return self.args.sample_cap
-        return self.args.open_sample_cap
-
-    def _resolve_rgb_cap(self) -> int:
-        """(`ngf_tpu/train/loop.py:328-343`). ``-2`` (auto) stays dense until
-        the first event measures it, and this slice has no events."""
-        a = self.args.rgb_cap
-        cap = self._effective_sample_cap()
-        if a == -1 and cap:
-            return max(32, cap // 4)
-        if a == -2:
-            return 0
-        return max(0, a)
+        if self.alpha is None and self._auto_cap is None:
+            return self.args.open_sample_cap
+        if self.args.masked_sample_cap > 0:
+            return self.args.masked_sample_cap
+        return self._auto_cap or 0
 
     def _render_cfg(self, sample_cap: int | None = None) -> RenderConfig:
         """(`ngf_tpu/train/loop.py:368-387`)."""
@@ -203,10 +208,19 @@ class TriPlaneTrainer:
             ray_march_weight_thres=self.args.rm_weight_mask_thre,
             white_bg=self.train_dataset.white_bg,
             sample_cap=self._effective_sample_cap() if sample_cap is None else sample_cap,
-            rgb_cap=self._resolve_rgb_cap(),
+            rgb_cap=self.args.rgb_cap,  # 0: check_ported refuses the rest
             mask_stride=self.args.mask_stride,
             group_size=self.args.group_size,
+            run_len=self.args.run_len,
+            tile_q=self.args.tile_q,
+            pair_gather=bool(self.args.pair_gather),
+            duo_bwd=bool(self.args.duo_bwd),
         )
+
+    def _alpha_kw(self) -> dict:
+        if self.alpha is None:
+            return {}
+        return {"alpha_volume": self.alpha.occ, "alpha_aabb": self.alpha.aabb}
 
     # ------------------------------------------------------------------ step
 
@@ -216,8 +230,14 @@ class TriPlaneTrainer:
         out = render_rays(
             self.params, self.model_cfg, self._render_cfg(), rays,
             iteration=self.iteration, sample_fn=sample_fn, generator=generator,
+            **self._alpha_kw(),
         )
         mse = ((out["rgb_map"] - rgbs) ** 2).mean()
+        cnt = out.get("shaded_groups")
+        if cnt is not None:
+            # ~p99.9 of the batch: the 5th-largest per-ray count.
+            k = min(5, cnt.shape[0])
+            self.rgb_stat = torch.maximum(self.rgb_stat, torch.topk(cnt, k).values[k - 1])
         loss = mse + self.l1_weight * density_l1(self.params)
         tv_density, tv_app = self.args.TV_weight_density, self.args.TV_weight_app
         if tv_density > 0 or tv_app > 0:
@@ -263,12 +283,89 @@ class TriPlaneTrainer:
         rows = gather_rows(self.batch_table, self.sampler.nextids())
         return rows[:, :6], rows[:, 6:]
 
+    # ----------------------------------------------------------------- events
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _event_update_alpha_mask(self, first: bool) -> dict:
+        """The mask event (`ngf_tpu/train/loop.py:1274-1337`,
+        `InfoInv/main.py:320-332`): the occupancy grid at ``alpha_grid_res``
+        cubed, pre-culled by the previous grid at later events; on the first,
+        the L1 weight drops to ``L1_weight_rest`` and the training rays are
+        filtered to those touching occupied space, with a new sampler from
+        ``seed`` over them (the set stays when none would be kept); then the
+        measured sample capacity when ``sample_cap`` is -1. Returns the
+        event's record, also appended to ``self.events``."""
+        a = self.args
+        t = {"start": time.time()}
+        near, far = (float(v) for v in self.train_dataset.near_far)
+        r = a.alpha_grid_res
+        self.alpha, new_aabb = update_alpha_mask(
+            self.params, self.model_cfg, self.aabb,
+            # The occupancy threshold's length (`ngf_tpu/train/loop.py:1284-1287`).
+            a.alpha_mask_len or self.step_size,
+            grid_size=(r, r, r), alpha_thres=a.alpha_mask_thre, prev=self.alpha,
+            device=self.device,
+        )
+        self._sync()
+        t["grid"] = time.time()
+        rec = {"iteration": self.iteration, "first": first,
+               "voxels": int(self.alpha.occ.sum().item()), "grid_voxels": r ** 3,
+               "new_aabb": new_aabb.tolist(), "rays_before": int(self.batch_table.shape[0]),
+               "refiltered": False}
+        if first:
+            self.l1_weight = a.L1_weight_rest
+            keep = filter_rays_alpha(self.all_rays, self.alpha, self.aabb, near, far, self.step_size)
+            ids = keep.nonzero().squeeze(1)
+            if ids.numel():
+                self.batch_table = gather_rows(self.batch_table, ids)
+                self.all_rays, self.all_rgbs = self.batch_table[:, :6], self.batch_table[:, 6:]
+                self.sampler = DeviceSampler(ids.numel(), a.batch_size, a.seed, self.device)
+                rec["refiltered"] = True
+            else:
+                # Degenerate occupancy: keep the training set (`loop.py:1320-1323`).
+                print("[trainer] alpha-mask ray filter kept 0 rays; skipping filter")
+        rec["rays_kept"] = int(self.batch_table.shape[0])
+        self._sync()
+        t["filter"] = time.time()
+        if a.sample_cap == -1:
+            counts = occupied_samples_per_ray(
+                self.all_rays, self.alpha, self.aabb, near, far, self.step_size, self.n_samples
+            )
+            self._auto_cap = auto_sample_cap(counts, self.n_samples)
+            rec["counted_rays"] = int(counts.size)
+            print(f"[trainer] auto sample_cap -> {self._auto_cap} (p99.9 occupied samples/ray)")
+        t["counts"] = time.time()
+        cap = self._effective_sample_cap()
+        rec["sample_cap"], rec["n_samples"] = cap, self.n_samples
+        if a.group_size > 0:
+            rec["capg"] = min(-(-self.n_samples // a.group_size),
+                              -(-(cap or self.n_samples) // a.group_size))
+        rec["phases_s"] = self._event_phase_report("mask", t)
+        self.events.append(rec)
+        return rec
+
+    def _event_phase_report(self, kind: str, t: dict) -> dict:
+        """Print the event's phases in seconds, successive timestamps
+        (`ngf_tpu/train/loop.py:1416-1434`); returns them."""
+        parts, prev = {}, t["start"]
+        for k, v in t.items():
+            if k != "start":
+                parts[k] = v - prev
+                prev = v
+        print(f"[trainer] {kind} event @{self.iteration}: "
+              + " ".join(f"{k} {v:.2f}s" for k, v in parts.items()), flush=True)
+        return parts
+
     # ------------------------------------------------------------------ run
 
     def run(self) -> dict:
-        """Train to ``n_iters`` with logs, periodic evaluation and
-        checkpoints, then save ``model.npz`` (`ngf_tpu/train/loop.py:1495-1645`,
-        without events)."""
+        """Train to ``n_iters`` with logs, periodic evaluation, mask events
+        and checkpoints, then save ``model.npz``
+        (`ngf_tpu/train/loop.py:1495-1645`). At an iteration with both, the
+        evaluation runs before the event, as in the JAX trainer."""
         args = self.args
         log_path = None
         if self.logfolder:
@@ -311,6 +408,8 @@ class TriPlaneTrainer:
                         with open(log_path, "a") as f:
                             f.write(f"Iteration {it:05d}: test/psnr = "
                                     f"{float(np.mean(psnrs_test)):.2f}\n")
+                if it in (args.update_AlphaMask_list or []):
+                    self._event_update_alpha_mask(first=not self.events)
                 save_now = args.save_every > 0 and it % args.save_every == 0
                 if save_now and it < args.n_iters and self.logfolder:
                     self.save(os.path.join(self.logfolder, "model.npz"))
@@ -324,12 +423,15 @@ class TriPlaneTrainer:
             "rays_per_sec": args.batch_size * self.iteration / max(wall, 1e-9),
             "train_mses": mses,
             "id_uploads": self.sampler.uploads,
+            "events": self.events,
+            "shaded_groups_p999": int(self.rgb_stat.item()),
         }
 
     def make_eval_render_fn(self, iteration: int | None = None, full: bool = False):
-        """Chunk renderer ``rays -> (rgb, depth)`` of the current weights
-        (`ngf_tpu/train/loop.py:1207-1270`). ``full=True`` is the final
-        evaluation: the full geometry-derived sample count, no compaction."""
+        """Chunk renderer ``rays -> (rgb, depth)`` of the current weights and
+        occupancy grid (`ngf_tpu/train/loop.py:1207-1270`). ``full=True`` is
+        the final evaluation: the full geometry-derived sample count, no
+        compaction (on the grouped path: every group)."""
         rcfg = self._render_cfg()
         if full:
             rcfg = dataclasses.replace(
@@ -338,19 +440,19 @@ class TriPlaneTrainer:
                 rgb_cap=0,
             )
         it = self.args.n_iters + 1 if iteration is None else iteration
-        params, model_cfg, device = self.params, self.model_cfg, self.device
+        params, model_cfg, device, alpha_kw = self.params, self.model_cfg, self.device, self._alpha_kw()
 
         @torch.inference_mode()
         def render(rays):
-            out = render_rays(params, model_cfg, rcfg, rays.to(device), iteration=it)
+            out = render_rays(params, model_cfg, rcfg, rays.to(device), iteration=it, **alpha_kw)
             return out["rgb_map"], out["depth_map"]
 
         return render
 
     def save(self, path: str) -> None:
-        """Write the parameters and the geometry as an ``.npz`` checkpoint
-        that `main_torch.py` and `ngf_tpu` read (`ngf_tpu/train/loop.py:1676-1734`
-        without the resume state)."""
+        """Write the parameters, the geometry and the occupancy mask as an
+        ``.npz`` checkpoint that `main_torch.py` and `ngf_tpu` read
+        (`ngf_tpu/train/loop.py:1676-1734` without the resume state)."""
         meta = {
             "subsystem": self.args.subsystem,
             "model_cfg": dataclasses.asdict(self.model_cfg),
@@ -361,7 +463,10 @@ class TriPlaneTrainer:
             "near_far": [float(v) for v in self.train_dataset.near_far],
             "iteration": self.iteration,
         }
-        save_checkpoint(path, self.params, meta)
+        alpha = self.alpha
+        save_checkpoint(path, self.params, meta,
+                        alpha_volume=None if alpha is None else alpha.volume,
+                        alpha_aabb=None if alpha is None else alpha.aabb)
 
 
 def _leaf_params(tree, device):

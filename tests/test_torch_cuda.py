@@ -4,7 +4,9 @@ outputs, both lane widths, runs of shared stencils) and its one-plane call
 ``bilinear_gather_2d``, alone and inside the render path (one launch per
 chunk), its backward ``bilinear_gather_2d_backward`` alone (runs of shared
 stencils, zero rows, both lane widths, strided g) and through autograd, and
-``gather_rows``, alone and as the trainer's one-launch batch.
+``gather_rows``, alone and as the trainer's one-launch batch; the occupancy
+lookup ``occupancy_lookup`` (K3) and the group compaction ``group_compact``
+(K4) alone, refusing CPU tensors, and inside the render paths.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports neither JAX nor `ngf_tpu`, so it runs on a GPU machine
@@ -15,8 +17,8 @@ without them:
 Tolerances: float32 1e-5 (the same four float32 products summed in another
 order); bfloat16 one unit in the last place, at most 2^-7 of the value, since
 both round one float32 sum; rendered outputs 1e-4; plane gradients 1e-5 of
-the largest gradient (float32 atomics add in another order); row gathers
-exactly.
+the largest gradient (float32 atomics add in another order); row gathers,
+occupancy lookups and compactions exactly.
 """
 
 import dataclasses
@@ -29,7 +31,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 from ngf_tpu_torch.fields import triplane as tt  # noqa: E402
-from ngf_tpu_torch.ops import cuda_kernels, gather  # noqa: E402
+from ngf_tpu_torch.ops import compaction, cuda_kernels, gather  # noqa: E402
 from ngf_tpu_torch.ops import grid_sample as gs  # noqa: E402
 from ngf_tpu_torch.render import volume as tv  # noqa: E402
 
@@ -48,7 +50,8 @@ def cuda():
 
 def test_build_from_source(cuda):
     assert cuda_kernels.build_all() >= 0.0
-    for name in ("bilinear_gather", "bilinear_gather_backward", "gather_rows"):
+    for name in ("bilinear_gather", "bilinear_gather_backward", "gather_rows",
+                 "occupancy_lookup", "group_compact"):
         assert any(cuda_kernels.BUILD_DIR.glob(f"lib{name}-*.so")), name
 
 
@@ -398,6 +401,129 @@ def test_render_path_goes_through_kernel(cuda):
     assert (cuda_kernels.bilinear_gather_planes.launches,
             cuda_kernels.bilinear_gather_2d.launches) == (before[0] + 1, before[1])
     plain = tv.render_rays(params, cfg, rcfg, rays,
+                           sample_fn=lambda p, c, name: gs.grid_sample_2d_plain(p, c))
+    assert 0.02 < got["acc_map"].mean().item() < 0.98
+    for k in got:
+        assert (got[k] - plain[k]).abs().max().item() <= RENDER_TOL, k
+
+
+def _ball(shape, cuda, seed=0):
+    """A {0, 1} uint8 ball of radius 0.6 in [-1, 1]^3 with 5% of the voxels
+    flipped, dilated by one voxel."""
+    axes = [torch.linspace(-1, 1, n, device=cuda) for n in shape]
+    z, y, x = torch.meshgrid(*axes, indexing="ij")
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    vol = (x * x + y * y + z * z < 0.36) ^ (torch.rand(shape, generator=g, device=cuda) < 0.05)
+    return (gs.max_pool_3d(vol.float(), 3) > 0).to(torch.uint8)
+
+
+@pytest.mark.parametrize("shape", [(12, 14, 16), (128, 128, 128)])
+def test_occupancy_lookup_matches_plain(cuda, shape):
+    """Random points, texel centres and edges, the faces and NaN; and world
+    points with a box, read as a strided view."""
+    vol = _ball(shape, cuda)
+    D, H, W = shape
+    g = torch.Generator(device=cuda).manual_seed(1)
+    sizes = torch.tensor([W, H, D], device=cuda, dtype=torch.float32)
+    lattice = torch.floor(torch.rand((20000, 3), generator=g, device=cuda) * sizes)
+    edges = lattice + 0.5 * torch.randint(-1, 2, (20000, 3), generator=g, device=cuda)
+    cases = [torch.rand((50000, 3), generator=g, device=cuda) * 2.2 - 1.1,
+             lattice * 2.0 / (sizes - 1) - 1.0, edges * 2.0 / (sizes - 1) - 1.0]
+    cases[2][:4] = torch.tensor([[1.0, 1.0, 1.0], [-1.0, -1.0, -1.0], [float("nan"), 0.0, 0.0],
+                                 [1.0001, 0.0, 0.0]], device=cuda)
+    for coords in cases:
+        before = cuda_kernels.occupancy_lookup.launches
+        got = gs.occupancy_lookup(vol, coords)
+        assert cuda_kernels.occupancy_lookup.launches == before + 1
+        assert got.dtype == torch.bool
+        assert torch.equal(got, gs.occupancy_lookup_plain(vol, coords))
+    aabb = torch.tensor([[-1.2, -1.3, -1.1], [1.4, 1.2, 1.3]], device=cuda)
+    pts = torch.rand((64, 96, 3), generator=g, device=cuda) * 3.2 - 1.6
+    for view in (pts, pts[:, 2::4], pts[5], pts[:, :, None].expand(64, 96, 2, 3)):
+        got = gs.occupancy_lookup(vol, view, aabb)
+        assert got.shape == view.shape[:-1]
+        assert torch.equal(got, gs.occupancy_lookup_plain(vol, view, aabb))
+        assert 0.0 < got.float().mean().item() < 1.0
+
+
+@pytest.mark.parametrize("capg", [1, 16, 64, 111])
+def test_group_compact_matches_plain(cuda, capg):
+    """The train step's shapes (G = 8, 111 groups), capacities that
+    truncate many rays and none; rays with no valid sample."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    n, G, ng = 1000, 8, 111
+    z = torch.sort(torch.rand((n, ng * G), generator=g, device=cuda) * 4 + 2, dim=-1).values
+    p = torch.linspace(0.0, 0.3, n, device=cuda)[:, None]
+    valid = torch.rand((n, ng * G), generator=g, device=cuda) < p
+    valid[:, -5:] = False
+    before = cuda_kernels.group_compact.launches
+    got = compaction.group_compact(z, valid, G, capg)
+    assert cuda_kernels.group_compact.launches == before + 1
+    want = compaction.group_compact_plain(z, valid, G, capg)
+    for a, b, name in zip(got, want, ("idx", "got", "z_c", "vmask")):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert not got[1][0].any()  # ray 0 has no valid sample
+
+
+def test_kernels_refuse_cpu_tensors_and_wrong_inputs(cuda):
+    """No fallback: the K3 and K4 wrappers raise on a CPU tensor and on
+    what their kernels do not take."""
+    vol = torch.zeros((4, 4, 4), dtype=torch.uint8, device=cuda)
+    pts = torch.zeros((10, 3), device=cuda)
+    for v, p, a in ((vol.cpu(), pts, None), (vol, pts.cpu(), None), (vol.float(), pts, None),
+                    (vol, pts.double(), None), (vol.transpose(0, 1), pts, None),
+                    (vol, pts, torch.zeros((2, 3))), (vol, pts[:, :2], None)):
+        with pytest.raises(ValueError):
+            cuda_kernels.occupancy_lookup(v, p, a)
+    z = torch.zeros((4, 16), device=cuda)
+    valid = torch.zeros((4, 16), dtype=torch.bool, device=cuda)
+    for zz, vv, G in ((z.cpu(), valid.cpu(), 8), (z, valid.cpu(), 8), (z.double(), valid, 8),
+                      (z, valid.float(), 8), (z, valid, 3), (z.t(), valid.t(), 2)):
+        with pytest.raises(ValueError):
+            cuda_kernels.group_compact(zz, vv, G, 2)
+
+
+def _scene(cuda, seed=2):
+    cfg = dataclasses.replace(tt.TriPlaneConfig.infoinv_preset(True), plane_res=32)
+    params = tt.init_triplane(cfg, torch.Generator(device=cuda).manual_seed(seed), cuda)
+    params["density_decoder"]["mlp"]["layers"][-1]["b"].fill_(5.5)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    d = torch.randn((256, 3), generator=g, device=cuda)
+    d = d / d.norm(dim=-1, keepdim=True)
+    rays = torch.cat([-3.5 * d + 0.3 * torch.randn((256, 3), generator=g, device=cuda), d], -1)
+    return cfg, params, rays
+
+
+def test_render_only_mask_goes_through_k3(cuda, monkeypatch):
+    """The dense path with a checkpoint's float mask: one K3 launch per
+    chunk, and the plain lookup never runs."""
+    cfg, params, rays = _scene(cuda)
+    rcfg = tv.RenderConfig(aabb=((-1.5,) * 3, (1.5,) * 3), n_samples=60, step_size=0.09)
+    vol = _ball((16, 16, 16), cuda).float()
+    want = tv.render_rays(params, cfg, rcfg, rays, alpha_volume=vol,
+                          sample_fn=lambda p, c, name: gs.grid_sample_2d_plain(p, c))
+    monkeypatch.setattr(gs, "occupancy_lookup_plain", None)
+    before = cuda_kernels.occupancy_lookup.launches
+    got = tv.render_rays(params, cfg, rcfg, rays, alpha_volume=vol)
+    assert cuda_kernels.occupancy_lookup.launches == before + 1
+    for k in got:
+        assert (got[k] - want[k]).abs().max().item() <= RENDER_TOL, k
+
+
+@pytest.mark.parametrize("with_alpha", [False, True], ids=["open", "masked"])
+def test_grouped_render_launches_k1_k3_k4_once(cuda, with_alpha):
+    """A grouped chunk: one launch each of K1, K4 and, with a mask, K3;
+    against the plain sampler to 1e-4."""
+    cfg, params, rays = _scene(cuda, seed=4)
+    rcfg = tv.RenderConfig(aabb=((-1.5,) * 3, (1.5,) * 3), n_samples=60, step_size=0.09,
+                           group_size=8, sample_cap=32, tile_q=0)
+    kw = {"alpha_volume": _ball((16, 16, 16), cuda)} if with_alpha else {}
+    names = ("bilinear_gather_planes", "occupancy_lookup", "group_compact")
+    before = [cuda_kernels.KERNELS[k].launches for k in names]
+    got = tv.render_rays(params, cfg, rcfg, rays, **kw)
+    after = [cuda_kernels.KERNELS[k].launches for k in names]
+    assert [a - b for a, b in zip(after, before)] == [1, int(with_alpha), 1]
+    plain = tv.render_rays(params, cfg, rcfg, rays, **kw,
                            sample_fn=lambda p, c, name: gs.grid_sample_2d_plain(p, c))
     assert 0.02 < got["acc_map"].mean().item() < 0.98
     for k in got:

@@ -103,12 +103,24 @@ def test_render_rays_matches_jax(rcfg_kw, with_alpha):
 
 
 def test_grouped_path_not_ported():
+    """The grouped path (``group_size 8``), once refused, renders: with the
+    occupancy mask and a capacity of three groups, it matches
+    ``_render_rays_grouped`` (`tests/test_torch_grouped.py` has the rest)."""
     cfg, params = _model()
-    tr = tv.RenderConfig(aabb=AABB, n_samples=52, step_size=STEP, group_size=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tv.render_rays(convert.params_from_numpy(params, "cpu"),
-                       tt.TriPlaneConfig(**dataclasses.asdict(cfg)), tr,
-                       torch.from_numpy(_rays()))
+    kw = dict(aabb=AABB, n_samples=52, step_size=STEP, group_size=8, sample_cap=24, tile_q=0)
+    vol = _alpha_volume()
+    rays = _rays()
+    want = jv.render_rays(params, cfg, jv.RenderConfig(**kw), jnp.asarray(rays), None,
+                          is_train=False, alpha_volume=jnp.asarray(vol),
+                          alpha_aabb=jnp.asarray(ALPHA_AABB))
+    got = tv.render_rays(convert.params_from_numpy(params, "cpu"),
+                         tt.TriPlaneConfig(**dataclasses.asdict(cfg)), tv.RenderConfig(**kw),
+                         torch.from_numpy(rays), alpha_volume=torch.from_numpy(vol),
+                         alpha_aabb=torch.from_numpy(ALPHA_AABB))
+    assert 0.02 < got["acc_map"].mean().item() < 0.98
+    for k in ("rgb_map", "depth_map", "acc_map"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=RENDER_TOL,
+                                   atol=RENDER_TOL, err_msg=k)
 
 
 def _meta(cfg):
@@ -181,22 +193,51 @@ def test_render_only_cli_matches_main(tmp_path):
 
 
 def test_cli_train_mode_not_ported():
-    """Training mode raises, naming ROADMAP.md, for what the dense slice
-    does not carry: an occupancy event inside ``n_iters``, ``group_size > 0``
-    and the learned-gauge subsystem. Each raises before any data is built."""
+    """Training mode raises, naming ROADMAP.md, for what the port does not
+    carry yet: the learned-gauge subsystem, bfloat16 and top-K shading
+    (``rgb_cap != 0``). Each raises before any data is built. (Events
+    inside ``n_iters`` and ``group_size > 0`` train now:
+    `test_cli_staged_train_writes_mask_jax_reads`.)"""
     import main_torch
 
     base = ["--dataset_name", "synthetic", "--datadir", "synthetic:views=1,wh=8",
-            "--device", "cpu", "--n_iters", "100", "--group_size", "0"]
+            "--device", "cpu", "--n_iters", "100", "--update_AlphaMask_list", "50"]
     cases = {
-        "event inside n_iters": ["--update_AlphaMask_list", "50"],
-        "group_size": ["--group_size", "8"],
         "gauge subsystem": ["--subsystem", "triplane"],
+        "bfloat16": ["--compute_dtype", "bfloat16"],
+        "rgb_cap": ["--rgb_cap", "-2"],
     }
     for what, extra in cases.items():
         with pytest.raises(NotImplementedError, match="ROADMAP") as info:
             main_torch.main(base + extra)
         assert "not ported" in str(info.value), what
+
+
+def test_cli_staged_train_writes_mask_jax_reads(tmp_path):
+    """A tiny CPU run of the staged recipe through `main_torch.py`: the
+    config's ``group_size`` 8, a mask event inside ``n_iters``; the
+    ``model.npz`` carries ``alphaMask/``, which `ngf_tpu`'s ``load_checkpoint``
+    reads back as the trainer's volume."""
+    import main_torch
+
+    argv = ["--config", os.path.join(REPO, "configs", "synthetic_infoinv_tpu.txt"),
+            "--device", "cpu", "--plane_res", "32", "--alpha_grid_res", "16",
+            "--datadir", "synthetic:views=2,wh=16,test_views=1", "--nSamples", "48",
+            "--batch_size", "256", "--open_sample_cap", "32", "--n_iters", "8",
+            "--update_AlphaMask_list", "4", "--density_shift", "0", "--render_test", "1",
+            "--basedir", str(tmp_path), "--expname", "staged"]
+    out = main_torch.main(argv)
+    assert out["iterations"] == 8 and np.isfinite(out["train_mses"]).all()
+    (event,) = out["events"]
+    assert event["iteration"] == 4 and event["voxels"] > 0 and event["capg"] >= 1
+    run = tmp_path / "staged"
+    assert (run / "imgs_test_all" / "000.png").is_file() and len(out["test_psnrs"]) == 1
+    with np.load(run / "model.npz") as z:
+        assert "alphaMask/mask" in z.files and "alphaMask/aabb" in z.files
+    _, meta, vol, vaabb = j_ckpt.load_checkpoint(str(run / "model.npz"))
+    assert vol.shape == (16, 16, 16) and meta["iteration"] == 8
+    assert int(vol.sum()) == event["voxels"]
+    np.testing.assert_array_equal(vaabb, np.asarray(AABB, np.float32))
 
 
 def test_cuda_requested_without_card_raises():

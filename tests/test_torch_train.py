@@ -319,3 +319,22 @@ def test_chip_smoke_train_phase_on_cpu():
     opaque = out["compare"]["opaque"]
     assert opaque["max_abs_appearance_grad"] > 0
     assert 0 <= opaque["zero_row_share"]["appearance"] < 1
+
+
+def test_chip_smoke_staged_phase_on_cpu():
+    """`chip_smoke.py`'s staged phase at a tiny size on the CPU (plain
+    versions): the staged CLI run (grouped path, a mask event at step 10 of
+    20) with its event, loss and checkpoint checks, the render-only CLI on
+    its checkpoint, and the masked kernels-vs-plain step comparison."""
+    import chip_smoke
+
+    out = chip_smoke.staged_phase(
+        torch.device("cpu"), views=2, wh=16,
+        extra=("--plane_res", "32", "--nSamples", "48", "--batch_size", "256",
+               "--open_sample_cap", "32", "--alpha_grid_res", "16", "--n_iters", "20",
+               "--update_AlphaMask_list", "10", "--vis_every", "10", "--density_shift", "0"),
+    )
+    assert len(out["mses"]) == 20 and np.isfinite(out["test_psnr"])
+    assert out["event"]["iteration"] == 10 and out["event"]["voxels"] > 0
+    assert np.isfinite(out["render"]["psnr"]) and out["render"]["chunks"] == 1
+    assert out["compare"]["max_abs_grad"] > 0
