@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`ngf_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernel,rows,backward,render,train,occupancy,staged]
+    python3 chip_smoke.py [--phases kernel,rows,backward,occupancy,render,train,staged]
 
 1. Device: requires CUDA, prints the card and its power limit, builds every
    kernel of the port from the sources in this checkout.
@@ -27,13 +27,32 @@
    coordinates and on random coordinates in [-1, 1]^2, against its plain
    version and the backward of ``F.grid_sample``, timed beside its bound;
    the mean run length of equal stencil starts of the lego coordinates.
-5. Render phase: a random InfoInv tri-plane model at full width, saved as a
+5. Occupancy phase, run before the render and train phases (their
+   profiles of hundreds of thousands of events leave the profiler dropping
+   kernel events later in the process): K3 ``occupancy_lookup`` against its
+   plain version, byte for byte, on random points in [-1.05, 1.05]^3, on
+   texel centres and edges, and on a masked train step's query points
+   (4096 lego rays x 222, two a group, contiguous and as a strided view) at
+   128^3 and 256^3, a dilated ball for the volume, and on the point clouds
+   it keeps: a mask
+   event's filter chunk (51,200 rays x 256) and count chunk (16,384 x 886)
+   and a render-only chunk (4096 x 884); K4 ``group_sample_compact`` (the
+   grouped front end: sampling, occupancy test and compaction) against its
+   plain version, byte for byte, on a masked train step (4096 rays, 111
+   groups of 8, capg 28 and 64), an open one (capg 64) and a masked
+   evaluation chunk (all 111 groups); each timed beside its bound and a
+   library call. Then the grouped front end as ``render_rays`` runs it (to
+   its K1 launch: time, device time, launches) and a masked train step on
+   random weights (ms, host clock, idle share, launches per step): both
+   call only the entry points, so they also run on an earlier version of
+   the port for a comparison in one call.
+6. Render phase: a random InfoInv tri-plane model at full width, saved as a
    checkpoint with the lego geometry, rendered through ``main_torch.main``
    (render-only, one 800 x 800 synthetic test view, 4096-ray chunks). The
    gather's launch count over that run must be 1 per chunk; one chunk is
    rendered again with the plain sampler and compared, timed, and profiled
    (device time by op, torch.profiler).
-6. Train phase: ``main_torch.main`` in training mode with
+7. Train phase: ``main_torch.main`` in training mode with
    ``configs/synthetic_infoinv_tpu.txt --group_size 0`` at full width (30
    synthetic 128 x 128 views, one test view), 300 steps, under the profiler.
    Each step must launch 1 gather, 6 gather backwards and 1 row gather;
@@ -43,24 +62,17 @@
    plain sampler, compared, on the trained weights and on opaque ones, with
    the backward kernel run alone on the step's own cotangents; then ms per
    step, rays/s, peak memory and a profile.
-7. Occupancy phase: K3 ``occupancy_lookup`` against its plain version, byte
-   for byte, on random points in [-1.05, 1.05]^3, on texel centres and
-   edges, and on a masked train step's query points (4096 lego rays x 222,
-   two a group) at 128^3 and 256^3, a dilated ball for the volume; K4
-   ``group_compact`` against its plain version, exactly, at the train
-   step's shapes (4096 rays, 111 groups of 8) with capacity 64 and 16, and
-   at an evaluation chunk's (all 111 groups); each timed beside its bound
-   and a library call.
 8. Staged phase: ``main_torch.main`` on ``configs/synthetic_infoinv_tpu.txt``
    as it is (grouped path, 1600 steps, the mask event at 600, 30 synthetic
    128 x 128 views, one test view). The event must run once (its voxels,
    kept rays, measured capacity); the launches of K1, K2, ``gather_rows``,
-   K3 and K4 over the run must equal the counts worked out from the steps,
-   the event and the evaluation chunks; the losses must fall in both
-   stages; the checkpoint must carry its mask. Then one masked step with
-   the kernels against the plain sampler, the open and masked stages'
-   ms/step, and the checkpoint rendered once by the render-only CLI (K3 on
-   the dense path).
+   K3 (the event's chunks only) and K4 (one per step and evaluation chunk)
+   over the run must equal the counts worked out from the steps, the event
+   and the evaluation chunks; the losses must fall in both stages; the
+   checkpoint must carry its mask. Then one masked step with the kernels
+   against the plain sampler, the open and masked stages' ms/step, the
+   masked step's profile with its launches per step, and the checkpoint
+   rendered once by the render-only CLI (K3 on the dense path).
 
 Prints per-phase lines, then the card line, a JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Any failure raises: the script
@@ -509,9 +521,10 @@ def batch_row(device: torch.device, rays_tab: torch.Tensor, rgbs_tab: torch.Tens
 
 
 def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Mean device time of the kernels named ``kernel`` per call of
-    ``fn()``, by torch.profiler: for a launch whose host-side call takes
-    longer than the kernel, ``cuda_ms`` measures the host."""
+    """Mean device time of one launch of the kernel named ``kernel`` in
+    ``reps`` calls of ``fn()`` (one launch each), by torch.profiler: for a
+    launch whose host-side call takes longer than the kernel, ``cuda_ms``
+    measures the host. Averaged over the launches the profiler recorded."""
     from torch.autograd import DeviceType
 
     fn()
@@ -520,10 +533,30 @@ def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and kernel in e.key
-    ) / 1e3 / reps
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel in e.key]
+    return sum(e.self_device_time_total for e in events) / 1e3 / sum(e.count for e in events)
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device milliseconds of one call of ``fn()``: ``reps`` calls captured
+    in one CUDA graph, replayed ``replays`` times between two CUDA events,
+    so that no host time sits between the launches (``cuda_ms`` of a small
+    kernel measures its host-side call)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
 
 
 def lego_points(device: torch.device, cap: int | None = TRAIN_CAP,
@@ -869,7 +902,7 @@ def train_phase(
             steps = args.microbatch * iters
             want = {"bilinear_gather_planes": steps + eval_chunks, "bilinear_gather_2d": 0,
                     "bilinear_gather_2d_backward": 6 * steps, "gather_rows": iters,
-                    "occupancy_lookup": 0, "group_compact": 0}
+                    "occupancy_lookup": 0, "group_sample_compact": 0}
             check(launches == want, f"launches {launches}, expected {want}")
             result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
             result["loop"] = loop_profile(prof)
@@ -979,10 +1012,11 @@ def loop_profile(prof) -> dict:
             "events": len(events), "read_s": time.perf_counter() - t}
 
 
-def profile_chunk(fn, reps: int = 3, unit: str = "chunk") -> None:
+def profile_chunk(fn, reps: int = 3, unit: str = "chunk") -> dict:
     """Where the device time of one call of ``fn`` (a render chunk or a
     train step) goes: torch.profiler over ``reps`` calls, ops sorted by
-    device time."""
+    device time. Returns the host-clock ms per call under the profiler, its
+    device ms, idle share, and kernel launches and copies and sets per call."""
     from torch.autograd import DeviceType
 
     torch.cuda.synchronize()
@@ -995,13 +1029,17 @@ def profile_chunk(fn, reps: int = 3, unit: str = "chunk") -> None:
     events = prof.key_averages()
     print(events.table(sort_by="self_device_time_total", row_limit=25))
     # Kernel events only: the aten ops above them report the same time again.
-    device_ms = sum(
-        e.self_device_time_total for e in events
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-    ) / 1e3 / reps
+    device = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    copies = sum(e.count for e in device if e.key.startswith(("Memcpy", "Memset"))) / reps
+    out = {"host_ms": wall_ms,
+           "device_ms": sum(e.self_device_time_total for e in device) / 1e3 / reps,
+           "launches": sum(e.count for e in device) / reps - copies, "copies_and_sets": copies}
+    out["idle_share"] = max(0.0, 1.0 - out["device_ms"] / wall_ms)
     print(f"[profile] {wall_ms:.3f} ms/{unit} on the host clock under the profiler, "
-          f"{device_ms:.3f} ms/{unit} of device time, idle share "
-          f"{max(0.0, 1.0 - device_ms / wall_ms):.3f}")
+          f"{out['device_ms']:.3f} ms/{unit} of device time, idle share "
+          f"{out['idle_share']:.3f}, {out['launches']:.1f} kernel launches and "
+          f"{copies:.1f} copies and sets per {unit}")
+    return out
 
 
 def ball_volume(res: int, device: torch.device, seed: int = SEED) -> torch.Tensor:
@@ -1016,18 +1054,18 @@ def ball_volume(res: int, device: torch.device, seed: int = SEED) -> torch.Tenso
     return (max_pool_3d(vol.float(), 3) > 0).to(torch.uint8)
 
 
-def grouped_samples(device: torch.device, scattered: bool = True, train: bool = True):
-    """(rays, z (n, s_pad), valid (n, s_pad)) of the grouped path before
-    its occupancy test: TRAIN_RAYS lego rays (a training batch's, scattered,
-    or a render chunk's middle rays), the trainer's 886 jittered samples or
-    an evaluation's 884, the trailing sample invalid, padded to groups of 8,
-    as ``_render_rays_grouped`` makes them."""
-    from ngf_tpu_torch.ops.rays import stratified_sample
+AABB = ((-1.5,) * 3, (1.5,) * 3)
+
+
+def grouped_inputs(device: torch.device, scattered: bool = True, train: bool = True):
+    """(rays, jitter, n_samples, step) of a grouped render: TRAIN_RAYS lego
+    rays (a training batch's, scattered, or a render chunk's middle rays),
+    the trainer's 886 samples with one jitter a ray or an evaluation's 884
+    without."""
     from ngf_tpu_torch.utils.grid import cal_n_samples, grid_n_samples, grid_step_size
 
-    aabb = torch.tensor([[-1.5] * 3, [1.5] * 3], device=device)
-    step = grid_step_size(aabb.tolist(), [256] * 3, 0.5)
-    S = cal_n_samples([256] * 3, 0.5) if train else grid_n_samples(aabb.tolist(), step)
+    step = grid_step_size(AABB, [256] * 3, 0.5)
+    S = cal_n_samples([256] * 3, 0.5) if train else grid_n_samples(AABB, step)
     gen = torch.Generator(device=device).manual_seed(SEED)
     if scattered:
         rays = chunk_rays(WH, WH * WH, device)
@@ -1035,12 +1073,28 @@ def grouped_samples(device: torch.device, scattered: bool = True, train: bool = 
     else:
         rays = chunk_rays(WH, TRAIN_RAYS, device)
     jitter = torch.rand((TRAIN_RAYS, 1), generator=gen, device=device) if train else None
+    return rays, jitter, S, step
+
+
+def grouped_valid(rays, jitter, S: int, step: float, vol=None):
+    """(z (n, s_pad), valid (n, s_pad)) of the grouped path before its
+    compaction, as the plain front end makes them: the samples, the trailing
+    sample invalid, padded to groups of 8, and with a volume its two queries
+    a group (:func:`query_points`)."""
+    from ngf_tpu_torch.ops.grid_sample import occupancy_lookup_plain
+    from ngf_tpu_torch.ops.rays import stratified_sample
+
+    aabb = torch.tensor(AABB, device=rays.device)
+    n = rays.shape[0]
     _, z, valid = stratified_sample(rays[:, :3], rays[:, 3:], aabb, 2.0, 6.0, S, step, jitter)
     valid[:, S - 1] = False
     pad = -(-S // GROUP) * GROUP - S
     z = torch.cat([z, z[:, -1:].expand(-1, pad)], 1)
-    valid = torch.cat([valid, valid.new_zeros((TRAIN_RAYS, pad))], 1)
-    return rays, z, valid
+    valid = torch.cat([valid, valid.new_zeros((n, pad))], 1)
+    if vol is not None:
+        occ = occupancy_lookup_plain(vol, query_points(rays, z), aabb)
+        valid = (valid.view(n, -1, GROUP // 2) & occ[..., None]).view(n, -1)
+    return z, valid
 
 
 def query_points(rays: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -1050,9 +1104,20 @@ def query_points(rays: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return rays[:, None, :3] + rays[:, None, 3:] * zq[..., None]
 
 
+def march(rays: torch.Tensor, S: int, step: float) -> torch.Tensor:
+    """(n, S, 3) sample points of the rays, as the mask event's filter and
+    counts and the dense render march them: one contiguous array."""
+    from ngf_tpu_torch.ops.rays import stratified_sample
+
+    aabb = torch.tensor(AABB, device=rays.device)
+    return stratified_sample(rays[:, :3], rays[:, 3:], aabb, 2.0, 6.0, S, step)[0]
+
+
 def k3_row(case: str, vol: torch.Tensor, pts: torch.Tensor, aabb, time_it: bool) -> dict:
     """K3 on one point set against its plain version, byte for byte; timed
-    beside its bound and ``F.grid_sample`` of the float volume."""
+    beside its bound and ``F.grid_sample`` of the float volume: ``ms`` by
+    CUDA events over back-to-back calls (the host's call where it is the
+    longer), ``device_ms`` the kernel's device time (:func:`graph_ms`)."""
     from ngf_tpu_torch.ops.cuda_kernels import occupancy_lookup
     from ngf_tpu_torch.ops.grid_sample import normalize_coord, occupancy_lookup_plain
 
@@ -1062,11 +1127,13 @@ def k3_row(case: str, vol: torch.Tensor, pts: torch.Tensor, aabb, time_it: bool)
     bad = (got != ref).sum().item()
     check(bad == 0, f"K3 {case}: {bad} of {ref.numel()} lookups differ from the plain version")
     row = {"case": case, "volume": list(vol.shape), "N": ref.numel(),
-           "occupied_share": ref.float().mean().item(), "mismatches": bad, "max_abs_err": 0.0}
+           "contiguous": pts.is_contiguous(), "occupied_share": ref.float().mean().item(),
+           "mismatches": bad, "max_abs_err": 0.0}
     if time_it:
         coords = pts if aabb is None else normalize_coord(pts, aabb)
         lib_vol = vol.float()[None, None]
         lib_grid = coords.reshape(1, -1, 1, 1, 3).contiguous()
+        del coords
 
         def library():
             return F.grid_sample(lib_vol, lib_grid, mode="bilinear", padding_mode="zeros",
@@ -1074,55 +1141,81 @@ def k3_row(case: str, vol: torch.Tensor, pts: torch.Tensor, aabb, time_it: bool)
 
         lib = library()[0, 0, :, 0, 0] > 0
         check(torch.equal(lib.reshape(ref.shape), ref), f"K3 {case} vs F.grid_sample > 0")
+        del lib
         n = ref.numel()
         # Each point read once (12 bytes) and its byte written once, the
         # volume read once.
         bound_ms, bound_by = bytes_bound_ms(13 * n + vol.numel(), K3_OPS_PER_POINT * n)
         row.update(ms=cuda_ms(lambda: occupancy_lookup(vol, pts, aabb), reps=50),
+                   device_ms=graph_ms(lambda: occupancy_lookup(vol, pts, aabb)),
                    plain_ms=cuda_ms(lambda: occupancy_lookup_plain(vol, pts, aabb), reps=3),
                    library_ms=cuda_ms(library, reps=20), bound_ms=bound_ms, bound_by=bound_by)
     print("[occupancy] K3 " + json.dumps(row))
     return row
 
 
-def k4_bound_ms(valid: torch.Tensor, capg: int) -> tuple[float, str]:
-    """K4's least time on this data: the validity bytes of the groups up to
-    each ray's capg-th valid group (or all), the depths of its held groups
-    and of group 0 once for its pad slots, read once; the outputs written
-    once; one operation per validity byte."""
-    n, s_pad = valid.shape
-    ng = s_pad // GROUP
-    cnt = valid.view(n, ng, GROUP).any(-1).int().cumsum(-1)
+# Operations of the fused front end (K4): a walked sample's depth, point and
+# box test, an occupancy query (normalise, three axes, eight tap weights) and
+# a kept sample's depth, point and normalisation, float32.
+K4_OPS_PER_SAMPLE, K4_OPS_PER_QUERY, K4_OPS_PER_SLOT_SAMPLE = 15, 70, 18
+
+
+def k4_bound_ms(groups: torch.Tensor, capg: int, vol, jitter) -> tuple[float, str]:
+    """The fused K4's least time on this data: the outputs (depth, mask and
+    three coordinates, 20 bytes a slot sample) written once, the rays, the
+    jitter and the volume read once; the operations of the groups walked up
+    to each ray's capg-th valid group (or all)."""
+    n, ng = groups.shape
+    cnt = groups.int().cumsum(-1)
     full = cnt[:, -1] >= capg
     walked = torch.where(full, (cnt < capg).sum(-1) + 1, torch.full_like(cnt[:, -1], ng))
-    held = cnt[:, -1].clamp(max=capg)
-    nbytes = (GROUP * walked.sum().item() + 4 * GROUP * (held.sum().item() + (~full).sum().item())
-              + n * capg * (4 + 1 + 8 * GROUP))
-    return bytes_bound_ms(nbytes, GROUP * walked.sum().item())
+    walked = walked.sum().item()
+    nbytes = (20 * n * capg * GROUP + 24 * n + (0 if jitter is None else 4 * n)
+              + (0 if vol is None else vol.numel()))
+    ops = (walked * (GROUP * K4_OPS_PER_SAMPLE + (0 if vol is None else 2 * K4_OPS_PER_QUERY))
+           + n * capg * GROUP * K4_OPS_PER_SLOT_SAMPLE)
+    return bytes_bound_ms(nbytes, ops)
 
 
-def k4_row(case: str, z: torch.Tensor, valid: torch.Tensor, capg: int) -> dict:
-    """K4 against its plain version, exactly; timed beside its bound and a
-    stable ``torch.argsort`` of the group keys (the library's compaction
-    order)."""
-    from ngf_tpu_torch.ops.compaction import group_compact_plain
-    from ngf_tpu_torch.ops.cuda_kernels import group_compact
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Byte for byte, a NaN against a NaN whatever its payload."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan])
 
-    got = group_compact(z, valid, GROUP, capg)
+
+def k4_row(case: str, rays, jitter, S: int, step: float, capg: int, vol) -> dict:
+    """The fused K4 against its plain version, byte for byte; timed (as the
+    renderer calls it, without idx and got; ``ms`` and ``device_ms`` as in
+    :func:`k3_row`) beside its bound and a stable ``torch.argsort`` of the
+    group keys (the library's compaction order)."""
+    from ngf_tpu_torch.ops.compaction import group_sample_compact_plain
+    from ngf_tpu_torch.ops.cuda_kernels import group_sample_compact
+
+    aabb = torch.tensor(AABB, device=rays.device)
+    args = (rays, jitter, aabb, 2.0, 6.0, S, step, GROUP, capg, vol,
+            None if vol is None else aabb)
+    got = group_sample_compact(*args, indices=True)
     torch.cuda.synchronize()
-    ref = group_compact_plain(z, valid, GROUP, capg)
-    for a, b, what in zip(got, ref, ("idx", "got", "z_c", "vmask")):
-        check(a.dtype == b.dtype and torch.equal(a, b), f"K4 {case}: {what} differs from plain")
-    n, s_pad = z.shape
-    groups = valid.view(n, s_pad // GROUP, GROUP).any(-1)
+    ref = group_sample_compact_plain(*args)
+    for a, b, what in zip(got, ref, ("idx", "got", "z_c", "vmask", "xyz_n")):
+        check(same_bits(a, b), f"K4 {case}: {what} differs from the plain version")
+    del got, ref
+    n = rays.shape[0]
+    groups = grouped_valid(rays, jitter, S, step, vol)[1].view(n, -1, GROUP).any(-1)
     key = (~groups).int()
-    bound_ms, bound_by = k4_bound_ms(valid, capg)
+    bound_ms, bound_by = k4_bound_ms(groups, capg, vol, jitter)
     row = {
-        "case": case, "n": n, "groups": s_pad // GROUP, "capg": capg,
+        "case": case, "n": n, "groups": groups.shape[1], "capg": capg, "masked": vol is not None,
         "truncated_share": (groups.sum(-1) > capg).float().mean().item(),
         "mean_valid_groups": groups.sum(-1).float().mean().item(), "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: group_compact(z, valid, GROUP, capg), reps=50),
-        "plain_ms": cuda_ms(lambda: group_compact_plain(z, valid, GROUP, capg), reps=5),
+        "ms": cuda_ms(lambda: group_sample_compact(*args), reps=50),
+        "device_ms": graph_ms(lambda: group_sample_compact(*args)),
+        "plain_ms": cuda_ms(lambda: group_sample_compact_plain(*args), reps=3),
         "library_ms": cuda_ms(lambda: torch.argsort(key, dim=-1, stable=True), reps=20),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
@@ -1130,12 +1223,132 @@ def k4_row(case: str, z: torch.Tensor, valid: torch.Tensor, capg: int) -> dict:
     return row
 
 
+class _AtK1(Exception):
+    """Raised in place of K1's launch: the render's front end is over."""
+
+
+def front_end_time(render, reps: int = 20) -> dict:
+    """The front end of one grouped render as the renderer runs it, from its
+    start to its K1 launch (which is not made): the CUDA-event interval from
+    the start of ``reps`` back-to-back renders to the last one's K1 call, per
+    render (``ms``: the front end's time on the stream, the host's launch time
+    included where it is the longer), and under the profiler its device
+    time, its kernels and its copies and sets per render."""
+    from torch.autograd import DeviceType
+
+    from ngf_tpu_torch.ops import cuda_kernels
+
+    k1 = cuda_kernels.bilinear_gather_planes
+    marks = []
+
+    def at_k1(*args, **kwargs):
+        mark = torch.cuda.Event(enable_timing=True)
+        mark.record()
+        marks.append(mark)
+        raise _AtK1
+
+    def front():
+        try:
+            render()
+        except _AtK1:
+            pass
+
+    cuda_kernels.bilinear_gather_planes = at_k1
+    try:
+        for _ in range(3):
+            front()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            front()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(marks[-1]) / reps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                front()
+            torch.cuda.synchronize()
+    finally:
+        cuda_kernels.bilinear_gather_planes = k1
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    copies = [e for e in device if e.key.startswith(("Memcpy", "Memset"))]
+    return {"ms": ms, "device_ms": sum(e.self_device_time_total for e in device) / 1e3 / reps,
+            "kernels": (sum(e.count for e in device) - sum(e.count for e in copies)) / reps,
+            "copies_and_sets": sum(e.count for e in copies) / reps}
+
+
+def front_end_rows(device: torch.device) -> list[dict]:
+    """The grouped render's front end at the staged recipe's shapes, as
+    ``render_rays`` runs it (:func:`front_end_time`): a masked train step
+    (cap 224, the 128^3 ball), an open one (capg 64) and a masked evaluation
+    chunk (all 111 groups). The model is a small random InfoInv tri-plane:
+    the front end reads no weight. Only the renderer's entry points are
+    called, so the rows of two versions of the port compare in one run."""
+    from ngf_tpu_torch.fields.triplane import TriPlaneConfig, init_triplane
+    from ngf_tpu_torch.render.volume import RenderConfig, render_rays
+
+    cfg = dataclasses.replace(TriPlaneConfig.infoinv_preset(infoinv=True), plane_res=16)
+    params = init_triplane(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    vol = ball_volume(128, device)
+    aabb = torch.tensor(AABB, device=device)
+    rows = []
+    for case, train, cap, masked in (("masked step (cap 224)", True, 224, True),
+                                     ("open step (capg 64)", True, 512, False),
+                                     ("evaluation chunk (all groups)", False, 0, True)):
+        rays, _, S, step = grouped_inputs(device, scattered=train, train=train)
+        rcfg = RenderConfig(aabb=AABB, n_samples=S, step_size=step, group_size=GROUP,
+                            sample_cap=cap)
+        kw = {"alpha_volume": vol, "alpha_aabb": aabb} if masked else {}
+        gen = torch.Generator(device=device).manual_seed(SEED) if train else None
+        row = {"case": case, **front_end_time(
+            lambda: render_rays(params, cfg, rcfg, rays, generator=gen, **kw))}
+        print("[occupancy] front end " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def masked_step_row(device: torch.device) -> dict:
+    """A masked grouped train step of the staged recipe on random weights
+    (the density bias of `make_checkpoint`) and one 128 x 128 view, the
+    128^3 ball as its mask and its measured cap 224: ms/step by CUDA events,
+    then under the profiler its host-clock ms, device ms, idle share and
+    launches per step. Masked compute makes the step's work independent of
+    the weights. Only the trainer's entry points are called, so two versions
+    of the port compare in one run."""
+    from ngf_tpu_torch.config import config_parser
+    from ngf_tpu_torch.data import load_dataset
+    from ngf_tpu_torch.train.loop import TriPlaneTrainer
+    from ngf_tpu_torch.train.occupancy import AlphaGrid
+
+    datadir = f"synthetic:views=1,wh={TRAIN_WH}"
+    args = config_parser([
+        "--config", os.path.join(os.path.dirname(os.path.abspath(__file__)), TRAIN_CONFIG),
+        "--datadir", datadir, "--device", device.type,
+    ])
+    trainer = TriPlaneTrainer(args, load_dataset("synthetic", datadir, split="train",
+                                                 is_stack=False), device=device)
+    with torch.no_grad():
+        trainer.params["density_decoder"]["mlp"]["layers"][-1]["b"].fill_(
+            density_bias(trainer.model_cfg))
+    trainer._event_update_alpha_mask(first=True)  # the L1 weight and the sampler
+    trainer.alpha = AlphaGrid.from_volume(ball_volume(128, device).float(),
+                                          torch.tensor(AABB, device=device))
+    trainer._auto_cap = 224
+    step = lambda: trainer.train_step(*trainer.next_batch(), trainer.gen)  # noqa: E731
+    row = {"case": "masked step (cap 224), random weights", "ms": cuda_ms(step, reps=10),
+           **profile_chunk(step, reps=3, unit="masked step")}
+    print("[occupancy] " + json.dumps(row))
+    return row
+
+
 def occupancy_phase(device: torch.device) -> dict:
-    """K3 and K4 against their plain versions on the card at the staged
-    recipe's shapes, timed."""
+    """K3 against its plain version at the shapes it keeps, and the fused
+    K4 against its plain version at the staged recipe's, timed; the grouped
+    front end and a masked step as the renderer and trainer run them."""
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
-    aabb = torch.tensor([[-1.5] * 3, [1.5] * 3], device=device)
-    rays, z, valid = grouped_samples(device)
+    aabb = torch.tensor(AABB, device=device)
+    rays, jitter, S, step = grouped_inputs(device)
+    z, _ = grouped_valid(rays, jitter, S, step)
     q = query_points(rays, z)
     n_q = q.shape[0] * q.shape[1]
     k3 = []
@@ -1152,20 +1365,29 @@ def occupancy_phase(device: torch.device) -> dict:
         pts = rays[:, None, :3] + rays[:, None, 3:] * z[..., None]
         k3.append(k3_row(f"train step query, strided view {res}^3", vol,
                          pts[:, GROUP // 4 :: GROUP // 2], aabb, time_it=False))
-    # K4 on the train step's samples, culled by the 128^3 ball as the
-    # masked step culls them, at the open cap's 64 groups and at 16 (below
-    # many rays' count); and on an evaluation chunk's samples, all groups.
-    occ = ball_volume(128, device)
-    from ngf_tpu_torch.ops.cuda_kernels import occupancy_lookup
-
-    masked = (valid.view(TRAIN_RAYS, -1, GROUP // 2) & occupancy_lookup(occ, q, aabb)[..., None])
-    masked = masked.view(TRAIN_RAYS, -1)
-    k4 = [k4_row("train step, open (capg 64)", z, valid, 64),
-          k4_row("train step, masked (capg 64)", z, masked, 64),
-          k4_row("train step, masked (capg 16)", z, masked, 16)]
-    _, z_e, valid_e = grouped_samples(device, scattered=False, train=False)
-    k4.append(k4_row("evaluation chunk (all groups)", z_e, valid_e, z_e.shape[1] // GROUP))
-    return {"k3": k3, "k4": k4}
+        del pts
+    # The point clouds K3 keeps, at a 128^3 mask: a filter chunk of the
+    # event (51,200 rays x 256 samples), a count chunk (16,384 x 886) and a
+    # render-only chunk of the dense path (4096 x 884).
+    vol = ball_volume(128, device)
+    every = chunk_rays(WH, WH * WH, device)
+    every = every[torch.randperm(WH * WH, generator=gen, device=device)]
+    for case, n, samples in (("filter chunk", 51200, 256), ("count chunk", 16384, S),
+                             ("render-only chunk", TRAIN_RAYS, 884)):
+        k3.append(k3_row(f"{case} 128^3", vol, march(every[:n], samples, step), aabb,
+                         time_it=True))
+    del every
+    # The fused K4 at the staged recipe's shapes: a masked step at its
+    # measured cap 224 (capg 28) and at capg 64, an open step (capg 64) and
+    # a masked evaluation chunk (all 111 groups).
+    k4 = [k4_row("masked step (cap 224)", rays, jitter, S, step, 28, vol),
+          k4_row("masked step (capg 64)", rays, jitter, S, step, 64, vol),
+          k4_row("open step (capg 64)", rays, jitter, S, step, 64, None)]
+    rays_e, _, S_e, _ = grouped_inputs(device, scattered=False, train=False)
+    k4.append(k4_row("evaluation chunk (all groups)", rays_e, None, S_e, step,
+                     -(-S_e // GROUP), vol))
+    return {"k3": k3, "k4": k4, "front_end": front_end_rows(device),
+            "masked_step": masked_step_row(device)}
 
 
 def staged_phase(
@@ -1235,7 +1457,7 @@ def staged_phase(
                   "test_psnr": psnr[0], "loop_s": stats["wall_time_s"],
                   "shaded_groups_p999": stats["shaded_groups_p999"]}
         if cuda:
-            result["launches_want"] = want = staged_launches(args, ev, event_it, wh)
+            result["launches_want"] = want = staged_launches(args, ev, wh)
             check(launches == want, f"launches {launches}, expected {want}")
             result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
 
@@ -1255,7 +1477,7 @@ def staged_phase(
         if cuda:
             check(r_launches["occupancy_lookup"] == chunks
                   and r_launches["bilinear_gather_planes"] == chunks
-                  and r_launches["group_compact"] == 0, f"render-only launches {r_launches}")
+                  and r_launches["group_sample_compact"] == 0, f"render-only launches {r_launches}")
         result["render"] = {"psnr": psnrs[0], "launches": r_launches, "chunks": chunks}
 
     # One batch of one view through the same configuration: a masked
@@ -1279,16 +1501,16 @@ def staged_phase(
               f"{args.open_sample_cap}), masked stage {result['masked_step_ms']:.3f} ms/step "
               f"(cap {ev['sample_cap']}, capg {ev['capg']}), event phases "
               f"{json.dumps(ev['phases_s'])}, peak {result['peak_gib']:.2f} GiB over the run")
-        profile_chunk(step, reps=2, unit="masked step")
+        result["masked_step_profile"] = profile_chunk(step, reps=2, unit="masked step")
     return result
 
 
-def staged_launches(args, ev: dict, event_it: int, wh: int) -> dict:
+def staged_launches(args, ev: dict, wh: int) -> dict:
     """The launches the staged run must make: per step (microbatch chunks)
-    one K1, six K2, one K4 and, after the event, one K3, and one
-    ``gather_rows``; the event's K1 (grid chunks), K3 (filter and count
-    chunks) and ``gather_rows`` (the rebuilt table, the count subsample);
-    per evaluation chunk one K1, one K4 and, after the event, one K3."""
+    one K1, six K2 and one K4 (the grouped front end, the occupancy test
+    after the event included), and one ``gather_rows``; the event's K1 (grid
+    chunks), K3 (filter and count chunks) and ``gather_rows`` (the rebuilt
+    table, the count subsample); per evaluation chunk one K1 and one K4."""
     iters, micro = args.n_iters, max(1, args.microbatch)
     r = args.alpha_grid_res
     grid_chunks = -(-r ** 3 // (256 * 256 * 8))
@@ -1298,21 +1520,18 @@ def staged_launches(args, ev: dict, event_it: int, wh: int) -> dict:
     chunks = -(-wh * wh // args.eval_chunk)  # one test view
     vis = [v for v in range(args.vis_every, iters + 1, args.vis_every)] if (
         args.N_vis != 0 and args.vis_every > 0) else []
-    # An evaluation at the event's iteration runs before the event.
-    masked_evals = sum(v > event_it for v in vis) + 1  # and the final one
-    evals = len(vis) + 1
+    evals = len(vis) + 1  # and the final one
     return {
         "bilinear_gather_planes": micro * iters + grid_chunks + evals * chunks,
         "bilinear_gather_2d": 0,
         "bilinear_gather_2d_backward": 6 * micro * iters,
         "gather_rows": iters + int(ev["refiltered"]) + int(ev["rays_kept"] > 65536),
-        "occupancy_lookup": (micro * (iters - event_it) + filter_chunks + count_chunks
-                             + masked_evals * chunks),
-        "group_compact": micro * iters + evals * chunks,
+        "occupancy_lookup": filter_chunks + count_chunks,
+        "group_sample_compact": micro * iters + evals * chunks,
     }
 
 
-PHASES = ("kernel", "rows", "backward", "render", "train", "occupancy", "staged")
+PHASES = ("kernel", "rows", "backward", "occupancy", "render", "train", "staged")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1397,14 +1616,14 @@ def main(argv: list[str] | None = None) -> int:
               f"rays table ({TRAIN_VIEWS * TRAIN_WH * TRAIN_WH}, 6) float32 at {TRAIN_RAYS} ids"),
         entry("occupancy_lookup", "ngf_tpu_torch/ops/kernels/occupancy_lookup.cu",
               "ngf_tpu/ops/grid_sample.py:526",
-              next(r for r in k3 if r["case"] == "train step query 128^3"), 0.0,
-              f"masked train step: {TRAIN_RAYS} x {2 * N_GROUPS} query points, 128^3 uint8 "
-              "volume, byte for byte"),
-        entry("group_compact", "ngf_tpu_torch/ops/kernels/group_compact.cu",
+              next(r for r in k3 if r["case"] == "filter chunk 128^3"), 0.0,
+              "mask event's ray filter chunk: 51200 rays x 256 points, 128^3 uint8 volume, "
+              "byte for byte"),
+        entry("group_sample_compact", "ngf_tpu_torch/ops/kernels/group_compact.cu",
               "ngf_tpu/ops/compaction.py:26",
-              next(r for r in k4 if r["case"] == "train step, masked (capg 64)"), 0.0,
-              f"masked train step: {TRAIN_RAYS} rays x {N_GROUPS} groups of {GROUP}, capg 64, "
-              "exact"),
+              next(r for r in k4 if r["case"] == "masked step (cap 224)"), 0.0,
+              f"masked train step's front end: {TRAIN_RAYS} rays x {N_GROUPS} groups of {GROUP}, "
+              "128^3 uint8 volume, capg 28, byte for byte"),
     ]
     kernels[0]["rows"] = [
         {k: r[k] for k in ("case", "dtype", "ms", "bound_ms", "plain_ms", "library_ms",
@@ -1413,10 +1632,11 @@ def main(argv: list[str] | None = None) -> int:
         r["ms"] for r in bwd_rows if r["fetch"] == "appearance" and r["case"] == "random")
     kernels[1]["step_cotangent_ms"] = {
         r["case"]: r["ms"] for r in step_rows if r["fetch"] == "appearance"}
-    kernels[3]["rows"] = [{k: r[k] for k in ("case", "ms", "bound_ms", "plain_ms", "library_ms")}
-                          for r in k3 if "ms" in r]
-    kernels[4]["rows"] = [{k: r[k] for k in ("case", "capg", "ms", "bound_ms", "plain_ms",
-                                             "library_ms")} for r in k4]
+    kernels[3]["rows"] = [{k: r[k] for k in ("case", "N", "ms", "device_ms", "bound_ms",
+                                             "plain_ms", "library_ms")} for r in k3 if "ms" in r]
+    kernels[4]["rows"] = [{k: r[k] for k in ("case", "capg", "ms", "device_ms", "bound_ms",
+                                             "plain_ms", "library_ms")} for r in k4]
+    kernels[4]["front_end"] = out["occupancy"]["front_end"]
     kernels[2]["batch_ms"] = out["rows"]["batch"]["ms"]
     kernels[2]["batch_two_call_ms"] = out["rows"]["batch"]["two_call_ms"]
     print(card)

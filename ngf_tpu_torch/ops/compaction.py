@@ -1,15 +1,18 @@
 """Fixed-capacity stable compaction of groups of samples: the grouped
-renderer's replacement of a per-sample sort.
+renderer's replacement of a per-sample sort, and its whole front end.
 
 Port of `ngf_tpu/ops/compaction.py:26-66`: samples are grouped in runs of G
 consecutive samples, a group is kept iff one of its samples is valid, and
 each ray keeps its first ``capg`` such groups in marching order.
-:func:`group_compact` is the renderer's call: on CUDA tensors it launches
-the hand-written kernel ``group_compact`` (K4,
+:func:`group_sample_compact` is the renderer's call, from the rays to the
+kept samples' depths, validity and normalised coordinates: on CUDA tensors
+it launches the hand-written kernel ``group_sample_compact`` (K4,
 `ngf_tpu_torch/ops/cuda_kernels.py`) once; on CPU tensors it runs
-:func:`group_compact_plain`, built from the JAX package's two functions
-:func:`group_compact_indices` and :func:`gather_groups`. There is no
-fallback between the two.
+:func:`group_sample_compact_plain`, the composition of the JAX package's
+grouped front end (`ngf_tpu/render/volume.py:218-264`) built from
+``stratified_sample``, ``occupancy_lookup_plain``, :func:`group_compact_plain`
+(itself :func:`group_compact_indices` and :func:`gather_groups`) and
+``normalize_coord``. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from __future__ import annotations
 import torch
 
 from . import cuda_kernels
+from .grid_sample import normalize_coord, occupancy_lookup_plain
+from .rays import stratified_sample
 
 
 def group_compact_indices(gvalid: torch.Tensor, capg: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -55,7 +60,7 @@ def gather_groups(x: torch.Tensor, idx: torch.Tensor, group: int) -> torch.Tenso
 def group_compact_plain(
     z_vals: torch.Tensor, valid: torch.Tensor, group: int, capg: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the ``group_compact`` kernel, as
+    """The compaction of the plain front end, as
     `ngf_tpu/render/volume.py:252-260` composes it: (idx, got, z_c, vmask)
     with z_c and vmask the (z_vals, valid) payload of the kept groups and
     vmask zero in pad slots."""
@@ -67,23 +72,92 @@ def group_compact_plain(
     return idx, got, sel[..., 0], vmask
 
 
-def group_compact(
-    z_vals: torch.Tensor, valid: torch.Tensor, group: int, capg: int
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+def group_sample_compact_plain(
+    rays: torch.Tensor,
+    jitter: torch.Tensor | None,
+    aabb: torch.Tensor,
+    near: float,
+    far: float,
+    n_samples: int,
+    step_size: float,
+    group: int,
+    capg: int,
+    volume: torch.Tensor | None = None,
+    volume_aabb: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the ``group_sample_compact`` kernel: the
+    grouped front end as `ngf_tpu/render/volume.py:218-264` composes it.
+    ``stratified_sample``; the last sample invalid (its trailing-zero dist
+    gives alpha 0); edge padding of the depths and invalid pad samples to
+    ``ng * group``; with a volume, its occupancy queried two times a group
+    (the quarter and three-quarter samples, each serving half the group) for
+    an even group >= 4, else once at the centre sample, at points computed
+    as ``stratified_sample`` computes every sample; :func:`group_compact_plain`;
+    the kept samples' points normalised with the render box.
+
+    Returns (idx, got, z_c, vmask, xyz_n) as
+    :func:`cuda_kernels.group_sample_compact` documents them."""
+    rays_o, viewdirs = rays[:, 0:3], rays[:, 3:6]
+    n = rays.shape[0]
+    S, G = n_samples, group
+    s_pad = -(-S // G) * G
+    _, z_vals, valid = stratified_sample(rays_o, viewdirs, aabb, near, far, S, step_size, jitter)
+    valid[:, S - 1] = False
+    if s_pad > S:  # edge padding for the depths, zeros for the mask
+        z_vals = torch.cat([z_vals, z_vals[:, -1:].expand(n, s_pad - S)], dim=1)
+        valid = torch.cat([valid, valid.new_zeros((n, s_pad - S))], dim=1)
+    if volume is not None:
+        if G >= 4 and G % 2 == 0:
+            zq, per = z_vals[:, G // 4 :: G // 2], G // 2
+        else:
+            zq, per = z_vals[:, G // 2 :: G], G
+        q = rays_o[:, None, :] + viewdirs[:, None, :] * zq[..., None]
+        occ = occupancy_lookup_plain(volume, q, aabb if volume_aabb is None else volume_aabb)
+        valid = (valid.view(n, -1, per) & occ[..., None]).view(n, s_pad)
+    idx, got, z_c, vmask = group_compact_plain(z_vals, valid, G, capg)
+    pts_c = rays_o[:, None, :] + viewdirs[:, None, :] * z_c[..., None]
+    return idx, got, z_c, vmask, normalize_coord(pts_c, aabb)
+
+
+def group_sample_compact(
+    rays: torch.Tensor,
+    jitter: torch.Tensor | None,
+    aabb: torch.Tensor,
+    near: float,
+    far: float,
+    n_samples: int,
+    step_size: float,
+    group: int,
+    capg: int,
+    volume: torch.Tensor | None = None,
+    volume_aabb: torch.Tensor | None = None,
+    indices: bool = False,
+):
     """Per ray, the first ``capg`` groups of ``group`` consecutive samples
-    that hold a valid sample, in marching order.
+    that hold a valid sample, in marching order, from the rays on: the
+    grouped renderer's front end.
 
     Args:
-      z_vals: (n, s_pad) float32 sample depths, s_pad a multiple of group.
-      valid: (n, s_pad) bool.
+      rays: (n, 6) [origin, direction]; jitter: (n, 1) or None.
+      aabb: (2, 3) render box; near, far, n_samples, step_size as
+        ``stratified_sample`` takes them.
+      volume: optional (D, H, W) occupancy (uint8 on the card) with
+        ``volume_aabb`` its box (None: the render box).
+      indices: also return idx and got, else None for both.
 
     Returns:
-      idx (n, capg) int32 (0 in a pad slot), got (n, capg) bool,
-      z_c (n, capg * group) float32 (group 0's depths in a pad slot) and
-      vmask (n, capg * group) float32 (valid as 0/1, 0 in a pad slot).
+      idx (n, capg) int32 (0 in a pad slot) and got (n, capg) bool, or None;
+      z_c (n, capg * group) float32 (group 0's depths in a pad slot); vmask
+      (n, capg * group) float32 (valid as 0/1, 0 in a pad slot); xyz_n
+      (n, capg * group, 3) float32, the kept samples in [-1, 1] of the box.
     """
-    if z_vals.is_cuda:
-        return cuda_kernels.group_compact(z_vals, valid, group, capg)
-    if z_vals.device.type != "cpu" or valid.device != z_vals.device:
-        raise ValueError(f"group_compact on {z_vals.device} with valid on {valid.device}")
-    return group_compact_plain(z_vals, valid, group, capg)
+    args = (rays, jitter, aabb, near, far, n_samples, step_size, group, capg, volume, volume_aabb)
+    if rays.is_cuda:
+        return cuda_kernels.group_sample_compact(*args, indices=indices)
+    others = [t for t in (jitter, aabb, volume, volume_aabb) if t is not None]
+    if rays.device.type != "cpu" or any(t.device != rays.device for t in others):
+        raise ValueError(
+            f"group_sample_compact on {rays.device} with {[str(t.device) for t in others]}"
+        )
+    idx, got, *rest = group_sample_compact_plain(*args)
+    return (idx, got, *rest) if indices else (None, None, *rest)

@@ -20,8 +20,9 @@ Kernels: ``bilinear_gather_planes`` (K1, the tri-plane fetch: up to three
 planes in one launch, split into the two decoders' inputs) with its
 one-plane call ``bilinear_gather_2d``, ``bilinear_gather_2d_backward`` (K2,
 its plane gradient), ``gather_rows`` (the trainer's batch assembly),
-``occupancy_lookup`` (K3, the alpha-mask test) and ``group_compact`` (K4,
-the grouped renderer's per-ray compaction).
+``occupancy_lookup`` (K3, the alpha-mask test of point clouds) and
+``group_sample_compact`` (K4, the grouped renderer's whole front end:
+sampling, occupancy test and per-ray compaction in one launch).
 """
 
 from __future__ import annotations
@@ -124,12 +125,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ngf_gather_rows.restype = i32
     elif name == "occupancy_lookup":
         lib.ngf_occupancy_lookup.argtypes = [
-            vp, i64, i64, i64, i64, i64, vp, vp, i32, i32, i32, vp, vp,
+            vp, i64, i64, i64, i64, i64, i32, vp, vp, i32, i32, i32, vp, vp,
         ]
         lib.ngf_occupancy_lookup.restype = i32
     elif name == "group_compact":
-        lib.ngf_group_compact.argtypes = [vp, i64, vp, i64, i32, i32, i32, i32, vp, vp, vp, vp, vp]
-        lib.ngf_group_compact.restype = i32
+        f32 = ctypes.c_float
+        lib.ngf_group_sample_compact.argtypes = [
+            vp, i64, vp, i64, vp, f32, f32, f32, i32, i32, i32, i32, vp, i32, i32, i32, vp,
+            vp, vp, vp, vp, vp, vp,
+        ]
+        lib.ngf_group_sample_compact.restype = i32
 
 
 def build_all() -> float:
@@ -447,9 +452,12 @@ def occupancy_lookup(
     occupied space of a binary volume, ``grid_sample_3d(...) > 0``.
 
     Args:
-      volume: (D, H, W) uint8 CUDA tensor, contiguous, z-major.
-      points: (..., 3) float32 CUDA tensor; up to three dimensions are read
-        with their strides as they lie (``pts[:, 2::4]`` needs no copy).
+      volume: (D, H, W) uint8 CUDA tensor, contiguous, z-major, fewer than
+        2^31 voxels.
+      points: (..., 3) float32 CUDA tensor. Contiguous points take the
+        kernel's contiguous path (four points a thread, 16-byte loads); a
+        view of up to three dimensions is read with its strides as it lies
+        (``pts[:, 2::4]`` needs no copy).
       aabb: (2, 3) float32 CUDA tensor, the volume's box (the kernel
         normalises the points with it), or None for points that are
         coordinates in [-1, 1].
@@ -463,32 +471,30 @@ def occupancy_lookup(
             "occupancy_lookup needs volume, points and aabb on one CUDA device, got "
             f"{[str(t.device) for t in tensors]}"
         )
-    if volume.dtype != torch.uint8 or volume.dim() != 3 or not volume.is_contiguous():
-        raise ValueError(
-            f"volume must be (D, H, W) uint8 and contiguous, got {tuple(volume.shape)} {volume.dtype}"
-        )
+    _check_volume(volume)
     if points.dtype != torch.float32 or points.dim() < 1 or points.shape[-1] != 3:
         raise ValueError(f"points must be (..., 3) float32, got {tuple(points.shape)} {points.dtype}")
     if aabb is not None:
-        if aabb.dtype != torch.float32 or aabb.shape != (2, 3):
-            raise ValueError(f"aabb must be (2, 3) float32, got {tuple(aabb.shape)} {aabb.dtype}")
+        _check_box(aabb, "aabb")
         aabb = aabb.contiguous()
     batch_shape = points.shape[:-1]
-    if points.dim() == 3:
-        p3 = points
+    out = torch.empty(batch_shape, dtype=torch.bool, device=volume.device)
+    M = out.numel()
+    if M == 0:
+        return out
+    contiguous = points.is_contiguous() and points.data_ptr() % 16 == 0 and 3 * M < 2**31
+    if contiguous or points.dim() == 3:
+        p3 = points.reshape(1, M, 3) if contiguous else points
     elif points.dim() == 2:
         p3 = points[None]
     else:
         p3 = points.reshape(-1, 3)[None]
-    out = torch.empty(batch_shape, dtype=torch.bool, device=volume.device)
     A, B, _ = p3.shape
-    if A * B == 0:
-        return out
     D, H, W = volume.shape
     lib = _lib("occupancy_lookup")
     _launch(
         lib, lib.ngf_occupancy_lookup, volume.get_device(), "occupancy_lookup",
-        p3.data_ptr(), A, B, p3.stride(0), p3.stride(1), p3.stride(2),
+        p3.data_ptr(), A, B, p3.stride(0), p3.stride(1), p3.stride(2), int(contiguous),
         None if aabb is None else aabb.data_ptr(), volume.data_ptr(), D, H, W, out.data_ptr(),
     )
     occupancy_lookup.launches += 1
@@ -498,57 +504,110 @@ def occupancy_lookup(
 occupancy_lookup.launches = 0
 
 
-def group_compact(
-    z_vals: torch.Tensor, valid: torch.Tensor, group: int, capg: int
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """CUDA kernel K4 (``kernels/group_compact.cu``): per ray, the first
-    ``capg`` groups of ``group`` consecutive samples holding a valid sample.
+def _check_volume(volume: torch.Tensor) -> None:
+    if volume.dtype != torch.uint8 or volume.dim() != 3 or not volume.is_contiguous():
+        raise ValueError(
+            f"volume must be (D, H, W) uint8 and contiguous, got {tuple(volume.shape)} {volume.dtype}"
+        )
+    if volume.numel() >= 2**31:
+        raise ValueError(f"volume of {volume.numel()} voxels: the kernels index voxels in 32 bits")
+
+
+def _check_box(box: torch.Tensor, what: str) -> None:
+    if box.dtype != torch.float32 or box.shape != (2, 3):
+        raise ValueError(f"{what} must be (2, 3) float32, got {tuple(box.shape)} {box.dtype}")
+
+
+def group_sample_compact(
+    rays: torch.Tensor,
+    jitter: torch.Tensor | None,
+    aabb: torch.Tensor,
+    near: float,
+    far: float,
+    n_samples: int,
+    step_size: float,
+    group: int,
+    capg: int,
+    volume: torch.Tensor | None = None,
+    volume_aabb: torch.Tensor | None = None,
+    indices: bool = False,
+):
+    """CUDA kernel K4 (``kernels/group_compact.cu``): the grouped render
+    path's front end in one launch. Per ray, ``n_samples`` fixed-step
+    samples from the box entry, padded to groups of ``group``; the last
+    sample and the pad invalid; out-of-box samples invalid and, with a
+    volume, the samples its per-group queries find unoccupied; then the
+    first ``capg`` groups holding a valid sample, in marching order.
 
     Args:
-      z_vals: (n, s_pad) float32 CUDA tensor, samples contiguous;
-        s_pad = ng * group.
-      valid: (n, s_pad) bool CUDA tensor, samples contiguous.
+      rays: (n, 6) float32 CUDA tensor [origin, direction], components
+        contiguous (a row view of a wider table qualifies).
+      jitter: (n, 1) float32 per-ray offsets in [0, 1), or None.
+      aabb: (2, 3) float32, the render box.
+      near, far, n_samples, step_size: as ``stratified_sample`` takes them.
+      group: G, 1 to 32 (the kernel keeps a group's validity in one word).
+      capg: groups kept per ray, 1 to ceil(n_samples / group).
+      volume: optional (D, H, W) uint8 occupancy, contiguous, z-major, with
+        ``volume_aabb`` its (2, 3) float32 box (None: the render box).
+      indices: also return idx and got (the renderer needs neither).
 
     Returns:
-      idx (n, capg) int32, got (n, capg) bool, z_c (n, capg * group)
-      float32 and vmask (n, capg * group) float32, as
-      ``group_compact_plain`` (``ngf_tpu_torch/ops/compaction.py``) gives
-      them.
+      (idx (n, capg) int32 or None, got (n, capg) bool or None,
+      z_c (n, capg * group) float32, vmask (n, capg * group) float32,
+      xyz_n (n, capg * group, 3) float32), as ``group_sample_compact_plain``
+      (``ngf_tpu_torch/ops/compaction.py``) gives them.
     """
-    if not _on_one_device(z_vals, valid):
+    tensors = [rays, aabb] + [t for t in (jitter, volume, volume_aabb) if t is not None]
+    if not _on_one_device(*tensors):
         raise ValueError(
-            f"group_compact needs z_vals and valid on one CUDA device, got {z_vals.device} "
-            f"and {valid.device}"
+            "group_sample_compact needs rays, jitter, aabb, volume and its box on one CUDA "
+            f"device, got {[str(t.device) for t in tensors]}"
         )
-    if z_vals.dtype != torch.float32 or valid.dtype != torch.bool:
-        raise ValueError(f"z_vals must be float32 and valid bool, got {z_vals.dtype}, {valid.dtype}")
-    if z_vals.dim() != 2 or valid.shape != z_vals.shape:
-        raise ValueError(f"z_vals and valid must be (n, s_pad), got {tuple(z_vals.shape)} "
-                         f"and {tuple(valid.shape)}")
-    if z_vals.stride(1) != 1 or valid.stride(1) != 1:
-        raise ValueError("z_vals and valid need contiguous samples")
-    n, s_pad = z_vals.shape
-    if group < 1 or capg < 1 or s_pad % group:
-        raise ValueError(f"group {group} and capg {capg} for {s_pad} samples")
-    dev = z_vals.device
-    idx = torch.empty((n, capg), dtype=torch.int32, device=dev)
-    got = torch.empty((n, capg), dtype=torch.bool, device=dev)
-    z_c = torch.empty((n, capg * group), dtype=torch.float32, device=dev)
-    vmask = torch.empty((n, capg * group), dtype=torch.float32, device=dev)
+    if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[1] != 6 or rays.stride(1) != 1:
+        raise ValueError(
+            f"rays must be (n, 6) float32 with contiguous components, got {tuple(rays.shape)} "
+            f"{rays.dtype} strides {rays.stride()}"
+        )
+    n = rays.shape[0]
+    if jitter is not None and (jitter.dtype != torch.float32 or jitter.shape != (n, 1)):
+        raise ValueError(f"jitter must be ({n}, 1) float32, got {tuple(jitter.shape)} {jitter.dtype}")
+    _check_box(aabb, "aabb")
+    aabb = aabb.contiguous()
+    if volume is not None:
+        _check_volume(volume)
+        volume_aabb = aabb if volume_aabb is None else volume_aabb
+        _check_box(volume_aabb, "volume_aabb")
+        volume_aabb = volume_aabb.contiguous()
+    ng = -(-n_samples // group) if group >= 1 else 0
+    if not (n_samples >= 1 and 1 <= group <= 32 and 1 <= capg <= ng):
+        raise ValueError(f"group {group} and capg {capg} for {n_samples} samples: the kernel "
+                         "takes 1 <= group <= 32 and 1 <= capg <= ceil(n_samples / group)")
+    dev = rays.device
+    m = capg * group
+    z_c = torch.empty((n, m), dtype=torch.float32, device=dev)
+    vmask = torch.empty((n, m), dtype=torch.float32, device=dev)
+    xyz_n = torch.empty((n, m, 3), dtype=torch.float32, device=dev)
+    idx = torch.empty((n, capg), dtype=torch.int32, device=dev) if indices else None
+    got = torch.empty((n, capg), dtype=torch.bool, device=dev) if indices else None
     if n == 0:
-        return idx, got, z_c, vmask
+        return idx, got, z_c, vmask, xyz_n
+    D, H, W = volume.shape if volume is not None else (0, 0, 0)
     lib = _lib("group_compact")
     _launch(
-        lib, lib.ngf_group_compact, z_vals.get_device(), "group_compact",
-        z_vals.data_ptr(), z_vals.stride(0), valid.data_ptr(), valid.stride(0), n,
-        s_pad // group, group, capg, idx.data_ptr(), got.data_ptr(), z_c.data_ptr(),
-        vmask.data_ptr(),
+        lib, lib.ngf_group_sample_compact, rays.get_device(), "group_sample_compact",
+        rays.data_ptr(), rays.stride(0),
+        None if jitter is None else jitter.data_ptr(), 0 if jitter is None else jitter.stride(0),
+        aabb.data_ptr(), near, far, step_size, n, n_samples, group, capg,
+        None if volume is None else volume.data_ptr(), D, H, W,
+        None if volume is None else volume_aabb.data_ptr(),
+        None if idx is None else idx.data_ptr(), None if got is None else got.data_ptr(),
+        z_c.data_ptr(), vmask.data_ptr(), xyz_n.data_ptr(),
     )
-    group_compact.launches += 1
-    return idx, got, z_c, vmask
+    group_sample_compact.launches += 1
+    return idx, got, z_c, vmask, xyz_n
 
 
-group_compact.launches = 0
+group_sample_compact.launches = 0
 
 # Every wrapper with a launch counter, by kernel name.
 KERNELS = {
@@ -557,7 +616,7 @@ KERNELS = {
     "bilinear_gather_2d_backward": bilinear_gather_2d_backward,
     "gather_rows": gather_rows,
     "occupancy_lookup": occupancy_lookup,
-    "group_compact": group_compact,
+    "group_sample_compact": group_sample_compact,
 }
 
 

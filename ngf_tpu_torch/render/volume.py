@@ -11,10 +11,11 @@ Two paths, as in the JAX package:
   the first ``sample_cap`` valid samples per ray in marching order (a stable
   argsort);
 - grouped (``group_size > 0``, the trainer's default): samples keep or drop
-  in groups of G consecutive samples, compacted per ray by the ``group_compact``
-  kernel (K4), with the occupancy mask queried once or twice per group by
-  the ``occupancy_lookup`` kernel (K3) and the planes fetched by K1.
-An occupancy volume is tested with :func:`occupancy_lookup` on both paths.
+  in groups of G consecutive samples; the ``group_sample_compact`` kernel
+  (K4) samples, queries the occupancy mask once or twice per group and
+  compacts per ray in one launch, and the planes are fetched by K1.
+The dense path and :func:`compute_alpha_grid_chunk` test an occupancy volume
+with :func:`occupancy_lookup` (K3).
 Not ported: ``rgb_cap`` (top-K shading) and ``mask_stride > 1`` on the dense
 path; both raise.
 """
@@ -37,7 +38,7 @@ from ..fields.triplane import (
     triplane_rgb,
     triplane_rgb_from_feats,
 )
-from ..ops.compaction import group_compact
+from ..ops.compaction import group_sample_compact
 from ..ops.compositing import raw2alpha
 from ..ops.grid_sample import normalize_coord, occupancy_lookup
 from ..ops.rays import stratified_sample
@@ -262,47 +263,26 @@ def _render_rays_grouped(
     ``sample_cap`` 0); the trailing-zero dist is folded into the valid mask,
     so every dist is the constant ``step_size``; the occupancy mask is
     queried at two points a group (its quarter and three-quarter samples)
-    for an even G >= 4, else at its centre sample. Fetches go through K1
-    (one launch), the occupancy through K3 (one launch) and the compaction
-    through K4 (one launch).
+    for an even G >= 4, else at its centre sample. The front end, from the
+    rays to the kept samples' coordinates, is one K4 launch
+    (``group_sample_compact``: sampling, occupancy test, compaction) after
+    the jitter draw; the fetches are one K1 launch.
     """
     _check_grouped_knobs(rcfg)
     aabb = rcfg.aabb_tensor(rays.device)
-    rays_o, viewdirs = rays[:, 0:3], rays[:, 3:6]
+    viewdirs = rays[:, 3:6]
     n = rays.shape[0]
     S, G = rcfg.n_samples, rcfg.group_size
     ng = -(-S // G)
-    s_pad = ng * G
 
     jitter = None if generator is None else _ray_jitter(generator, n, rays.device)
-    _, z_vals, valid = stratified_sample(
-        rays_o, viewdirs, aabb, rcfg.near, rcfg.far, S, rcfg.step_size, jitter
-    )
-    # The trailing-zero dist contributes alpha 0: the last sample is invalid.
-    valid[:, S - 1] = False
-    if s_pad > S:  # edge padding for the depths, zeros for the mask
-        z_vals = torch.cat([z_vals, z_vals[:, -1:].expand(n, s_pad - S)], dim=1)
-        valid = torch.cat([valid, valid.new_zeros((n, s_pad - S))], dim=1)
-
-    if alpha_volume is not None:
-        a_aabb = aabb if alpha_aabb is None else alpha_aabb
-        if G >= 4 and G % 2 == 0:
-            # Two queries a group, each serving G/2 samples.
-            zq, per = z_vals[:, G // 4 :: G // 2], G // 2
-        else:
-            zq, per = z_vals[:, G // 2 :: G], G
-        # The query points, computed as stratified_sample computes every
-        # sample point (so equal to them bit for bit).
-        q = rays_o[:, None, :] + viewdirs[:, None, :] * zq[..., None]
-        occ = occupancy_lookup(_occupancy_bytes(alpha_volume), q, a_aabb)
-        valid = (valid.view(n, -1, per) & occ[..., None]).view(n, s_pad)
-
     cap = rcfg.sample_cap if rcfg.sample_cap else S
     capg = min(ng, -(-cap // G))
-    _, _, z_c, vmask = group_compact(z_vals, valid, G, capg)
-
-    pts_c = rays_o[:, None, :] + viewdirs[:, None, :] * z_c[..., None]
-    xy, yz, xz = triplane_project(normalize_coord(pts_c, aabb))
+    volume = None if alpha_volume is None else _occupancy_bytes(alpha_volume)
+    _, _, z_c, vmask, xyz_n = group_sample_compact(
+        rays, jitter, aabb, rcfg.near, rcfg.far, S, rcfg.step_size, G, capg, volume, alpha_aabb
+    )
+    xy, yz, xz = triplane_project(xyz_n)
     xy, yz, xz = triplane_gauge(params, model_cfg, xy, yz, xz, iteration, sample_fn)
     if sample_fn is None:
         sigma, rgb_feat = triplane_density_and_rgbfeat(params, model_cfg, xy, yz, xz)

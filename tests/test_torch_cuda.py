@@ -5,8 +5,9 @@ outputs, both lane widths, runs of shared stencils) and its one-plane call
 chunk), its backward ``bilinear_gather_2d_backward`` alone (runs of shared
 stencils, zero rows, both lane widths, strided g) and through autograd, and
 ``gather_rows``, alone and as the trainer's one-launch batch; the occupancy
-lookup ``occupancy_lookup`` (K3) and the group compaction ``group_compact``
-(K4) alone, refusing CPU tensors, and inside the render paths.
+lookup ``occupancy_lookup`` (K3, its contiguous and strided paths) and the
+grouped front end ``group_sample_compact`` (K4: sampling, occupancy test and
+compaction) alone, refusing CPU tensors, and inside the render paths.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports neither JAX nor `ngf_tpu`, so it runs on a GPU machine
@@ -18,7 +19,8 @@ Tolerances: float32 1e-5 (the same four float32 products summed in another
 order); bfloat16 one unit in the last place, at most 2^-7 of the value, since
 both round one float32 sum; rendered outputs 1e-4; plane gradients 1e-5 of
 the largest gradient (float32 atomics add in another order); row gathers,
-occupancy lookups and compactions exactly.
+occupancy lookups and the grouped front end byte for byte (a NaN output
+against a NaN, whatever its payload).
 """
 
 import dataclasses
@@ -446,23 +448,92 @@ def test_occupancy_lookup_matches_plain(cuda, shape):
         assert 0.0 < got.float().mean().item() < 1.0
 
 
-@pytest.mark.parametrize("capg", [1, 16, 64, 111])
-def test_group_compact_matches_plain(cuda, capg):
-    """The train step's shapes (G = 8, 111 groups), capacities that
-    truncate many rays and none; rays with no valid sample."""
-    g = torch.Generator(device=cuda).manual_seed(2)
-    n, G, ng = 1000, 8, 111
-    z = torch.sort(torch.rand((n, ng * G), generator=g, device=cuda) * 4 + 2, dim=-1).values
-    p = torch.linspace(0.0, 0.3, n, device=cuda)[:, None]
-    valid = torch.rand((n, ng * G), generator=g, device=cuda) < p
-    valid[:, -5:] = False
-    before = cuda_kernels.group_compact.launches
-    got = compaction.group_compact(z, valid, G, capg)
-    assert cuda_kernels.group_compact.launches == before + 1
-    want = compaction.group_compact_plain(z, valid, G, capg)
-    for a, b, name in zip(got, want, ("idx", "got", "z_c", "vmask")):
-        assert a.dtype == b.dtype and torch.equal(a, b), name
-    assert not got[1][0].any()  # ray 0 has no valid sample
+@pytest.mark.parametrize("case", ["filter_chunk", "ragged", "unaligned", "coords"])
+def test_occupancy_lookup_contiguous_path(cuda, case):
+    """The contiguous path (four points a thread) at a mask event's filter
+    chunk, 51,200 rays x 256 points in a 128^3 volume; a point count that
+    leaves a tail; a contiguous array that is not 16-byte aligned (the
+    strided path); coordinates without a box."""
+    vol = _ball((128, 128, 128), cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    aabb = torch.tensor([[-1.2, -1.3, -1.1], [1.4, 1.2, 1.3]], device=cuda)
+    if case == "filter_chunk":
+        pts = torch.rand((51200, 256, 3), generator=g, device=cuda) * 3.2 - 1.6
+    else:
+        pts = torch.rand((3 * 1001 + 1,), generator=g, device=cuda) * 3.2 - 1.6
+        pts = (pts[1:] if case == "unaligned" else pts[:-1]).view(1001, 3)
+        assert pts.is_contiguous()
+    if case == "coords":
+        aabb = None
+    before = cuda_kernels.occupancy_lookup.launches
+    got = gs.occupancy_lookup(vol, pts, aabb)
+    assert cuda_kernels.occupancy_lookup.launches == before + 1
+    assert got.shape == pts.shape[:-1]
+    assert torch.equal(got, gs.occupancy_lookup_plain(vol, pts, aabb))
+    assert 0.0 < got.float().mean().item() < 1.0
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Byte for byte, a NaN against a NaN whatever its payload."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan])
+
+
+def _front_end_rays(cuda, n=1000):
+    """n rays as a (n, 9) table's row views (the trainer's batch): from a
+    sphere of radius 4 at points of [-1.6, 1.6]^3, so some miss the box; one
+    along an axis with two zero direction components, one with one zero
+    component that misses, and NaN rays."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    o = torch.randn((n, 3), generator=g, device=cuda)
+    o = 4.0 * o / o.norm(dim=-1, keepdim=True)
+    d = torch.rand((n, 3), generator=g, device=cuda) * 3.2 - 1.6 - o
+    d = d / d.norm(dim=-1, keepdim=True)
+    table = torch.zeros((n, 9), device=cuda)
+    table[:, :3], table[:, 3:6] = o, d
+    table[0, :6] = torch.tensor([0.3, -0.2, 4.0, 0.0, 0.0, -1.0], device=cuda)
+    table[1, :6] = torch.tensor([4.0, 4.0, 4.0, 1.0, 0.0, 0.0], device=cuda)
+    table[2, :6] = float("nan")
+    table[3, 4] = float("nan")
+    return table[:, :6]
+
+
+@pytest.mark.parametrize("with_volume", [False, True], ids=["open", "masked"])
+@pytest.mark.parametrize("capg", [1, 16, 64, "all"])
+@pytest.mark.parametrize("G", [8, 3])
+def test_group_sample_compact_matches_plain(cuda, G, capg, with_volume):
+    """The grouped front end at a train step's depth (886 samples, 111
+    groups of 8 or 296 of 3), capacities that truncate many rays and none,
+    with and without a 128^3 volume and jitter; rays of a strided table, an
+    axis ray, a missing ray, NaN rays: every output byte for byte."""
+    rays = _front_end_rays(cuda)
+    n, S = rays.shape[0], 886
+    ng = -(-S // G)
+    capg = ng if capg == "all" else capg
+    g = torch.Generator(device=cuda).manual_seed(8)
+    jitter = torch.rand((n, 1), generator=g, device=cuda) if capg in (16, ng) else None
+    aabb = torch.tensor([[-1.5] * 3, [1.5] * 3], device=cuda)
+    vol = (_ball((128, 128, 128), cuda), torch.tensor([[-1.2, -1.3, -1.1], [1.4, 1.2, 1.3]],
+                                                      device=cuda)) if with_volume else (None, None)
+    args = (rays, jitter, aabb, 2.0, 6.0, S, 0.0101, G, capg, *vol)
+    before = cuda_kernels.group_sample_compact.launches
+    got = compaction.group_sample_compact(*args, indices=True)
+    assert cuda_kernels.group_sample_compact.launches == before + 1
+    want = compaction.group_sample_compact_plain(*args)
+    for a, b, name in zip(got, want, ("idx", "got", "z_c", "vmask", "xyz_n")):
+        assert _same_bits(a, b), name
+    idx, held, z_c, vmask, xyz_n = got
+    assert held[0].any() and not held[1].any() and not held[2:4].any()
+    assert bool(z_c[2].isnan().all()) and 0.0 < vmask.mean().item() < 1.0
+    if capg <= 16:  # these rays hold at most ~50 valid groups of 8
+        assert (held.sum(-1) == capg).any()
+    _, _, z2, v2, x2 = compaction.group_sample_compact(*args)  # without idx and got
+    assert _same_bits(z2, z_c) and _same_bits(v2, vmask) and _same_bits(x2, xyz_n)
 
 
 def test_kernels_refuse_cpu_tensors_and_wrong_inputs(cuda):
@@ -475,12 +546,22 @@ def test_kernels_refuse_cpu_tensors_and_wrong_inputs(cuda):
                     (vol, pts, torch.zeros((2, 3))), (vol, pts[:, :2], None)):
         with pytest.raises(ValueError):
             cuda_kernels.occupancy_lookup(v, p, a)
-    z = torch.zeros((4, 16), device=cuda)
-    valid = torch.zeros((4, 16), dtype=torch.bool, device=cuda)
-    for zz, vv, G in ((z.cpu(), valid.cpu(), 8), (z, valid.cpu(), 8), (z.double(), valid, 8),
-                      (z, valid.float(), 8), (z, valid, 3), (z.t(), valid.t(), 2)):
+    rays = torch.zeros((4, 6), device=cuda)
+    box = torch.tensor([[-1.0] * 3, [1.0] * 3], device=cuda)
+    ok = dict(rays=rays, jitter=None, aabb=box, volume=None, volume_aabb=None, group=8, capg=2)
+    bad = [dict(rays=rays.cpu()), dict(aabb=box.cpu()), dict(rays=rays.double()),
+           dict(rays=torch.zeros((4, 5), device=cuda)), dict(rays=rays.t().contiguous().t()),
+           dict(jitter=torch.zeros((4,), device=cuda)), dict(jitter=torch.zeros((4, 1))),
+           dict(aabb=box[:, :2]), dict(volume=vol, volume_aabb=box[:, :2]),
+           dict(volume=vol.float(), volume_aabb=box),
+           dict(volume=vol.cpu(), volume_aabb=box), dict(group=33), dict(group=0),
+           dict(capg=0), dict(capg=4)]  # 20 samples in groups of 8: at most 3 groups
+    for change in bad:
+        kw = {**ok, **change}
         with pytest.raises(ValueError):
-            cuda_kernels.group_compact(zz, vv, G, 2)
+            cuda_kernels.group_sample_compact(kw["rays"], kw["jitter"], kw["aabb"], 2.0, 6.0,
+                                              20, 0.1, kw["group"], kw["capg"], kw["volume"],
+                                              kw["volume_aabb"])
 
 
 def _scene(cuda, seed=2):
@@ -512,17 +593,18 @@ def test_render_only_mask_goes_through_k3(cuda, monkeypatch):
 
 @pytest.mark.parametrize("with_alpha", [False, True], ids=["open", "masked"])
 def test_grouped_render_launches_k1_k3_k4_once(cuda, with_alpha):
-    """A grouped chunk: one launch each of K1, K4 and, with a mask, K3;
-    against the plain sampler to 1e-4."""
+    """A grouped chunk: one launch each of K1 and K4 (the whole front end,
+    the mask's test included) and none of K3; against the plain sampler to
+    1e-4."""
     cfg, params, rays = _scene(cuda, seed=4)
     rcfg = tv.RenderConfig(aabb=((-1.5,) * 3, (1.5,) * 3), n_samples=60, step_size=0.09,
                            group_size=8, sample_cap=32, tile_q=0)
     kw = {"alpha_volume": _ball((16, 16, 16), cuda)} if with_alpha else {}
-    names = ("bilinear_gather_planes", "occupancy_lookup", "group_compact")
+    names = ("bilinear_gather_planes", "occupancy_lookup", "group_sample_compact")
     before = [cuda_kernels.KERNELS[k].launches for k in names]
     got = tv.render_rays(params, cfg, rcfg, rays, **kw)
     after = [cuda_kernels.KERNELS[k].launches for k in names]
-    assert [a - b for a, b in zip(after, before)] == [1, int(with_alpha), 1]
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 1]
     plain = tv.render_rays(params, cfg, rcfg, rays, **kw,
                            sample_fn=lambda p, c, name: gs.grid_sample_2d_plain(p, c))
     assert 0.02 < got["acc_map"].mean().item() < 0.98

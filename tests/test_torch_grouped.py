@@ -1,7 +1,9 @@
 """The port's grouped render path against the JAX package on the CPU: the
-plain version of the K4 kernel (``group_compact_plain``, built from
-``group_compact_indices`` and ``gather_groups``) against `ngf_tpu`'s
-compaction, and ``render_rays(group_size > 0)`` against
+compaction of the front end (``group_compact_plain``, built from
+``group_compact_indices`` and ``gather_groups``) against `ngf_tpu`'s, the
+plain version of the K4 kernel (``group_sample_compact_plain``, the whole
+front end from the rays to the kept samples' coordinates) against the JAX
+front end composed op by op, and ``render_rays(group_size > 0)`` against
 ``_render_rays_grouped`` (`ngf_tpu/render/volume.py:170-372`): G = 8 (two
 occupancy queries a group) and G = 3 (one, at the centre; 52 samples pad to
 54), with and without an occupancy mask (the JAX side with the bf16 parity
@@ -10,8 +12,8 @@ training mode with the same jitter injected into both, and the plane
 gradients against ``jax.vjp``.
 
 Scene and model as `tests/test_torch_render.py` has them (16 x 16 planes,
-an 8 x 8 view, 52 samples at step 0.1). Tolerances: the compaction and
-``shaded_groups`` exactly; rgb, depth and acc 1e-4 (float32 sums over the
+an 8 x 8 view, 52 samples at step 0.1). Tolerances: the compaction, the
+front end's outputs (coordinates included) and ``shaded_groups`` exactly; rgb, depth and acc 1e-4 (float32 sums over the
 samples of fields that agree to ~1e-5, the InfoInv PE's last-ulp sin/cos);
 plane gradients 1e-4 of the largest (they run back through the InfoInv
 appearance PE, as `tests/test_torch_fused_fetch.py` states).
@@ -32,6 +34,7 @@ import torch  # noqa: E402
 from test_torch_render import AABB, ALPHA_AABB, STEP, _alpha_volume, _model, _rays  # noqa: E402
 
 from ngf_tpu.ops import compaction as j_comp  # noqa: E402
+from ngf_tpu.ops import rays as j_rays  # noqa: E402
 from ngf_tpu.render import volume as jv  # noqa: E402
 from ngf_tpu.train import occupancy as j_occ  # noqa: E402
 from ngf_tpu_torch import convert  # noqa: E402
@@ -83,15 +86,15 @@ def test_group_compaction_matches_jax(capg):
     j_sel = np.asarray(j_comp.gather_groups(jnp.asarray(payload), j_idx, G))
     np.testing.assert_array_equal(
         t_comp.gather_groups(torch.from_numpy(payload), idx, G).numpy(), j_sel)
-    # The kernel's plain version, and the wrapper on the CPU, as
-    # `ngf_tpu/render/volume.py:257-260` composes them.
+    # The compaction of the front end's plain version, as
+    # `ngf_tpu/render/volume.py:257-260` composes it.
     j_vmask = j_sel[..., 1] * np.repeat(np.asarray(j_got).astype(np.float32), G, axis=1)
-    for fn in (t_comp.group_compact_plain, t_comp.group_compact):
-        i2, g2, z_c, vmask = fn(torch.from_numpy(z), torch.from_numpy(valid), G, capg)
-        np.testing.assert_array_equal(i2.numpy(), np.asarray(j_idx))
-        np.testing.assert_array_equal(g2.numpy(), np.asarray(j_got))
-        np.testing.assert_array_equal(z_c.numpy(), j_sel[..., 0])
-        np.testing.assert_array_equal(vmask.numpy(), j_vmask)
+    i2, g2, z_c, vmask = t_comp.group_compact_plain(torch.from_numpy(z), torch.from_numpy(valid),
+                                                    G, capg)
+    np.testing.assert_array_equal(i2.numpy(), np.asarray(j_idx))
+    np.testing.assert_array_equal(g2.numpy(), np.asarray(j_got))
+    np.testing.assert_array_equal(z_c.numpy(), j_sel[..., 0])
+    np.testing.assert_array_equal(vmask.numpy(), j_vmask)
     # Pad slots hold group 0's depths; an all-invalid ray holds only those.
     np.testing.assert_array_equal(z_c[0].numpy(), np.tile(z[0, :G], capg))
 
@@ -205,3 +208,76 @@ def test_grouped_plane_gradients_match_jax_vjp():
     for n in PLANES:
         np.testing.assert_allclose(tparams[n].grad.numpy(), np.asarray(want[n]), rtol=0,
                                    atol=GRAD_REL_TOL * scale, err_msg=n)
+
+
+def _front_end_rays():
+    """The 8 x 8 view's rays, one along -z (zero x and y direction
+    components) through the box, and one that misses it."""
+    extra = [[0.3, -0.2, 4.0, 0.0, 0.0, -1.0], [4.0, 4.0, 4.0, 1.0, 0.0, 0.0]]
+    return np.concatenate([_rays(), extra]).astype(np.float32)
+
+
+def _jax_front_end(rays, G, capg, jgrid, key):
+    """The JAX grouped front end (`ngf_tpu/render/volume.py:218-264`) op by
+    op under ``jax.disable_jit()``: (idx, got, z_c, vmask, xyz_n)."""
+    S, n = 52, rays.shape[0]
+    ng = -(-S // G)
+    s_pad = ng * G
+    aabb = jnp.asarray(AABB, jnp.float32)
+    ro, rd = jnp.asarray(rays[:, :3]), jnp.asarray(rays[:, 3:])
+    with jax.disable_jit():
+        pts, z, valid = j_rays.stratified_sample(key, ro, rd, aabb, 2.0, 6.0, S, STEP,
+                                                 key is not None)
+        valid = valid & (jnp.arange(S) < S - 1)
+        pts = jnp.pad(pts, ((0, 0), (0, s_pad - S), (0, 0)), mode="edge")
+        z = jnp.pad(z, ((0, 0), (0, s_pad - S)), mode="edge")
+        valid = jnp.pad(valid, ((0, 0), (0, s_pad - S)))
+        if jgrid is not None:
+            q, per = (pts[:, G // 4 :: G // 2], G // 2) if G >= 4 and G % 2 == 0 else (
+                pts[:, G // 2 :: G], G)
+            occ = jv._sample_alpha_volume(jgrid.volume, jv.normalize_coord(q, jgrid.aabb),
+                                          jgrid.table) > 0
+            valid = valid & jnp.repeat(occ, per, axis=1)
+        idx, got = j_comp.group_compact_indices(valid.reshape(n, ng, G).any(-1), capg)
+        sel = j_comp.gather_groups(jnp.stack([z, valid.astype(z.dtype)], -1), idx, G)
+        vmask = sel[..., 1] * jnp.repeat(got.astype(sel.dtype), G, axis=1)
+        xyz_n = jv.normalize_coord(ro[:, None, :] + rd[:, None, :] * sel[..., 0][..., None], aabb)
+    return [np.asarray(a) for a in (idx, got, sel[..., 0], vmask, xyz_n)]
+
+
+@pytest.mark.parametrize("G,sample_cap,with_alpha,mode", CASES,
+                         ids=[f"g{g}_cap{c}_{'masked' if a else 'open'}_{m}" for g, c, a, m in CASES])
+def test_front_end_plain_matches_jax(G, sample_cap, with_alpha, mode):
+    """``group_sample_compact_plain``, and the dispatcher on the CPU, equal
+    the JAX front end exactly in every output, the normalised coordinates
+    included: under ``jax.disable_jit()`` both make the same float32
+    roundings (no FMA), and ``2 / size`` and PyTorch's ``reciprocal * 2``
+    round alike."""
+    rays = _front_end_rays()
+    S, n = 52, rays.shape[0]
+    ng = -(-S // G)
+    capg = min(ng, -(-(sample_cap or S) // G))
+    key = jax.random.split(jax.random.PRNGKey(7))[0] if mode == "train" else None
+    jitter = None if key is None else torch.from_numpy(
+        np.array(jax.random.uniform(key, (n, 1), dtype=jnp.float32)))
+    jgrid, vol = None, None
+    if with_alpha:
+        j_kw, t_kw = _alpha_both()
+        jgrid = j_occ.AlphaGrid(volume=j_kw["alpha_volume"], aabb=j_kw["alpha_aabb"],
+                                table=j_kw["alpha_table"])
+        vol = (t_kw["alpha_volume"], t_kw["alpha_aabb"])
+    want = _jax_front_end(rays, G, capg, jgrid, key)
+    args = (torch.from_numpy(rays), jitter, torch.tensor(AABB), 2.0, 6.0, S, STEP, G, capg,
+            *(vol or (None, None)))
+    for got in (t_comp.group_sample_compact_plain(*args),
+                t_comp.group_sample_compact(*args, indices=True)):
+        for a, b, name in zip(got, want, ("idx", "got", "z_c", "vmask", "xyz_n")):
+            assert tuple(a.shape) == b.shape, name
+            np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+    _, got_mask, z_c, vmask, xyz_n = got
+    assert got_mask[-2].any() and not got_mask[-1].any()  # the axis ray hits, the last misses
+    assert 0 < vmask.mean() < 1 and xyz_n.shape == (n, capg * G, 3)
+    if sample_cap:
+        assert (got_mask.sum(-1) == capg).any()  # the cap truncates rays
+    idx, got_mask, *_ = t_comp.group_sample_compact(*args)
+    assert idx is None and got_mask is None
