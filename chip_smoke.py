@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`ngf_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernel,rows,backward,occupancy,render,train,staged]
+    python3 chip_smoke.py [--phases kernel,rows,backward,occupancy,render,train,staged,gauge]
 
 1. Device: requires CUDA, prints the card and its power limit, builds every
    kernel of the port from the sources in this checkout.
@@ -27,6 +27,12 @@
    coordinates and on random coordinates in [-1, 1]^2, against its plain
    version and the backward of ``F.grid_sample``, timed beside its bound;
    the mean run length of equal stencil starts of the lego coordinates.
+   Then K2c ``bilinear_gather_2d_backward_coords`` (the plane and the
+   coordinate gradient of one plane's fetch) at the gauge recipe's shapes
+   (a 256 x 256 x 64 plane split 16 / 48, an open step's 4096 x 512 lego
+   samples, a masked step's 4096 x 224, random coordinates) against its
+   plain versions and aten's grid_sample backward with both gradients,
+   timed beside its bound and the plane branch's.
 5. Occupancy phase, run before the render and train phases (their
    profiles of hundreds of thousands of events leave the profiler dropping
    kernel events later in the process): K3 ``occupancy_lookup`` against its
@@ -73,6 +79,19 @@
    against the plain sampler, the open and masked stages' ms/step, the
    masked step's profile with its launches per step, and the checkpoint
    rendered once by the render-only CLI (K3 on the dense path).
+9. Gauge phase: ``main_torch.main`` on ``configs/synthetic_triplane_tpu.txt``
+   as it is (the learned gauge, 1600 grouped steps, the gauge on at 400, the
+   mask event with the shrink at 600, the upsample at 800, the same data).
+   The two events must run (the shrink's box and grid, the capacities);
+   the launches of K1, K2, K2c, ``gather_rows``, K3 and K4 over the run
+   must equal the counts worked out from the steps, events and evaluation
+   chunks; the losses must fall in each stage; the gauge grids must be
+   trained and the checkpoint must carry planes of three shapes. Then one
+   step after ``gauge_start`` with the kernels against the plain sampler
+   (the loss and every gradient), K2c on that step's own cotangents, K1 on
+   its planes of three shapes, the stages' ms/step, the events' phases, the
+   test PSNR beside the JAX package's band, the checkpoint through the
+   render-only CLI, and the upsampled stage's step profiled.
 
 Prints per-phase lines, then the card line, a JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Any failure raises: the script
@@ -675,6 +694,108 @@ def backward_row(fetch: str, case: str, g: torch.Tensor, coords: torch.Tensor, c
     return row
 
 
+def coords_bound_ms(n: int, C: int, H: int, W: int) -> tuple[float, str]:
+    """K2c's least time: g, the coordinates and the plane's values read once,
+    the coordinate gradient written once, the plane gradient's channels read
+    and written once; 16 flops per value (the plane gradient's 4 products
+    and 4 adds, the tap sums' 4 and 4) and ~60 per point of index, weight and
+    coordinate math."""
+    return bytes_bound_ms(n * C * 4 + 16 * n + 3 * H * W * C * 4, 16 * n * C + 60 * n)
+
+
+def coords_row(case: str, plane: torch.Tensor, coords: torch.Tensor, g_a: torch.Tensor,
+               g_b: torch.Tensor | None, time_it: bool = True) -> dict:
+    """K2c ``bilinear_gather_2d_backward_coords`` on one plane's fetch (the
+    whole plane's channels, split at g_a's width) into a zeroed plane
+    gradient: both gradients against the plain versions and against aten's
+    grid_sample backward with both gradients asked for (1e-5 of each one's
+    largest), timed beside them, its bound and the plane branch's bound for
+    the same fetch."""
+    from ngf_tpu_torch.ops.cuda_kernels import bilinear_gather_2d_backward_coords
+    from ngf_tpu_torch.ops.grid_sample import (
+        grid_sample_2d_backward_coords_plain,
+        grid_sample_2d_backward_plain,
+    )
+
+    H, W, C = plane.shape
+    n = coords.numel() // 2
+    got = torch.zeros_like(plane)
+    got_c = bilinear_gather_2d_backward_coords(plane, coords, g_a, g_b, got)
+
+    def plain():
+        grad = torch.zeros_like(plane)
+        cg = torch.zeros(coords.shape, device=plane.device)
+        off = 0
+        for g in (g_a, g_b):
+            if g is not None:
+                grid_sample_2d_backward_plain(g, coords, grad, off)
+                cg += grid_sample_2d_backward_coords_plain(plane[..., off:off + g.shape[-1]],
+                                                           coords, g)
+                off += g.shape[-1]
+        return grad, cg
+
+    ref, ref_c = plain()
+    scale, scale_c = ref.abs().max().item(), ref_c.abs().max().item()
+    err, err_c = (got - ref).abs().max().item(), (got_c - ref_c).abs().max().item()
+    check(err <= GRAD_REL_TOL * scale, f"K2c {case} plane grad err {err} vs max {scale}")
+    check(err_c <= GRAD_REL_TOL * scale_c, f"K2c {case} coord grad err {err_c} vs max {scale_c}")
+
+    # The library's same function: aten's grid_sample backward, both
+    # gradients, on the permuted plane and the whole cotangent.
+    g_full = g_a if g_b is None else torch.cat([g_a, g_b], -1)
+    lib_in = plane.permute(2, 0, 1)[None].contiguous()
+    lib_grid = coords.reshape(1, n, 1, 2).contiguous()
+    lib_g = g_full.reshape(n, -1).t().contiguous().view(1, -1, n, 1)
+
+    def library():
+        return torch.ops.aten.grid_sampler_2d_backward(
+            lib_g, lib_in, lib_grid, 0, 0, True, [True, True])
+
+    lib_plane, lib_coords = library()
+    c_fetched = g_full.shape[-1]
+    lib_err = (lib_plane[0].permute(1, 2, 0) - got[..., :c_fetched]).abs().max().item()
+    lib_err_c = (lib_coords.reshape(coords.shape) - got_c).abs().max().item()
+    check(lib_err <= GRAD_REL_TOL * scale and lib_err_c <= GRAD_REL_TOL * scale_c,
+          f"K2c {case} vs aten grid_sampler_2d_backward: {lib_err}, {lib_err_c}")
+    del lib_plane, lib_coords, ref, ref_c
+    row = {"fetch": "coords", "case": case, "N": n, "C": c_fetched, "H": H, "W": W,
+           "split": g_a.shape[-1], "max_abs_err": max(err, err_c), "max_abs_err_plane": err,
+           "max_abs_err_coords": err_c, "max_abs_grad": scale, "max_abs_coord_grad": scale_c}
+    row["bound_ms"], row["bound_by"] = coords_bound_ms(n, c_fetched, H, W)
+    # The plane branch alone on the same fetch (bilinear_gather_2d_backward's bound).
+    row["plane_branch_bound_ms"] = bytes_bound_ms(
+        n * c_fetched * 4 + 8 * n + 2 * H * W * c_fetched * 4, 8 * n * c_fetched + 30 * n)[0]
+    if time_it:
+        row["ms"] = cuda_ms(
+            lambda: bilinear_gather_2d_backward_coords(plane, coords, g_a, g_b, got), reps=20)
+        row["plain_ms"] = cuda_ms(plain, reps=3)
+        row["library_ms"] = cuda_ms(library, reps=10)
+    del lib_in, lib_g, got, got_c
+    print("[backward] coords " + json.dumps(row))
+    return row
+
+
+def coords_rows(device: torch.device) -> list[dict]:
+    """K2c at the gauge recipe's shapes: one 256 x 256 x 64 plane (the open
+    stage's), its fetch split 16 / 48, cotangents as strided views of the
+    fetch's (N, 3, 16) and (N, 3, 48) outputs, the xy projection of the lego
+    samples of an open step (4096 x 512, ``open_sample_cap``) and of a masked
+    one (4096 x 224, the JAX package's measured cap), and random
+    coordinates."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    plane = 0.1 * torch.randn((256, 256, 64), generator=gen, device=device)
+    cases = [("open step", lego_points(device)[..., 0:2]),
+             ("masked step", lego_points(device, cap=224)[..., 0:2])]
+    cases.append(("random", torch.rand(cases[0][1].shape, generator=gen, device=device) * 2 - 1))
+    rows = []
+    for case, coords in cases:
+        n = coords.numel() // 2
+        g_a = torch.randn((n, 3, 16), generator=gen, device=device)[:, 0]
+        g_b = torch.randn((n, 3, 48), generator=gen, device=device)[:, 0]
+        rows.append(coords_row(case, plane, coords.reshape(n, 2), g_a, g_b))
+    return rows
+
+
 def backward_phase(device: torch.device) -> list[dict]:
     """bilinear_gather_2d_backward at the train step's shapes, random
     cotangents: on the train coordinates, whose consecutive points share
@@ -695,7 +816,7 @@ def backward_phase(device: torch.device) -> list[dict]:
             g = torch.randn((*c.shape[:-1], ch.stop - ch.start), generator=gen, device=device)
             rows.append(backward_row(fetch, case, g, c, ch.start))
     rows[0]["runs"] = runs
-    return rows
+    return rows + coords_rows(device)
 
 
 def density_bias(cfg) -> float:
@@ -901,7 +1022,8 @@ def train_phase(
         if cuda:
             steps = args.microbatch * iters
             want = {"bilinear_gather_planes": steps + eval_chunks, "bilinear_gather_2d": 0,
-                    "bilinear_gather_2d_backward": 6 * steps, "gather_rows": iters,
+                    "bilinear_gather_2d_backward": 6 * steps,
+                    "bilinear_gather_2d_backward_coords": 0, "gather_rows": iters,
                     "occupancy_lookup": 0, "group_sample_compact": 0}
             check(launches == want, f"launches {launches}, expected {want}")
             result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
@@ -1525,13 +1647,281 @@ def staged_launches(args, ev: dict, wh: int) -> dict:
         "bilinear_gather_planes": micro * iters + grid_chunks + evals * chunks,
         "bilinear_gather_2d": 0,
         "bilinear_gather_2d_backward": 6 * micro * iters,
+        "bilinear_gather_2d_backward_coords": 0,
         "gather_rows": iters + int(ev["refiltered"]) + int(ev["rays_kept"] > 65536),
         "occupancy_lookup": filter_chunks + count_chunks,
         "group_sample_compact": micro * iters + evals * chunks,
     }
 
 
-PHASES = ("kernel", "rows", "backward", "occupancy", "render", "train", "staged")
+GAUGE_CONFIG = "configs/synthetic_triplane_tpu.txt"
+# The JAX package's own float32 results on this config (NOTES.md:124, :421):
+# test PSNR band and the auto caps at the mask event and after the upsample.
+JAX_GAUGE_PSNR_DB = (53.91, 55.59)
+JAX_GAUGE_CAPS = (224, 352)
+
+
+def gauge_phase(
+    device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRAIN_WH, extra: tuple[str, ...] = (),
+) -> dict:
+    """``main_torch.main`` on the learned-gauge recipe as the config has it
+    (the gauge on at 400, the mask event with the shrink at 600, the upsample
+    at 800): its events, launches, losses, gauge grids and checkpoint
+    checked; then one step after ``gauge_start`` with the kernels against
+    the plain sampler (the loss and every gradient), K2c and K1 on that
+    step's planes of three shapes, and the checkpoint through the
+    render-only CLI. ``extra`` argv shrinks the run for the CPU test."""
+    import numpy as np
+
+    import main_torch
+    from ngf_tpu_torch.config import config_parser
+    from ngf_tpu_torch.data import load_dataset
+    from ngf_tpu_torch.ops import cuda_kernels
+    from ngf_tpu_torch.train.loop import TriPlaneTrainer
+    from ngf_tpu_torch.train.occupancy import AlphaGrid
+    from ngf_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cuda = device.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [
+            "--config", os.path.join(os.path.dirname(os.path.abspath(__file__)), GAUGE_CONFIG),
+            "--datadir", f"synthetic:views={views},wh={wh},test_views=1", "--render_test", "1",
+            "--basedir", tmp, "--expname", "gauge", "--progress_refresh_rate", "100",
+            "--device", device.type, *extra,
+        ]
+        args = config_parser(argv)
+        iters = args.n_iters
+        mask_it = min(e for e in args.update_AlphaMask_list if 0 < e <= iters)
+        up_it = min(e for e in args.upsamp_list if 0 < e <= iters)
+        check(args.subsystem == "triplane" and 0 < args.gauge_start < mask_it < up_it,
+              f"gauge recipe {args.subsystem}, gauge {args.gauge_start}, events {mask_it}, "
+              f"{up_it}")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = main_torch.main(argv)
+        main_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in cuda_kernels.KERNELS.items()}
+        mses, events = stats["train_mses"], stats["events"]
+        print(f"[gauge] main_torch.main: {main_s:.3f} s ({stats['wall_time_s']:.3f} s in the "
+              f"train loop), {iters} steps, launches {launches}, test psnr {stats['test_psnrs']}")
+        print(f"[gauge] events {json.dumps(events)}")
+        print(f"[gauge] stages {json.dumps(stats['stages'])}")
+        check(len(mses) == iters and all(math.isfinite(m) for m in mses), f"losses {mses}")
+        for name, part in (("open", mses[:mask_it]), ("shrunk", mses[mask_it:up_it]),
+                           ("upsampled", mses[up_it:])):
+            k = max(1, min(20, len(part) // 4))
+            first, last = sum(part[:k]) / k, sum(part[-k:]) / k
+            check(last < first, f"{name} stage: mse of the last {k} steps {last} >= first {first}")
+        check([(e["kind"], e["iteration"]) for e in events] == [("mask", mask_it),
+                                                               ("upsample", up_it)],
+              f"events {events}")
+        mask, up = events
+        check(0 < mask["voxels"] <= mask["grid_voxels"] and "shrink" in mask
+              and 0 < mask["rays_kept"] <= mask["rays_before"], f"mask event {mask}")
+        shrink = mask["shrink"]
+        check(all(0 < g <= args.plane_res for g in shrink["grid_size"]), f"shrink {shrink}")
+        for ev in events:
+            check(32 <= ev["sample_cap"] <= ev["n_samples"]
+                  and ev["capg"] == -(-ev["sample_cap"] // args.group_size), f"capacity {ev}")
+        psnr = stats["test_psnrs"]
+        check(len(psnr) == 1 and math.isfinite(psnr[0]), f"test psnr {psnr}")
+        run = os.path.join(tmp, "gauge")
+        for f in ("model.npz", "imgs_test_all/000.png"):
+            check(os.path.isfile(os.path.join(run, f)), f"training wrote no {f}")
+        ckpt = os.path.join(run, "model.npz")
+        params, meta, vol, vaabb = load_checkpoint(ckpt, device)
+        shapes = [list(params[n].shape) for n in ("plane_xy", "plane_yz", "plane_xz")]
+        rx, ry, rz = up["grid_size"]
+        check(shapes == [[ry, rx, 64], [rz, ry, 64], [rz, rx, 64]] == up["plane_shapes"]
+              and meta["aabb"] == shrink["aabb"] and vol is not None,
+              f"model.npz planes {shapes}, box {meta['aabb']}")
+        gauge_max = {n: params[n].abs().max().item() for n in ("gauge_xy", "gauge_yz", "gauge_xz")}
+        check(all(v > 0 for v in gauge_max.values()), f"gauge grids not trained: {gauge_max}")
+        lo, hi = JAX_GAUGE_PSNR_DB
+        print(f"[gauge] test psnr {psnr[0]:.3f} dB (the JAX package's float32 band on this "
+              f"config: {lo}-{hi} dB); caps {mask['sample_cap']} -> {up['sample_cap']} (JAX "
+              f"package: {JAX_GAUGE_CAPS[0]} -> {JAX_GAUGE_CAPS[1]}); shrink {json.dumps(shrink)}; "
+              f"upsample grid {up['grid_size']}; gauge grids' largest |offset| "
+              f"{json.dumps(gauge_max)}")
+        stage_ms = {f"{st['from']}-{st['to']}": 1e3 * st["s"] / (st["to"] - st["from"])
+                    for st in stats["stages"]}
+        result = {"main_s": main_s, "launches": launches, "mses": mses, "events": events,
+                  "stages": stats["stages"], "stage_ms": stage_ms, "test_psnr": psnr[0],
+                  "jax_psnr_band_db": JAX_GAUGE_PSNR_DB, "loop_s": stats["wall_time_s"],
+                  "plane_shapes": shapes, "gauge_max": gauge_max}
+        if cuda:
+            result["launches_want"] = want = gauge_launches(args, events, wh)
+            check(launches == want, f"launches {launches}, expected {want}")
+            result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+
+        # The checkpoint through the render-only CLI: the dense path with
+        # its mask, per chunk one K1 launch for the gauge grids and one for
+        # the planes of three shapes, and one K3.
+        cuda_kernels.reset_launch_counts()
+        psnrs = main_torch.main([
+            "--render_only", "1", "--render_test", "1", "--ckpt", ckpt, "--dataset_name",
+            "synthetic", "--datadir", f"synthetic:wh={wh},test_views=1", "--eval_chunk",
+            str(args.eval_chunk), "--compute_extra_metrics", "0", "--expname", "render",
+            "--device", device.type,
+        ])
+        r_launches = {k: fn.launches for k, fn in cuda_kernels.KERNELS.items()}
+        chunks = -(-wh * wh // args.eval_chunk)
+        print(f"[gauge] render-only CLI on the checkpoint: psnr {psnrs}, launches {r_launches}")
+        check(len(psnrs) == 1 and math.isfinite(psnrs[0]), f"render-only psnr {psnrs}")
+        if cuda:
+            want = {k: 0 for k in r_launches}
+            want.update(bilinear_gather_planes=2 * chunks, occupancy_lookup=chunks)
+            check(r_launches == want, f"render-only launches {r_launches}, expected {want}")
+        result["render"] = {"psnr": psnrs[0], "launches": r_launches, "chunks": chunks}
+
+    # One batch of one view through the trained model at its geometry after
+    # the events: a masked grouped step after gauge_start with the kernels
+    # against the plain sampler, every gradient compared.
+    ds = load_dataset("synthetic", f"synthetic:views=1,wh={wh}", split="train", is_stack=False)
+    trainer = TriPlaneTrainer(args, ds, init_params=params, device=device)
+    trainer.aabb = np.asarray(meta["aabb"], np.float32)
+    trainer.grid_size, trainer.step_size = meta["grid_size"], meta["step_size"]
+    trainer.n_samples = meta["n_samples"]
+    trainer.alpha = AlphaGrid.from_volume(vol, vaabb)
+    trainer._auto_cap = up["sample_cap"]
+    trainer.iteration = iters
+    rays, rgbs = trainer.next_batch()
+    result["compare"] = compare_gauge_step(trainer, rays, rgbs)
+    if cuda:
+        step = lambda: trainer.train_step(*trainer.next_batch(), trainer.gen)  # noqa: E731
+        result["upsampled_step_ms"] = cuda_ms(step, reps=10, warmup=2)
+        print(f"[gauge] stage ms/step on the host clock {json.dumps(stage_ms)}; the upsampled "
+              f"stage's step on the trained weights {result['upsampled_step_ms']:.3f} ms by "
+              f"CUDA events (cap {up['sample_cap']}, capg {up['capg']}); event phases: mask "
+              f"{json.dumps(mask['phases_s'])}, upsample {json.dumps(up['phases_s'])}; peak "
+              f"{result['peak_gib']:.2f} GiB over the run")
+        result["k1_three_shapes"] = three_shape_row(
+            [trainer.params[n].detach() for n in ("plane_xy", "plane_yz", "plane_xz")],
+            result["compare"]["coords"])
+        result["upsampled_step_profile"] = profile_chunk(step, reps=2, unit="upsampled gauge step")
+    return result
+
+
+def three_shape_row(planes: list[torch.Tensor], coords) -> dict:
+    """K1 over the trained planes of three shapes at a step's deformed
+    coordinates (split 16), against its plain version (1e-5) and the three
+    one-plane ``F.grid_sample`` calls the library needs for planes of
+    different shapes, timed beside its bound."""
+    from ngf_tpu_torch.ops.cuda_kernels import bilinear_gather_planes
+    from ngf_tpu_torch.ops.grid_sample import grid_sample_planes_plain
+
+    coords = [c.reshape(-1, 2).contiguous() for c in coords]
+    n = coords[0].shape[0]
+    got = bilinear_gather_planes(planes, coords, split=16)
+    ref = grid_sample_planes_plain(planes, coords, split=16)
+    err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    check(err <= F32_TOL, f"K1 three shapes err {err}")
+    lib = [(p.permute(2, 0, 1)[None].contiguous(), c.view(1, n, 1, 2))
+           for p, c in zip(planes, coords)]
+
+    def library():
+        return [F.grid_sample(p, c, mode="bilinear", padding_mode="zeros", align_corners=True)
+                for p, c in lib]
+
+    row = {"fetch": "fused", "case": "gauge step, three shapes",
+           "shapes": [list(p.shape) for p in planes], "N": n, "C": 64, "split": 16,
+           "max_abs_err": err,
+           "ms": cuda_ms(lambda: bilinear_gather_planes(planes, coords, split=16), reps=20),
+           "plain_ms": cuda_ms(lambda: grid_sample_planes_plain(planes, coords, split=16), reps=3),
+           "library_ms": cuda_ms(library, reps=10)}
+    row["bound_ms"], row["bound_by"] = bytes_bound_ms(
+        n * 3 * 64 * 4 + 3 * 8 * n + sum(p.numel() for p in planes) * 4, 7 * n * 3 * 64 + 90 * n)
+    print("[gauge] K1 " + json.dumps(row))
+    return row
+
+
+def compare_gauge_step(trainer, rays, rgbs) -> dict:
+    """One gauge step's MSE and every gradient (planes, gauge grids,
+    decoders) with the kernels and with the plain sampler on the same batch
+    and jitter, to STEP_GRAD_REL_TOL of each leaf's largest. On the card,
+    K2c also runs alone on the xy plane's own cotangents and deformed
+    coordinates of this step (``coords_row``); returns those coordinates of
+    the three planes under ``coords``."""
+    from ngf_tpu_torch import convert
+    from ngf_tpu_torch.ops.grid_sample import grid_sample_2d_plain
+
+    dd = trainer.model_cfg.density_dim
+    cotangents: dict[str, torch.Tensor] = {}
+    deformed: dict[str, torch.Tensor] = {}
+
+    def plain(p, c, name):
+        out = grid_sample_2d_plain(p, c)
+        if name.startswith("plane_") and out.requires_grad:
+            deformed[name] = c.detach()
+            if name == "plane_xy":
+                fetch = "density" if p.shape[-1] == dd else "appearance"
+                out.register_hook(lambda g: cotangents.__setitem__(fetch, g.detach()))
+        return out
+
+    mse, grads = {}, {}
+    leaves = dict(convert.named_leaves(trainer.params))
+    for how, fn in (("kernels", None), ("plain", plain)):
+        gen = torch.Generator(device=rays.device).manual_seed(SEED)
+        mse[how] = trainer.compute_grads(rays, rgbs, gen, sample_fn=fn).item()
+        grads[how] = {n: t.grad.clone() for n, t in leaves.items()}
+    trainer.optimizer.zero_grad()
+    errs = {}
+    for n, want in grads["plain"].items():
+        scale = want.abs().max().item()
+        errs[n] = {"max_abs_grad": scale,
+                   "max_abs_err": (grads["kernels"][n] - want).abs().max().item()}
+    out = {"mse": mse, "grads": errs}
+    print("[gauge] step, kernels vs plain sampler: " + json.dumps(out))
+    check(abs(mse["kernels"] - mse["plain"]) <= STEP_LOSS_RTOL * abs(mse["plain"]),
+          f"gauge step mse {mse}")
+    for n, e in errs.items():
+        check(e["max_abs_grad"] > 0 and e["max_abs_err"] <= STEP_GRAD_REL_TOL * e["max_abs_grad"],
+              f"gauge step grad {n}: {e}")
+    out["coords"] = [deformed[n] for n in ("plane_xy", "plane_yz", "plane_xz")]
+    if rays.is_cuda:
+        c = deformed["plane_xy"]
+        n_pts = c.numel() // 2
+        out["backward"] = coords_row(
+            "gauge step's own cotangents", trainer.params["plane_xy"].detach(),
+            c.reshape(n_pts, 2), cotangents["density"].reshape(n_pts, -1),
+            cotangents["appearance"].reshape(n_pts, -1))
+    return out
+
+
+def gauge_launches(args, events: list[dict], wh: int) -> dict:
+    """The launches the gauge run must make: per step (microbatch chunks)
+    two K1 (the gauge grids, then the planes at the deformed coordinates),
+    three K2 (the gauge grids' plane gradients), three K2c (the planes'
+    plane and coordinate gradients) and one K4, and one ``gather_rows``; the
+    mask event's two K1 per grid chunk, its K3 (filter and count chunks) and
+    ``gather_rows`` (the rebuilt table, the count subsample); the upsample's
+    K3 count chunks and subsample; per evaluation chunk two K1 and one K4."""
+    iters, micro = args.n_iters, max(1, args.microbatch)
+    mask, up = events
+    r = args.alpha_grid_res
+    grid_chunks = -(-r ** 3 // (256 * 256 * 8))
+    counted = min(mask["rays_kept"], 65536) if args.sample_cap == -1 else 0
+    count_chunks = -(-counted // 16384)
+    subsample = int(mask["rays_kept"] > 65536 and args.sample_cap == -1)
+    chunks = -(-wh * wh // args.eval_chunk)  # one test view
+    vis = [v for v in range(args.vis_every, iters + 1, args.vis_every)] if (
+        args.N_vis != 0 and args.vis_every > 0) else []
+    evals = len(vis) + 1  # and the final one
+    steps = micro * iters
+    return {
+        "bilinear_gather_planes": 2 * steps + 2 * grid_chunks + 2 * evals * chunks,
+        "bilinear_gather_2d": 0,
+        "bilinear_gather_2d_backward": 3 * steps,
+        "bilinear_gather_2d_backward_coords": 3 * steps,
+        "gather_rows": iters + int(mask["refiltered"]) + 2 * subsample,
+        "occupancy_lookup": -(-mask["rays_before"] // 51200) + 2 * count_chunks,
+        "group_sample_compact": steps + evals * chunks,
+    }
+
+
+PHASES = ("kernel", "rows", "backward", "occupancy", "render", "train", "staged", "gauge")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1563,6 +1953,7 @@ def main(argv: list[str] | None = None) -> int:
         "train": lambda: train_phase(device),
         "occupancy": lambda: occupancy_phase(device),
         "staged": lambda: staged_phase(device),
+        "gauge": lambda: gauge_phase(device),
     }
     out = {}
     for phase in PHASES:
@@ -1573,13 +1964,17 @@ def main(argv: list[str] | None = None) -> int:
     if set(phases) != set(PHASES):
         print(card)
         return 0
-    rows, bwd_rows, train = out["kernel"], out["backward"], out["train"]
+    rows, train = out["kernel"], out["train"]
+    bwd_rows = [r for r in out["backward"] if r["fetch"] != "coords"]
+    coord_rows = [r for r in out["backward"] if r["fetch"] == "coords"]
+    gauge = out["gauge"]
     row_cases = out["rows"]["cases"]
 
     # Each main path's launches, counted from 0 just before it.
     paths = {"render": out["render"]["launches"], "train": out["train"]["launches"],
              "staged": out["staged"]["launches"],
-             "staged render-only": out["staged"]["render"]["launches"]}
+             "staged render-only": out["staged"]["render"]["launches"],
+             "gauge": gauge["launches"], "gauge render-only": gauge["render"]["launches"]}
 
     def entry(name, source, replaces, row, max_abs_err, at, counters=None):
         counters = counters or (name,)
@@ -1624,10 +2019,22 @@ def main(argv: list[str] | None = None) -> int:
               next(r for r in k4 if r["case"] == "masked step (cap 224)"), 0.0,
               f"masked train step's front end: {TRAIN_RAYS} rays x {N_GROUPS} groups of {GROUP}, "
               "128^3 uint8 volume, capg 28, byte for byte"),
+        entry("bilinear_gather_2d_backward_coords",
+              "ngf_tpu_torch/ops/kernels/bilinear_gather_backward.cu",
+              "ngf_tpu/ops/grid_sample.py:434",
+              next(r for r in coord_rows if r["case"] == "open step"),
+              max(r["max_abs_err"] for r in coord_rows + [gauge["compare"]["backward"]]),
+              "gauge open step's plane fetch: plane and coordinate gradient, 256x256x64 float32, "
+              f"split 16, N={TRAIN_RAYS * TRAIN_CAP}, lego xy coordinates, random cotangents"),
     ]
     kernels[0]["rows"] = [
         {k: r[k] for k in ("case", "dtype", "ms", "bound_ms", "plain_ms", "library_ms",
                            "taps_per_point")} for r in fused]
+    kernels[0]["rows"].append({k: gauge["k1_three_shapes"][k] for k in (
+        "case", "shapes", "N", "ms", "bound_ms", "plain_ms", "library_ms")})
+    kernels[5]["rows"] = [{k: r[k] for k in ("case", "N", "H", "W", "ms", "bound_ms",
+                                             "plane_branch_bound_ms", "plain_ms", "library_ms")}
+                          for r in coord_rows + [gauge["compare"]["backward"]]]
     kernels[1]["random_coords_ms"] = next(
         r["ms"] for r in bwd_rows if r["fetch"] == "appearance" and r["case"] == "random")
     kernels[1]["step_cotangent_ms"] = {

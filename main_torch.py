@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """CLI of the PyTorch/CUDA port (`ngf_tpu_torch`), the counterpart of
-`main.py`: InfoInv training (the staged recipe: grouped renderer, occupancy
-mask events), and render-only evaluation of a checkpoint.
+`main.py`: training of both tri-plane subsystems (the staged recipes:
+grouped renderer, occupancy mask events, and for the learned gauge its
+shrink and upsample events), and render-only evaluation of a checkpoint.
 
     python main_torch.py --config configs/synthetic_infoinv_tpu.txt [--device cpu]
+    python main_torch.py --config configs/synthetic_triplane_tpu.txt [--device cpu]
     python main_torch.py --config configs/lego_infoinv.txt \\
         --render_only 1 --render_test 1 --ckpt path/to/model.npz [--device cpu]
 
 It reads the same ``configs/*.txt`` and writes and reads the same ``.npz``
 checkpoints (with their occupancy mask) as `main.py`, and runs on the GPU
-unless ``--device cpu`` is given. Options the port does not carry yet (the
-gauge subsystem, bfloat16, ``rgb_cap != 0``, resume) raise, naming
+unless ``--device cpu`` is given. Options the port does not carry yet
+(bfloat16, ``rgb_cap != 0``, resume, data-parallel meshes) raise, naming
 ROADMAP.md.
 """
 
@@ -50,9 +52,10 @@ def _full_f32_products():
 
 
 def run_train(args):
-    """Train, save ``model.npz``, then the final evaluations
-    (`main.py:45-117`). Returns the trainer's statistics with the test
-    PSNRs under ``test_psnrs`` (empty when no test views were rendered)."""
+    """Train (InfoInv or the learned gauge), save ``model.npz``, then the
+    final evaluations (`main.py:45-117`). Returns the trainer's statistics
+    with the test PSNRs under ``test_psnrs`` (empty when no test views were
+    rendered)."""
     from ngf_tpu_torch.data import load_dataset
     from ngf_tpu_torch.render.evaluation import evaluation, evaluation_path
     from ngf_tpu_torch.train.loop import TriPlaneTrainer, check_ported

@@ -1,6 +1,6 @@
 """Tri-plane fields: InfoInv and learned-gauge variants.
 
-Port of `ngf_tpu/fields/triplane.py:44-303,313-319` (reference
+Port of `ngf_tpu/fields/triplane.py` (reference
 `InfoInv/models/Field.py`, `TriPlane/models/Field.py`). Planes are
 channels-last (H, W, C). A fetch takes the three planes at their three
 projections in one call of :func:`ngf_tpu_torch.ops.grid_sample.grid_sample_planes`,
@@ -10,7 +10,10 @@ features that are the decoder input as they lie. A fetch names its channels
 of the whole plane, so neither the slice nor its gradient is copied. The
 fused pair :func:`triplane_density_and_rgbfeat` /
 :func:`triplane_rgb_from_feats` fetches all channels once and splits them
-into both decoders' inputs.
+into both decoders' inputs. The learned gauge's planes are fetched at
+deformed coordinates, whose gradient the fetch's backward gives too; its
+events crop (:func:`shrink_planes`) and resize (:func:`upsample_planes`) the
+planes to three shapes.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.encoding import infoinv_modulate
-from ..ops.grid_sample import grid_sample_planes
+from ..ops.grid_sample import grid_sample_planes, resize_bilinear_2d
 from .decoders import (
     Params,
     apply_density_decoder,
@@ -126,11 +129,14 @@ _GAUGES = ("gauge_xy", "gauge_yz", "gauge_xz")
 def triplane_gauge(
     params: Params, cfg: TriPlaneConfig, xy, yz, xz, iteration: int, sample_fn=None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Learned gauge deformation with cross-plane coupling, forward only
+    """Learned gauge deformation with cross-plane coupling
     (`ngf_tpu/fields/triplane.py:141-189`, `TriPlane/models/Field.py:53-75`).
-    Before ``gauge_start`` the offsets are multiplied by 0. The three (G, G, 2)
-    gauge grids are fetched in one three-plane gather, or one by one through
-    ``sample_fn``."""
+    Before ``gauge_start`` the offsets are fetched and multiplied by 0, as the
+    JAX package does: the gauge grids then get a zero gradient, not none, and
+    Adam counts their steps as optax does. The three (G, G, 2) gauge grids are
+    fetched in one three-plane gather, or one by one through ``sample_fn``;
+    the deformed coordinates carry the gradient back into them through the
+    planes' fetch."""
     if cfg.variant != "gauge":
         return xy, yz, xz
     active = float(iteration >= cfg.gauge_start)
@@ -271,3 +277,34 @@ def density_l1(params: Params) -> torch.Tensor:
         + params["plane_yz"].abs().mean()
         + params["plane_xz"].abs().mean()
     )
+
+
+@torch.no_grad()
+def upsample_planes(params: Params, res) -> Params:
+    """Bilinear resize of the three planes to the per-axis resolution
+    ``res`` = (rx, ry, rz) (`ngf_tpu/fields/triplane.py:322-335`,
+    `TriPlane/models/Field.py:108-114`): ``plane_xy`` becomes (ry, rx, C),
+    ``plane_yz`` (rz, ry, C) and ``plane_xz`` (rz, rx, C). The other entries
+    are kept as they are."""
+    rx, ry, rz = (int(v) for v in res)
+    out = dict(params)
+    out["plane_xy"] = resize_bilinear_2d(params["plane_xy"], (ry, rx))
+    out["plane_yz"] = resize_bilinear_2d(params["plane_yz"], (rz, ry))
+    out["plane_xz"] = resize_bilinear_2d(params["plane_xz"], (rz, rx))
+    return out
+
+
+@torch.no_grad()
+def shrink_planes(params: Params, t_l, b_r) -> Params:
+    """Crop the three planes to the voxel box [t_l, b_r) of integer (x, y, z)
+    voxel coordinates (`ngf_tpu/fields/triplane.py:338-350`,
+    `TriPlane/models/Field.py:117-132`). The crops are contiguous copies: the
+    gather kernel takes planes whose rows are W texels apart. The gauge
+    grids and decoders are kept as they are."""
+    t_l = [int(v) for v in t_l]
+    b_r = [int(v) for v in b_r]
+    out = dict(params)
+    out["plane_xy"] = params["plane_xy"][t_l[1] : b_r[1], t_l[0] : b_r[0]].contiguous()
+    out["plane_yz"] = params["plane_yz"][t_l[2] : b_r[2], t_l[1] : b_r[1]].contiguous()
+    out["plane_xz"] = params["plane_xz"][t_l[2] : b_r[2], t_l[0] : b_r[0]].contiguous()
+    return out

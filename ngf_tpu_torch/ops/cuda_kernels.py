@@ -17,9 +17,12 @@ library is loaded, no device switch when the tensor's device is current, the
 raw stream handle instead of a stream object (:func:`_launch`).
 
 Kernels: ``bilinear_gather_planes`` (K1, the tri-plane fetch: up to three
-planes in one launch, split into the two decoders' inputs) with its
-one-plane call ``bilinear_gather_2d``, ``bilinear_gather_2d_backward`` (K2,
-its plane gradient), ``gather_rows`` (the trainer's batch assembly),
+planes of any shapes in one launch, split into the two decoders' inputs)
+with its one-plane call ``bilinear_gather_2d``, ``bilinear_gather_2d_backward``
+(K2, its plane gradient), ``bilinear_gather_2d_backward_coords`` (K2c, the
+plane and the coordinate gradient of one plane's fetch in one pass, for the
+learned gauge's deformed coordinates), ``gather_rows`` (the trainer's batch
+assembly),
 ``occupancy_lookup`` (K3, the alpha-mask test of point clouds) and
 ``group_sample_compact`` (K4, the grouped renderer's whole front end:
 sampling, occupancy test and per-ray compaction in one launch).
@@ -112,7 +115,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     lib.ngf_cuda_error_string.restype = ctypes.c_char_p
     if name == "bilinear_gather":
         lib.ngf_bilinear_gather_planes.argtypes = [
-            ctypes.POINTER(i64), i32, i32, i32, i32, i32, vp, vp, i64, i32, i32, vp,
+            ctypes.POINTER(i64), i32, i32, i32, vp, vp, i64, i32, i32, vp,
         ]
         lib.ngf_bilinear_gather_planes.restype = i32
     elif name == "bilinear_gather_backward":
@@ -120,6 +123,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             vp, i64, i32, vp, i64, i64, vp, i32, i32, i64, i64, i32, vp,
         ]
         lib.ngf_bilinear_gather_2d_backward.restype = i32
+        lib.ngf_bilinear_gather_2d_backward_coords.argtypes = [
+            vp, i64, i32, vp, i64, i32, vp, i64, i64, vp, i64, vp, i64, i32, i32, i64, vp, i32,
+            vp,
+        ]
+        lib.ngf_bilinear_gather_2d_backward_coords.restype = i32
     elif name == "gather_rows":
         lib.ngf_gather_rows.argtypes = [vp, i64, i32, i64, vp, i32, i64, vp, vp]
         lib.ngf_gather_rows.restype = i32
@@ -193,20 +201,21 @@ def gather_lanes(dtype: torch.dtype, C: int, split: int, texel_strides, ptrs) ->
 
 
 def _gather(planes, flats, c0: int, C: int, split: int, out_a, out_b, what: str) -> None:
-    """Launch the gather kernel on checked planes and (N, 2) coordinates."""
-    H, W, _ = planes[0].shape
+    """Launch the gather kernel on checked planes, each of its own (H, W),
+    and (N, 2) coordinates."""
     itemsize = planes[0].element_size()
     plane_ptrs = [p.data_ptr() + itemsize * c0 for p in planes]
     desc = []
     for plane, ptr, flat in zip(planes, plane_ptrs, flats):
-        desc += [ptr, plane.stride(1), flat.data_ptr(), flat.stride(0), flat.stride(1)]
+        H, W, _ = plane.shape
+        desc += [ptr, plane.stride(1), flat.data_ptr(), flat.stride(0), flat.stride(1), H, W]
     out_ptrs = [out_a.data_ptr()] + ([out_b.data_ptr()] if out_b is not None else [])
     lanes = gather_lanes(planes[0].dtype, C, split, [p.stride(1) for p in planes],
                          plane_ptrs + out_ptrs)
     lib = _lib("bilinear_gather")
     _launch(
         lib, lib.ngf_bilinear_gather_planes, planes[0].get_device(), what,
-        (ctypes.c_longlong * len(desc))(*desc), len(planes), H, W, C, split,
+        (ctypes.c_longlong * len(desc))(*desc), len(planes), C, split,
         out_ptrs[0], out_ptrs[1] if out_b is not None else None, flats[0].shape[0],
         _GATHER_DTYPES[planes[0].dtype], lanes,
     )
@@ -272,8 +281,10 @@ def bilinear_gather_planes(
     (``kernels/bilinear_gather.cu``).
 
     Args:
-      planes: 1 to 3 (H, W, C_total) float32 or bfloat16 CUDA tensors of one
-        shape and dtype, channels contiguous and rows ``W`` texels apart.
+      planes: 1 to 3 (H_p, W_p, C_total) float32 or bfloat16 CUDA tensors of
+        one channel count and dtype, each of its own H_p, W_p >= 2 (the
+        gauge variant's planes after its shrink and upsample), channels
+        contiguous and rows ``W_p`` texels apart.
       coords: as many (..., 2) float32 CUDA tensors of one shape, the
         coordinates of each plane; strided views qualify as they are.
       channels: the contiguous channel range c0:c1 fetched from each plane.
@@ -296,8 +307,9 @@ def bilinear_gather_planes(
         )
     for plane in planes:
         _check_gather_plane(plane, "plane")
-        if plane.shape != planes[0].shape or plane.dtype != planes[0].dtype:
-            raise ValueError(f"planes differ: {[(tuple(p.shape), p.dtype) for p in planes]}")
+        if plane.shape[-1] != planes[0].shape[-1] or plane.dtype != planes[0].dtype:
+            raise ValueError(f"planes differ in channels or dtype: "
+                             f"{[(tuple(p.shape), p.dtype) for p in planes]}")
     for c in coords:
         _check_coords(c)
         if c.shape != coords[0].shape:
@@ -396,6 +408,102 @@ def bilinear_gather_2d_backward(
 
 
 bilinear_gather_2d_backward.launches = 0
+
+
+def _check_cotangent(g: torch.Tensor, coords: torch.Tensor, what: str) -> torch.Tensor:
+    """``g`` as (N, C) float32 rows with contiguous channels."""
+    if g.dtype != torch.float32 or g.shape[:-1] != coords.shape[:-1]:
+        raise ValueError(
+            f"{what} must be float32 of shape {(*coords.shape[:-1], g.shape[-1])}, got "
+            f"{tuple(g.shape)} {g.dtype}"
+        )
+    flat = g.reshape(-1, g.shape[-1])
+    return flat if flat.stride(1) == 1 else flat.contiguous()
+
+
+def bilinear_gather_2d_backward_coords(
+    plane: torch.Tensor,
+    coords: torch.Tensor,
+    g_a: torch.Tensor | None,
+    g_b: torch.Tensor | None,
+    grad_plane: torch.Tensor,
+    channel_offset: int = 0,
+) -> torch.Tensor:
+    """CUDA kernel K2c (``kernels/bilinear_gather_backward.cu``): the plane
+    and the coordinate gradient of one plane's fetch of channels
+    ``channel_offset : channel_offset + C``, in one launch. Adds the plane
+    gradient into those channels of ``grad_plane`` and returns the
+    coordinates' gradient.
+
+    Args:
+      plane: (H, W, C_total) float32 CUDA tensor, the fetched plane's values
+        (H, W >= 2), channels contiguous and rows ``W`` texels apart.
+      coords: (..., 2) float32 CUDA tensor, the fetch's coordinates.
+      g_a, g_b: the gradients of a split fetch's two outputs, (..., C_a) over
+        channels ``channel_offset : channel_offset + C_a`` and (..., C_b)
+        over the next C_b; either may be None (its output got no gradient).
+      grad_plane: (H, W, C_total) float32 CUDA tensor, as ``plane``: the
+        whole plane's gradient.
+      channel_offset: first channel of the fetch within the plane.
+
+    Returns:
+      (..., 2) float32, the gradient of the fetch's coordinates.
+    """
+    given = [t for t in (plane, coords, g_a, g_b, grad_plane) if t is not None]
+    if not _on_one_device(*given):
+        raise ValueError(
+            "bilinear_gather_2d_backward_coords needs its tensors on one CUDA device, got "
+            f"{[str(t.device) for t in given]}"
+        )
+    if g_a is None and g_b is None:
+        raise ValueError("bilinear_gather_2d_backward_coords needs g_a or g_b")
+    for t, what in ((plane, "plane"), (grad_plane, "grad_plane")):
+        if t.dim() != 3 or t.dtype != torch.float32:
+            raise ValueError(f"{what} must be (H, W, C) float32, got {tuple(t.shape)} {t.dtype}")
+        _check_plane(t, what)
+    if plane.shape != grad_plane.shape:
+        raise ValueError(f"plane {tuple(plane.shape)} and grad_plane {tuple(grad_plane.shape)} "
+                         "differ in shape")
+    H, W, c_total = plane.shape
+    if H * W >= 2**31:
+        raise ValueError(f"plane of {H}x{W} texels: the kernel indexes texels in 32 bits")
+    _check_coords(coords)
+    flat_a = None if g_a is None else _check_cotangent(g_a, coords, "g_a")
+    flat_b = None if g_b is None else _check_cotangent(g_b, coords, "g_b")
+    c_a = 0 if flat_a is None else flat_a.shape[1]
+    c_b = 0 if flat_b is None else flat_b.shape[1]
+    if flat_a is None:  # one cotangent: it goes first
+        flat_a, c_a, flat_b, c_b = flat_b, c_b, None, 0
+    if not 0 <= channel_offset <= c_total - (c_a + c_b) or c_a == 0:
+        raise ValueError(f"channels {channel_offset}:{channel_offset + c_a + c_b} outside "
+                         f"0:{c_total} or empty")
+    flat_c = coords.reshape(-1, 2)
+    n = flat_c.shape[0]
+    out = torch.empty((n, 2), dtype=torch.float32, device=coords.device)
+    if n == 0:
+        return out.reshape(coords.shape)
+    src = plane.data_ptr() + 4 * channel_offset
+    dst = grad_plane.data_ptr() + 4 * channel_offset
+    b_ptr = 0 if flat_b is None else flat_b.data_ptr()
+    b_stride = 0 if flat_b is None else flat_b.stride(0)
+    # float4 lanes when every 16-byte access is aligned, as `backward_lanes`.
+    strides = (flat_a.stride(0), b_stride, plane.stride(1), grad_plane.stride(1))
+    aligned = (c_a % 4 == 0 and c_b % 4 == 0 and all(t % 4 == 0 for t in strides)
+               and all(p % 16 == 0 for p in (flat_a.data_ptr(), b_ptr, src, dst)))
+    lanes = 4 if aligned else 1
+    lib = _lib("bilinear_gather_backward")
+    _launch(
+        lib, lib.ngf_bilinear_gather_2d_backward_coords, plane.get_device(),
+        "bilinear_gather_2d_backward_coords",
+        flat_a.data_ptr(), flat_a.stride(0), c_a, b_ptr or None, b_stride, c_b,
+        flat_c.data_ptr(), flat_c.stride(0), flat_c.stride(1),
+        src, plane.stride(1), dst, grad_plane.stride(1), H, W, n, out.data_ptr(), lanes,
+    )
+    bilinear_gather_2d_backward_coords.launches += 1
+    return out.reshape(coords.shape)
+
+
+bilinear_gather_2d_backward_coords.launches = 0
 
 _INDEX_BYTES = {torch.int64: 8, torch.int32: 4}
 
@@ -614,6 +722,7 @@ KERNELS = {
     "bilinear_gather_planes": bilinear_gather_planes,
     "bilinear_gather_2d": bilinear_gather_2d,
     "bilinear_gather_2d_backward": bilinear_gather_2d_backward,
+    "bilinear_gather_2d_backward_coords": bilinear_gather_2d_backward_coords,
     "gather_rows": gather_rows,
     "occupancy_lookup": occupancy_lookup,
     "group_sample_compact": group_sample_compact,

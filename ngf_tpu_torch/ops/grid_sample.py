@@ -10,9 +10,11 @@ and volumes (D, H, W, C), as in the JAX package.
 planes at their three projections in one call, split into the density and
 appearance decoders' inputs. On CUDA tensors it launches the hand-written
 kernel ``bilinear_gather_planes`` (`ngf_tpu_torch/ops/cuda_kernels.py`) and,
-for the plane gradients, its backward ``bilinear_gather_2d_backward``; on CPU
-tensors it runs the plain versions below. There is no fallback between the
-two. ``grid_sample_2d`` is its one-plane call.
+for the plane gradients, its backward ``bilinear_gather_2d_backward``, or,
+where the coordinates need a gradient too (the learned gauge's deformed
+coordinates), ``bilinear_gather_2d_backward_coords`` for both; on CPU tensors
+it runs the plain versions below. There is no fallback between the two.
+``grid_sample_2d`` is its one-plane call.
 
 A fetch names its channels of the whole plane (``channels``), so its
 gradient lands in those channels of the whole plane's gradient: no slice is
@@ -20,7 +22,8 @@ copied either way, and both outputs of a plane add into one buffer.
 
 ``occupancy_lookup`` is the trilinear alpha-mask test ``> 0``: the
 ``occupancy_lookup`` kernel (K3) on CUDA tensors, ``occupancy_lookup_plain``
-on CPU tensors. ``max_pool_3d`` dilates the mask.
+on CPU tensors. ``max_pool_3d`` dilates the mask and ``resize_bilinear_2d``
+resizes a plane at the upsample event, both library calls.
 """
 
 from __future__ import annotations
@@ -122,6 +125,60 @@ def grid_sample_2d_backward_plain(
         dst.index_add_(0, idx + off, g * w[:, None])
 
 
+def _axis_weight_grads(c: torch.Tensor, size: int):
+    """d(w0)/dc, d(w1)/dc of :func:`_axis_patch_weights` at the unnormalised
+    coordinate ``c`` (`ngf_tpu/ops/grid_sample.py:354-363`): +1 where the
+    slot's texel is the stencil's upper corner, -1 where it is the lower one,
+    else 0; 0 beyond the clamp to [-2, size+1], as the autograd of the clamp
+    gives it."""
+    c0 = torch.floor(c.clamp(-2.0, size + 1.0)).long()
+    start = c0.clamp(0, size - 2)
+    dw0 = (start == c0 + 1).float() - (start == c0).float()
+    dw1 = (start + 1 == c0 + 1).float() - (start + 1 == c0).float()
+    return dw0, dw1
+
+
+def grid_sample_2d_backward_coords_plain(
+    plane: torch.Tensor, coords: torch.Tensor, g: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch version of the coordinate half of the
+    ``bilinear_gather_2d_backward_coords`` kernel (K2c): the gradient of
+    :func:`grid_sample_2d_plain` with respect to its coordinates, written
+    out, not by autograd (the coordinate branch of `_duobwd_bwd`,
+    `ngf_tpu/ops/grid_sample.py:434-455`). With the four taps j = 00, 01,
+    10, 11 (first index y) and t_j = sum_c plane[tap_j, c] * g_c in float32:
+    gx = (t00 wy0 dwx0 + t01 wy0 dwx1 + t10 wy1 dwx0 + t11 wy1 dwx1) (W-1)/2,
+    and gy likewise with (H-1)/2.
+
+    Args:
+      plane: (H, W, C), the fetched channels (a slice of a wider plane is fine).
+      coords: (..., 2) the fetch's coordinates.
+      g: (..., C) the gradient of the fetch's output.
+
+    Returns:
+      (..., 2) float32.
+    """
+    H, W, C = plane.shape
+    batch_shape = coords.shape[:-1]
+    flat_c = coords.reshape(-1, 2).float()
+    g = g.reshape(-1, C).float()
+    x, y = _unnormalize(flat_c[:, 0], W), _unnormalize(flat_c[:, 1], H)
+    xs, wx0, wx1 = _axis_patch_weights(x, W)
+    ys, wy0, wy1 = _axis_patch_weights(y, H)
+    dwx0, dwx1 = _axis_weight_grads(x, W)
+    dwy0, dwy1 = _axis_weight_grads(y, H)
+    flat = plane.reshape(H * W, C)
+    idx = ys * W + xs
+    t00, t01, t10, t11 = (
+        (flat[idx + off].float() * g).sum(-1) for off in (0, 1, W, W + 1)
+    )
+    gx = (t00 * wy0 * dwx0 + t01 * wy0 * dwx1 + t10 * wy1 * dwx0 + t11 * wy1 * dwx1) * (
+        0.5 * (W - 1))
+    gy = (t00 * dwy0 * wx0 + t01 * dwy0 * wx1 + t10 * dwy1 * wx0 + t11 * dwy1 * wx1) * (
+        0.5 * (H - 1))
+    return torch.stack([gx, gy], dim=-1).reshape(*batch_shape, 2)
+
+
 def grid_sample_planes_plain(
     planes, coords, channels: slice = slice(None), split: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -139,11 +196,12 @@ def grid_sample_planes_plain(
 
 class _BilinearGatherPlanes(torch.autograd.Function):
     """``grid_sample_planes`` of channels ``c0:c1``, split at ``split``: one
-    launch of the gather kernel (CUDA) or its plain version (CPU) forward;
-    each plane's gradient in one float32 (H, W, C) buffer, into which the
-    backward kernel (CUDA) or its plain version (CPU) adds each output's
-    channels. No coordinate gradient: :func:`grid_sample_planes` routes
-    coordinates that need one."""
+    launch of the gather kernel (CUDA) or its plain version (CPU) forward.
+    Backward, each plane's gradient in one float32 (H, W, C) buffer: where
+    only the planes need a gradient, the backward kernel (CUDA) or its plain
+    version (CPU) adds each output's channels into it; where a plane's
+    coordinates need one too (the learned gauge), K2c (CUDA, one launch for
+    both gradients and both outputs) or the plain versions (CPU) give both."""
 
     @staticmethod
     def forward(ctx, c0, c1, split, *tensors):
@@ -156,43 +214,55 @@ class _BilinearGatherPlanes(torch.autograd.Function):
             out_a = out_a.unsqueeze(-2)
         else:
             out_a, out_b = cuda_kernels.bilinear_gather_planes(planes, coords, slice(c0, c1), split)
-        ctx.save_for_backward(*coords)
+        coord_grads = any(ctx.needs_input_grad[3 + P:])
+        ctx.save_for_backward(*coords, *(planes if coord_grads else ()))
         ctx.meta = (c0, out_a.shape[-1], [(p.shape, p.dtype, p.device) for p in planes])
         ctx.set_materialize_grads(False)
         return out_a, out_b
 
     @staticmethod
     def backward(ctx, g_a, g_b):
-        coords = ctx.saved_tensors
+        saved = ctx.saved_tensors
         c0, split, planes = ctx.meta
-        grads = []
+        P = len(planes)
+        coords, values = saved[:P], saved[P:]
+        grads, coord_grads = [None] * P, [None] * P
         for i, (shape, dtype, device) in enumerate(planes):
-            if not ctx.needs_input_grad[3 + i] or (g_a is None and g_b is None):
-                grads.append(None)
+            need_coords = ctx.needs_input_grad[3 + P + i]
+            if not (ctx.needs_input_grad[3 + i] or need_coords) or (g_a is None and g_b is None):
                 continue
-            if device.type == "cuda":
-                if dtype != torch.float32:
-                    raise NotImplementedError(
-                        f"the plane gradient of a {dtype} plane is not ported: see ROADMAP.md "
-                        "queue 1, 'bfloat16 training'"
-                    )
-                scatter = cuda_kernels.bilinear_gather_2d_backward
-            else:
-                scatter = grid_sample_2d_backward_plain
+            cuda = device.type == "cuda"
+            if cuda and dtype != torch.float32:
+                raise NotImplementedError(
+                    f"the plane gradient of a {dtype} plane is not ported: see ROADMAP.md "
+                    "queue 1, 'bfloat16 training'"
+                )
+            ga = None if g_a is None else g_a[..., i, :]
+            gb = None if g_b is None else g_b[..., i, :]
             grad = torch.zeros(shape, dtype=torch.float32, device=device)
-            if g_a is not None:
-                scatter(g_a[..., i, :], coords[i], grad, c0)
-            if g_b is not None:
-                scatter(g_b[..., i, :], coords[i], grad, c0 + split)
-            grads.append(grad)
-        return (None, None, None, *grads, *([None] * len(planes)))
+            if need_coords and cuda:
+                coord_grads[i] = cuda_kernels.bilinear_gather_2d_backward_coords(
+                    values[i], coords[i], ga, gb, grad, c0)
+            else:
+                scatter = (cuda_kernels.bilinear_gather_2d_backward if cuda
+                           else grid_sample_2d_backward_plain)
+                for g, off in ((ga, c0), (gb, c0 + split)):
+                    if g is None:
+                        continue
+                    scatter(g, coords[i], grad, off)
+                    if need_coords:  # on the CPU
+                        cg = grid_sample_2d_backward_coords_plain(
+                            values[i][..., off : off + g.shape[-1]], coords[i], g)
+                        coord_grads[i] = cg if coord_grads[i] is None else coord_grads[i] + cg
+            grads[i] = grad if ctx.needs_input_grad[3 + i] else None
+        return (None, None, None, *grads, *coord_grads)
 
 
 def grid_sample_planes(
     planes, coords, channels: slice = slice(None), split: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Bilinear samples of channels ``channels`` of up to three (H, W, C)
-    planes of one shape, each at its own (..., 2) coords in [-1, 1], split
+    """Bilinear samples of channels ``channels`` of up to three (H_p, W_p, C)
+    planes, each of its own shape and at its own (..., 2) coords in [-1, 1], split
     into two outputs: ``out_a`` (..., P, split) and ``out_b`` (..., P,
     C - split), or ``out_a`` (..., P, C) and None without a split.
 
@@ -202,10 +272,10 @@ def grid_sample_planes(
     outputs are the decoders' inputs in the order of a ``torch.cat`` of the
     three planes. CUDA planes launch the ``bilinear_gather_planes`` kernel
     once (or raise) and, in the backward, ``bilinear_gather_2d_backward``
-    once per plane and output; CPU planes take the plain versions.
-    Coordinates that need a gradient (the gauge variant) take the plain
-    version with autograd on the CPU and raise on the card: the kernel has
-    no coordinate gradient yet (ROADMAP.md queue 1, item 3).
+    once per plane and output, or, for a plane whose coordinates need a
+    gradient (the gauge variant's deformed coordinates),
+    ``bilinear_gather_2d_backward_coords`` once per plane for both
+    gradients; CPU planes take the plain versions.
     """
     planes, coords = tuple(planes), tuple(coords)
     device = planes[0].device
@@ -218,13 +288,6 @@ def grid_sample_planes(
         raise ValueError(f"channels must be a non-empty contiguous slice, got {channels}")
     if split is not None and not 0 < split < c1 - c0:
         raise ValueError(f"split {split} outside 1..{c1 - c0 - 1}")
-    if torch.is_grad_enabled() and any(c.requires_grad for c in coords):
-        if device.type == "cuda":
-            raise NotImplementedError(
-                "coordinate gradients of the CUDA gather are not ported: see ROADMAP.md "
-                "queue 1, item 3, 'Gauge training'"
-            )
-        return grid_sample_planes_plain(planes, coords, slice(c0, c1), split)
     return _BilinearGatherPlanes.apply(c0, c1, split, *planes, *coords)
 
 
@@ -357,6 +420,17 @@ def occupancy_lookup(
     if volume.device.type != "cpu" or points.device != volume.device:
         raise ValueError(f"occupancy_lookup on {volume.device} with points on {points.device}")
     return occupancy_lookup_plain(volume, points, aabb)
+
+
+def resize_bilinear_2d(plane: torch.Tensor, new_hw: tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of an (H, W, C) plane to ``new_hw`` with
+    align_corners=True (`ngf_tpu/ops/grid_sample.py:651-675`): the library's
+    ``F.interpolate`` on the (1, C, H, W) view, as
+    `TriPlane/models/Field.py:110-112` calls it, returned channels-last and
+    contiguous."""
+    out = F.interpolate(plane.permute(2, 0, 1)[None], size=tuple(new_hw), mode="bilinear",
+                        align_corners=True)
+    return out[0].permute(1, 2, 0).contiguous()
 
 
 def max_pool_3d(volume: torch.Tensor, kernel: int = 3) -> torch.Tensor:

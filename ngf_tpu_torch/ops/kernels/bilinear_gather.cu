@@ -8,9 +8,11 @@
 // each at its own coordinates: the fused tri-plane fetch of
 // `triplane_density_and_rgbfeat` (ngf_tpu/fields/triplane.py:262-292).
 //
-// Layout. Plane p is (H, W, C_p) with texels texel_stride[p] elements apart
-// and channels contiguous, passed as a pointer offset by c0: a channel slice
-// of a wider plane is no copy. Its coordinates are (N, 2) float32 with
+// Layout. Plane p is (H_p, W_p, C_p) with texels texel_stride[p] elements
+// apart and channels contiguous, passed as a pointer offset by c0: a channel
+// slice of a wider plane is no copy. Each plane has its own H_p, W_p >= 2:
+// the gauge variant crops its planes to a box and resizes them per axis
+// (ngf_tpu/fields/triplane.py:322-350). Its coordinates are (N, 2) float32 with
 // element strides (coord_stride_n[p], coord_stride_k[p]), so the projections
 // xyz[..., 0:2], xyz[..., 1:3] and xyz[..., 0::2] stay views. The C = c1 - c0
 // channels split at s: channels below s go to out_a[n, p, :] (N, P, s) and
@@ -82,6 +84,8 @@ struct Planes {
     const float* coords[MAX_PLANES];
     long long coord_stride_n[MAX_PLANES];
     long long coord_stride_k[MAX_PLANES];
+    int H[MAX_PLANES];
+    int W[MAX_PLANES];
 };
 
 // Element p of a per-plane field by selects, so that a run-time plane index
@@ -156,7 +160,7 @@ struct Vec<__nv_bfloat16, 1> {
 
 template <typename T, int V>
 __global__ void __launch_bounds__(MAX_THREADS) bilinear_gather_planes_kernel(
-    const Planes pl, int P, int H, int W, int groups_a, int groups_b, int split, int rest,
+    const Planes pl, int P, int groups_a, int groups_b, int split, int rest,
     int seg_threads, T* __restrict__ out_a, T* __restrict__ out_b, long long N) {
     using L = Vec<T, V>;
     __shared__ int s_start[MAX_ENTRIES];
@@ -172,9 +176,11 @@ __global__ void __launch_bounds__(MAX_THREADS) bilinear_gather_planes_kernel(
         const int i = e - p * tile;
         if (i < npts) {
             const float* cp = pick(pl.coords, p) + (first + i) * pick(pl.coord_stride_n, p);
+            const int W = pick(pl.W, p);
             float wx0, wx1, wy0, wy1;
             const int xs = axis_stencil(__ldg(cp), W, &wx0, &wx1);
-            const int ys = axis_stencil(__ldg(cp + pick(pl.coord_stride_k, p)), H, &wy0, &wy1);
+            const int ys = axis_stencil(__ldg(cp + pick(pl.coord_stride_k, p)), pick(pl.H, p), &wy0,
+                                        &wy1);
             s_start[e] = ys * W + xs;
             s_w[e] = make_float4(wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1);
         }
@@ -204,6 +210,7 @@ __global__ void __launch_bounds__(MAX_THREADS) bilinear_gather_planes_kernel(
         }
         dst += (first + p0) * row;
         const T* src = static_cast<const T*>(pick(pl.plane, p)) + g * V;
+        const int W = pick(pl.W, p);
         const long long right = pick(pl.texel_stride, p);
         const long long down = (long long)W * right;
         const int* starts = s_start + p * tile + p0;
@@ -267,7 +274,7 @@ __global__ void __launch_bounds__(MAX_THREADS) bilinear_gather_planes_kernel(
 }
 
 template <typename T, int V>
-int launch(const Planes& pl, int P, int H, int W, int C, int split, void* out_a, void* out_b,
+int launch(const Planes& pl, int P, int C, int split, void* out_a, void* out_b,
            long long N, cudaStream_t stream) {
     const int groups_a = split / V;
     const int groups_b = (C - split) / V;
@@ -276,7 +283,7 @@ int launch(const Planes& pl, int P, int H, int W, int C, int split, void* out_a,
     const long long tile = (long long)segs * SEG;
     const long long blocks = (N + tile - 1) / tile;
     bilinear_gather_planes_kernel<T, V><<<(unsigned)blocks, segs * seg_threads, 0, stream>>>(
-        pl, P, H, W, groups_a, groups_b, split, C - split, seg_threads, static_cast<T*>(out_a),
+        pl, P, groups_a, groups_b, split, C - split, seg_threads, static_cast<T*>(out_a),
         static_cast<T*>(out_b), N);
     return (int)cudaGetLastError();
 }
@@ -285,34 +292,38 @@ int launch(const Planes& pl, int P, int H, int W, int C, int split, void* out_a,
 
 extern "C" {
 
-// desc holds P rows of five values: the plane's pointer (offset to channel
-// c0), its texel stride, the coordinates' pointer and their two element
-// strides. dtype: 0 = float32, 1 = bfloat16. vec = 16 / sizeof(dtype) takes
-// 16-byte loads and stores and needs C, split, every texel stride and every
-// pointer 16-byte aligned; vec = 1 takes any layout. out_b may be null when
+// desc holds P rows of seven values: the plane's pointer (offset to channel
+// c0), its texel stride, the coordinates' pointer, their two element
+// strides, and the plane's H and W. dtype: 0 = float32, 1 = bfloat16.
+// vec = 16 / sizeof(dtype) takes 16-byte loads and stores and needs C,
+// split, every texel stride and every pointer 16-byte aligned; vec = 1
+// takes any layout. out_b may be null when
 // split == C. Launches on `stream` and returns the cudaError_t of the launch
-// (0 on success). N and C must be > 0, 0 < split <= C, H * W < 2^31.
-int ngf_bilinear_gather_planes(const long long* desc, int P, int H, int W, int C, int split,
+// (0 on success). N and C must be > 0, 0 < split <= C, every H, W >= 2 and
+// H * W < 2^31.
+int ngf_bilinear_gather_planes(const long long* desc, int P, int C, int split,
                                void* out_a, void* out_b, long long N, int dtype, int vec,
                                void* stream) {
     if (P < 1 || P > MAX_PLANES || split < 1 || split > C) return (int)cudaErrorInvalidValue;
     Planes pl = {};
     for (int p = 0; p < P; ++p) {
-        const long long* d = desc + 5 * p;
+        const long long* d = desc + 7 * p;
         pl.plane[p] = reinterpret_cast<const void*>(d[0]);
         pl.texel_stride[p] = d[1];
         pl.coords[p] = reinterpret_cast<const float*>(d[2]);
         pl.coord_stride_n[p] = d[3];
         pl.coord_stride_k[p] = d[4];
+        pl.H[p] = (int)d[5];
+        pl.W[p] = (int)d[6];
     }
     cudaStream_t s = (cudaStream_t)stream;
-    if (dtype == 0 && vec == 4) return launch<float, 4>(pl, P, H, W, C, split, out_a, out_b, N, s);
-    if (dtype == 0 && vec == 1) return launch<float, 1>(pl, P, H, W, C, split, out_a, out_b, N, s);
+    if (dtype == 0 && vec == 4) return launch<float, 4>(pl, P, C, split, out_a, out_b, N, s);
+    if (dtype == 0 && vec == 1) return launch<float, 1>(pl, P, C, split, out_a, out_b, N, s);
     if (dtype == 1 && vec == 8) {
-        return launch<__nv_bfloat16, 8>(pl, P, H, W, C, split, out_a, out_b, N, s);
+        return launch<__nv_bfloat16, 8>(pl, P, C, split, out_a, out_b, N, s);
     }
     if (dtype == 1 && vec == 1) {
-        return launch<__nv_bfloat16, 1>(pl, P, H, W, C, split, out_a, out_b, N, s);
+        return launch<__nv_bfloat16, 1>(pl, P, C, split, out_a, out_b, N, s);
     }
     return (int)cudaErrorInvalidValue;
 }

@@ -1,12 +1,13 @@
-"""InfoInv training: `TriPlaneTrainer` of `ngf_tpu/train/loop.py`.
+"""Staged training: `TriPlaneTrainer` of `ngf_tpu/train/loop.py`.
 
-Port of the InfoInv recipe of `TriPlaneTrainer` (reference
-`InfoInv/main.py:191-360`): the geometry and samples, the bbox ray filter and
-the epoch sampler, the optimizer, the loss (MSE + L1 + optional TV) with
-microbatch accumulation, the grouped or dense renderer, the occupancy mask
-events (grid, L1 switch, ray refilter, measured sample capacity), the run
-loop with its logs, evaluations and checkpoint, and the final evaluation
-renderer.
+Port of `TriPlaneTrainer` for both tri-plane subsystems (references
+`InfoInv/main.py:191-360`, `TriPlane/main.py:200-357`): the geometry and
+samples, the bbox ray filter and the epoch sampler, the optimizer, the loss
+(MSE + L1 + optional TV) with microbatch accumulation, the grouped or dense
+renderer, the occupancy mask events (grid, L1 switch, ray refilter, measured
+sample capacity), the learned gauge's shrink (at its first mask event) and
+upsample events with their optimizer resets, the run loop with its logs,
+evaluations and checkpoint, and the final evaluation renderer.
 
 Differences from the JAX trainer:
 - The training rays and colours live on the device as one (N, 9) table,
@@ -19,8 +20,9 @@ Differences from the JAX trainer:
 - At a mask event the (N, 9) table is rebuilt on the kept rays with one
   ``gather_rows`` launch, and the occupancy tests are the K3 kernel on the
   grid's uint8 copy.
-- Not ported yet, and refused with a pointer to ROADMAP.md: the gauge
-  subsystem (and with it shrink and upsample events), ``compute_dtype
+- The shrink and upsample events replace the planes with new leaf tensors
+  (contiguous crops and resizes) and rebuild the optimizer over them.
+- Not ported yet, and refused with a pointer to ROADMAP.md: ``compute_dtype
   bfloat16``, ``rgb_cap != 0``, resume, data-parallel meshes.
 """
 
@@ -37,7 +39,13 @@ from ..config import TrainArgs
 from ..convert import named_leaves
 from ..data.dataset import RayDataset
 from ..data.sampler import DeviceSampler
-from ..fields.triplane import TriPlaneConfig, density_l1, init_triplane
+from ..fields.triplane import (
+    TriPlaneConfig,
+    density_l1,
+    init_triplane,
+    shrink_planes,
+    upsample_planes,
+)
 from ..ops.gather import gather_rows
 from ..render.evaluation import evaluation
 from ..render.volume import RenderConfig, render_rays
@@ -50,6 +58,7 @@ from .occupancy import (
     filter_rays_alpha,
     filter_rays_bbox,
     occupied_samples_per_ray,
+    shrink_box_voxels,
     update_alpha_mask,
 )
 from .state import TriPlaneOptimizer
@@ -82,12 +91,6 @@ def check_ported(args: TrainArgs) -> None:
         raise NotImplementedError(
             "Ortho_weight > 0: the reference's vector_comp_diffs is dead code for "
             "tri-plane models; no equivalent is defined."
-        )
-    if args.subsystem != "infoinv":
-        raise _not_ported(
-            f"training the {args.subsystem!r} (learned gauge) subsystem, with its shrink and "
-            "upsample events",
-            "queue 1, item 3, 'Gauge training'",
         )
     if args.compute_dtype != "float32":
         raise _not_ported(f"compute_dtype {args.compute_dtype} in training", "queue 1, 'bfloat16 training'")
@@ -130,7 +133,9 @@ class TriPlaneTrainer:
         self.n_samples = min(args.nSamples, cal_n_samples(self.reso_cur, args.step_ratio))
         self.step_size = grid_step_size(self.aabb, self.reso_cur, args.step_ratio)
         self.grid_size = list(self.reso_cur)
-        self._check_marching_coverage()
+        self._check_marching_coverage("init")
+        # The upsample events' voxel counts, consumed in order.
+        self.n_voxel_list = self._voxel_schedule()
 
         # One generator on the device: initial weights, then the per-ray
         # jitter and random backgrounds of every step.
@@ -144,7 +149,8 @@ class TriPlaneTrainer:
         # Running max over the steps of the per-batch ~p99.9 of
         # ``shaded_groups`` (`ngf_tpu/train/loop.py:459-465`), on the device.
         self.rgb_stat = torch.zeros((), dtype=torch.int32, device=self.device)
-        # One record per mask event: what it produced and its phases' seconds.
+        # One record per event (mask, upsample): what it produced and its
+        # phases' seconds.
         self.events: list[dict] = []
 
         # Bbox ray filter and sampler (`ngf_tpu/train/loop.py:183-199`).
@@ -162,7 +168,24 @@ class TriPlaneTrainer:
 
     # ------------------------------------------------------------------ setup
 
-    def _check_marching_coverage(self) -> None:
+    def _voxel_schedule(self) -> list[int]:
+        """The upsample events' voxel counts (`ngf_tpu/train/loop.py:236-258`):
+        ``len(upsamp_list)`` points exponentially interpolated from
+        ``N_voxel_init`` to ``N_voxel_final``, ``N_voxel_init`` included, as
+        the reference's active code has it (`TriPlane/main.py:248-249`). With
+        one upsample the only point is ``N_voxel_init``, so with
+        ``N_voxel_init`` below the planes' resolution the "upsample" shrinks
+        the grid, in both reference codebases."""
+        ups = self.args.upsamp_list or []
+        if not ups:
+            return []
+        return [
+            int(round(v))
+            for v in np.exp(np.linspace(np.log(self.args.N_voxel_init),
+                                        np.log(self.args.N_voxel_final), len(ups)))
+        ]
+
+    def _check_marching_coverage(self, where: str) -> None:
         """Warn when ``--nSamples`` caps marching below the geometry's need
         (`ngf_tpu/train/loop.py:260-282`)."""
         need = cal_n_samples(self.reso_cur, self.args.step_ratio)
@@ -170,14 +193,16 @@ class TriPlaneTrainer:
             diag = float(np.linalg.norm(self.aabb[1] - self.aabb[0]))
             cover = self.n_samples * self.step_size / max(diag, 1e-9)
             print(
-                f"[trainer] WARNING: nSamples {self.n_samples} < required {need} at this "
+                f"[trainer] WARNING ({where}): nSamples {self.n_samples} < required {need} at this "
                 f"resolution: marching covers only {100.0 * cover:.1f}% of the aabb "
                 f"diagonal. Raise --nSamples to >= {need}.",
                 flush=True,
             )
 
     def _make_optimizer(self) -> None:
-        """(`ngf_tpu/train/loop.py:284-311`)."""
+        """A new optimizer over the current leaf tensors, its state and decay
+        schedule from the start (`ngf_tpu/train/loop.py:284-311`): at
+        construction and at every shrink and upsample."""
         a = self.args
         decay_iters = a.lr_decay_iters if a.lr_decay_iters > 0 else a.n_iters
         self.optimizer = TriPlaneOptimizer(
@@ -290,13 +315,15 @@ class TriPlaneTrainer:
             torch.cuda.synchronize(self.device)
 
     def _event_update_alpha_mask(self, first: bool) -> dict:
-        """The mask event (`ngf_tpu/train/loop.py:1274-1337`,
-        `InfoInv/main.py:320-332`): the occupancy grid at ``alpha_grid_res``
-        cubed, pre-culled by the previous grid at later events; on the first,
-        the L1 weight drops to ``L1_weight_rest`` and the training rays are
-        filtered to those touching occupied space, with a new sampler from
-        ``seed`` over them (the set stays when none would be kept); then the
-        measured sample capacity when ``sample_cap`` is -1. Returns the
+        """The mask event (`ngf_tpu/train/loop.py:1274-1351`,
+        `InfoInv/main.py:320-332`, `TriPlane/main.py:329-343`): the occupancy
+        grid at ``alpha_grid_res`` cubed, pre-culled by the previous grid at
+        later events; on the first, the L1 weight drops to
+        ``L1_weight_rest``, the learned gauge shrinks its box and planes to
+        the occupied voxels (:meth:`_event_shrink`), and the training rays
+        are filtered to those touching occupied space, with a new sampler
+        from ``seed`` over them (the set stays when none would be kept); then
+        the measured sample capacity when ``sample_cap`` is -1. Returns the
         event's record, also appended to ``self.events``."""
         a = self.args
         t = {"start": time.time()}
@@ -311,12 +338,16 @@ class TriPlaneTrainer:
         )
         self._sync()
         t["grid"] = time.time()
-        rec = {"iteration": self.iteration, "first": first,
+        rec = {"kind": "mask", "iteration": self.iteration, "first": first,
                "voxels": int(self.alpha.occ.sum().item()), "grid_voxels": r ** 3,
                "new_aabb": new_aabb.tolist(), "rays_before": int(self.batch_table.shape[0]),
                "refiltered": False}
         if first:
             self.l1_weight = a.L1_weight_rest
+            if a.subsystem == "triplane":
+                rec["shrink"] = self._event_shrink(new_aabb)
+                self._sync()
+                t["shrink"] = time.time()
             keep = filter_rays_alpha(self.all_rays, self.alpha, self.aabb, near, far, self.step_size)
             ids = keep.nonzero().squeeze(1)
             if ids.numel():
@@ -330,20 +361,75 @@ class TriPlaneTrainer:
         rec["rays_kept"] = int(self.batch_table.shape[0])
         self._sync()
         t["filter"] = time.time()
+        self._measure_sample_cap(rec, "p99.9 occupied samples/ray")
+        t["counts"] = time.time()
+        rec["phases_s"] = self._event_phase_report("mask", t)
+        self.events.append(rec)
+        return rec
+
+    def _measure_sample_cap(self, rec: dict, why: str) -> None:
+        """With ``sample_cap`` -1, the capacity measured at the current box,
+        step and sample count (`ngf_tpu/train/loop.py:1326-1335,1393-1407`);
+        records it, the sample count and, on the grouped path, the groups
+        kept a ray."""
+        a = self.args
         if a.sample_cap == -1:
+            near, far = (float(v) for v in self.train_dataset.near_far)
             counts = occupied_samples_per_ray(
                 self.all_rays, self.alpha, self.aabb, near, far, self.step_size, self.n_samples
             )
             self._auto_cap = auto_sample_cap(counts, self.n_samples)
             rec["counted_rays"] = int(counts.size)
-            print(f"[trainer] auto sample_cap -> {self._auto_cap} (p99.9 occupied samples/ray)")
-        t["counts"] = time.time()
+            print(f"[trainer] auto sample_cap -> {self._auto_cap} ({why})")
         cap = self._effective_sample_cap()
         rec["sample_cap"], rec["n_samples"] = cap, self.n_samples
         if a.group_size > 0:
             rec["capg"] = min(-(-self.n_samples // a.group_size),
                               -(-(cap or self.n_samples) // a.group_size))
-        rec["phases_s"] = self._event_phase_report("mask", t)
+
+    def _event_shrink(self, new_aabb: np.ndarray) -> dict:
+        """The learned gauge's shrink at its first mask event
+        (`ngf_tpu/train/loop.py:1353-1371`, `TriPlane/models/Field.py:117-132`):
+        the planes cropped to the occupied voxels' box, the box, grid size and
+        step set from it, the optimizer reset. The gauge grids are not
+        cropped and ``n_samples`` stays, as in the reference. Returns what it
+        set."""
+        t_l, b_r = shrink_box_voxels(self.aabb, new_aabb, self.grid_size)
+        self.params = _leaf_params(shrink_planes(self.params, t_l, b_r), self.device)
+        self.aabb = np.asarray(new_aabb, np.float32)
+        self.grid_size = [int(v) for v in (b_r - t_l)]
+        self.step_size = grid_step_size(self.aabb, self.grid_size, self.args.step_ratio)
+        self._make_optimizer()
+        return {"t_l": t_l.tolist(), "b_r": b_r.tolist(), "aabb": self.aabb.tolist(),
+                "grid_size": self.grid_size, "step_size": self.step_size}
+
+    def _event_upsample(self) -> dict | None:
+        """The learned gauge's upsample event (`ngf_tpu/train/loop.py:1373-1414`,
+        `TriPlane/main.py:345-357`): the next voxel count of the schedule
+        gives the resolution, the sample count and the step; the planes are
+        resized to it, the optimizer reset with its decay restarted, and the
+        capacity measured again at the new step. None once the schedule is
+        spent. Returns the event's record, also appended to ``self.events``."""
+        if not self.n_voxel_list:
+            return None
+        a = self.args
+        t = {"start": time.time()}
+        self.reso_cur = n_to_reso(self.n_voxel_list.pop(0), self.aabb)
+        self.n_samples = min(a.nSamples, cal_n_samples(self.reso_cur, a.step_ratio))
+        self.params = _leaf_params(upsample_planes(self.params, self.reso_cur), self.device)
+        self._sync()
+        t["resize"] = time.time()
+        self.grid_size = list(self.reso_cur)
+        self.step_size = grid_step_size(self.aabb, self.grid_size, a.step_ratio)
+        self._check_marching_coverage(f"upsample@{self.iteration}")
+        self._make_optimizer()
+        rec = {"kind": "upsample", "iteration": self.iteration, "grid_size": self.grid_size,
+               "step_size": self.step_size,
+               "plane_shapes": [list(self.params[n].shape) for n in _PLANES]}
+        if self.alpha is not None:
+            self._measure_sample_cap(rec, "re-measured at upsampled step size")
+        t["counts"] = time.time()
+        rec["phases_s"] = self._event_phase_report("upsample", t)
         self.events.append(rec)
         return rec
 
@@ -365,7 +451,8 @@ class TriPlaneTrainer:
         """Train to ``n_iters`` with logs, periodic evaluation, mask events
         and checkpoints, then save ``model.npz``
         (`ngf_tpu/train/loop.py:1495-1645`). At an iteration with both, the
-        evaluation runs before the event, as in the JAX trainer."""
+        evaluation runs before the events, and the mask event before the
+        upsample, as in the JAX trainer."""
         args = self.args
         log_path = None
         if self.logfolder:
@@ -376,13 +463,24 @@ class TriPlaneTrainer:
         # not wait for the card after every step.
         pending: list[torch.Tensor] = []
         mses: list[float] = []
-        t0 = time.time()
+        masks = args.update_AlphaMask_list or []
+        ups = (args.upsamp_list or []) if args.subsystem == "triplane" else []
+        # The stages between events: steps and seconds on the host clock,
+        # from the end of one stage's events to the start of the next's
+        # (logs included, evaluations and events not).
+        stages: list[dict] = []
+        t0 = stage_t = time.time()
+        stage_it = self.iteration
         # A profiler span around the steps (`chip_smoke.py` counts the
         # host-to-device copies inside it).
         with torch.profiler.record_function("train_loop"):
             while self.iteration < args.n_iters:
                 pending.append(self.train_step(*self.next_batch(), self.gen))
                 it = self.iteration
+                boundary = it == args.n_iters or it in masks or it in ups
+                if boundary:
+                    self._sync()
+                    stages.append({"from": stage_it, "to": it, "s": time.time() - stage_t})
                 log_now = log_path is not None and it % args.progress_refresh_rate == 0
                 vis_now = (
                     args.N_vis != 0 and args.vis_every > 0 and it % args.vis_every == 0
@@ -408,11 +506,17 @@ class TriPlaneTrainer:
                         with open(log_path, "a") as f:
                             f.write(f"Iteration {it:05d}: test/psnr = "
                                     f"{float(np.mean(psnrs_test)):.2f}\n")
-                if it in (args.update_AlphaMask_list or []):
-                    self._event_update_alpha_mask(first=not self.events)
+                if it in masks:
+                    # The first event is the first without a grid (`loop.py:1517-1521`).
+                    self._event_update_alpha_mask(first=self.alpha is None)
+                if it in ups:
+                    self._event_upsample()
                 save_now = args.save_every > 0 and it % args.save_every == 0
                 if save_now and it < args.n_iters and self.logfolder:
                     self.save(os.path.join(self.logfolder, "model.npz"))
+                if boundary:
+                    self._sync()
+                    stage_t, stage_it = time.time(), it
         wall = time.time() - t0
         if self.logfolder:
             self.save(os.path.join(self.logfolder, "model.npz"))
@@ -424,6 +528,7 @@ class TriPlaneTrainer:
             "train_mses": mses,
             "id_uploads": self.sampler.uploads,
             "events": self.events,
+            "stages": stages,
             "shaded_groups_p999": int(self.rgb_stat.item()),
         }
 
@@ -467,6 +572,9 @@ class TriPlaneTrainer:
         save_checkpoint(path, self.params, meta,
                         alpha_volume=None if alpha is None else alpha.volume,
                         alpha_aabb=None if alpha is None else alpha.aabb)
+
+
+_PLANES = ("plane_xy", "plane_yz", "plane_xz")
 
 
 def _leaf_params(tree, device):

@@ -9,6 +9,7 @@
   :func:`auto_sample_cap`: the first event's ray filter and the measured
   per-ray sample capacity.
 - :func:`filter_rays_bbox`: the bbox pre-filter before training.
+- :func:`shrink_box_voxels`: the gauge variant's crop box at its shrink.
 
 The training rays stay on the device; every occupancy test is the
 ``occupancy_lookup`` kernel (K3) on the grid's uint8 copy (``AlphaGrid.occ``,
@@ -198,3 +199,19 @@ def auto_sample_cap(
     q = float(np.quantile(counts, quantile))
     cap = int(np.ceil(q * margin / 32.0) * 32)
     return int(np.clip(cap, 32, n_samples))
+
+
+def shrink_box_voxels(aabb, new_aabb, grid_size) -> tuple[np.ndarray, np.ndarray]:
+    """Voxel crop box [t_l, b_r) of the shrink event, in float64 as the JAX
+    package computes it (`ngf_tpu/train/occupancy.py:288-298`,
+    `TriPlane/models/Field.py:117-124`): t_l = round((new_min - min) / units),
+    b_r = min(round((new_max - min) / units) + 1, grid), units =
+    size / (grid - 1)."""
+    aabb = np.asarray(aabb, np.float64)
+    new_aabb = np.asarray(new_aabb, np.float64)
+    grid_size = np.asarray(grid_size, np.int64)
+    units = (aabb[1] - aabb[0]) / (grid_size - 1)
+    t_l = np.round(np.round((new_aabb[0] - aabb[0]) / units)).astype(np.int64)
+    b_r = np.round((new_aabb[1] - aabb[0]) / units).astype(np.int64) + 1
+    b_r = np.minimum(b_r, grid_size)
+    return t_l, b_r

@@ -7,7 +7,11 @@ stencils, zero rows, both lane widths, strided g) and through autograd, and
 ``gather_rows``, alone and as the trainer's one-launch batch; the occupancy
 lookup ``occupancy_lookup`` (K3, its contiguous and strided paths) and the
 grouped front end ``group_sample_compact`` (K4: sampling, occupancy test and
-compaction) alone, refusing CPU tensors, and inside the render paths.
+compaction) alone, refusing CPU tensors, and inside the render paths;
+the gather over planes of three shapes (the learned gauge after its shrink
+and upsample), and K2c ``bilinear_gather_2d_backward_coords`` (the plane and
+coordinate gradients of one plane's fetch) alone, through autograd and in a
+gauge train step.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports neither JAX nor `ngf_tpu`, so it runs on a GPU machine
@@ -18,7 +22,9 @@ without them:
 Tolerances: float32 1e-5 (the same four float32 products summed in another
 order); bfloat16 one unit in the last place, at most 2^-7 of the value, since
 both round one float32 sum; rendered outputs 1e-4; plane gradients 1e-5 of
-the largest gradient (float32 atomics add in another order); row gathers,
+the largest gradient (float32 atomics add in another order), and so the
+coordinate gradients (their tap sums run over the channels in another
+order); row gathers,
 occupancy lookups and the grouped front end byte for byte (a NaN output
 against a NaN, whatever its payload).
 """
@@ -336,7 +342,7 @@ def test_planes_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         ((), ()),  # no plane
         ((p,) * 4, (c,) * 4),  # four planes
         ((p, p), (c,)),  # coords missing
-        ((p, torch.zeros((4, 5, 8), device=cuda)), (c, c)),  # shapes differ
+        ((p, torch.zeros((4, 5, 9), device=cuda)), (c, c)),  # channel counts differ
         ((p, p.bfloat16()), (c, c)),  # dtypes differ
         ((p, p), (c, torch.zeros((6, 2), device=cuda))),  # coords differ
         ((p.cpu(),), (c.cpu(),)),  # not on the card
@@ -354,10 +360,12 @@ def test_planes_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 def test_coordinate_gradient_on_the_card_raises(cuda):
-    plane = torch.zeros((4, 4, 3), device=cuda, requires_grad=True)
+    """The coordinate gradient of a bfloat16 plane is not ported: its
+    backward raises, naming ROADMAP.md (float32 planes go through K2c)."""
+    plane = torch.zeros((4, 4, 3), device=cuda, dtype=torch.bfloat16, requires_grad=True)
     coords = torch.zeros((5, 2), device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gs.grid_sample_2d(plane, coords)
+        gs.grid_sample_2d(plane, coords).float().sum().backward()
 
 
 @pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
@@ -610,3 +618,182 @@ def test_grouped_render_launches_k1_k3_k4_once(cuda, with_alpha):
     assert 0.02 < got["acc_map"].mean().item() < 0.98
     for k in got:
         assert (got[k] - plain[k]).abs().max().item() <= RENDER_TOL, k
+
+
+# Plane shapes of the learned gauge: the planes cropped to the occupied box
+# (xy (ry, rx), yz (rz, ry), xz (rz, rx)) and resized per axis.
+GAUGE_SHAPES = [(37, 45), (51, 37), (51, 45)]
+
+
+def _gauge_planes(g, cuda, C=64):
+    return [torch.randn((h, w, C), generator=g, device=cuda) for h, w in GAUGE_SHAPES]
+
+
+@pytest.mark.parametrize("case", ["split_16", "no_split", "scalar_lanes"])
+def test_planes_kernel_three_shapes_matches_plain(cuda, case):
+    """One launch over planes of three shapes against the plain version
+    (1e-5); the corners hit each plane's own corner texels."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    planes = _gauge_planes(g, cuda)
+    xyz = torch.rand((4001, 3), generator=g, device=cuda) * 2.2 - 1.1
+    xyz[:2] = torch.tensor([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], device=cuda)
+    coords = [xyz[:, 0:2], xyz[:, 1:3], xyz[:, 0::2]]
+    channels, split = {"split_16": (slice(None), 16), "no_split": (slice(None), None),
+                       "scalar_lanes": (slice(3, 13), 5)}[case]
+    before = cuda_kernels.bilinear_gather_planes.launches
+    got = cuda_kernels.bilinear_gather_planes(planes, coords, channels, split)
+    assert cuda_kernels.bilinear_gather_planes.launches == before + 1
+    want = gs.grid_sample_planes_plain(planes, coords, channels, split)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert (a - b).abs().max().item() <= F32_TOL
+    full = torch.cat([o for o in got if o is not None], -1)
+    for i, plane in enumerate(planes):
+        assert torch.equal(full[0, i], plane[0, 0][channels])
+        assert torch.equal(full[1, i], plane[-1, -1][channels])
+
+
+def _coords_case(case, g, cuda, n=5001):
+    """(plane, coords, g_a, g_b, c0) of one K2c case: ray-consecutive
+    coordinates (runs of shared stencils) on a non-square plane, cotangents
+    as strided views of the fetch's (N, 3, C) outputs."""
+    H, W = GAUGE_SHAPES[1]
+    C, c0, split = 64, 0, 16
+    if case == "scalar_lanes":
+        c0, C, split = 3, 10, 5
+    plane = torch.randn((H, W, 64), generator=g, device=cuda)
+    coords = _ray_coords(g, cuda, m=80).reshape(-1, 2)[:n]
+    if case == "random_coords":
+        coords = torch.rand((n, 2), generator=g, device=cuda) * 2.2 - 1.1
+    coords[:2] = torch.tensor([[-1.0, -1.0], [1.0, 1.0]], device=cuda)
+    g_a = torch.randn((n, 3, split), generator=g, device=cuda)[:, 1]
+    g_b = torch.randn((n, 3, C - split), generator=g, device=cuda)[:, 1]
+    if case == "one_cotangent":
+        g_b = None
+    return plane, coords, g_a, g_b, c0
+
+
+def _coords_plain(plane, coords, g_a, g_b, c0):
+    grad = torch.zeros_like(plane)
+    cg = torch.zeros_like(coords)
+    off = c0
+    for g in (g_a, g_b):
+        if g is not None:
+            gs.grid_sample_2d_backward_plain(g, coords, grad, off)
+            cg += gs.grid_sample_2d_backward_coords_plain(
+                plane[..., off:off + g.shape[-1]], coords, g)
+            off += g.shape[-1]
+    return grad, cg
+
+
+@pytest.mark.parametrize("case", ["split_16", "random_coords", "one_cotangent", "scalar_lanes"])
+def test_coords_kernel_matches_plain(cuda, case):
+    """K2c against its plain versions on a non-square plane: the plane and
+    the coordinate gradient, each to 1e-5 of its largest value; nothing
+    outside the fetched channels."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    plane, coords, g_a, g_b, c0 = _coords_case(case, g, cuda)
+    grad = torch.zeros_like(plane)
+    before = cuda_kernels.bilinear_gather_2d_backward_coords.launches
+    got = cuda_kernels.bilinear_gather_2d_backward_coords(plane, coords, g_a, g_b, grad, c0)
+    assert cuda_kernels.bilinear_gather_2d_backward_coords.launches == before + 1
+    want_grad, want = _coords_plain(plane, coords, g_a, g_b, c0)
+    assert got.shape == coords.shape and got.dtype == torch.float32
+    for a, b in ((grad, want_grad), (got, want)):
+        scale = b.abs().max().item()
+        assert scale > 0 and (a - b).abs().max().item() <= 1e-5 * scale
+    fetched = g_a.shape[-1] + (0 if g_b is None else g_b.shape[-1])
+    outside = torch.ones(64, dtype=torch.bool, device=cuda)
+    outside[c0:c0 + fetched] = False
+    assert not grad[..., outside].any()
+
+
+def test_coords_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    p = torch.zeros((4, 5, 8), device=cuda)
+    c = torch.zeros((6, 2), device=cuda)
+    ga = torch.zeros((6, 8), device=cuda)
+    bad = [
+        (p.cpu(), c.cpu(), ga.cpu(), None, p.cpu(), 0),  # not on the card
+        (p, c, None, None, p, 0),  # no cotangent
+        (p.bfloat16(), c, ga, None, p, 0),  # plane not float32
+        (p, c, ga, None, torch.zeros((4, 6, 8), device=cuda), 0),  # shapes differ
+        (p, c, ga, None, p, 1),  # channels past the plane
+        (p, c, ga[:5], None, p, 0),  # cotangent rows
+        (p, c.double(), ga, None, p, 0),
+        (p.transpose(0, 1), c, ga, None, p.transpose(0, 1), 0),  # rows not W texels apart
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            cuda_kernels.bilinear_gather_2d_backward_coords(*args)
+
+
+def test_autograd_coordinate_gradient_through_k2c(cuda):
+    """``grid_sample_planes`` with coordinates that need a gradient: one K1
+    launch forward, one K2c launch per plane backward and no K2; every
+    gradient against plain autograd's to 1e-5 of its largest."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    planes = _gauge_planes(g, cuda)
+    xyz = torch.rand((3000, 3), generator=g, device=cuda) * 2.1 - 1.05
+    g_a = torch.randn((3000, 3, 16), generator=g, device=cuda)
+    g_b = torch.randn((3000, 3, 48), generator=g, device=cuda)
+    grads = {}
+    for how, fn in (("kernels", gs.grid_sample_planes), ("plain", gs.grid_sample_planes_plain)):
+        ps = [p.clone().requires_grad_(True) for p in planes]
+        x = xyz.clone().requires_grad_(True)
+        names = ("bilinear_gather_planes", "bilinear_gather_2d_backward",
+                 "bilinear_gather_2d_backward_coords")
+        before = [cuda_kernels.KERNELS[k].launches for k in names]
+        out_a, out_b = fn(ps, [x[:, 0:2], x[:, 1:3], x[:, 0::2]], slice(None), 16)
+        ((out_a * g_a).sum() + (out_b * g_b).sum()).backward()
+        counts = [cuda_kernels.KERNELS[k].launches - b for k, b in zip(names, before)]
+        assert counts == ([1, 0, 3] if how == "kernels" else [0, 0, 0])
+        grads[how] = [p.grad for p in ps] + [x.grad]
+    for a, b in zip(grads["kernels"], grads["plain"]):
+        scale = b.abs().max().item()
+        assert scale > 0 and (a - b).abs().max().item() <= 1e-5 * scale
+
+
+def test_gauge_train_step_launches_and_matches_plain(cuda):
+    """A grouped gauge train step after ``gauge_start`` on planes of three
+    shapes: two K1 launches (gauge grids, planes), three K2 (the gauge
+    grids), three K2c (the planes), one K4; the loss and every gradient
+    against the plain sampler (1e-3 of each leaf's largest, as the smoke
+    test's step comparison)."""
+    from ngf_tpu_torch import convert
+
+    cfg = dataclasses.replace(tt.TriPlaneConfig.gauge_preset(gauge_start=0), plane_res=32,
+                              gauge_res=32)
+    params = tt.init_triplane(cfg, torch.Generator(device=cuda).manual_seed(5), cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for name, (h, w) in zip(("plane_xy", "plane_yz", "plane_xz"), GAUGE_SHAPES):
+        params[name] = 3.0 * torch.randn((h, w, 64), generator=g, device=cuda)
+    for name in ("gauge_xy", "gauge_yz", "gauge_xz"):
+        params[name] = 0.02 * torch.randn((32, 32, 2), generator=g, device=cuda)
+    leaves = dict(convert.named_leaves(params))
+    for t in leaves.values():
+        t.requires_grad_(True)
+    _, _, rays = _scene(cuda)
+    target = torch.rand((rays.shape[0], 3), generator=g, device=cuda)
+    rcfg = tv.RenderConfig(aabb=((-1.5,) * 3, (1.5,) * 3), n_samples=60, step_size=0.09,
+                           group_size=8, sample_cap=32, tile_q=0)
+    names = ("bilinear_gather_planes", "bilinear_gather_2d_backward",
+             "bilinear_gather_2d_backward_coords", "group_sample_compact")
+    results = {}
+    for how, fn in (("kernels", None), ("plain", lambda p, c, name: gs.grid_sample_2d_plain(p, c))):
+        for t in leaves.values():
+            t.grad = None
+        before = [cuda_kernels.KERNELS[k].launches for k in names]
+        out = tv.render_rays(params, cfg, rcfg, rays, iteration=1, sample_fn=fn,
+                             generator=torch.Generator(device=cuda).manual_seed(7))
+        loss = ((out["rgb_map"] - target) ** 2).mean()
+        loss.backward()
+        counts = [cuda_kernels.KERNELS[k].launches - b for k, b in zip(names, before)]
+        if how == "kernels":
+            assert counts == [2, 3, 3, 1]
+        results[how] = (loss.item(), {k: t.grad.clone() for k, t in leaves.items()})
+    assert abs(results["kernels"][0] - results["plain"][0]) <= 1e-5 * results["plain"][0]
+    for k, want in results["plain"][1].items():
+        scale = want.abs().max().item()
+        assert scale > 0, k
+        assert (results["kernels"][1][k] - want).abs().max().item() <= 1e-3 * scale, k

@@ -140,15 +140,28 @@ def test_planes_plain_is_three_plain_gathers(channels, split):
 
 
 def test_grid_sample_planes_routes_coordinate_gradients_to_plain_autograd():
-    """Coordinates that need a gradient (the gauge variant) take the plain
-    version with autograd on the CPU: both gradients flow."""
+    """Coordinates that need a gradient (the gauge variant) go through the
+    Function like the rest: its backward gives the coordinate gradient
+    written out (``grid_sample_2d_backward_coords_plain``, the plain version
+    of K2c) and the plane gradients, and both equal plain autograd's through
+    ``grid_sample_planes_plain`` (1e-5 of the largest; the sums run in
+    another order)."""
     planes, coords = _planes_and_coords(5, C=8, n=50)
-    planes = [p.requires_grad_(True) for p in planes]
-    coords = [c.clone().requires_grad_(True) for c in coords]
-    out_a, out_b = t_gs.grid_sample_planes(planes, coords, split=3)
-    (out_a.square().sum() + out_b.sum()).backward()
-    assert all(c.grad is not None and c.grad.abs().max() > 0 for c in coords)
-    assert all(p.grad is not None for p in planes)
+    rng = np.random.default_rng(6)
+    g_a = torch.from_numpy(rng.normal(size=(50, 3, 3)).astype(np.float32))
+    g_b = torch.from_numpy(rng.normal(size=(50, 3, 5)).astype(np.float32))
+    grads = {}
+    for how, fn in (("function", t_gs.grid_sample_planes),
+                    ("autograd", t_gs.grid_sample_planes_plain)):
+        ps = [p.clone().requires_grad_(True) for p in planes]
+        cs = [c.clone().requires_grad_(True) for c in coords]
+        out_a, out_b = fn(ps, cs, split=3)
+        ((out_a * g_a).sum() + (out_b * g_b).sum()).backward()
+        grads[how] = [t.grad for t in ps + cs]
+    for got, want in zip(grads["function"], grads["autograd"]):
+        scale = want.abs().max().item()
+        assert scale > 0
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
 
 
 @pytest.mark.parametrize("name", ["infoinv", "infoinv_off"])
