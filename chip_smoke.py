@@ -12,7 +12,8 @@
    ``bilinear_gather_planes`` (three such planes, split 24) on random
    points, a render chunk's lego samples and a train step's; each against
    its plain PyTorch version, timed beside its bound and ``F.grid_sample``,
-   the fused rows with their tap loads per point.
+   the fused rows with their tap loads per point; and K1 at the shape of
+   the Pallas probe ``round1_kernel`` (a 32 x 32 x 8 plane, N = 1024).
 3. Row-gather phase: ``gather_rows`` against its plain version (exact) at
    the Pallas probes' shapes (`tools/probe_pallas.py`) and at the
    trainer's (rays (491520, 6) and rgbs (491520, 3) gathered at 4096 ids),
@@ -27,12 +28,14 @@
    coordinates and on random coordinates in [-1, 1]^2, against its plain
    version and the backward of ``F.grid_sample``, timed beside its bound;
    the mean run length of equal stencil starts of the lego coordinates.
-   Then K2c ``bilinear_gather_2d_backward_coords`` (the plane and the
-   coordinate gradient of one plane's fetch) at the gauge recipe's shapes
-   (a 256 x 256 x 64 plane split 16 / 48, an open step's 4096 x 512 lego
-   samples, a masked step's 4096 x 224, random coordinates) against its
-   plain versions and aten's grid_sample backward with both gradients,
-   timed beside its bound and the plane branch's.
+   Then K2c ``bilinear_gather_planes_backward_coords`` (the plane and the
+   coordinate gradients of a fetch of up to three planes in one launch) at
+   the gauge recipe's shapes (three 256 x 256 x 64 planes split 16 / 48, the
+   projections of an open step's 4096 x 512 lego samples, a masked step's
+   4096 x 224, random points), and on the xy plane alone, against its plain
+   version and aten's grid_sample backward with both gradients (one call a
+   plane), timed beside its bound and the plane branch's, with the fetch's
+   whole backward through autograd.
 5. Occupancy phase, run before the render and train phases (their
    profiles of hundreds of thousands of events leave the profiler dropping
    kernel events later in the process): K3 ``occupancy_lookup`` against its
@@ -88,8 +91,9 @@
    chunks; the losses must fall in each stage; the gauge grids must be
    trained and the checkpoint must carry planes of three shapes. Then one
    step after ``gauge_start`` with the kernels against the plain sampler
-   (the loss and every gradient), K2c on that step's own cotangents, K1 on
-   its planes of three shapes, the stages' ms/step, the events' phases, the
+   (the loss and every gradient), K2c on that step's own cotangents (its
+   three planes in one launch, and the xy plane alone), K1 on its planes
+   of three shapes, the stages' ms/step, the events' phases, the
    test PSNR beside the JAX package's band, the checkpoint through the
    render-only CLI, and the upsampled stage's step profiled.
 
@@ -254,7 +258,37 @@ def kernel_phase(device: torch.device, n_points: int) -> list[dict]:
             }
             print("[kernel] " + json.dumps(row))
             rows.append(row)
-    return rows + fused_rows(device)
+    return rows + [probe_row(device)] + fused_rows(device)
+
+
+def probe_row(device: torch.device) -> dict:
+    """K1's one-plane call at the shape of the Pallas probe `round1_kernel`
+    (tools/probe_pallas.py:94): a (32, 32, 8) float32 plane at 1024 random
+    points in [-1, 1]^2, against its plain version and ``F.grid_sample``,
+    timed beside its bound."""
+    from ngf_tpu_torch.ops.cuda_kernels import bilinear_gather_2d
+    from ngf_tpu_torch.ops.grid_sample import grid_sample_2d_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    plane = torch.randn((32, 32, 8), generator=gen, device=device)
+    coords = torch.rand((1024, 2), generator=gen, device=device) * 2 - 1
+    got = bilinear_gather_2d(plane, coords)
+    err = (got - grid_sample_2d_plain(plane, coords)).abs().max().item()
+    check(err <= F32_TOL, f"K1 at the probe's shape: err {err}")
+    lib_plane, lib_grid = plane.permute(2, 0, 1)[None].contiguous(), coords.view(1, 1024, 1, 2)
+
+    def library():
+        return F.grid_sample(lib_plane, lib_grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    row = {"fetch": "probe", "case": "round1_kernel probe: (32, 32, 8) f32, N=1024",
+           "dtype": "float32", "N": 1024, "max_abs_err": err,
+           "ms": cuda_ms(lambda: bilinear_gather_2d(plane, coords), reps=100),
+           "plain_ms": cuda_ms(lambda: grid_sample_2d_plain(plane, coords), reps=100),
+           "library_ms": cuda_ms(library, reps=100)}
+    row["bound_ms"], row["bound_by"] = gather_bound_ms(1024, 32, 32, 8, 4)
+    print("[kernel] " + json.dumps(row))
+    return row
 
 
 # K1's segment: the consecutive points one thread walks (bilinear_gather.cu).
@@ -694,105 +728,134 @@ def backward_row(fetch: str, case: str, g: torch.Tensor, coords: torch.Tensor, c
     return row
 
 
-def coords_bound_ms(n: int, C: int, H: int, W: int) -> tuple[float, str]:
-    """K2c's least time: g, the coordinates and the plane's values read once,
-    the coordinate gradient written once, the plane gradient's channels read
-    and written once; 16 flops per value (the plane gradient's 4 products
-    and 4 adds, the tap sums' 4 and 4) and ~60 per point of index, weight and
+def coords_bound_ms(n: int, C: int, shapes) -> tuple[float, str]:
+    """K2c's least time over a fetch of planes of ``shapes`` (H, W): per
+    plane g, the coordinates and the plane's values read once, the
+    coordinate gradient written once, the plane gradient's channels read and
+    written once; 16 flops per value (the plane gradient's 4 products and 4
+    adds, the tap sums' 4 and 4) and ~60 per point of index, weight and
     coordinate math."""
-    return bytes_bound_ms(n * C * 4 + 16 * n + 3 * H * W * C * 4, 16 * n * C + 60 * n)
+    P, texels = len(shapes), sum(h * w for h, w in shapes)
+    return bytes_bound_ms(P * (n * C * 4 + 16 * n) + 3 * texels * C * 4, P * (16 * n * C + 60 * n))
 
 
-def coords_row(case: str, plane: torch.Tensor, coords: torch.Tensor, g_a: torch.Tensor,
-               g_b: torch.Tensor | None, time_it: bool = True) -> dict:
-    """K2c ``bilinear_gather_2d_backward_coords`` on one plane's fetch (the
-    whole plane's channels, split at g_a's width) into a zeroed plane
-    gradient: both gradients against the plain versions and against aten's
-    grid_sample backward with both gradients asked for (1e-5 of each one's
-    largest), timed beside them, its bound and the plane branch's bound for
-    the same fetch."""
-    from ngf_tpu_torch.ops.cuda_kernels import bilinear_gather_2d_backward_coords
-    from ngf_tpu_torch.ops.grid_sample import (
-        grid_sample_2d_backward_coords_plain,
-        grid_sample_2d_backward_plain,
-    )
+def coords_row(case: str, planes, coords, g_a: torch.Tensor, g_b: torch.Tensor | None) -> dict:
+    """K2c ``bilinear_gather_planes_backward_coords`` on a fetch of 1 to 3
+    planes (each plane's channels, split at g_a's width) into zeroed plane
+    gradients: both gradients against the plain version and against aten's
+    grid_sample backward with both gradients asked for, one call a plane
+    (1e-5 of each one's largest), timed beside them, its bound and the plane
+    branch's bound for the same fetch."""
+    from ngf_tpu_torch.ops.cuda_kernels import bilinear_gather_planes_backward_coords as k2c
+    from ngf_tpu_torch.ops.grid_sample import grid_sample_planes_backward_coords_plain
 
-    H, W, C = plane.shape
-    n = coords.numel() // 2
-    got = torch.zeros_like(plane)
-    got_c = bilinear_gather_2d_backward_coords(plane, coords, g_a, g_b, got)
+    P = len(planes)
+    n = coords[0].numel() // 2
+    shapes = [tuple(p.shape[:2]) for p in planes]
+    got = [torch.zeros_like(p) for p in planes]
+    got_c = k2c(planes, coords, g_a, g_b, got)
 
     def plain():
-        grad = torch.zeros_like(plane)
-        cg = torch.zeros(coords.shape, device=plane.device)
-        off = 0
-        for g in (g_a, g_b):
-            if g is not None:
-                grid_sample_2d_backward_plain(g, coords, grad, off)
-                cg += grid_sample_2d_backward_coords_plain(plane[..., off:off + g.shape[-1]],
-                                                           coords, g)
-                off += g.shape[-1]
-        return grad, cg
+        grads = [torch.zeros_like(p) for p in planes]
+        return grads, grid_sample_planes_backward_coords_plain(planes, coords, g_a, g_b, grads)
 
     ref, ref_c = plain()
-    scale, scale_c = ref.abs().max().item(), ref_c.abs().max().item()
-    err, err_c = (got - ref).abs().max().item(), (got_c - ref_c).abs().max().item()
+    scale = max(r.abs().max().item() for r in ref)
+    scale_c = ref_c.abs().max().item()
+    err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    err_c = (got_c - ref_c).abs().max().item()
     check(err <= GRAD_REL_TOL * scale, f"K2c {case} plane grad err {err} vs max {scale}")
     check(err_c <= GRAD_REL_TOL * scale_c, f"K2c {case} coord grad err {err_c} vs max {scale_c}")
+    del ref, ref_c
 
     # The library's same function: aten's grid_sample backward, both
-    # gradients, on the permuted plane and the whole cotangent.
+    # gradients, one call a plane (one call takes one shape), on the
+    # permuted planes and each plane's whole cotangent.
     g_full = g_a if g_b is None else torch.cat([g_a, g_b], -1)
-    lib_in = plane.permute(2, 0, 1)[None].contiguous()
-    lib_grid = coords.reshape(1, n, 1, 2).contiguous()
-    lib_g = g_full.reshape(n, -1).t().contiguous().view(1, -1, n, 1)
+    c_fetched = g_full.shape[-1]
+    lib = [(p.permute(2, 0, 1)[None].contiguous(), c.reshape(1, n, 1, 2).contiguous(),
+            g_full[:, i].t().contiguous().view(1, c_fetched, n, 1))
+           for i, (p, c) in enumerate(zip(planes, coords))]
+    del g_full
 
     def library():
-        return torch.ops.aten.grid_sampler_2d_backward(
-            lib_g, lib_in, lib_grid, 0, 0, True, [True, True])
+        return [torch.ops.aten.grid_sampler_2d_backward(g, p, c, 0, 0, True, [True, True])
+                for p, c, g in lib]
 
-    lib_plane, lib_coords = library()
-    c_fetched = g_full.shape[-1]
-    lib_err = (lib_plane[0].permute(1, 2, 0) - got[..., :c_fetched]).abs().max().item()
-    lib_err_c = (lib_coords.reshape(coords.shape) - got_c).abs().max().item()
+    lib_err = lib_err_c = 0.0
+    for i, (lib_plane, lib_coords) in enumerate(library()):
+        lib_err = max(lib_err, (lib_plane[0].permute(1, 2, 0) - got[i][..., :c_fetched])
+                      .abs().max().item())
+        lib_err_c = max(lib_err_c, (lib_coords.reshape(n, 2) - got_c[:, i]).abs().max().item())
     check(lib_err <= GRAD_REL_TOL * scale and lib_err_c <= GRAD_REL_TOL * scale_c,
           f"K2c {case} vs aten grid_sampler_2d_backward: {lib_err}, {lib_err_c}")
-    del lib_plane, lib_coords, ref, ref_c
-    row = {"fetch": "coords", "case": case, "N": n, "C": c_fetched, "H": H, "W": W,
+    row = {"fetch": "coords", "case": case, "P": P, "shapes": shapes, "N": n, "C": c_fetched,
            "split": g_a.shape[-1], "max_abs_err": max(err, err_c), "max_abs_err_plane": err,
            "max_abs_err_coords": err_c, "max_abs_grad": scale, "max_abs_coord_grad": scale_c}
-    row["bound_ms"], row["bound_by"] = coords_bound_ms(n, c_fetched, H, W)
+    row["bound_ms"], row["bound_by"] = coords_bound_ms(n, c_fetched, shapes)
     # The plane branch alone on the same fetch (bilinear_gather_2d_backward's bound).
-    row["plane_branch_bound_ms"] = bytes_bound_ms(
-        n * c_fetched * 4 + 8 * n + 2 * H * W * c_fetched * 4, 8 * n * c_fetched + 30 * n)[0]
-    if time_it:
-        row["ms"] = cuda_ms(
-            lambda: bilinear_gather_2d_backward_coords(plane, coords, g_a, g_b, got), reps=20)
-        row["plain_ms"] = cuda_ms(plain, reps=3)
-        row["library_ms"] = cuda_ms(library, reps=10)
-    del lib_in, lib_g, got, got_c
+    row["plane_branch_bound_ms"] = sum(bytes_bound_ms(
+        n * c_fetched * 4 + 8 * n + 2 * h * w * c_fetched * 4, 8 * n * c_fetched + 30 * n)[0]
+        for h, w in shapes)
+    row["ms"] = cuda_ms(lambda: k2c(planes, coords, g_a, g_b, got), reps=20)
+    row["plain_ms"] = cuda_ms(plain, reps=3)
+    row["library_ms"] = cuda_ms(library, reps=10)
+    del lib, got, got_c
     print("[backward] coords " + json.dumps(row))
     return row
 
 
-def coords_rows(device: torch.device) -> list[dict]:
-    """K2c at the gauge recipe's shapes: one 256 x 256 x 64 plane (the open
-    stage's), its fetch split 16 / 48, cotangents as strided views of the
-    fetch's (N, 3, 16) and (N, 3, 48) outputs, the xy projection of the lego
-    samples of an open step (4096 x 512, ``open_sample_cap``) and of a masked
-    one (4096 x 224, the JAX package's measured cap), and random
-    coordinates."""
+def fetch_backward_ms(planes, coords, g_a: torch.Tensor, g_b: torch.Tensor,
+                      reps: int = 20) -> float:
+    """ms of the backward of one ``grid_sample_planes`` fetch (split at g_a's
+    width) whose planes and coordinates need gradients, by CUDA events: the
+    plane and coordinate gradients as autograd asks for them, buffers
+    included. It calls only the entry point, so it also times an earlier
+    version of the port (one K2c launch a plane) in the same call."""
+    from ngf_tpu_torch.ops.grid_sample import grid_sample_planes
+
+    ps = [p.detach().requires_grad_(True) for p in planes]
+    cs = [c.detach().requires_grad_(True) for c in coords]
+    out = grid_sample_planes(ps, cs, slice(None), g_a.shape[-1])
+    return cuda_ms(lambda: torch.autograd.grad(out, ps + cs, (g_a, g_b), retain_graph=True),
+                   reps=reps)
+
+
+def open_fetch_inputs(device: torch.device, case: str = "open step"):
+    """(planes, coords, g_a, g_b) of the gauge recipe's open fetch: three
+    256 x 256 x 64 planes, the projections of an open step's lego samples
+    (4096 x 512, ``open_sample_cap``), a masked step's (4096 x 224) or
+    random points in [-1, 1]^3 as strided views, cotangents (N, 3, 16) and
+    (N, 3, 48) as the fetch's outputs get them."""
+    from ngf_tpu_torch.fields.triplane import triplane_project
+
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
-    plane = 0.1 * torch.randn((256, 256, 64), generator=gen, device=device)
-    cases = [("open step", lego_points(device)[..., 0:2]),
-             ("masked step", lego_points(device, cap=224)[..., 0:2])]
-    cases.append(("random", torch.rand(cases[0][1].shape, generator=gen, device=device) * 2 - 1))
+    planes = [0.1 * torch.randn((256, 256, 64), generator=gen, device=device) for _ in range(3)]
+    if case == "random":
+        xyz = torch.rand((TRAIN_RAYS, TRAIN_CAP, 3), generator=gen, device=device) * 2 - 1
+    else:
+        xyz = lego_points(device, cap=224 if case == "masked step" else TRAIN_CAP)
+    n = xyz.shape[0] * xyz.shape[1]
+    coords = [c.reshape(n, 2) for c in triplane_project(xyz)]
+    g_a = torch.randn((n, 3, 16), generator=gen, device=device)
+    g_b = torch.randn((n, 3, 48), generator=gen, device=device)
+    return planes, coords, g_a, g_b
+
+
+def coords_rows(device: torch.device) -> list[dict]:
+    """K2c at the gauge recipe's shapes (:func:`open_fetch_inputs`): the
+    three-plane launch on an open step's lego samples, a masked step's and
+    random points, with the fetch's backward through autograd beside it;
+    then, for comparison with the earlier design's one-plane launches, the
+    xy plane alone on the same points with its cotangents as strided views."""
     rows = []
-    for case, coords in cases:
-        n = coords.numel() // 2
-        g_a = torch.randn((n, 3, 16), generator=gen, device=device)[:, 0]
-        g_b = torch.randn((n, 3, 48), generator=gen, device=device)[:, 0]
-        rows.append(coords_row(case, plane, coords.reshape(n, 2), g_a, g_b))
+    for case in ("open step", "masked step", "random"):
+        planes, coords, g_a, g_b = open_fetch_inputs(device, case)
+        row = coords_row(f"{case}, three planes", planes, coords, g_a, g_b)
+        row["autograd_ms"] = fetch_backward_ms(planes, coords, g_a, g_b)
+        rows.append(row)
+        rows.append(coords_row(case, planes[:1], coords[:1], g_a[:, :1], g_b[:, :1]))
+        del planes, coords, g_a, g_b
     return rows
 
 
@@ -1023,7 +1086,7 @@ def train_phase(
             steps = args.microbatch * iters
             want = {"bilinear_gather_planes": steps + eval_chunks, "bilinear_gather_2d": 0,
                     "bilinear_gather_2d_backward": 6 * steps,
-                    "bilinear_gather_2d_backward_coords": 0, "gather_rows": iters,
+                    "bilinear_gather_planes_backward_coords": 0, "gather_rows": iters,
                     "occupancy_lookup": 0, "group_sample_compact": 0}
             check(launches == want, f"launches {launches}, expected {want}")
             result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
@@ -1647,7 +1710,7 @@ def staged_launches(args, ev: dict, wh: int) -> dict:
         "bilinear_gather_planes": micro * iters + grid_chunks + evals * chunks,
         "bilinear_gather_2d": 0,
         "bilinear_gather_2d_backward": 6 * micro * iters,
-        "bilinear_gather_2d_backward_coords": 0,
+        "bilinear_gather_planes_backward_coords": 0,
         "gather_rows": iters + int(ev["refiltered"]) + int(ev["rays_kept"] > 65536),
         "occupancy_lookup": filter_chunks + count_chunks,
         "group_sample_compact": micro * iters + evals * chunks,
@@ -1659,6 +1722,7 @@ GAUGE_CONFIG = "configs/synthetic_triplane_tpu.txt"
 # test PSNR band and the auto caps at the mask event and after the upsample.
 JAX_GAUGE_PSNR_DB = (53.91, 55.59)
 JAX_GAUGE_CAPS = (224, 352)
+PLANE_NAMES = ("plane_xy", "plane_yz", "plane_xz")
 
 
 def gauge_phase(
@@ -1732,7 +1796,7 @@ def gauge_phase(
             check(os.path.isfile(os.path.join(run, f)), f"training wrote no {f}")
         ckpt = os.path.join(run, "model.npz")
         params, meta, vol, vaabb = load_checkpoint(ckpt, device)
-        shapes = [list(params[n].shape) for n in ("plane_xy", "plane_yz", "plane_xz")]
+        shapes = [list(params[n].shape) for n in PLANE_NAMES]
         rx, ry, rz = up["grid_size"]
         check(shapes == [[ry, rx, 64], [rz, ry, 64], [rz, rx, 64]] == up["plane_shapes"]
               and meta["aabb"] == shrink["aabb"] and vol is not None,
@@ -1798,8 +1862,7 @@ def gauge_phase(
               f"{json.dumps(mask['phases_s'])}, upsample {json.dumps(up['phases_s'])}; peak "
               f"{result['peak_gib']:.2f} GiB over the run")
         result["k1_three_shapes"] = three_shape_row(
-            [trainer.params[n].detach() for n in ("plane_xy", "plane_yz", "plane_xz")],
-            result["compare"]["coords"])
+            [trainer.params[n].detach() for n in PLANE_NAMES], result["compare"]["coords"])
         result["upsampled_step_profile"] = profile_chunk(step, reps=2, unit="upsampled gauge step")
     return result
 
@@ -1841,23 +1904,23 @@ def compare_gauge_step(trainer, rays, rgbs) -> dict:
     """One gauge step's MSE and every gradient (planes, gauge grids,
     decoders) with the kernels and with the plain sampler on the same batch
     and jitter, to STEP_GRAD_REL_TOL of each leaf's largest. On the card,
-    K2c also runs alone on the xy plane's own cotangents and deformed
-    coordinates of this step (``coords_row``); returns those coordinates of
-    the three planes under ``coords``."""
+    K2c also runs alone on this step's own cotangents and deformed
+    coordinates of the three planes (``coords_row``, and the fetch's
+    backward through autograd), and on the xy plane's alone. Returns the
+    three planes' deformed coordinates under ``coords``."""
     from ngf_tpu_torch import convert
     from ngf_tpu_torch.ops.grid_sample import grid_sample_2d_plain
 
     dd = trainer.model_cfg.density_dim
-    cotangents: dict[str, torch.Tensor] = {}
+    cotangents: dict[str, dict[str, torch.Tensor]] = {n: {} for n in PLANE_NAMES}
     deformed: dict[str, torch.Tensor] = {}
 
     def plain(p, c, name):
         out = grid_sample_2d_plain(p, c)
         if name.startswith("plane_") and out.requires_grad:
             deformed[name] = c.detach()
-            if name == "plane_xy":
-                fetch = "density" if p.shape[-1] == dd else "appearance"
-                out.register_hook(lambda g: cotangents.__setitem__(fetch, g.detach()))
+            fetch = "density" if p.shape[-1] == dd else "appearance"
+            out.register_hook(lambda g: cotangents[name].__setitem__(fetch, g.detach()))
         return out
 
     mse, grads = {}, {}
@@ -1879,21 +1942,25 @@ def compare_gauge_step(trainer, rays, rgbs) -> dict:
     for n, e in errs.items():
         check(e["max_abs_grad"] > 0 and e["max_abs_err"] <= STEP_GRAD_REL_TOL * e["max_abs_grad"],
               f"gauge step grad {n}: {e}")
-    out["coords"] = [deformed[n] for n in ("plane_xy", "plane_yz", "plane_xz")]
+    out["coords"] = [deformed[n] for n in PLANE_NAMES]
     if rays.is_cuda:
-        c = deformed["plane_xy"]
-        n_pts = c.numel() // 2
-        out["backward"] = coords_row(
-            "gauge step's own cotangents", trainer.params["plane_xy"].detach(),
-            c.reshape(n_pts, 2), cotangents["density"].reshape(n_pts, -1),
-            cotangents["appearance"].reshape(n_pts, -1))
+        n_pts = out["coords"][0].numel() // 2
+        planes = [trainer.params[n].detach() for n in PLANE_NAMES]
+        coords = [c.reshape(n_pts, 2) for c in out["coords"]]
+        g_a, g_b = (torch.stack([cotangents[n][f].reshape(n_pts, -1) for n in PLANE_NAMES], -2)
+                    for f in ("density", "appearance"))
+        out["backward"] = coords_row("gauge step's own cotangents, three planes", planes, coords,
+                                     g_a, g_b)
+        out["backward"]["autograd_ms"] = fetch_backward_ms(planes, coords, g_a, g_b)
+        out["backward_xy"] = coords_row("gauge step's own cotangents", planes[:1], coords[:1],
+                                        g_a[:, :1], g_b[:, :1])
     return out
 
 
 def gauge_launches(args, events: list[dict], wh: int) -> dict:
     """The launches the gauge run must make: per step (microbatch chunks)
     two K1 (the gauge grids, then the planes at the deformed coordinates),
-    three K2 (the gauge grids' plane gradients), three K2c (the planes'
+    three K2 (the gauge grids' plane gradients), one K2c (the three planes'
     plane and coordinate gradients) and one K4, and one ``gather_rows``; the
     mask event's two K1 per grid chunk, its K3 (filter and count chunks) and
     ``gather_rows`` (the rebuilt table, the count subsample); the upsample's
@@ -1914,7 +1981,7 @@ def gauge_launches(args, events: list[dict], wh: int) -> dict:
         "bilinear_gather_planes": 2 * steps + 2 * grid_chunks + 2 * evals * chunks,
         "bilinear_gather_2d": 0,
         "bilinear_gather_2d_backward": 3 * steps,
-        "bilinear_gather_2d_backward_coords": 3 * steps,
+        "bilinear_gather_planes_backward_coords": steps,
         "gather_rows": iters + int(mask["refiltered"]) + 2 * subsample,
         "occupancy_lookup": -(-mask["rays_before"] // 51200) + 2 * count_chunks,
         "group_sample_compact": steps + evals * chunks,
@@ -1944,6 +2011,8 @@ def main(argv: list[str] | None = None) -> int:
     print(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_s = cuda_kernels.build_all()
     print(f"[device] kernels built and loaded in {build_s:.3f} s (set-up)")
+    k2c_fp = cuda_kernels.backward_coords_footprint(4)
+    print("[device] K2c float4 footprint: " + json.dumps(k2c_fp))
 
     run = {
         "kernel": lambda: kernel_phase(device, RAYS_PER_CHUNK * 884),
@@ -1991,6 +2060,8 @@ def main(argv: list[str] | None = None) -> int:
     step_rows += out["staged"]["compare"].get("backward", [])
     k3, k4 = out["occupancy"]["k3"], out["occupancy"]["k4"]
     fused = [r for r in rows if r["fetch"] == "fused"]
+    probe = next(r for r in rows if r["fetch"] == "probe")
+    gauge_coord_rows = [gauge["compare"][k] for k in ("backward", "backward_xy")]
     kernels = [
         entry("bilinear_gather_planes", "ngf_tpu_torch/ops/kernels/bilinear_gather.cu",
               "ngf_tpu/ops/pallas_kernels.py:58",
@@ -2019,22 +2090,27 @@ def main(argv: list[str] | None = None) -> int:
               next(r for r in k4 if r["case"] == "masked step (cap 224)"), 0.0,
               f"masked train step's front end: {TRAIN_RAYS} rays x {N_GROUPS} groups of {GROUP}, "
               "128^3 uint8 volume, capg 28, byte for byte"),
-        entry("bilinear_gather_2d_backward_coords",
+        entry("bilinear_gather_planes_backward_coords",
               "ngf_tpu_torch/ops/kernels/bilinear_gather_backward.cu",
               "ngf_tpu/ops/grid_sample.py:434",
-              next(r for r in coord_rows if r["case"] == "open step"),
-              max(r["max_abs_err"] for r in coord_rows + [gauge["compare"]["backward"]]),
-              "gauge open step's plane fetch: plane and coordinate gradient, 256x256x64 float32, "
-              f"split 16, N={TRAIN_RAYS * TRAIN_CAP}, lego xy coordinates, random cotangents"),
+              next(r for r in coord_rows if r["case"] == "open step, three planes"),
+              max(r["max_abs_err"] for r in coord_rows + gauge_coord_rows),
+              "gauge open step's fetch in one launch: plane and coordinate gradients of three "
+              f"256x256x64 float32 planes, split 16, N={TRAIN_RAYS * TRAIN_CAP}, lego "
+              "projections, random cotangents"),
     ]
     kernels[0]["rows"] = [
         {k: r[k] for k in ("case", "dtype", "ms", "bound_ms", "plain_ms", "library_ms",
                            "taps_per_point")} for r in fused]
     kernels[0]["rows"].append({k: gauge["k1_three_shapes"][k] for k in (
         "case", "shapes", "N", "ms", "bound_ms", "plain_ms", "library_ms")})
-    kernels[5]["rows"] = [{k: r[k] for k in ("case", "N", "H", "W", "ms", "bound_ms",
-                                             "plane_branch_bound_ms", "plain_ms", "library_ms")}
-                          for r in coord_rows + [gauge["compare"]["backward"]]]
+    kernels[0]["probe_row"] = {k: probe[k] for k in (
+        "case", "N", "ms", "bound_ms", "plain_ms", "library_ms")}
+    kernels[5]["rows"] = [{k: r.get(k) for k in ("case", "P", "shapes", "N", "ms", "bound_ms",
+                                                 "plane_branch_bound_ms", "plain_ms", "library_ms",
+                                                 "autograd_ms")}
+                          for r in coord_rows + gauge_coord_rows]
+    kernels[5].update(k2c_fp)
     kernels[1]["random_coords_ms"] = next(
         r["ms"] for r in bwd_rows if r["fetch"] == "appearance" and r["case"] == "random")
     kernels[1]["step_cotangent_ms"] = {

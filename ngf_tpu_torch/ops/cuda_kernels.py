@@ -19,10 +19,10 @@ raw stream handle instead of a stream object (:func:`_launch`).
 Kernels: ``bilinear_gather_planes`` (K1, the tri-plane fetch: up to three
 planes of any shapes in one launch, split into the two decoders' inputs)
 with its one-plane call ``bilinear_gather_2d``, ``bilinear_gather_2d_backward``
-(K2, its plane gradient), ``bilinear_gather_2d_backward_coords`` (K2c, the
-plane and the coordinate gradient of one plane's fetch in one pass, for the
-learned gauge's deformed coordinates), ``gather_rows`` (the trainer's batch
-assembly),
+(K2, its plane gradient), ``bilinear_gather_planes_backward_coords`` (K2c,
+the plane and the coordinate gradients of a fetch of up to three planes in
+one launch, for the learned gauge's deformed coordinates), ``gather_rows``
+(the trainer's batch assembly),
 ``occupancy_lookup`` (K3, the alpha-mask test of point clouds) and
 ``group_sample_compact`` (K4, the grouped renderer's whole front end:
 sampling, occupancy test and per-ray compaction in one launch).
@@ -123,11 +123,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             vp, i64, i32, vp, i64, i64, vp, i32, i32, i64, i64, i32, vp,
         ]
         lib.ngf_bilinear_gather_2d_backward.restype = i32
-        lib.ngf_bilinear_gather_2d_backward_coords.argtypes = [
-            vp, i64, i32, vp, i64, i32, vp, i64, i64, vp, i64, vp, i64, i32, i32, i64, vp, i32,
-            vp,
+        lib.ngf_bilinear_gather_planes_backward_coords.argtypes = [
+            ctypes.POINTER(i64), i32, vp, i64, i64, i32, vp, i64, i64, i32, i64, vp, i32, vp,
         ]
-        lib.ngf_bilinear_gather_2d_backward_coords.restype = i32
+        lib.ngf_bilinear_gather_planes_backward_coords.restype = i32
+        lib.ngf_bilinear_gather_planes_backward_coords_footprint.argtypes = [
+            i32, ctypes.POINTER(i32),
+        ]
+        lib.ngf_bilinear_gather_planes_backward_coords_footprint.restype = i32
     elif name == "gather_rows":
         lib.ngf_gather_rows.argtypes = [vp, i64, i32, i64, vp, i32, i64, vp, vp]
         lib.ngf_gather_rows.restype = i32
@@ -410,100 +413,148 @@ def bilinear_gather_2d_backward(
 bilinear_gather_2d_backward.launches = 0
 
 
-def _check_cotangent(g: torch.Tensor, coords: torch.Tensor, what: str) -> torch.Tensor:
-    """``g`` as (N, C) float32 rows with contiguous channels."""
-    if g.dtype != torch.float32 or g.shape[:-1] != coords.shape[:-1]:
+def _check_cotangent(g: torch.Tensor, batch_shape, P: int, what: str) -> torch.Tensor:
+    """``g`` (..., P, C) as (N, P, C) float32 with contiguous channels."""
+    if g.dtype != torch.float32 or g.dim() < 2 or g.shape[:-1] != (*batch_shape, P):
         raise ValueError(
-            f"{what} must be float32 of shape {(*coords.shape[:-1], g.shape[-1])}, got "
+            f"{what} must be float32 of shape {(*batch_shape, P, g.shape[-1])}, got "
             f"{tuple(g.shape)} {g.dtype}"
         )
-    flat = g.reshape(-1, g.shape[-1])
-    return flat if flat.stride(1) == 1 else flat.contiguous()
+    flat = g.reshape(-1, P, g.shape[-1])
+    return flat if flat.stride(2) == 1 else flat.contiguous()
 
 
-def bilinear_gather_2d_backward_coords(
-    plane: torch.Tensor,
-    coords: torch.Tensor,
+def bilinear_gather_planes_backward_coords(
+    planes,
+    coords,
     g_a: torch.Tensor | None,
     g_b: torch.Tensor | None,
-    grad_plane: torch.Tensor,
+    grads,
     channel_offset: int = 0,
+    split: int | None = None,
 ) -> torch.Tensor:
     """CUDA kernel K2c (``kernels/bilinear_gather_backward.cu``): the plane
-    and the coordinate gradient of one plane's fetch of channels
-    ``channel_offset : channel_offset + C``, in one launch. Adds the plane
-    gradient into those channels of ``grad_plane`` and returns the
-    coordinates' gradient.
+    and the coordinate gradients of a fetch of channels ``channel_offset :
+    channel_offset + C`` of up to three planes (:func:`bilinear_gather_planes`),
+    in one launch. Adds each plane's gradient into those channels of its
+    ``grads`` buffer and returns the coordinates' gradients.
 
     Args:
-      plane: (H, W, C_total) float32 CUDA tensor, the fetched plane's values
-        (H, W >= 2), channels contiguous and rows ``W`` texels apart.
-      coords: (..., 2) float32 CUDA tensor, the fetch's coordinates.
-      g_a, g_b: the gradients of a split fetch's two outputs, (..., C_a) over
-        channels ``channel_offset : channel_offset + C_a`` and (..., C_b)
-        over the next C_b; either may be None (its output got no gradient).
-      grad_plane: (H, W, C_total) float32 CUDA tensor, as ``plane``: the
-        whole plane's gradient.
-      channel_offset: first channel of the fetch within the plane.
+      planes: 1 to 3 (H_p, W_p, C_total) float32 CUDA tensors of one channel
+        count, the fetched planes' values, each of its own H_p, W_p >= 2,
+        channels contiguous and rows ``W_p`` texels apart.
+      coords: as many (..., 2) float32 CUDA tensors of one shape, each
+        plane's coordinates; strided views qualify as they are.
+      g_a, g_b: the gradients of the fetch's two outputs as
+        :func:`bilinear_gather_planes` returns them, (..., P, C_a) over
+        channels ``channel_offset : channel_offset + split`` and (..., P,
+        C_b) over the next C_b; strided views qualify. Either may be None
+        (its output got no gradient).
+      grads: as many float32 CUDA tensors of the planes' shapes and layouts:
+        the whole planes' gradients.
+      channel_offset: first channel of the fetch within the planes.
+      split: the first output's width, where g_b's channels start; g_a's
+        width by default, needed when g_a is None.
 
     Returns:
-      (..., 2) float32, the gradient of the fetch's coordinates.
+      (..., P, 2) float32, the gradient of each plane's coordinates.
     """
-    given = [t for t in (plane, coords, g_a, g_b, grad_plane) if t is not None]
+    planes, coords, grads = tuple(planes), tuple(coords), tuple(grads)
+    P = len(planes)
+    if not 1 <= P <= 3 or len(coords) != P or len(grads) != P:
+        raise ValueError(f"bilinear_gather_planes_backward_coords takes 1 to 3 planes and as many "
+                         f"coords and grads, got {P}, {len(coords)} and {len(grads)}")
+    given = [t for t in (*planes, *coords, *grads, g_a, g_b) if t is not None]
     if not _on_one_device(*given):
         raise ValueError(
-            "bilinear_gather_2d_backward_coords needs its tensors on one CUDA device, got "
+            "bilinear_gather_planes_backward_coords needs its tensors on one CUDA device, got "
             f"{[str(t.device) for t in given]}"
         )
     if g_a is None and g_b is None:
-        raise ValueError("bilinear_gather_2d_backward_coords needs g_a or g_b")
-    for t, what in ((plane, "plane"), (grad_plane, "grad_plane")):
-        if t.dim() != 3 or t.dtype != torch.float32:
-            raise ValueError(f"{what} must be (H, W, C) float32, got {tuple(t.shape)} {t.dtype}")
-        _check_plane(t, what)
-    if plane.shape != grad_plane.shape:
-        raise ValueError(f"plane {tuple(plane.shape)} and grad_plane {tuple(grad_plane.shape)} "
-                         "differ in shape")
-    H, W, c_total = plane.shape
-    if H * W >= 2**31:
-        raise ValueError(f"plane of {H}x{W} texels: the kernel indexes texels in 32 bits")
-    _check_coords(coords)
-    flat_a = None if g_a is None else _check_cotangent(g_a, coords, "g_a")
-    flat_b = None if g_b is None else _check_cotangent(g_b, coords, "g_b")
-    c_a = 0 if flat_a is None else flat_a.shape[1]
-    c_b = 0 if flat_b is None else flat_b.shape[1]
-    if flat_a is None:  # one cotangent: it goes first
-        flat_a, c_a, flat_b, c_b = flat_b, c_b, None, 0
+        raise ValueError("bilinear_gather_planes_backward_coords needs g_a or g_b")
+    for plane, grad in zip(planes, grads):
+        for t, what in ((plane, "plane"), (grad, "grad")):
+            if t.dim() != 3 or t.dtype != torch.float32:
+                raise ValueError(
+                    f"{what} must be (H, W, C) float32, got {tuple(t.shape)} {t.dtype}")
+            _check_plane(t, what)
+            H, W, _ = t.shape
+            if H * t.stride(0) >= 2**31:
+                raise ValueError(f"{what} of {H}x{W} texels x {t.stride(1)} channels: the kernel "
+                                 "indexes elements in 32 bits")
+        if plane.shape != grad.shape or plane.shape[-1] != planes[0].shape[-1]:
+            raise ValueError(f"planes {[tuple(p.shape) for p in planes]} and grads "
+                             f"{[tuple(g.shape) for g in grads]} differ in shape or channels")
+    for c in coords:
+        _check_coords(c)
+        if c.shape != coords[0].shape:
+            raise ValueError(f"coords differ in shape: {[tuple(c.shape) for c in coords]}")
+    batch_shape = coords[0].shape[:-1]
+    flat_a = None if g_a is None else _check_cotangent(g_a, batch_shape, P, "g_a")
+    flat_b = None if g_b is None else _check_cotangent(g_b, batch_shape, P, "g_b")
+    if split is None:
+        if flat_a is None:
+            raise ValueError("bilinear_gather_planes_backward_coords needs split without g_a")
+        split = flat_a.shape[2]
+    c_total = planes[0].shape[-1]
+    c_b = 0 if flat_b is None else flat_b.shape[2]
+    if flat_a is None:  # g_b alone: it goes first, at its own channels
+        channel_offset, flat_a, flat_b, c_b = channel_offset + split, flat_b, None, 0
+    elif flat_a.shape[2] != split:
+        raise ValueError(f"g_a has {flat_a.shape[2]} channels, split is {split}")
+    c_a = flat_a.shape[2]
     if not 0 <= channel_offset <= c_total - (c_a + c_b) or c_a == 0:
         raise ValueError(f"channels {channel_offset}:{channel_offset + c_a + c_b} outside "
                          f"0:{c_total} or empty")
-    flat_c = coords.reshape(-1, 2)
-    n = flat_c.shape[0]
-    out = torch.empty((n, 2), dtype=torch.float32, device=coords.device)
+    flats = [c.reshape(-1, 2) for c in coords]
+    n = flats[0].shape[0]
+    out = torch.empty((n, P, 2), dtype=torch.float32, device=coords[0].device)
     if n == 0:
-        return out.reshape(coords.shape)
-    src = plane.data_ptr() + 4 * channel_offset
-    dst = grad_plane.data_ptr() + 4 * channel_offset
-    b_ptr = 0 if flat_b is None else flat_b.data_ptr()
-    b_stride = 0 if flat_b is None else flat_b.stride(0)
+        return out.reshape(*batch_shape, P, 2)
+    desc, ptrs, strides = [], [flat_a.data_ptr()], [flat_a.stride(0), flat_a.stride(1)]
+    for plane, grad, flat in zip(planes, grads, flats):
+        H, W, _ = plane.shape
+        src = plane.data_ptr() + 4 * channel_offset
+        dst = grad.data_ptr() + 4 * channel_offset
+        desc += [src, plane.stride(1), dst, grad.stride(1), flat.data_ptr(), flat.stride(0),
+                 flat.stride(1), H, W]
+        ptrs += [src, dst]
+        strides += [plane.stride(1), grad.stride(1)]
+    b_ptr = b_stride_n = b_stride_p = 0
+    if flat_b is not None:
+        b_ptr, b_stride_n, b_stride_p = flat_b.data_ptr(), flat_b.stride(0), flat_b.stride(1)
+        ptrs.append(b_ptr)
+        strides += [b_stride_n, b_stride_p]
     # float4 lanes when every 16-byte access is aligned, as `backward_lanes`.
-    strides = (flat_a.stride(0), b_stride, plane.stride(1), grad_plane.stride(1))
     aligned = (c_a % 4 == 0 and c_b % 4 == 0 and all(t % 4 == 0 for t in strides)
-               and all(p % 16 == 0 for p in (flat_a.data_ptr(), b_ptr, src, dst)))
-    lanes = 4 if aligned else 1
+               and all(p % 16 == 0 for p in ptrs))
     lib = _lib("bilinear_gather_backward")
     _launch(
-        lib, lib.ngf_bilinear_gather_2d_backward_coords, plane.get_device(),
-        "bilinear_gather_2d_backward_coords",
-        flat_a.data_ptr(), flat_a.stride(0), c_a, b_ptr or None, b_stride, c_b,
-        flat_c.data_ptr(), flat_c.stride(0), flat_c.stride(1),
-        src, plane.stride(1), dst, grad_plane.stride(1), H, W, n, out.data_ptr(), lanes,
+        lib, lib.ngf_bilinear_gather_planes_backward_coords, planes[0].get_device(),
+        "bilinear_gather_planes_backward_coords",
+        (ctypes.c_longlong * len(desc))(*desc), P,
+        flat_a.data_ptr(), flat_a.stride(0), flat_a.stride(1), c_a,
+        b_ptr or None, b_stride_n, b_stride_p, c_b, n, out.data_ptr(), 4 if aligned else 1,
     )
-    bilinear_gather_2d_backward_coords.launches += 1
-    return out.reshape(coords.shape)
+    bilinear_gather_planes_backward_coords.launches += 1
+    return out.reshape(*batch_shape, P, 2)
 
 
-bilinear_gather_2d_backward_coords.launches = 0
+bilinear_gather_planes_backward_coords.launches = 0
+
+
+def backward_coords_footprint(vec: int = 4) -> dict:
+    """K2c's footprint on the current card: the 256-thread blocks an SM
+    holds at once, registers a thread and local (spilled) bytes a thread of
+    its ``vec``-lane variant (4 or 1)."""
+    lib = _lib("bilinear_gather_backward")
+    out = (ctypes.c_int * 3)()
+    code = lib.ngf_bilinear_gather_planes_backward_coords_footprint(vec, out)
+    if code:
+        raise RuntimeError(f"K2c footprint: CUDA error {code} "
+                           f"({lib.ngf_cuda_error_string(code).decode()})")
+    return {"blocks_per_sm": out[0], "registers": out[1], "local_bytes": out[2]}
+
 
 _INDEX_BYTES = {torch.int64: 8, torch.int32: 4}
 
@@ -722,7 +773,7 @@ KERNELS = {
     "bilinear_gather_planes": bilinear_gather_planes,
     "bilinear_gather_2d": bilinear_gather_2d,
     "bilinear_gather_2d_backward": bilinear_gather_2d_backward,
-    "bilinear_gather_2d_backward_coords": bilinear_gather_2d_backward_coords,
+    "bilinear_gather_planes_backward_coords": bilinear_gather_planes_backward_coords,
     "gather_rows": gather_rows,
     "occupancy_lookup": occupancy_lookup,
     "group_sample_compact": group_sample_compact,

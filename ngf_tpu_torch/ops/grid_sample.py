@@ -12,8 +12,9 @@ appearance decoders' inputs. On CUDA tensors it launches the hand-written
 kernel ``bilinear_gather_planes`` (`ngf_tpu_torch/ops/cuda_kernels.py`) and,
 for the plane gradients, its backward ``bilinear_gather_2d_backward``, or,
 where the coordinates need a gradient too (the learned gauge's deformed
-coordinates), ``bilinear_gather_2d_backward_coords`` for both; on CPU tensors
-it runs the plain versions below. There is no fallback between the two.
+coordinates), ``bilinear_gather_planes_backward_coords`` (K2c) for both
+gradients of all planes in one launch; on CPU tensors it runs the plain
+versions below. There is no fallback between the two.
 ``grid_sample_2d`` is its one-plane call.
 
 A fetch names its channels of the whole plane (``channels``), so its
@@ -141,8 +142,8 @@ def _axis_weight_grads(c: torch.Tensor, size: int):
 def grid_sample_2d_backward_coords_plain(
     plane: torch.Tensor, coords: torch.Tensor, g: torch.Tensor
 ) -> torch.Tensor:
-    """Plain PyTorch version of the coordinate half of the
-    ``bilinear_gather_2d_backward_coords`` kernel (K2c): the gradient of
+    """Plain PyTorch version of the coordinate half of one plane of the
+    ``bilinear_gather_planes_backward_coords`` kernel (K2c): the gradient of
     :func:`grid_sample_2d_plain` with respect to its coordinates, written
     out, not by autograd (the coordinate branch of `_duobwd_bwd`,
     `ngf_tpu/ops/grid_sample.py:434-455`). With the four taps j = 00, 01,
@@ -179,6 +180,44 @@ def grid_sample_2d_backward_coords_plain(
     return torch.stack([gx, gy], dim=-1).reshape(*batch_shape, 2)
 
 
+def grid_sample_planes_backward_coords_plain(
+    planes, coords, g_a, g_b, grads, channel_offset: int = 0, split: int | None = None
+) -> torch.Tensor:
+    """Plain PyTorch version of the ``bilinear_gather_planes_backward_coords``
+    kernel (K2c), with its arguments: both gradients of a fetch of channels
+    ``channel_offset : channel_offset + C`` of 1 to 3 planes, each of its own
+    shape. For each plane and output, :func:`grid_sample_2d_backward_plain`
+    adds the plane gradient into ``grads[p]`` and
+    :func:`grid_sample_2d_backward_coords_plain` gives the coordinate
+    gradient, summed over the two outputs.
+
+    Args:
+      planes, coords, grads: as many (H_p, W_p, C_total) values, (..., 2)
+        coordinates and float32 (H_p, W_p, C_total) gradients.
+      g_a, g_b: (..., P, C_a) over channels ``channel_offset : channel_offset
+        + split`` and (..., P, C_b) over the next C_b, either None.
+      split: where g_b's channels start; g_a's width by default.
+
+    Returns:
+      (..., P, 2) float32, in the kernel's layout.
+    """
+    if split is None:
+        if g_a is None:
+            raise ValueError("grid_sample_planes_backward_coords_plain needs split without g_a")
+        split = g_a.shape[-1]
+    out = []
+    for p, (plane, c, grad) in enumerate(zip(planes, coords, grads)):
+        cg = torch.zeros(c.shape, dtype=torch.float32, device=c.device)
+        for g, off in ((g_a, channel_offset), (g_b, channel_offset + split)):
+            if g is not None:
+                gp = g[..., p, :]
+                grid_sample_2d_backward_plain(gp, c, grad, off)
+                cg = cg + grid_sample_2d_backward_coords_plain(
+                    plane[..., off : off + gp.shape[-1]], c, gp)
+        out.append(cg)
+    return torch.stack(out, dim=-2)
+
+
 def grid_sample_planes_plain(
     planes, coords, channels: slice = slice(None), split: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -199,9 +238,10 @@ class _BilinearGatherPlanes(torch.autograd.Function):
     launch of the gather kernel (CUDA) or its plain version (CPU) forward.
     Backward, each plane's gradient in one float32 (H, W, C) buffer: where
     only the planes need a gradient, the backward kernel (CUDA) or its plain
-    version (CPU) adds each output's channels into it; where a plane's
+    version (CPU) adds each output's channels into it; where any plane's
     coordinates need one too (the learned gauge), K2c (CUDA, one launch for
-    both gradients and both outputs) or the plain versions (CPU) give both."""
+    both gradients of every plane and both outputs) or its plain version
+    (CPU) gives both."""
 
     @staticmethod
     def forward(ctx, c0, c1, split, *tensors):
@@ -226,35 +266,36 @@ class _BilinearGatherPlanes(torch.autograd.Function):
         c0, split, planes = ctx.meta
         P = len(planes)
         coords, values = saved[:P], saved[P:]
-        grads, coord_grads = [None] * P, [None] * P
-        for i, (shape, dtype, device) in enumerate(planes):
-            need_coords = ctx.needs_input_grad[3 + P + i]
-            if not (ctx.needs_input_grad[3 + i] or need_coords) or (g_a is None and g_b is None):
-                continue
-            cuda = device.type == "cuda"
-            if cuda and dtype != torch.float32:
-                raise NotImplementedError(
-                    f"the plane gradient of a {dtype} plane is not ported: see ROADMAP.md "
-                    "queue 1, 'bfloat16 training'"
-                )
-            ga = None if g_a is None else g_a[..., i, :]
-            gb = None if g_b is None else g_b[..., i, :]
-            grad = torch.zeros(shape, dtype=torch.float32, device=device)
-            if need_coords and cuda:
-                coord_grads[i] = cuda_kernels.bilinear_gather_2d_backward_coords(
-                    values[i], coords[i], ga, gb, grad, c0)
-            else:
-                scatter = (cuda_kernels.bilinear_gather_2d_backward if cuda
-                           else grid_sample_2d_backward_plain)
-                for g, off in ((ga, c0), (gb, c0 + split)):
-                    if g is None:
-                        continue
-                    scatter(g, coords[i], grad, off)
-                    if need_coords:  # on the CPU
-                        cg = grid_sample_2d_backward_coords_plain(
-                            values[i][..., off : off + g.shape[-1]], coords[i], g)
-                        coord_grads[i] = cg if coord_grads[i] is None else coord_grads[i] + cg
-            grads[i] = grad if ctx.needs_input_grad[3 + i] else None
+        need_planes, need_coords = ctx.needs_input_grad[3:3 + P], ctx.needs_input_grad[3 + P:]
+        none = (None,) * (3 + 2 * P)
+        if (g_a is None and g_b is None) or not any(need_planes + need_coords):
+            return none
+        _, dtype, device = planes[0]
+        cuda = device.type == "cuda"
+        if cuda and dtype != torch.float32:
+            raise NotImplementedError(
+                f"the plane gradient of a {dtype} plane is not ported: see ROADMAP.md "
+                "queue 1, 'bfloat16 training'"
+            )
+        coord_grads = [None] * P
+        if any(need_coords):
+            grads = [torch.zeros(shape, dtype=torch.float32, device=device)
+                     for shape, _, _ in planes]
+            both = (cuda_kernels.bilinear_gather_planes_backward_coords if cuda
+                    else grid_sample_planes_backward_coords_plain)
+            cg = both(values, coords, g_a, g_b, grads, c0, split)
+            coord_grads = [cg[..., i, :] if need else None for i, need in enumerate(need_coords)]
+        else:
+            scatter = (cuda_kernels.bilinear_gather_2d_backward if cuda
+                       else grid_sample_2d_backward_plain)
+            grads = [None] * P
+            for i, (shape, _, _) in enumerate(planes):
+                if need_planes[i]:
+                    grads[i] = torch.zeros(shape, dtype=torch.float32, device=device)
+                    for g, off in ((g_a, c0), (g_b, c0 + split)):
+                        if g is not None:
+                            scatter(g[..., i, :], coords[i], grads[i], off)
+        grads = [g if need else None for g, need in zip(grads, need_planes)]
         return (None, None, None, *grads, *coord_grads)
 
 
@@ -272,10 +313,10 @@ def grid_sample_planes(
     outputs are the decoders' inputs in the order of a ``torch.cat`` of the
     three planes. CUDA planes launch the ``bilinear_gather_planes`` kernel
     once (or raise) and, in the backward, ``bilinear_gather_2d_backward``
-    once per plane and output, or, for a plane whose coordinates need a
-    gradient (the gauge variant's deformed coordinates),
-    ``bilinear_gather_2d_backward_coords`` once per plane for both
-    gradients; CPU planes take the plain versions.
+    once per plane and output, or, where coordinates need a gradient (the
+    gauge variant's deformed coordinates),
+    ``bilinear_gather_planes_backward_coords`` once for both gradients of
+    every plane; CPU planes take the plain versions.
     """
     planes, coords = tuple(planes), tuple(coords)
     device = planes[0].device

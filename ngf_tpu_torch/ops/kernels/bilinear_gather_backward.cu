@@ -5,8 +5,9 @@
 // explicit form of the autodiff of `_grid_sample_2d_blocks` (:196-213). For
 // every point n and channel c it adds w_tap(n) * g[n, c] to each of the four
 // stencil texels of n (bilinear_stencil.cuh): a scatter-add, the transpose of
-// bilinear_gather.cu. A second entry adds the coordinate gradient (K2c, see
-// below the plane branch).
+// bilinear_gather.cu. A second entry, K2c, adds the plane gradient and
+// writes the coordinate gradient of a fetch of up to three planes (see below
+// the plane branch).
 //
 // Layout. g is (N, C) float32 with rows g_stride_n elements apart. coords are
 // (N, 2) float32 with element strides (coord_stride_n, coord_stride_k), as in
@@ -59,6 +60,7 @@
 // alone changed little against scalar ones, and the time falls with the tap
 // adds per point that merging saves.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -257,47 +259,134 @@ int launch(const float* g, long long g_stride_n, int C, const float* coords,
 }
 
 // ---------------------------------------------------------------------------
-// K2c: the plane gradient and the coordinate gradient of one plane's fetch in
-// one pass.
+// K2c: the plane gradient and the coordinate gradient of a fetch of up to
+// three planes, in one launch.
 //
 // Replaces the coordinate branch of `_duobwd_bwd`
-// (ngf_tpu/ops/grid_sample.py:434-455) with `_axis_weight_grads` (:354), the
-// gradient that autodiff of `grid_sample_2d` gives the deformed coordinates of
-// the learned gauge (ngf_tpu/fields/triplane.py:141-189). With the four taps
-// j = 00, 01, 10, 11 (first index y) of a point's stencil and its cotangent g
-// over every fetched channel c:
+// (ngf_tpu/ops/grid_sample.py:434-455) with `_axis_weight_grads` (:354),
+// together with the plane branch (:457-501), for each plane of the learned
+// gauge's fetch at its deformed coordinates (ngf_tpu/fields/triplane.py:141-189).
+// With the four taps j = 00, 01, 10, 11 (first index y) of a point's stencil
+// and its cotangent g over every fetched channel c:
 //   t_j = sum_c plane[tap_j, c] * g_c
 //   gx  = (t00 wy0 dwx0 + t01 wy0 dwx1 + t10 wy1 dwx0 + t11 wy1 dwx1) (W-1)/2
 //   gy  = (t00 dwy0 wx0 + t01 dwy0 wx1 + t10 dwy1 wx0 + t11 dwy1 wx1) (H-1)/2
 // and the plane gradient w_j g_c into the four texels, as the plane branch.
 //
-// Layout. A split fetch has two cotangents: g_a over channels c0 : c0 + split
-// and g_b over the rest (either may be the only one), each (N, C_x) float32
-// with its own row stride. plane and grad are the (H, W, C_total) float32
-// values and gradient, passed offset to channel c0. coord_grad is (N, 2)
-// float32, contiguous, written (not added).
+// Layout. Plane p < P <= 3 has its own H_p, W_p (the gauge's planes after
+// the shrink and upsample): its values and its gradient are (H_p, W_p,
+// C_total) float32, texels texel_stride elements apart, passed offset to the
+// fetch's first channel c0, and its coordinates (N, 2) float32 with element
+// strides (coord_stride_n, coord_stride_k), as in the gather
+// (bilinear_gather.cu). The cotangents are the gradients of the fetch's two
+// outputs as they lie: g_a (N, P, C_a) over channels c0 : c0 + C_a and g_b
+// (N, P, C_b) over the next C_b (either may be the only one), each with its
+// own point and plane strides. coord_grad is (N, P, 2) float32, contiguous,
+// written (not added).
 //
-// Design: the plane branch's segments and lanes. Threads map to (segment of
-// SEG consecutive points, channel group of V channels); a thread loads its
-// segment's g once and uses it for both gradients: its tap sums go into the
-// plane gradient with the plane branch's run merging and atomics, and its
-// share of t_j is the dot product of the four taps (re-read from the plane
-// only when the stencil start changes) with g. The t_j of a point are summed
-// over the segment's lanes by a warp shuffle reduction (the lanes of a segment
-// are a power of two up to 32, or whole warps) and, per warp, added into the
-// point's slot in shared memory; after a barrier, one thread per point turns
-// the four sums into (gx, gy) and stores the pair.
+// Design.
+// - One launch: a grid of (tile, plane) blocks. A block owns one plane's
+//   tile of consecutive points and first computes their stencils into
+//   shared memory: the start texel, the four tap weights, and the weights'
+//   derivatives folded with the axis scale, kx_j = wy * dwx * (W-1)/2 and
+//   ky_j = dwy * wx * (H-1)/2.
+// - Threads map to (segment of COORD_SEG consecutive points, channel group
+//   of V channels), as in the plane branch, with the plane branch's run
+//   merging, `end_run` carry-over, float4 atomics and zero-sum skip.
+// - A lane's g values reach it through a ring of STAGES slots in shared
+//   memory, filled by `cp.async` copies STAGES - 1 points ahead, not through
+//   registers: with no segment of g in registers the kernel fits three
+//   256-thread blocks on an SM (`__launch_bounds__(256, 3)`: at most 80
+//   registers a thread, 24 warps an SM), and the copies in flight cost no
+//   registers.
+// - On a new stencil start the lane issues the four tap loads of the plane
+//   first (two where the start moves one texel along x or y, as in the
+//   gather), then the last run's atomics, so that the loads are in flight
+//   while the atomics go out.
+// - Each lane folds the derivatives into its partial sums before the
+//   reduction, u_x = sum_j kx_j t_j and u_y = sum_j ky_j t_j over its
+//   channels, so a point reduces two sums over the segment's lanes, not
+//   four. Where a segment's lanes lie in one warp (C <= 128 at float4) the
+//   reducing lane stores (gx, gy) itself; segments of whole warps add their
+//   warps' sums in shared memory and store after a barrier.
 //
-// Bound on an H100 SXM: memory, as the plane branch: g read once (N * C * 4
-// bytes: 4096 * 512 * 64 * 4 B = 537 MB for one plane of the gauge variant's
-// open step), the coordinates read and the coordinate gradient written once
-// (16 bytes a point), the plane gradient read and written once. The taps are
-// re-read from the 16 MB plane, which the L2 holds. A first design: one
-// launch per plane, taps loaded as 16-byte vectors per lane with no staging.
-// Measured on an NVIDIA H100 80GB HBM3 at its 700 W limit (PERF.md), it runs
-// at about 15% of that bound on the open step, against the plane branch's
-// 45%: the float4 variant takes 141 registers a thread, so one 256-thread
-// block fits on an SM, and every new stencil start waits on four tap loads.
+// Bound on an H100 SXM: memory. g read once (N * C * 4 bytes a plane), the
+// coordinates read and the coordinate gradient written once (16 bytes a
+// point and plane), the plane gradient read and written and the plane read
+// once. For the gauge's open step (three 256 x 256 x 64 planes, N = 4096 *
+// 512) that is about 1.86 GB, 0.556 ms at 3.35 TB/s. Measured on an NVIDIA
+// H100 80GB HBM3 at its 700 W limit (PERF.md), it runs at about 41% of that
+// bound there and 50% on a trained gauge step's fetch, where the first
+// design (a launch a plane, 141 registers, one block an SM) ran at 15-18%.
+// Like the plane branch, it waits on the L2's atomics; on random points,
+// where every point starts a new stencil and three planes' gradients exceed
+// the L2, it reaches 16%.
+
+// The consecutive points a K2c lane walks, the blocks meant to share an SM
+// and the slots of a lane's ring of g values in shared memory. PERF.md
+// records the alternatives measured (8 points a lane, 2 blocks an SM, 2 or 8
+// slots, the tap loads after the atomics) and why these were kept.
+constexpr int COORD_SEG = 16;
+constexpr int COORD_BLOCKS_PER_SM = 3;
+constexpr int STAGES = 4;
+// Points a K2c block owns at most: 16 segments.
+constexpr int COORD_TILE = 16 * COORD_SEG;
+constexpr int MAX_PLANES = 3;
+
+struct CoordPlanes {
+    const float* plane[MAX_PLANES];  // values, offset to the first fetched channel
+    float* grad[MAX_PLANES];         // gradient, offset alike
+    const float* coords[MAX_PLANES];
+    long long coord_stride_n[MAX_PLANES];
+    long long coord_stride_k[MAX_PLANES];
+    int plane_stride[MAX_PLANES];    // texel strides, in elements
+    int grad_stride[MAX_PLANES];
+    int H[MAX_PLANES];
+    int W[MAX_PLANES];
+};
+
+// Element p of a per-plane field by selects, so that a run-time plane index
+// does not copy the kernel's arguments to local memory.
+template <typename X>
+__device__ __forceinline__ X pick(const X (&a)[MAX_PLANES], int p) {
+    return p == 0 ? a[0] : (p == 1 ? a[1] : a[2]);
+}
+
+// The four taps of the stencil at texel s. A step of d = s - run = +-1 or
+// +-W keeps the two taps the new stencil shares with the last one; d = 0
+// (no last stencil) or any other step loads all four.
+template <typename L>
+__device__ __forceinline__ void load_taps(const float* src, int s, int d, int W, int right,
+                                          int down, typename L::T& q00, typename L::T& q01,
+                                          typename L::T& q10, typename L::T& q11) {
+    const float* t = src + (long long)s * right;
+    if (d == 1) {  // x + 1: the x1 column becomes the x0 column
+        q00 = q01;
+        q10 = q11;
+        q01 = L::load(t + right);
+        q11 = L::load(t + down + right);
+    } else if (d == -1) {
+        q01 = q00;
+        q11 = q10;
+        q00 = L::load(t);
+        q10 = L::load(t + down);
+    } else if (d == W) {  // y + 1: the y1 row becomes the y0 row
+        q00 = q10;
+        q01 = q11;
+        q10 = L::load(t + down);
+        q11 = L::load(t + down + right);
+    } else if (d == -W) {
+        q10 = q00;
+        q11 = q01;
+        q00 = L::load(t);
+        q01 = L::load(t + right);
+    } else {
+        q00 = L::load(t);
+        q01 = L::load(t + right);
+        q10 = L::load(t + down);
+        q11 = L::load(t + down + right);
+    }
+}
 
 // Lanes of a segment: the channel groups rounded up to a power of two up to
 // 32, or to whole warps beyond, so that a segment's lanes reduce by shuffles.
@@ -309,144 +398,158 @@ __host__ __device__ inline int coord_group_threads(int groups) {
 }
 
 template <int V>
-__global__ void __launch_bounds__(MAX_THREADS) bilinear_gather_2d_backward_coords_kernel(
-    const float* __restrict__ g_a, long long ga_stride, int groups_a,
-    const float* __restrict__ g_b, long long gb_stride, int groups, int group_threads,
-    int passes, const float* __restrict__ coords, long long coord_stride_n,
-    long long coord_stride_k, const float* __restrict__ plane, long long plane_stride,
-    float* __restrict__ grad, long long texel_stride, int H, int W, long long N,
-    float* __restrict__ coord_grad) {
+__global__ void __launch_bounds__(MAX_THREADS, COORD_BLOCKS_PER_SM)
+    bilinear_gather_planes_backward_coords_kernel(
+        const CoordPlanes pl, const float* __restrict__ g_a, long long ga_stride_n,
+        long long ga_stride_p, int groups_a, const float* __restrict__ g_b,
+        long long gb_stride_n, long long gb_stride_p, int groups, int group_threads, int passes,
+        long long N, float2* __restrict__ coord_grad) {
     using L = Lanes<V>;
     using T = typename L::T;
-    __shared__ int s_start[MAX_TILE];
-    __shared__ float4 s_w[MAX_TILE];
-    __shared__ float4 s_t[MAX_TILE];
+    __shared__ int s_start[COORD_TILE];
+    __shared__ float4 s_w[COORD_TILE];
+    __shared__ float4 s_kx[COORD_TILE];
+    __shared__ float4 s_ky[COORD_TILE];
+    __shared__ float2 s_u[COORD_TILE];
+    __shared__ T s_g[STAGES][MAX_THREADS];
 
-    const int tile = (blockDim.x / group_threads) * SEG;
+    const int P = gridDim.y;
+    const int p = blockIdx.y;
+    const int W = pick(pl.W, p);
+    const int tile = (blockDim.x / group_threads) * COORD_SEG;
     const long long first = (long long)blockIdx.x * tile;
     const int npts = (int)min((long long)tile, N - first);
-    const int seg = threadIdx.x / group_threads;
-    const int lane = threadIdx.x - seg * group_threads;
-    const int p0 = seg * SEG;
-    const int n = max(0, min(SEG, npts - p0));
-
-    for (int p = threadIdx.x; p < tile; p += blockDim.x) {
-        s_t[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (p < npts) {
-            const float* cp = coords + (first + p) * coord_stride_n;
-            float wx0, wx1, wy0, wy1;
-            const int xs = axis_stencil(cp[0], W, &wx0, &wx1);
-            const int ys = axis_stencil(cp[coord_stride_k], H, &wy0, &wy1);
-            s_start[p] = ys * W + xs;
-            s_w[p] = make_float4(wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1);
+    {
+        const int H = pick(pl.H, p);
+        const float* coords = pick(pl.coords, p);
+        const long long csn = pick(pl.coord_stride_n, p);
+        const long long csk = pick(pl.coord_stride_k, p);
+        const float sx = 0.5f * (float)(W - 1);
+        const float sy = 0.5f * (float)(H - 1);
+        for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+            s_u[i] = make_float2(0.0f, 0.0f);
+            if (i < npts) {
+                const float* cp = coords + (first + i) * csn;
+                float wx0, wx1, wy0, wy1, dwx0, dwx1, dwy0, dwy1;
+                const int xs = axis_stencil_grad(__ldg(cp), W, &wx0, &wx1, &dwx0, &dwx1);
+                const int ys = axis_stencil_grad(__ldg(cp + csk), H, &wy0, &wy1, &dwy0, &dwy1);
+                s_start[i] = ys * W + xs;
+                s_w[i] = make_float4(wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1);
+                s_kx[i] = make_float4(wy0 * dwx0 * sx, wy0 * dwx1 * sx, wy1 * dwx0 * sx,
+                                      wy1 * dwx1 * sx);
+                s_ky[i] = make_float4(dwy0 * wx0 * sy, dwy0 * wx1 * sy, dwy1 * wx0 * sy,
+                                      dwy1 * wx1 * sy);
+            }
         }
     }
     __syncthreads();
 
+    const int seg = threadIdx.x / group_threads;
+    const int lane = threadIdx.x - seg * group_threads;
+    const int p0 = seg * COORD_SEG;
+    const int n = max(0, min(COORD_SEG, npts - p0));
+    float2* out = coord_grad + (first + p0) * P + p;
     // Every thread of a warp runs every pass and point, so that the
     // shuffles see all 32 lanes; a lane past the channel groups, or past the
-    // segment's points, contributes zeros.
+    // segment's points, adds zeros.
     const int red = min(group_threads, 32);
-    const long long down = (long long)W * texel_stride;
-    const long long pdown = (long long)W * plane_stride;
+    const bool direct = group_threads <= 32;
+    const int right = pick(pl.grad_stride, p);
+    const int pright = pick(pl.plane_stride, p);
     for (int pass = 0; pass < passes; ++pass) {
         const int cg = lane + pass * group_threads;
         const int nv = cg < groups ? n : 0;
-        const float* gp = g_a;
-        long long gs = ga_stride;
-        if (cg < groups_a) {
-            gp = g_a + cg * V;
-        } else if (cg < groups) {
-            gp = g_b + (cg - groups_a) * V;
-            gs = gb_stride;
-        }
-        T v[SEG];
-        load_segment<L>(v, gp + (first + p0) * gs, gs, nv);
-        float* dst = grad + cg * V;
-        const float* src = plane + cg * V;
+        const bool in_a = cg < groups_a;
+        const long long gs = in_a ? ga_stride_n : gb_stride_n;
+        const float* gp = (in_a ? g_a + p * ga_stride_p + cg * V
+                                : g_b + p * gb_stride_p + (cg - groups_a) * V) +
+                          (first + p0) * gs;
+        float* dst = pick(pl.grad, p) + cg * V;
+        const float* src = pick(pl.plane, p) + cg * V;
         T a00 = L::zero(), a01 = L::zero(), a10 = L::zero(), a11 = L::zero();
         T q00 = L::zero(), q01 = L::zero(), q10 = L::zero(), q11 = L::zero();
+        // The lane's g values pass through its ring of STAGES slots in
+        // shared memory: the copy of point i + STAGES - 1 goes out before
+        // point i is used.
+        T* ring = &s_g[0][threadIdx.x];
+        for (int k = 0; k < STAGES - 1; ++k) {
+            if (k < nv) __pipeline_memcpy_async(ring + k * MAX_THREADS, gp + k * gs, sizeof(T));
+            __pipeline_commit();
+        }
         int run = -1;
-#pragma unroll
-        for (int i = 0; i < SEG; ++i) {
-            float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int i = 0; i < COORD_SEG; ++i) {
+            const int k = i + STAGES - 1;
+            if (k < nv) {
+                __pipeline_memcpy_async(ring + (k % STAGES) * MAX_THREADS, gp + k * gs, sizeof(T));
+            }
+            __pipeline_commit();
+            __pipeline_wait_prior(STAGES - 1);
+            float ux = 0.0f, uy = 0.0f;
             if (i < nv) {
+                const T v = ring[(i % STAGES) * MAX_THREADS];
                 const int s = s_start[p0 + i];
                 if (s != run) {
+                    const int d = run < 0 ? 0 : s - run;
+                    load_taps<L>(src, s, d, W, pright, W * pright, q00, q01, q10, q11);
                     if (run >= 0) {
-                        end_run<L>(dst + (long long)run * texel_stride, s - run, W,
-                                   texel_stride, down, a00, a01, a10, a11);
+                        end_run<L>(dst + (long long)run * right, d, W, right,
+                                   (long long)W * right, a00, a01, a10, a11);
                     }
-                    const float* q = src + (long long)s * plane_stride;
-                    q00 = L::load(q);
-                    q01 = L::load(q + plane_stride);
-                    q10 = L::load(q + pdown);
-                    q11 = L::load(q + pdown + plane_stride);
                     run = s;
                 }
                 const float4 w = s_w[p0 + i];
-                a00 = L::fma(w.x, v[i], a00);
-                a01 = L::fma(w.y, v[i], a01);
-                a10 = L::fma(w.z, v[i], a10);
-                a11 = L::fma(w.w, v[i], a11);
-                t = make_float4(L::dot(q00, v[i]), L::dot(q01, v[i]), L::dot(q10, v[i]),
-                                L::dot(q11, v[i]));
+                a00 = L::fma(w.x, v, a00);
+                a01 = L::fma(w.y, v, a01);
+                a10 = L::fma(w.z, v, a10);
+                a11 = L::fma(w.w, v, a11);
+                const float t00 = L::dot(q00, v), t01 = L::dot(q01, v);
+                const float t10 = L::dot(q10, v), t11 = L::dot(q11, v);
+                const float4 kx = s_kx[p0 + i];
+                ux = kx.x * t00 + kx.y * t01 + kx.z * t10 + kx.w * t11;
+                const float4 ky = s_ky[p0 + i];
+                uy = ky.x * t00 + ky.y * t01 + ky.z * t10 + ky.w * t11;
             }
             for (int off = red / 2; off > 0; off >>= 1) {
-                t.x += __shfl_xor_sync(0xffffffffu, t.x, off);
-                t.y += __shfl_xor_sync(0xffffffffu, t.y, off);
-                t.z += __shfl_xor_sync(0xffffffffu, t.z, off);
-                t.w += __shfl_xor_sync(0xffffffffu, t.w, off);
+                ux += __shfl_xor_sync(0xffffffffu, ux, off);
+                uy += __shfl_xor_sync(0xffffffffu, uy, off);
             }
             if ((lane & (red - 1)) == 0 && i < n) {
-                float4* slot = &s_t[p0 + i];
-                atomicAdd(&slot->x, t.x);
-                atomicAdd(&slot->y, t.y);
-                atomicAdd(&slot->z, t.z);
-                atomicAdd(&slot->w, t.w);
+                if (direct) {
+                    out[i * P] = make_float2(ux, uy);
+                } else {
+                    atomicAdd(&s_u[p0 + i].x, ux);
+                    atomicAdd(&s_u[p0 + i].y, uy);
+                }
             }
         }
         if (run >= 0) {
-            add_taps<L>(dst + (long long)run * texel_stride, texel_stride, down, a00, a01, a10,
+            add_taps<L>(dst + (long long)run * right, right, (long long)W * right, a00, a01, a10,
                         a11);
         }
     }
-    __syncthreads();
-
-    const float sx = 0.5f * (float)(W - 1);
-    const float sy = 0.5f * (float)(H - 1);
-    for (int p = threadIdx.x; p < npts; p += blockDim.x) {
-        const float* cp = coords + (first + p) * coord_stride_n;
-        float wx0, wx1, wy0, wy1, dwx0, dwx1, dwy0, dwy1;
-        axis_stencil_grad(cp[0], W, &wx0, &wx1, &dwx0, &dwx1);
-        axis_stencil_grad(cp[coord_stride_k], H, &wy0, &wy1, &dwy0, &dwy1);
-        const float4 t = s_t[p];
-        const float gx = (t.x * wy0 * dwx0 + t.y * wy0 * dwx1 + t.z * wy1 * dwx0 +
-                          t.w * wy1 * dwx1) * sx;
-        const float gy = (t.x * dwy0 * wx0 + t.y * dwy0 * wx1 + t.z * dwy1 * wx0 +
-                          t.w * dwy1 * wx1) * sy;
-        reinterpret_cast<float2*>(coord_grad)[first + p] = make_float2(gx, gy);
+    if (!direct) {  // uniform over the block
+        __syncthreads();
+        for (int i = threadIdx.x; i < npts; i += blockDim.x) {
+            coord_grad[(first + i) * P + p] = s_u[i];
+        }
     }
 }
 
 template <int V>
-int launch_coords(const float* g_a, long long ga_stride, int c_a, const float* g_b,
-                  long long gb_stride, int c_b, const float* coords, long long coord_stride_n,
-                  long long coord_stride_k, const float* plane, long long plane_stride,
-                  float* grad, long long texel_stride, int H, int W, long long N,
-                  float* coord_grad, cudaStream_t stream) {
+int launch_coords(const CoordPlanes& pl, int P, const float* g_a, long long ga_stride_n,
+                  long long ga_stride_p, int c_a, const float* g_b, long long gb_stride_n,
+                  long long gb_stride_p, int c_b, long long N, float* coord_grad,
+                  cudaStream_t stream) {
     const int groups_a = c_a / V;
     const int groups = groups_a + c_b / V;
     const int group_threads = coord_group_threads(groups);
     const int passes = (groups + group_threads - 1) / group_threads;
-    const int segs = min(MAX_THREADS / group_threads, MAX_TILE / SEG);
-    const long long tile = (long long)segs * SEG;
-    const long long blocks = (N + tile - 1) / tile;
-    bilinear_gather_2d_backward_coords_kernel<V>
-        <<<(unsigned)blocks, segs * group_threads, 0, stream>>>(
-            g_a, ga_stride, groups_a, g_b, gb_stride, groups, group_threads, passes, coords,
-            coord_stride_n, coord_stride_k, plane, plane_stride, grad, texel_stride, H, W, N,
-            coord_grad);
+    const int segs = min(MAX_THREADS / group_threads, COORD_TILE / COORD_SEG);
+    const long long tile = (long long)segs * COORD_SEG;
+    const dim3 grid((unsigned)((N + tile - 1) / tile), (unsigned)P);
+    bilinear_gather_planes_backward_coords_kernel<V><<<grid, segs * group_threads, 0, stream>>>(
+        pl, g_a, ga_stride_n, ga_stride_p, groups_a, g_b, gb_stride_n, gb_stride_p, groups,
+        group_threads, passes, N, reinterpret_cast<float2*>(coord_grad));
     return (int)cudaGetLastError();
 }
 
@@ -476,31 +579,63 @@ int ngf_bilinear_gather_2d_backward(const float* g, long long g_stride_n, int C,
     return (int)cudaErrorInvalidValue;
 }
 
-// K2c: adds the plane gradient of one plane's fetch into grad and writes its
-// coordinate gradient into coord_grad (N, 2), see above. g_a holds channels
-// 0 : c_a of the fetch and g_b channels c_a : c_a + c_b (g_b may be null with
-// c_b = 0); plane and grad are offset to the fetch's first channel. vec = 4
-// takes float4 loads and atomics and needs c_a, c_b, both g strides, both
-// texel strides and every pointer 16-byte aligned; vec = 1 takes any layout.
-// Launches on `stream` and returns the cudaError_t of the launch (0 on
-// success). N and c_a + c_b must be > 0, H, W >= 2 and H * W < 2^31.
-int ngf_bilinear_gather_2d_backward_coords(
-    const float* g_a, long long ga_stride, int c_a, const float* g_b, long long gb_stride,
-    int c_b, const float* coords, long long coord_stride_n, long long coord_stride_k,
-    const float* plane, long long plane_stride, float* grad, long long texel_stride, int H,
-    int W, long long N, float* coord_grad, int vec, void* stream) {
+// K2c: adds the plane gradient of a fetch of P planes into their gradients
+// and writes the coordinate gradient into coord_grad (N, P, 2), see above.
+// desc holds P rows of nine values: the plane's pointer and texel stride,
+// its gradient's pointer and texel stride (both pointers offset to the
+// fetch's first channel), the coordinates' pointer and two element strides,
+// and the plane's H and W. g_a holds channels 0 : c_a of the fetch and g_b
+// channels c_a : c_a + c_b (g_b may be null with c_b = 0), each with a point
+// and a plane stride. vec = 4 takes float4 loads and atomics and needs c_a,
+// c_b, every stride but the coordinates' and every pointer but theirs
+// 16-byte aligned; vec = 1 takes any layout. Launches on `stream` and
+// returns the cudaError_t of the launch (0 on success). 1 <= P <= 3, N and
+// c_a > 0, every H, W >= 2 and every plane's and gradient's H * W * texel
+// stride < 2^31.
+int ngf_bilinear_gather_planes_backward_coords(
+    const long long* desc, int P, const float* g_a, long long ga_stride_n,
+    long long ga_stride_p, int c_a, const float* g_b, long long gb_stride_n,
+    long long gb_stride_p, int c_b, long long N, float* coord_grad, int vec, void* stream) {
+    if (P < 1 || P > MAX_PLANES) return (int)cudaErrorInvalidValue;
+    CoordPlanes pl = {};
+    for (int p = 0; p < P; ++p) {
+        const long long* d = desc + 9 * p;
+        pl.plane[p] = reinterpret_cast<const float*>(d[0]);
+        pl.plane_stride[p] = (int)d[1];
+        pl.grad[p] = reinterpret_cast<float*>(d[2]);
+        pl.grad_stride[p] = (int)d[3];
+        pl.coords[p] = reinterpret_cast<const float*>(d[4]);
+        pl.coord_stride_n[p] = d[5];
+        pl.coord_stride_k[p] = d[6];
+        pl.H[p] = (int)d[7];
+        pl.W[p] = (int)d[8];
+    }
     cudaStream_t s = (cudaStream_t)stream;
     if (vec == 4 && c_a % 4 == 0 && c_b % 4 == 0) {
-        return launch_coords<4>(g_a, ga_stride, c_a, g_b, gb_stride, c_b, coords,
-                                coord_stride_n, coord_stride_k, plane, plane_stride, grad,
-                                texel_stride, H, W, N, coord_grad, s);
+        return launch_coords<4>(pl, P, g_a, ga_stride_n, ga_stride_p, c_a, g_b, gb_stride_n,
+                                gb_stride_p, c_b, N, coord_grad, s);
     }
     if (vec == 1) {
-        return launch_coords<1>(g_a, ga_stride, c_a, g_b, gb_stride, c_b, coords,
-                                coord_stride_n, coord_stride_k, plane, plane_stride, grad,
-                                texel_stride, H, W, N, coord_grad, s);
+        return launch_coords<1>(pl, P, g_a, ga_stride_n, ga_stride_p, c_a, g_b, gb_stride_n,
+                                gb_stride_p, c_b, N, coord_grad, s);
     }
     return (int)cudaErrorInvalidValue;
+}
+
+// The footprint of K2c's vec-lane variant on this card: out[0] the blocks
+// of 256 threads an SM holds at once, out[1] its registers a thread, out[2]
+// its local memory a thread in bytes (spills; 0 without). Returns the
+// cudaError_t of the queries.
+int ngf_bilinear_gather_planes_backward_coords_footprint(int vec, int* out) {
+    const void* fn = vec == 4
+        ? reinterpret_cast<const void*>(bilinear_gather_planes_backward_coords_kernel<4>)
+        : reinterpret_cast<const void*>(bilinear_gather_planes_backward_coords_kernel<1>);
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return (int)err;
+    out[1] = attr.numRegs;
+    out[2] = (int)attr.localSizeBytes;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, MAX_THREADS, 0);
 }
 
 const char* ngf_cuda_error_string(int code) {

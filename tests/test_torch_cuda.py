@@ -9,9 +9,10 @@ lookup ``occupancy_lookup`` (K3, its contiguous and strided paths) and the
 grouped front end ``group_sample_compact`` (K4: sampling, occupancy test and
 compaction) alone, refusing CPU tensors, and inside the render paths;
 the gather over planes of three shapes (the learned gauge after its shrink
-and upsample), and K2c ``bilinear_gather_2d_backward_coords`` (the plane and
-coordinate gradients of one plane's fetch) alone, through autograd and in a
-gauge train step.
+and upsample), and K2c ``bilinear_gather_planes_backward_coords`` (the plane
+and coordinate gradients of a fetch of 1 to 3 planes in one launch) alone,
+its footprint (three blocks an SM), through autograd and in a gauge train
+step.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports neither JAX nor `ngf_tpu`, so it runs on a GPU machine
@@ -655,83 +656,102 @@ def test_planes_kernel_three_shapes_matches_plain(cuda, case):
 
 
 def _coords_case(case, g, cuda, n=5001):
-    """(plane, coords, g_a, g_b, c0) of one K2c case: ray-consecutive
-    coordinates (runs of shared stencils) on a non-square plane, cotangents
-    as strided views of the fetch's (N, 3, C) outputs."""
-    H, W = GAUGE_SHAPES[1]
-    C, c0, split = 64, 0, 16
-    if case == "scalar_lanes":
+    """(planes, coords, g_a, g_b, c0, split) of one K2c case: the
+    projections of ray-consecutive points (runs of shared stencils, some
+    leaving [-1, 1]) onto planes of the gauge's three shapes, cotangents as
+    strided views (point and plane strides of their own)."""
+    P, C, c0, split = 3, 64, 0, 16
+    if case in ("one_plane", "two_planes"):
+        P = 1 if case == "one_plane" else 2
+    elif case == "scalar_lanes":
         c0, C, split = 3, 10, 5
-    plane = torch.randn((H, W, 64), generator=g, device=cuda)
-    coords = _ray_coords(g, cuda, m=80).reshape(-1, 2)[:n]
+    elif case == "whole_warp":  # 48 float4 lanes a point: segments of two warps
+        C, split = 192, 48
+    c_total = max(C, 64)
+    xyz = torch.cat([_ray_coords(g, cuda, m=80).reshape(-1, 2),
+                     torch.rand((64 * 80, 1), generator=g, device=cuda) * 2.2 - 1.1], -1)[:n]
     if case == "random_coords":
-        coords = torch.rand((n, 2), generator=g, device=cuda) * 2.2 - 1.1
-    coords[:2] = torch.tensor([[-1.0, -1.0], [1.0, 1.0]], device=cuda)
-    g_a = torch.randn((n, 3, split), generator=g, device=cuda)[:, 1]
-    g_b = torch.randn((n, 3, C - split), generator=g, device=cuda)[:, 1]
+        xyz.uniform_(-1.3, 1.3, generator=g)
+    xyz[:2] = torch.tensor([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], device=cuda)
+    coords = [xyz[:, 0:2], xyz[:, 1:3], xyz[:, 0::2]][:P]
+    planes = [torch.randn((h, w, c_total), generator=g, device=cuda) for h, w in GAUGE_SHAPES[:P]]
+    g_a = torch.randn((n, P, split + 4), generator=g, device=cuda)[..., :split]
+    g_b = torch.randn((n, P, C - split + 4), generator=g, device=cuda)[..., :C - split]
     if case == "one_cotangent":
         g_b = None
-    return plane, coords, g_a, g_b, c0
+    elif case == "second_output_only":
+        g_a = None
+    return planes, coords, g_a, g_b, c0, split
 
 
-def _coords_plain(plane, coords, g_a, g_b, c0):
-    grad = torch.zeros_like(plane)
-    cg = torch.zeros_like(coords)
-    off = c0
-    for g in (g_a, g_b):
-        if g is not None:
-            gs.grid_sample_2d_backward_plain(g, coords, grad, off)
-            cg += gs.grid_sample_2d_backward_coords_plain(
-                plane[..., off:off + g.shape[-1]], coords, g)
-            off += g.shape[-1]
-    return grad, cg
-
-
-@pytest.mark.parametrize("case", ["split_16", "random_coords", "one_cotangent", "scalar_lanes"])
+@pytest.mark.parametrize("case", ["split_16", "random_coords", "one_cotangent", "scalar_lanes",
+                                  "one_plane", "two_planes", "second_output_only",
+                                  "whole_warp"])
 def test_coords_kernel_matches_plain(cuda, case):
-    """K2c against its plain versions on a non-square plane: the plane and
-    the coordinate gradient, each to 1e-5 of its largest value; nothing
-    outside the fetched channels."""
+    """K2c in one launch over 1 to 3 planes of three shapes against its
+    plain version: each plane and coordinate gradient to 1e-5 of its
+    largest value; nothing outside the fetched channels; the corners'
+    coordinate gradients."""
     g = torch.Generator(device=cuda).manual_seed(21)
-    plane, coords, g_a, g_b, c0 = _coords_case(case, g, cuda)
-    grad = torch.zeros_like(plane)
-    before = cuda_kernels.bilinear_gather_2d_backward_coords.launches
-    got = cuda_kernels.bilinear_gather_2d_backward_coords(plane, coords, g_a, g_b, grad, c0)
-    assert cuda_kernels.bilinear_gather_2d_backward_coords.launches == before + 1
-    want_grad, want = _coords_plain(plane, coords, g_a, g_b, c0)
-    assert got.shape == coords.shape and got.dtype == torch.float32
-    for a, b in ((grad, want_grad), (got, want)):
+    planes, coords, g_a, g_b, c0, split = _coords_case(case, g, cuda)
+    grads = [torch.zeros_like(p) for p in planes]
+    before = cuda_kernels.bilinear_gather_planes_backward_coords.launches
+    got = cuda_kernels.bilinear_gather_planes_backward_coords(planes, coords, g_a, g_b, grads,
+                                                             c0, split)
+    assert cuda_kernels.bilinear_gather_planes_backward_coords.launches == before + 1
+    want_grads = [torch.zeros_like(p) for p in planes]
+    want = gs.grid_sample_planes_backward_coords_plain(planes, coords, g_a, g_b, want_grads, c0,
+                                                      split)
+    assert got.shape == (coords[0].shape[0], len(planes), 2) and got.dtype == torch.float32
+    for a, b in (*zip(grads, want_grads), (got, want)):
         scale = b.abs().max().item()
         assert scale > 0 and (a - b).abs().max().item() <= 1e-5 * scale
-    fetched = g_a.shape[-1] + (0 if g_b is None else g_b.shape[-1])
-    outside = torch.ones(64, dtype=torch.bool, device=cuda)
-    outside[c0:c0 + fetched] = False
-    assert not grad[..., outside].any()
+    lo = c0 if g_a is not None else c0 + split
+    hi = c0 + split + (0 if g_b is None else g_b.shape[-1])
+    outside = torch.ones(planes[0].shape[-1], dtype=torch.bool, device=cuda)
+    outside[lo:hi] = False
+    assert not any(grad[..., outside].any() for grad in grads)
+
+
+def test_coords_kernel_fits_three_blocks_an_sm(cuda):
+    """K2c's float4 variant: three 256-thread blocks an SM, no spills."""
+    fp = cuda_kernels.backward_coords_footprint(4)
+    assert fp["blocks_per_sm"] >= 3 and fp["registers"] <= 80 and fp["local_bytes"] == 0, fp
 
 
 def test_coords_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     p = torch.zeros((4, 5, 8), device=cuda)
     c = torch.zeros((6, 2), device=cuda)
-    ga = torch.zeros((6, 8), device=cuda)
+    ga = torch.zeros((6, 1, 8), device=cuda)
+    ga3 = torch.zeros((6, 3, 8), device=cuda)
     bad = [
-        (p.cpu(), c.cpu(), ga.cpu(), None, p.cpu(), 0),  # not on the card
-        (p, c, None, None, p, 0),  # no cotangent
-        (p.bfloat16(), c, ga, None, p, 0),  # plane not float32
-        (p, c, ga, None, torch.zeros((4, 6, 8), device=cuda), 0),  # shapes differ
-        (p, c, ga, None, p, 1),  # channels past the plane
-        (p, c, ga[:5], None, p, 0),  # cotangent rows
-        (p, c.double(), ga, None, p, 0),
-        (p.transpose(0, 1), c, ga, None, p.transpose(0, 1), 0),  # rows not W texels apart
+        ([p.cpu()], [c.cpu()], ga.cpu(), None, [p.cpu()], 0),  # not on the card
+        ([p], [c], None, None, [p], 0),  # no cotangent
+        ([p], [c], None, ga, [p], 0),  # g_b alone without its split
+        ([p.bfloat16()], [c], ga, None, [p], 0),  # plane not float32
+        ([p], [c], ga, None, [torch.zeros((4, 6, 8), device=cuda)], 0),  # shapes differ
+        ([p], [c], ga, None, [p], 1),  # channels past the plane
+        ([p], [c], ga[:5], None, [p], 0),  # cotangent rows
+        ([p], [c.double()], ga, None, [p], 0),
+        ([p.transpose(0, 1)], [c], ga, None, [p.transpose(0, 1)], 0),  # rows not W texels apart
+        ([p, p], [c], ga, None, [p, p], 0),  # coords missing
+        ([p, p], [c, c], ga, None, [p], 0),  # grads missing
+        ([p] * 4, [c] * 4, torch.zeros((6, 4, 8), device=cuda), None, [p] * 4, 0),  # 4 planes
+        ([p, p, p], [c, c, c], ga, None, [p, p, p], 0),  # cotangent of one plane for three
+        ([p, p, p], [c, c, torch.zeros((5, 2), device=cuda)], ga3, None, [p, p, p], 0),  # coords
+        ([p, p, p], [c, c, c.view(3, 2, 2)], ga3, None, [p, p, p], 0),  # coords' batch shape
+        ([p, p, torch.zeros((4, 5, 12), device=cuda)], [c, c, c], ga3, None,
+         [p, p, torch.zeros((4, 5, 12), device=cuda)], 0),  # channel counts differ
     ]
     for args in bad:
         with pytest.raises(ValueError):
-            cuda_kernels.bilinear_gather_2d_backward_coords(*args)
+            cuda_kernels.bilinear_gather_planes_backward_coords(*args)
 
 
 def test_autograd_coordinate_gradient_through_k2c(cuda):
     """``grid_sample_planes`` with coordinates that need a gradient: one K1
-    launch forward, one K2c launch per plane backward and no K2; every
-    gradient against plain autograd's to 1e-5 of its largest."""
+    launch forward, one K2c launch for all three planes backward and no K2;
+    every gradient against plain autograd's to 1e-5 of its largest."""
     g = torch.Generator(device=cuda).manual_seed(22)
     planes = _gauge_planes(g, cuda)
     xyz = torch.rand((3000, 3), generator=g, device=cuda) * 2.1 - 1.05
@@ -742,12 +762,12 @@ def test_autograd_coordinate_gradient_through_k2c(cuda):
         ps = [p.clone().requires_grad_(True) for p in planes]
         x = xyz.clone().requires_grad_(True)
         names = ("bilinear_gather_planes", "bilinear_gather_2d_backward",
-                 "bilinear_gather_2d_backward_coords")
+                 "bilinear_gather_planes_backward_coords")
         before = [cuda_kernels.KERNELS[k].launches for k in names]
         out_a, out_b = fn(ps, [x[:, 0:2], x[:, 1:3], x[:, 0::2]], slice(None), 16)
         ((out_a * g_a).sum() + (out_b * g_b).sum()).backward()
         counts = [cuda_kernels.KERNELS[k].launches - b for k, b in zip(names, before)]
-        assert counts == ([1, 0, 3] if how == "kernels" else [0, 0, 0])
+        assert counts == ([1, 0, 1] if how == "kernels" else [0, 0, 0])
         grads[how] = [p.grad for p in ps] + [x.grad]
     for a, b in zip(grads["kernels"], grads["plain"]):
         scale = b.abs().max().item()
@@ -757,7 +777,7 @@ def test_autograd_coordinate_gradient_through_k2c(cuda):
 def test_gauge_train_step_launches_and_matches_plain(cuda):
     """A grouped gauge train step after ``gauge_start`` on planes of three
     shapes: two K1 launches (gauge grids, planes), three K2 (the gauge
-    grids), three K2c (the planes), one K4; the loss and every gradient
+    grids), one K2c (the three planes), one K4; the loss and every gradient
     against the plain sampler (1e-3 of each leaf's largest, as the smoke
     test's step comparison)."""
     from ngf_tpu_torch import convert
@@ -778,7 +798,7 @@ def test_gauge_train_step_launches_and_matches_plain(cuda):
     rcfg = tv.RenderConfig(aabb=((-1.5,) * 3, (1.5,) * 3), n_samples=60, step_size=0.09,
                            group_size=8, sample_cap=32, tile_q=0)
     names = ("bilinear_gather_planes", "bilinear_gather_2d_backward",
-             "bilinear_gather_2d_backward_coords", "group_sample_compact")
+             "bilinear_gather_planes_backward_coords", "group_sample_compact")
     results = {}
     for how, fn in (("kernels", None), ("plain", lambda p, c, name: gs.grid_sample_2d_plain(p, c))):
         for t in leaves.values():
@@ -790,7 +810,7 @@ def test_gauge_train_step_launches_and_matches_plain(cuda):
         loss.backward()
         counts = [cuda_kernels.KERNELS[k].launches - b for k, b in zip(names, before)]
         if how == "kernels":
-            assert counts == [2, 3, 3, 1]
+            assert counts == [2, 3, 1, 1]
         results[how] = (loss.item(), {k: t.grad.clone() for k, t in leaves.items()})
     assert abs(results["kernels"][0] - results["plain"][0]) <= 1e-5 * results["plain"][0]
     for k, want in results["plain"][1].items():

@@ -7,6 +7,11 @@
   coordinates: non-square planes, coordinates on texel edges and outside the
   plane, split fetches. Both sum float32 products in other orders: 1e-5
   relative, and 1e-5 of the largest gradient where terms cancel.
+- The plain version of the three-plane K2c,
+  ``grid_sample_planes_backward_coords_plain``, in the kernel's layout: the
+  plane and the coordinate gradients of 1 to 3 planes of their own shapes,
+  split or not, either cotangent alone, on edges and outside, against
+  ``jax.vjp`` per plane, to the same tolerance.
 - A whole ``triplane_gauge`` + fused fetch on planes of three shapes against
   ``jax.vjp`` of the JAX gauge field: every plane, gauge-grid and decoder
   gradient (1e-5 of each leaf's largest), and before ``gauge_start`` a zero
@@ -334,14 +339,71 @@ def test_cli_gauge_train_writes_checkpoint_jax_reads(tmp_path):
     assert len(psnrs) == 1 and np.isfinite(psnrs[0])
 
 
+def _jax_fetch_grads(plane, coords, g, channels):
+    """``jax.vjp`` of `ngf_tpu`'s one-plane gather of ``channels`` with
+    respect to the whole plane and the coordinates."""
+    _, vjp = jax.vjp(lambda p, c: j_gs.grid_sample_2d(p[..., channels], c), jnp.asarray(plane),
+                     jnp.asarray(coords))
+    return [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+# (plane shapes, channels, split, cotangents, coordinates) of the plain
+# three-plane K2c's cases.
+K2C_CASES = {
+    "three_shapes_split": ([(9, 11), (14, 9), (14, 11)], slice(None), 16, "ab", "inside"),
+    "one_plane": ([(14, 9)], slice(None), 16, "ab", "inside"),
+    "two_planes_one_cotangent": ([(9, 11), (14, 9)], slice(None), 16, "a", "inside"),
+    "second_output_only": ([(9, 11), (14, 9), (14, 11)], slice(None), 16, "b", "inside"),
+    "no_split": ([(9, 11), (14, 9), (14, 11)], slice(3, 13), 10, "a", "inside"),
+    "edges": ([(5, 9), (9, 5), (9, 9)], slice(3, 13), 4, "ab", "edges"),
+    "outside": ([(6, 11), (11, 6), (11, 11)], slice(None), 16, "ab", "outside"),
+}
+
+
+@pytest.mark.parametrize("case", list(K2C_CASES))
+def test_planes_backward_coords_plain_matches_jax_vjp(case):
+    """The plain version of the three-plane K2c, in the kernel's layout
+    (cotangents (..., P, C_a) and (..., P, C_b), coordinate gradients
+    (..., P, 2)), against ``jax.vjp`` of `ngf_tpu`'s one-plane gather per
+    plane: the plane gradient of the fetched channels (nothing outside
+    them) and the coordinate gradient, to REL."""
+    shapes, channels, split, given, where = K2C_CASES[case]
+    rng = np.random.default_rng(3)
+    P = len(shapes)
+    planes = [rng.normal(size=(h, w, 64)).astype(np.float32) for h, w in shapes]
+    if where == "edges":
+        coords = [_edge_coords(h, w, rng).reshape(4, 15, 2) for h, w in shapes]
+    else:
+        lim = 1.8 if where == "outside" else 1.05
+        coords = [rng.uniform(-lim, lim, (4, 15, 2)).astype(np.float32) for _ in shapes]
+    c0, c1, _ = channels.indices(64)
+    g_a = rng.normal(size=(4, 15, P, split)).astype(np.float32)
+    g_b = rng.normal(size=(4, 15, P, c1 - c0 - split)).astype(np.float32)
+    g_full = np.concatenate([g_a if "a" in given else 0 * g_a, g_b if "b" in given else 0 * g_b],
+                            -1)
+    grads = [torch.zeros((h, w, 64)) for h, w in shapes]
+    got = t_gs.grid_sample_planes_backward_coords_plain(
+        [torch.from_numpy(p) for p in planes], [torch.from_numpy(c) for c in coords],
+        torch.from_numpy(g_a) if "a" in given else None,
+        torch.from_numpy(g_b) if "b" in given and g_b.shape[-1] else None, grads, c0, split)
+    assert got.shape == (4, 15, P, 2) and got.dtype == torch.float32
+    for i, (plane, c) in enumerate(zip(planes, coords)):
+        want_plane, want_coords = _jax_fetch_grads(plane, c, g_full[..., i, :], channels)
+        _assert_close(grads[i].numpy(), want_plane)
+        _assert_close(got[..., i, :].numpy(), want_coords)
+        if where == "outside":
+            far = (np.abs(c) > 1 + 2.0 / (min(plane.shape[:2]) - 1)).any(-1)
+            assert far.any() and not got[..., i, :].numpy()[far].any()
+
+
 def test_coords_wrapper_refuses_cpu_tensors():
     """No fallback: K2c's wrapper takes CUDA tensors or raises."""
     plane = torch.zeros((4, 5, 8))
     coords = torch.zeros((3, 2))
     with pytest.raises(ValueError):
-        cuda_kernels.bilinear_gather_2d_backward_coords(plane, coords, torch.zeros((3, 8)), None,
-                                                        torch.zeros_like(plane))
-    assert "bilinear_gather_2d_backward_coords" in cuda_kernels.KERNELS
+        cuda_kernels.bilinear_gather_planes_backward_coords(
+            [plane], [coords], torch.zeros((3, 1, 8)), None, [torch.zeros_like(plane)])
+    assert "bilinear_gather_planes_backward_coords" in cuda_kernels.KERNELS
 
 
 def test_chip_smoke_gauge_phase_on_cpu():
