@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`ngf_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernel,rows,backward,occupancy,render,train,staged,gauge]
+    python3 chip_smoke.py [--phases kernel,rows,backward,occupancy,render,train,staged,gauge,bf16]
 
 1. Device: requires CUDA, prints the card and its power limit, builds every
    kernel of the port from the sources in this checkout.
@@ -96,6 +96,19 @@
    of three shapes, the stages' ms/step, the events' phases, the
    test PSNR beside the JAX package's band, the checkpoint through the
    render-only CLI, and the upsampled stage's step profiled.
+10. bfloat16 phase: ``main_torch.main`` on ``configs/synthetic_infoinv_tpu30k.txt
+   --n_iters 3000`` (the 30k schedule cut to its three mask events at 300,
+   2000 and 2500, masked cap 160, bfloat16, the same data) and on
+   ``configs/synthetic_triplane_tpu_bf16.txt`` as it is (the gauge recipe in
+   bfloat16). Each run's events (voxels, kept rays, capacities), exact launch
+   totals, falling losses in every stage and float32 checkpoint are checked;
+   then one bfloat16 step with the kernels against the plain sampler (the
+   loss to 1e-2, the gradients to 3e-2 of the largest), with the dtypes of
+   the cotangents K2 and K2c were handed (bfloat16: no float32 copy before
+   the launch), K2 and K2c timed on that step's own bfloat16 cotangents
+   beside their bounds, plain versions and aten's bfloat16 grid_sample
+   backward; each stage's ms/step and the test PSNRs, the gauge's beside the
+   JAX package's bfloat16 54.02 dB and float32 band.
 
 Prints per-phase lines, then the card line, a JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Any failure raises: the script
@@ -146,6 +159,14 @@ GRAD_REL_TOL = 1e-5
 # gradient on the H100 with most samples shaded); 1e-3 of the largest.
 STEP_GRAD_REL_TOL = 1e-3
 STEP_LOSS_RTOL = 1e-5
+# A bfloat16 train step, kernels against the plain sampler: the kernel and
+# the plain gather may round a feature to neighbouring bfloat16 values
+# (2^-8 of it), which the bfloat16 decoders carry into every cotangent, and
+# the plain route rounds each plane's float32 gradient to bfloat16 once
+# (the tracked ``.to`` of its planes) where the kernels add into the float32
+# planes: the loss to 1e-2, every gradient to 3e-2 of its leaf's largest.
+BF16_STEP_GRAD_REL_TOL = 3e-2
+BF16_STEP_LOSS_RTOL = 1e-2
 
 RAYS_PER_CHUNK = 4096
 WH = 800
@@ -679,9 +700,12 @@ def run_lengths(coords: torch.Tensor, H: int, W: int, seg: int = 16) -> dict:
 def backward_row(fetch: str, case: str, g: torch.Tensor, coords: torch.Tensor, c0: int,
                  H: int = 256, W: int = 256, c_total: int = 96) -> dict:
     """One case of bilinear_gather_2d_backward into a zeroed (H, W, 96)
-    plane gradient at channel offset c0: against its plain version and
-    aten's grid_sample backward (1e-5 of the largest gradient), timed beside
-    them and its bound."""
+    float32 plane gradient at channel offset c0, from a float32 or bfloat16
+    cotangent: against its plain version and, in float32, aten's grid_sample
+    backward (1e-5 of the largest gradient), timed beside them and its
+    bound. In bfloat16 the library call is aten's grid_sample backward with
+    the plane, the grid and the cotangent in bfloat16 (it takes one dtype),
+    timed only: its bfloat16 grid moves the stencils."""
     from ngf_tpu_torch.ops.cuda_kernels import bilinear_gather_2d_backward
     from ngf_tpu_torch.ops.grid_sample import grid_sample_2d_backward_plain
 
@@ -701,62 +725,68 @@ def backward_row(fetch: str, case: str, g: torch.Tensor, coords: torch.Tensor, c
 
     # The library's plane gradient: aten's grid_sample backward, input
     # gradient only, on the permuted plane.
-    lib_in = torch.zeros((1, C, H, W), device=g.device)
-    lib_grid = coords.reshape(1, n, 1, 2).contiguous()
+    lib_in = torch.zeros((1, C, H, W), device=g.device, dtype=g.dtype)
+    lib_grid = coords.reshape(1, n, 1, 2).to(g.dtype).contiguous()
     lib_g = g.reshape(n, C).t().contiguous().view(1, C, n, 1)
 
     def library():
         return torch.ops.aten.grid_sampler_2d_backward(
             lib_g, lib_in, lib_grid, 0, 0, True, [True, False])[0]
 
-    lib_err = (library()[0].permute(1, 2, 0) - got[..., ch]).abs().max().item()
-    check(lib_err <= GRAD_REL_TOL * scale, f"{fetch} {case} backward vs grid_sample {lib_err}")
+    if g.dtype == torch.float32:
+        lib_err = (library()[0].permute(1, 2, 0) - got[..., ch]).abs().max().item()
+        check(lib_err <= GRAD_REL_TOL * scale, f"{fetch} {case} backward vs grid_sample {lib_err}")
     del ref
     row = {
-        "fetch": fetch, "case": case, "C": C, "max_abs_err": max_err, "max_abs_grad": scale,
+        "fetch": fetch, "case": case, "dtype": str(g.dtype).removeprefix("torch."), "C": C,
+        "max_abs_err": max_err, "max_abs_grad": scale,
         "zero_row_share": (g.reshape(n, C) == 0).all(-1).float().mean().item(),
         "ms": cuda_ms(lambda: bilinear_gather_2d_backward(g, coords, got, c0), reps=20),
         "plain_ms": cuda_ms(lambda: grid_sample_2d_backward_plain(g, coords, got, c0), reps=3),
         "library_ms": cuda_ms(library, reps=10),
     }
-    # g and the coords read once, the plane gradient's channels read and
-    # written once; 8 flops per value (4 products, 4 adds) and ~30 per
-    # point of index and weight math.
+    # g and the coords read once, the float32 plane gradient's channels
+    # read and written once; 8 flops per value (4 products, 4 adds) and ~30
+    # per point of index and weight math.
     row["bound_ms"], row["bound_by"] = bytes_bound_ms(
-        n * C * 4 + 8 * n + 2 * H * W * C * 4, 8 * n * C + 30 * n)
+        n * C * g.element_size() + 8 * n + 2 * H * W * C * 4, 8 * n * C + 30 * n)
     print("[backward] " + json.dumps(row))
     return row
 
 
-def coords_bound_ms(n: int, C: int, shapes) -> tuple[float, str]:
+def coords_bound_ms(n: int, C: int, shapes, itemsize: int = 4) -> tuple[float, str]:
     """K2c's least time over a fetch of planes of ``shapes`` (H, W): per
-    plane g, the coordinates and the plane's values read once, the
-    coordinate gradient written once, the plane gradient's channels read and
-    written once; 16 flops per value (the plane gradient's 4 products and 4
-    adds, the tap sums' 4 and 4) and ~60 per point of index, weight and
-    coordinate math."""
+    plane g and the plane's values (``itemsize`` bytes an element) and the
+    coordinates read once, the coordinate gradient written once, the float32
+    plane gradient's channels read and written once; 16 flops per value (the
+    plane gradient's 4 products and 4 adds, the tap sums' 4 and 4) and ~60
+    per point of index, weight and coordinate math."""
     P, texels = len(shapes), sum(h * w for h, w in shapes)
-    return bytes_bound_ms(P * (n * C * 4 + 16 * n) + 3 * texels * C * 4, P * (16 * n * C + 60 * n))
+    return bytes_bound_ms(P * (n * C * itemsize + 16 * n) + texels * C * (itemsize + 8),
+                          P * (16 * n * C + 60 * n))
 
 
 def coords_row(case: str, planes, coords, g_a: torch.Tensor, g_b: torch.Tensor | None) -> dict:
     """K2c ``bilinear_gather_planes_backward_coords`` on a fetch of 1 to 3
-    planes (each plane's channels, split at g_a's width) into zeroed plane
-    gradients: both gradients against the plain version and against aten's
-    grid_sample backward with both gradients asked for, one call a plane
-    (1e-5 of each one's largest), timed beside them, its bound and the plane
-    branch's bound for the same fetch."""
+    planes (each plane's channels, split at g_a's width) into zeroed
+    float32 plane gradients: both gradients against the plain version and,
+    in float32, against aten's grid_sample backward with both gradients
+    asked for, one call a plane (1e-5 of each one's largest), timed beside
+    them, its bound and the plane branch's bound for the same fetch. In
+    bfloat16 (planes and cotangents) the library call runs in bfloat16,
+    timed only, as in :func:`backward_row`."""
     from ngf_tpu_torch.ops.cuda_kernels import bilinear_gather_planes_backward_coords as k2c
     from ngf_tpu_torch.ops.grid_sample import grid_sample_planes_backward_coords_plain
 
     P = len(planes)
     n = coords[0].numel() // 2
     shapes = [tuple(p.shape[:2]) for p in planes]
-    got = [torch.zeros_like(p) for p in planes]
+    dtype = planes[0].dtype
+    got = [torch.zeros(p.shape, device=p.device) for p in planes]
     got_c = k2c(planes, coords, g_a, g_b, got)
 
     def plain():
-        grads = [torch.zeros_like(p) for p in planes]
+        grads = [torch.zeros(p.shape, device=p.device) for p in planes]
         return grads, grid_sample_planes_backward_coords_plain(planes, coords, g_a, g_b, grads)
 
     ref, ref_c = plain()
@@ -773,7 +803,7 @@ def coords_row(case: str, planes, coords, g_a: torch.Tensor, g_b: torch.Tensor |
     # permuted planes and each plane's whole cotangent.
     g_full = g_a if g_b is None else torch.cat([g_a, g_b], -1)
     c_fetched = g_full.shape[-1]
-    lib = [(p.permute(2, 0, 1)[None].contiguous(), c.reshape(1, n, 1, 2).contiguous(),
+    lib = [(p.permute(2, 0, 1)[None].contiguous(), c.reshape(1, n, 1, 2).to(dtype).contiguous(),
             g_full[:, i].t().contiguous().view(1, c_fetched, n, 1))
            for i, (p, c) in enumerate(zip(planes, coords))]
     del g_full
@@ -782,21 +812,25 @@ def coords_row(case: str, planes, coords, g_a: torch.Tensor, g_b: torch.Tensor |
         return [torch.ops.aten.grid_sampler_2d_backward(g, p, c, 0, 0, True, [True, True])
                 for p, c, g in lib]
 
-    lib_err = lib_err_c = 0.0
-    for i, (lib_plane, lib_coords) in enumerate(library()):
-        lib_err = max(lib_err, (lib_plane[0].permute(1, 2, 0) - got[i][..., :c_fetched])
-                      .abs().max().item())
-        lib_err_c = max(lib_err_c, (lib_coords.reshape(n, 2) - got_c[:, i]).abs().max().item())
-    check(lib_err <= GRAD_REL_TOL * scale and lib_err_c <= GRAD_REL_TOL * scale_c,
-          f"K2c {case} vs aten grid_sampler_2d_backward: {lib_err}, {lib_err_c}")
-    row = {"fetch": "coords", "case": case, "P": P, "shapes": shapes, "N": n, "C": c_fetched,
+    if dtype == torch.float32:
+        lib_err = lib_err_c = 0.0
+        for i, (lib_plane, lib_coords) in enumerate(library()):
+            lib_err = max(lib_err, (lib_plane[0].permute(1, 2, 0) - got[i][..., :c_fetched])
+                          .abs().max().item())
+            lib_err_c = max(lib_err_c,
+                            (lib_coords.reshape(n, 2) - got_c[:, i]).abs().max().item())
+        check(lib_err <= GRAD_REL_TOL * scale and lib_err_c <= GRAD_REL_TOL * scale_c,
+              f"K2c {case} vs aten grid_sampler_2d_backward: {lib_err}, {lib_err_c}")
+    row = {"fetch": "coords", "case": case, "dtype": str(dtype).removeprefix("torch."),
+           "P": P, "shapes": shapes, "N": n, "C": c_fetched,
            "split": g_a.shape[-1], "max_abs_err": max(err, err_c), "max_abs_err_plane": err,
            "max_abs_err_coords": err_c, "max_abs_grad": scale, "max_abs_coord_grad": scale_c}
-    row["bound_ms"], row["bound_by"] = coords_bound_ms(n, c_fetched, shapes)
+    itemsize = planes[0].element_size()
+    row["bound_ms"], row["bound_by"] = coords_bound_ms(n, c_fetched, shapes, itemsize)
     # The plane branch alone on the same fetch (bilinear_gather_2d_backward's bound).
     row["plane_branch_bound_ms"] = sum(bytes_bound_ms(
-        n * c_fetched * 4 + 8 * n + 2 * h * w * c_fetched * 4, 8 * n * c_fetched + 30 * n)[0]
-        for h, w in shapes)
+        n * c_fetched * itemsize + 8 * n + 2 * h * w * c_fetched * 4,
+        8 * n * c_fetched + 30 * n)[0] for h, w in shapes)
     row["ms"] = cuda_ms(lambda: k2c(planes, coords, g_a, g_b, got), reps=20)
     row["plain_ms"] = cuda_ms(plain, reps=3)
     row["library_ms"] = cuda_ms(library, reps=10)
@@ -806,17 +840,19 @@ def coords_row(case: str, planes, coords, g_a: torch.Tensor, g_b: torch.Tensor |
 
 
 def fetch_backward_ms(planes, coords, g_a: torch.Tensor, g_b: torch.Tensor,
-                      reps: int = 20) -> float:
+                      reps: int = 20, dtype: torch.dtype | None = None) -> float:
     """ms of the backward of one ``grid_sample_planes`` fetch (split at g_a's
     width) whose planes and coordinates need gradients, by CUDA events: the
     plane and coordinate gradients as autograd asks for them, buffers
     included. It calls only the entry point, so it also times an earlier
-    version of the port (one K2c launch a plane) in the same call."""
+    version of the port (one K2c launch a plane) in the same call; a
+    ``dtype`` (the bfloat16 fetch of float32 planes) goes to the fetch."""
     from ngf_tpu_torch.ops.grid_sample import grid_sample_planes
 
     ps = [p.detach().requires_grad_(True) for p in planes]
     cs = [c.detach().requires_grad_(True) for c in coords]
-    out = grid_sample_planes(ps, cs, slice(None), g_a.shape[-1])
+    out = grid_sample_planes(ps, cs, slice(None), g_a.shape[-1],
+                             **({} if dtype is None else {"dtype": dtype}))
     return cuda_ms(lambda: torch.autograd.grad(out, ps + cs, (g_a, g_b), retain_graph=True),
                    reps=reps)
 
@@ -1124,20 +1160,65 @@ def train_phase(
     return result
 
 
-def compare_step(trainer, rays, rgbs, need_appearance: bool = False, case: str | None = None) -> dict:
-    """One step's MSE and plane gradients with the kernels and with the
-    plain sampler on the same batch and jitter; also the share of sample
-    rows whose fetch cotangent is all zero, by fetch. On the card, the
-    backward kernel also runs alone on the xy plane's cotangents of this
-    step, against its plain version and timed (``backward``)."""
+def plain_sample(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The plain sampler of the step comparisons: ``grid_sample_2d_plain``
+    on the plane widened to float32 (no copy for a float32 plane), rounded
+    to the plane's dtype, so that its autograd adds the plane gradient in
+    float32 as the kernels do (a bfloat16 plane's own autograd would add it
+    in bfloat16)."""
     from ngf_tpu_torch.ops.grid_sample import grid_sample_2d_plain
 
+    return grid_sample_2d_plain(p.float(), c).to(p.dtype)
+
+
+def step_tolerances(trainer) -> tuple[float, float]:
+    """(loss rtol, gradient tolerance of the largest) of a step comparison
+    in the trainer's compute dtype."""
+    if trainer.model_cfg.compute_dtype == "bfloat16":
+        return BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_REL_TOL
+    return STEP_LOSS_RTOL, STEP_GRAD_REL_TOL
+
+
+@contextlib.contextmanager
+def cotangent_dtypes():
+    """Records, by kernel, the dtype variant that each launch of the two
+    backward kernels (K2, K2c) inside the block took: the proof that the
+    bfloat16 path hands them its bfloat16 cotangents as they are, with no
+    float32 copy before the launch. Wraps the wrappers' common launch
+    call, so the launch counts go on as they do."""
+    from ngf_tpu_torch.ops import cuda_kernels
+
+    seen: dict[str, set[str]] = {}
+    names = {v: str(k) for k, v in cuda_kernels._GATHER_DTYPES.items()}
+    launch = cuda_kernels._launch
+
+    def recorder(lib, entry, device, what, *args):
+        if what in ("bilinear_gather_2d_backward", "bilinear_gather_planes_backward_coords"):
+            seen.setdefault(what, set()).add(names[args[-1]])  # the dtype code comes last
+        return launch(lib, entry, device, what, *args)
+
+    cuda_kernels._launch = recorder
+    try:
+        yield seen
+    finally:
+        cuda_kernels._launch = launch
+
+
+def compare_step(trainer, rays, rgbs, need_appearance: bool = False, case: str | None = None) -> dict:
+    """One step's MSE and plane gradients with the kernels and with the
+    plain sampler on the same batch and jitter (tolerances by the compute
+    dtype, :func:`step_tolerances`); also the share of sample rows whose
+    fetch cotangent is all zero, by fetch, and the dtypes of the cotangents
+    the backward kernels were handed. On the card, the backward kernel also
+    runs alone on the xy plane's cotangents of this step, in their own
+    dtype, against its plain version and timed (``backward``)."""
     dd = trainer.model_cfg.density_dim
+    loss_rtol, grad_tol = step_tolerances(trainer)
     zero_rows: dict[str, list[float]] = {}
     cotangents: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
 
     def plain(p, c, name):
-        out = grid_sample_2d_plain(p, c)
+        out = plain_sample(p, c)
         if out.requires_grad:
             fetch = "density" if p.shape[-1] == dd else "appearance"
 
@@ -1153,19 +1234,25 @@ def compare_step(trainer, rays, rgbs, need_appearance: bool = False, case: str |
     mse, grads = {}, {}
     for how, fn in (("kernels", None), ("plain", plain)):
         gen = torch.Generator(device=rays.device).manual_seed(SEED)
-        mse[how] = trainer.compute_grads(rays, rgbs, gen, sample_fn=fn).item()
+        with cotangent_dtypes() as seen:
+            mse[how] = trainer.compute_grads(rays, rgbs, gen, sample_fn=fn).item()
         grads[how] = {n: trainer.params[n].grad.clone() for n in planes}
+        if how == "kernels":
+            kernel_dtypes = {k: sorted(v) for k, v in seen.items()}
     trainer.optimizer.zero_grad()
     scale = max(grads["plain"][n].abs().max().item() for n in planes)
     err = max((grads["kernels"][n] - grads["plain"][n]).abs().max().item() for n in planes)
     app_scale = max(grads["plain"][n][..., dd:].abs().max().item() for n in planes)
     out = {"mse": mse, "max_abs_grad": scale, "max_abs_err": err,
-           "max_abs_appearance_grad": app_scale,
+           "max_abs_appearance_grad": app_scale, "cotangent_dtypes": kernel_dtypes,
            "zero_row_share": {k: sum(v) / len(v) for k, v in zero_rows.items()}}
     print("[train] step, kernels vs plain sampler: " + json.dumps(out))
-    check(abs(mse["kernels"] - mse["plain"]) <= STEP_LOSS_RTOL * abs(mse["plain"]),
-          f"step mse {mse}")
-    check(scale > 0 and err <= STEP_GRAD_REL_TOL * scale, f"plane grad err {err} vs max {scale}")
+    check(abs(mse["kernels"] - mse["plain"]) <= loss_rtol * abs(mse["plain"]), f"step mse {mse}")
+    check(scale > 0 and err <= grad_tol * scale, f"plane grad err {err} vs max {scale}")
+    if rays.is_cuda:
+        want = str(trainer.model_cfg.dtype)
+        check(kernel_dtypes == {"bilinear_gather_2d_backward": [want]},
+              f"cotangents handed to the kernels {kernel_dtypes}, expected {want}")
     check(app_scale > 0 or not need_appearance, "no appearance gradient")
     if rays.is_cuda:
         H, W, c_total = trainer.params["plane_xy"].shape
@@ -1577,14 +1664,17 @@ def occupancy_phase(device: torch.device) -> dict:
 
 def staged_phase(
     device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRAIN_WH, extra: tuple[str, ...] = (),
+    config: str = TRAIN_CONFIG, tag: str = "staged", full: bool = True,
 ) -> dict:
-    """``main_torch.main`` on the staged recipe as the config has it, its
-    event, launches, losses and checkpoint checked; then one masked step
-    with the kernels against the plain sampler, the two stages' ms/step,
-    and the checkpoint through the render-only CLI. ``extra`` argv shrinks
-    the run for the CPU test."""
+    """``main_torch.main`` on a staged InfoInv recipe (``config``, argv
+    ``extra`` after it), its mask events, launches, losses and checkpoint
+    checked; then one masked step with the kernels against the plain
+    sampler. ``full`` adds the two stages' ms/step by CUDA events, the
+    masked step's profile and the checkpoint through the render-only CLI.
+    ``extra`` also shrinks the run for the CPU test."""
     import main_torch
     from ngf_tpu_torch.config import config_parser
+    from ngf_tpu_torch.convert import named_leaves
     from ngf_tpu_torch.data import load_dataset
     from ngf_tpu_torch.ops import cuda_kernels
     from ngf_tpu_torch.train.loop import TriPlaneTrainer
@@ -1594,14 +1684,14 @@ def staged_phase(
     cuda = device.type == "cuda"
     with tempfile.TemporaryDirectory() as tmp:
         argv = [
-            "--config", os.path.join(os.path.dirname(os.path.abspath(__file__)), TRAIN_CONFIG),
+            "--config", os.path.join(os.path.dirname(os.path.abspath(__file__)), config),
             "--datadir", f"synthetic:views={views},wh={wh},test_views=1", "--render_test", "1",
-            "--basedir", tmp, "--expname", "staged", "--progress_refresh_rate", "100",
+            "--basedir", tmp, "--expname", tag, "--progress_refresh_rate", "100",
             "--device", device.type, *extra,
         ]
         args = config_parser(argv)
         iters = args.n_iters
-        event_it = min(e for e in args.update_AlphaMask_list if 0 < e <= iters)
+        event_its = sorted({e for e in args.update_AlphaMask_list if 0 < e <= iters})
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
         cuda_kernels.reset_launch_counts()
@@ -1610,60 +1700,81 @@ def staged_phase(
         main_s = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in cuda_kernels.KERNELS.items()}
         mses, events = stats["train_mses"], stats["events"]
-        print(f"[staged] main_torch.main: {main_s:.3f} s ({stats['wall_time_s']:.3f} s in the "
+        print(f"[{tag}] main_torch.main: {main_s:.3f} s ({stats['wall_time_s']:.3f} s in the "
               f"train loop), {iters} steps, launches {launches}, test psnr {stats['test_psnrs']}")
-        print(f"[staged] events {json.dumps(events)}")
+        print(f"[{tag}] events {json.dumps(events)}")
+        print(f"[{tag}] stages {json.dumps(stats['stages'])}")
         check(len(mses) == iters and all(math.isfinite(m) for m in mses), f"losses {mses}")
-        for name, part in (("open", mses[:event_it]), ("masked", mses[event_it:])):
+        bounds = [0, *event_its, iters]
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            part = mses[lo:hi]
             k = max(1, min(20, len(part) // 4))
             first, last = sum(part[:k]) / k, sum(part[-k:]) / k
-            check(last < first, f"{name} stage: mse of the last {k} steps {last} >= first {first}")
-        check(len(events) == 1 and events[0]["iteration"] == event_it, f"events {events}")
-        ev = events[0]
-        # Something occupied, and at the recipe's size on the card something
-        # culled (a tiny run's field can be uniform).
-        check(0 < ev["voxels"] <= ev["grid_voxels"]
-              and (ev["voxels"] < ev["grid_voxels"] or not cuda), f"voxels {ev['voxels']}")
-        check(0 < ev["rays_kept"] <= ev["rays_before"], f"rays {ev}")
-        check(32 <= ev["sample_cap"] <= ev["n_samples"]
-              and (ev["sample_cap"] % 32 == 0 or ev["sample_cap"] == ev["n_samples"])
-              and ev["capg"] == -(-ev["sample_cap"] // args.group_size), f"capacity {ev}")
+            check(last < first, f"stage {lo}-{hi}: mse of the last {k} steps {last} >= first {first}")
+        check([(e["kind"], e["iteration"], e["first"]) for e in events]
+              == [("mask", it, i == 0) for i, it in enumerate(event_its)], f"events {events}")
+        for ev in events:
+            # Something occupied, and at the recipe's size on the card
+            # something culled (a tiny run's field can be uniform).
+            check(0 < ev["voxels"] <= ev["grid_voxels"]
+                  and (ev["voxels"] < ev["grid_voxels"] or not cuda), f"voxels {ev}")
+            check(0 < ev["rays_kept"] <= ev["rays_before"], f"rays {ev}")
+            cap = args.masked_sample_cap if args.masked_sample_cap > 0 else None
+            check((ev["sample_cap"] == cap) if cap else (
+                32 <= ev["sample_cap"] <= ev["n_samples"]
+                and (ev["sample_cap"] % 32 == 0 or ev["sample_cap"] == ev["n_samples"])),
+                f"capacity {ev}")
+            check(ev["capg"] == -(-ev["sample_cap"] // args.group_size), f"groups {ev}")
+        for ev in events[1:]:  # later events keep the ray set
+            check(not ev["refiltered"] and ev["rays_kept"] == events[0]["rays_kept"],
+                  f"a later event's rays {ev}")
         psnr = stats["test_psnrs"]
         check(len(psnr) == 1 and math.isfinite(psnr[0]), f"test psnr {psnr}")
-        run = os.path.join(tmp, "staged")
+        run = os.path.join(tmp, tag)
         for f in ("model.npz", "imgs_test_all/000.png"):
             check(os.path.isfile(os.path.join(run, f)), f"training wrote no {f}")
         ckpt = os.path.join(run, "model.npz")
         params, _, vol, vaabb = load_checkpoint(ckpt, device)
         r = args.alpha_grid_res
         check(vol is not None and tuple(vol.shape) == (r, r, r)
-              and int(vol.sum().item()) == ev["voxels"], "model.npz without the event's mask")
+              and int(vol.sum().item()) == events[-1]["voxels"], "model.npz without the mask")
+        check(all(t.dtype == torch.float32 for _, t in named_leaves(params)),
+              "model.npz parameters not float32")
+        stage_ms = {f"{st['from']}-{st['to']}": 1e3 * st["s"] / (st["to"] - st["from"])
+                    for st in stats["stages"]}
+        ev = events[0]
         result = {"main_s": main_s, "launches": launches, "mses": mses, "event": ev,
+                  "events": events, "stages": stats["stages"], "stage_ms": stage_ms,
                   "test_psnr": psnr[0], "loop_s": stats["wall_time_s"],
+                  "compute_dtype": args.compute_dtype,
                   "shaded_groups_p999": stats["shaded_groups_p999"]}
         if cuda:
-            result["launches_want"] = want = staged_launches(args, ev, wh)
+            result["launches_want"] = want = staged_launches(args, events, wh)
             check(launches == want, f"launches {launches}, expected {want}")
             result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+            print(f"[{tag}] stage ms/step on the host clock {json.dumps(stage_ms)}")
 
-        # The checkpoint through the render-only CLI: the dense path with
-        # its mask, one K1 and one K3 launch per chunk.
-        cuda_kernels.reset_launch_counts()
-        psnrs = main_torch.main([
-            "--render_only", "1", "--render_test", "1", "--ckpt", ckpt, "--dataset_name",
-            "synthetic", "--datadir", f"synthetic:wh={wh},test_views=1", "--eval_chunk",
-            str(args.eval_chunk), "--compute_extra_metrics", "0", "--expname", "render",
-            "--device", device.type,
-        ])
-        r_launches = {k: fn.launches for k, fn in cuda_kernels.KERNELS.items()}
-        chunks = -(-wh * wh // args.eval_chunk)
-        print(f"[staged] render-only CLI on the checkpoint: psnr {psnrs}, launches {r_launches}")
-        check(len(psnrs) == 1 and math.isfinite(psnrs[0]), f"render-only psnr {psnrs}")
-        if cuda:
-            check(r_launches["occupancy_lookup"] == chunks
-                  and r_launches["bilinear_gather_planes"] == chunks
-                  and r_launches["group_sample_compact"] == 0, f"render-only launches {r_launches}")
-        result["render"] = {"psnr": psnrs[0], "launches": r_launches, "chunks": chunks}
+        if full:
+            # The checkpoint through the render-only CLI: the dense path with
+            # its mask, one K1 and one K3 launch per chunk.
+            cuda_kernels.reset_launch_counts()
+            psnrs = main_torch.main([
+                "--render_only", "1", "--render_test", "1", "--ckpt", ckpt, "--dataset_name",
+                "synthetic", "--datadir", f"synthetic:wh={wh},test_views=1", "--eval_chunk",
+                str(args.eval_chunk), "--compute_extra_metrics", "0", "--expname", "render",
+                "--device", device.type,
+            ])
+            r_launches = {k: fn.launches for k, fn in cuda_kernels.KERNELS.items()}
+            chunks = -(-wh * wh // args.eval_chunk)
+            print(f"[{tag}] render-only CLI on the checkpoint: psnr {psnrs}, launches "
+                  f"{r_launches}")
+            check(len(psnrs) == 1 and math.isfinite(psnrs[0]), f"render-only psnr {psnrs}")
+            if cuda:
+                check(r_launches["occupancy_lookup"] == chunks
+                      and r_launches["bilinear_gather_planes"] == chunks
+                      and r_launches["group_sample_compact"] == 0,
+                      f"render-only launches {r_launches}")
+            result["render"] = {"psnr": psnrs[0], "launches": r_launches, "chunks": chunks}
 
     # One batch of one view through the same configuration: a masked
     # grouped step with the kernels against the plain sampler, then the
@@ -1671,18 +1782,18 @@ def staged_phase(
     ds = load_dataset("synthetic", f"synthetic:views=1,wh={wh}", split="train", is_stack=False)
     trainer = TriPlaneTrainer(args, ds, init_params=params, device=device)
     step = lambda: trainer.train_step(*trainer.next_batch(), trainer.gen)  # noqa: E731
-    if cuda:
+    if cuda and full:
         result["open_step_ms"] = cuda_ms(step, reps=10, warmup=2)
     trainer._event_update_alpha_mask(first=True)  # this view's rays and the L1 weight
     trainer.alpha = AlphaGrid.from_volume(vol, vaabb)
-    trainer._auto_cap = ev["sample_cap"]
+    trainer._auto_cap = events[-1]["sample_cap"]
     rays, rgbs = trainer.next_batch()
     result["compare"] = compare_step(trainer, rays, rgbs, case="masked step")
-    if cuda:
+    if cuda and full:
         torch.cuda.reset_peak_memory_stats(device)
         result["masked_step_ms"] = cuda_ms(step, reps=10, warmup=2)
         result["masked_step_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
-        print(f"[staged] open stage {result['open_step_ms']:.3f} ms/step (cap "
+        print(f"[{tag}] open stage {result['open_step_ms']:.3f} ms/step (cap "
               f"{args.open_sample_cap}), masked stage {result['masked_step_ms']:.3f} ms/step "
               f"(cap {ev['sample_cap']}, capg {ev['capg']}), event phases "
               f"{json.dumps(ev['phases_s'])}, peak {result['peak_gib']:.2f} GiB over the run")
@@ -1690,29 +1801,34 @@ def staged_phase(
     return result
 
 
-def staged_launches(args, ev: dict, wh: int) -> dict:
-    """The launches the staged run must make: per step (microbatch chunks)
+def staged_launches(args, events: list[dict], wh: int) -> dict:
+    """The launches a staged run must make: per step (microbatch chunks)
     one K1, six K2 and one K4 (the grouped front end, the occupancy test
-    after the event included), and one ``gather_rows``; the event's K1 (grid
-    chunks), K3 (filter and count chunks) and ``gather_rows`` (the rebuilt
-    table, the count subsample); per evaluation chunk one K1 and one K4."""
+    after the first event included), and one ``gather_rows``; per mask event
+    its K1 (grid chunks), and K3: the first event's filter chunks, a later
+    event's grid chunks (the lattice pre-culled by the last grid), and every
+    event's count chunks; ``gather_rows`` for the first event's rebuilt
+    table and for every event's count subsample; per evaluation chunk one K1
+    and one K4."""
     iters, micro = args.n_iters, max(1, args.microbatch)
     r = args.alpha_grid_res
     grid_chunks = -(-r ** 3 // (256 * 256 * 8))
-    filter_chunks = -(-ev["rays_before"] // 51200)
-    counted = min(ev["rays_kept"], 65536) if args.sample_cap == -1 else 0
-    count_chunks = -(-counted // 16384)
+    k3 = rows = 0
+    for ev in events:
+        counted = min(ev["rays_kept"], 65536) if args.sample_cap == -1 else 0
+        k3 += (-(-ev["rays_before"] // 51200) if ev["first"] else grid_chunks) + -(-counted // 16384)
+        rows += int(ev["refiltered"]) + int(ev["rays_kept"] > 65536 and args.sample_cap == -1)
     chunks = -(-wh * wh // args.eval_chunk)  # one test view
     vis = [v for v in range(args.vis_every, iters + 1, args.vis_every)] if (
         args.N_vis != 0 and args.vis_every > 0) else []
     evals = len(vis) + 1  # and the final one
     return {
-        "bilinear_gather_planes": micro * iters + grid_chunks + evals * chunks,
+        "bilinear_gather_planes": micro * iters + len(events) * grid_chunks + evals * chunks,
         "bilinear_gather_2d": 0,
         "bilinear_gather_2d_backward": 6 * micro * iters,
         "bilinear_gather_planes_backward_coords": 0,
-        "gather_rows": iters + int(ev["refiltered"]) + int(ev["rays_kept"] > 65536),
-        "occupancy_lookup": filter_chunks + count_chunks,
+        "gather_rows": iters + rows,
+        "occupancy_lookup": k3,
         "group_sample_compact": micro * iters + evals * chunks,
     }
 
@@ -1722,19 +1838,25 @@ GAUGE_CONFIG = "configs/synthetic_triplane_tpu.txt"
 # test PSNR band and the auto caps at the mask event and after the upsample.
 JAX_GAUGE_PSNR_DB = (53.91, 55.59)
 JAX_GAUGE_CAPS = (224, 352)
+# Its bfloat16 certificate on configs/synthetic_triplane_tpu_bf16.txt
+# (VERDICT.md:14, results/gauge_cert_bf16_r5).
+JAX_GAUGE_BF16_PSNR_DB = 54.02
 PLANE_NAMES = ("plane_xy", "plane_yz", "plane_xz")
 
 
 def gauge_phase(
     device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRAIN_WH, extra: tuple[str, ...] = (),
+    config: str = GAUGE_CONFIG, tag: str = "gauge", full: bool = True,
 ) -> dict:
-    """``main_torch.main`` on the learned-gauge recipe as the config has it
-    (the gauge on at 400, the mask event with the shrink at 600, the upsample
+    """``main_torch.main`` on a learned-gauge recipe (``config`` as it is:
+    the gauge on at 400, the mask event with the shrink at 600, the upsample
     at 800): its events, launches, losses, gauge grids and checkpoint
     checked; then one step after ``gauge_start`` with the kernels against
-    the plain sampler (the loss and every gradient), K2c and K1 on that
-    step's planes of three shapes, and the checkpoint through the
-    render-only CLI. ``extra`` argv shrinks the run for the CPU test."""
+    the plain sampler (the loss and every gradient), K2c on that step's own
+    cotangents and the upsampled stage's step by CUDA events. ``full`` adds
+    K1 on the step's planes of three shapes, the checkpoint through the
+    render-only CLI and the step's profile. ``extra`` argv shrinks the run
+    for the CPU test."""
     import numpy as np
 
     import main_torch
@@ -1748,9 +1870,9 @@ def gauge_phase(
     cuda = device.type == "cuda"
     with tempfile.TemporaryDirectory() as tmp:
         argv = [
-            "--config", os.path.join(os.path.dirname(os.path.abspath(__file__)), GAUGE_CONFIG),
+            "--config", os.path.join(os.path.dirname(os.path.abspath(__file__)), config),
             "--datadir", f"synthetic:views={views},wh={wh},test_views=1", "--render_test", "1",
-            "--basedir", tmp, "--expname", "gauge", "--progress_refresh_rate", "100",
+            "--basedir", tmp, "--expname", tag, "--progress_refresh_rate", "100",
             "--device", device.type, *extra,
         ]
         args = config_parser(argv)
@@ -1768,10 +1890,10 @@ def gauge_phase(
         main_s = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in cuda_kernels.KERNELS.items()}
         mses, events = stats["train_mses"], stats["events"]
-        print(f"[gauge] main_torch.main: {main_s:.3f} s ({stats['wall_time_s']:.3f} s in the "
+        print(f"[{tag}] main_torch.main: {main_s:.3f} s ({stats['wall_time_s']:.3f} s in the "
               f"train loop), {iters} steps, launches {launches}, test psnr {stats['test_psnrs']}")
-        print(f"[gauge] events {json.dumps(events)}")
-        print(f"[gauge] stages {json.dumps(stats['stages'])}")
+        print(f"[{tag}] events {json.dumps(events)}")
+        print(f"[{tag}] stages {json.dumps(stats['stages'])}")
         check(len(mses) == iters and all(math.isfinite(m) for m in mses), f"losses {mses}")
         for name, part in (("open", mses[:mask_it]), ("shrunk", mses[mask_it:up_it]),
                            ("upsampled", mses[up_it:])):
@@ -1791,7 +1913,7 @@ def gauge_phase(
                   and ev["capg"] == -(-ev["sample_cap"] // args.group_size), f"capacity {ev}")
         psnr = stats["test_psnrs"]
         check(len(psnr) == 1 and math.isfinite(psnr[0]), f"test psnr {psnr}")
-        run = os.path.join(tmp, "gauge")
+        run = os.path.join(tmp, tag)
         for f in ("model.npz", "imgs_test_all/000.png"):
             check(os.path.isfile(os.path.join(run, f)), f"training wrote no {f}")
         ckpt = os.path.join(run, "model.npz")
@@ -1804,8 +1926,9 @@ def gauge_phase(
         gauge_max = {n: params[n].abs().max().item() for n in ("gauge_xy", "gauge_yz", "gauge_xz")}
         check(all(v > 0 for v in gauge_max.values()), f"gauge grids not trained: {gauge_max}")
         lo, hi = JAX_GAUGE_PSNR_DB
-        print(f"[gauge] test psnr {psnr[0]:.3f} dB (the JAX package's float32 band on this "
-              f"config: {lo}-{hi} dB); caps {mask['sample_cap']} -> {up['sample_cap']} (JAX "
+        print(f"[{tag}] {args.compute_dtype} test psnr {psnr[0]:.3f} dB (the JAX package's "
+              f"float32 band on the recipe: {lo}-{hi} dB, its bfloat16 reading "
+              f"{JAX_GAUGE_BF16_PSNR_DB} dB); caps {mask['sample_cap']} -> {up['sample_cap']} (JAX "
               f"package: {JAX_GAUGE_CAPS[0]} -> {JAX_GAUGE_CAPS[1]}); shrink {json.dumps(shrink)}; "
               f"upsample grid {up['grid_size']}; gauge grids' largest |offset| "
               f"{json.dumps(gauge_max)}")
@@ -1814,31 +1937,34 @@ def gauge_phase(
         result = {"main_s": main_s, "launches": launches, "mses": mses, "events": events,
                   "stages": stats["stages"], "stage_ms": stage_ms, "test_psnr": psnr[0],
                   "jax_psnr_band_db": JAX_GAUGE_PSNR_DB, "loop_s": stats["wall_time_s"],
-                  "plane_shapes": shapes, "gauge_max": gauge_max}
+                  "plane_shapes": shapes, "gauge_max": gauge_max,
+                  "compute_dtype": args.compute_dtype}
         if cuda:
             result["launches_want"] = want = gauge_launches(args, events, wh)
             check(launches == want, f"launches {launches}, expected {want}")
             result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
 
-        # The checkpoint through the render-only CLI: the dense path with
-        # its mask, per chunk one K1 launch for the gauge grids and one for
-        # the planes of three shapes, and one K3.
-        cuda_kernels.reset_launch_counts()
-        psnrs = main_torch.main([
-            "--render_only", "1", "--render_test", "1", "--ckpt", ckpt, "--dataset_name",
-            "synthetic", "--datadir", f"synthetic:wh={wh},test_views=1", "--eval_chunk",
-            str(args.eval_chunk), "--compute_extra_metrics", "0", "--expname", "render",
-            "--device", device.type,
-        ])
-        r_launches = {k: fn.launches for k, fn in cuda_kernels.KERNELS.items()}
-        chunks = -(-wh * wh // args.eval_chunk)
-        print(f"[gauge] render-only CLI on the checkpoint: psnr {psnrs}, launches {r_launches}")
-        check(len(psnrs) == 1 and math.isfinite(psnrs[0]), f"render-only psnr {psnrs}")
-        if cuda:
-            want = {k: 0 for k in r_launches}
-            want.update(bilinear_gather_planes=2 * chunks, occupancy_lookup=chunks)
-            check(r_launches == want, f"render-only launches {r_launches}, expected {want}")
-        result["render"] = {"psnr": psnrs[0], "launches": r_launches, "chunks": chunks}
+        if full:
+            # The checkpoint through the render-only CLI: the dense path with
+            # its mask, per chunk one K1 launch for the gauge grids and one
+            # for the planes of three shapes, and one K3.
+            cuda_kernels.reset_launch_counts()
+            psnrs = main_torch.main([
+                "--render_only", "1", "--render_test", "1", "--ckpt", ckpt, "--dataset_name",
+                "synthetic", "--datadir", f"synthetic:wh={wh},test_views=1", "--eval_chunk",
+                str(args.eval_chunk), "--compute_extra_metrics", "0", "--expname", "render",
+                "--device", device.type,
+            ])
+            r_launches = {k: fn.launches for k, fn in cuda_kernels.KERNELS.items()}
+            chunks = -(-wh * wh // args.eval_chunk)
+            print(f"[{tag}] render-only CLI on the checkpoint: psnr {psnrs}, launches "
+                  f"{r_launches}")
+            check(len(psnrs) == 1 and math.isfinite(psnrs[0]), f"render-only psnr {psnrs}")
+            if cuda:
+                want = {k: 0 for k in r_launches}
+                want.update(bilinear_gather_planes=2 * chunks, occupancy_lookup=chunks)
+                check(r_launches == want, f"render-only launches {r_launches}, expected {want}")
+            result["render"] = {"psnr": psnrs[0], "launches": r_launches, "chunks": chunks}
 
     # One batch of one view through the trained model at its geometry after
     # the events: a masked grouped step after gauge_start with the kernels
@@ -1856,11 +1982,12 @@ def gauge_phase(
     if cuda:
         step = lambda: trainer.train_step(*trainer.next_batch(), trainer.gen)  # noqa: E731
         result["upsampled_step_ms"] = cuda_ms(step, reps=10, warmup=2)
-        print(f"[gauge] stage ms/step on the host clock {json.dumps(stage_ms)}; the upsampled "
+        print(f"[{tag}] stage ms/step on the host clock {json.dumps(stage_ms)}; the upsampled "
               f"stage's step on the trained weights {result['upsampled_step_ms']:.3f} ms by "
               f"CUDA events (cap {up['sample_cap']}, capg {up['capg']}); event phases: mask "
               f"{json.dumps(mask['phases_s'])}, upsample {json.dumps(up['phases_s'])}; peak "
               f"{result['peak_gib']:.2f} GiB over the run")
+    if cuda and full:
         result["k1_three_shapes"] = three_shape_row(
             [trainer.params[n].detach() for n in PLANE_NAMES], result["compare"]["coords"])
         result["upsampled_step_profile"] = profile_chunk(step, reps=2, unit="upsampled gauge step")
@@ -1909,14 +2036,14 @@ def compare_gauge_step(trainer, rays, rgbs) -> dict:
     backward through autograd), and on the xy plane's alone. Returns the
     three planes' deformed coordinates under ``coords``."""
     from ngf_tpu_torch import convert
-    from ngf_tpu_torch.ops.grid_sample import grid_sample_2d_plain
 
     dd = trainer.model_cfg.density_dim
+    loss_rtol, grad_tol = step_tolerances(trainer)
     cotangents: dict[str, dict[str, torch.Tensor]] = {n: {} for n in PLANE_NAMES}
     deformed: dict[str, torch.Tensor] = {}
 
     def plain(p, c, name):
-        out = grid_sample_2d_plain(p, c)
+        out = plain_sample(p, c)
         if name.startswith("plane_") and out.requires_grad:
             deformed[name] = c.detach()
             fetch = "density" if p.shape[-1] == dd else "appearance"
@@ -1927,31 +2054,42 @@ def compare_gauge_step(trainer, rays, rgbs) -> dict:
     leaves = dict(convert.named_leaves(trainer.params))
     for how, fn in (("kernels", None), ("plain", plain)):
         gen = torch.Generator(device=rays.device).manual_seed(SEED)
-        mse[how] = trainer.compute_grads(rays, rgbs, gen, sample_fn=fn).item()
+        with cotangent_dtypes() as seen:
+            mse[how] = trainer.compute_grads(rays, rgbs, gen, sample_fn=fn).item()
         grads[how] = {n: t.grad.clone() for n, t in leaves.items()}
+        if how == "kernels":
+            kernel_dtypes = {k: sorted(v) for k, v in seen.items()}
     trainer.optimizer.zero_grad()
     errs = {}
     for n, want in grads["plain"].items():
         scale = want.abs().max().item()
         errs[n] = {"max_abs_grad": scale,
                    "max_abs_err": (grads["kernels"][n] - want).abs().max().item()}
-    out = {"mse": mse, "grads": errs}
+    out = {"mse": mse, "grads": errs, "cotangent_dtypes": kernel_dtypes}
     print("[gauge] step, kernels vs plain sampler: " + json.dumps(out))
-    check(abs(mse["kernels"] - mse["plain"]) <= STEP_LOSS_RTOL * abs(mse["plain"]),
+    check(abs(mse["kernels"] - mse["plain"]) <= loss_rtol * abs(mse["plain"]),
           f"gauge step mse {mse}")
     for n, e in errs.items():
-        check(e["max_abs_grad"] > 0 and e["max_abs_err"] <= STEP_GRAD_REL_TOL * e["max_abs_grad"],
+        check(e["max_abs_grad"] > 0 and e["max_abs_err"] <= grad_tol * e["max_abs_grad"],
               f"gauge step grad {n}: {e}")
+    if rays.is_cuda:
+        # The gauge grids' K2 at C = 2 stays float32, as in the JAX package.
+        want = {"bilinear_gather_2d_backward": ["torch.float32"],
+                "bilinear_gather_planes_backward_coords": [str(trainer.model_cfg.dtype)]}
+        check(kernel_dtypes == want, f"cotangents handed to the kernels {kernel_dtypes}, "
+                                     f"expected {want}")
     out["coords"] = [deformed[n] for n in PLANE_NAMES]
     if rays.is_cuda:
         n_pts = out["coords"][0].numel() // 2
-        planes = [trainer.params[n].detach() for n in PLANE_NAMES]
+        masters = [trainer.params[n].detach() for n in PLANE_NAMES]
+        dtype = trainer.model_cfg.dtype
+        planes = [p.to(dtype) for p in masters]
         coords = [c.reshape(n_pts, 2) for c in out["coords"]]
         g_a, g_b = (torch.stack([cotangents[n][f].reshape(n_pts, -1) for n in PLANE_NAMES], -2)
                     for f in ("density", "appearance"))
         out["backward"] = coords_row("gauge step's own cotangents, three planes", planes, coords,
                                      g_a, g_b)
-        out["backward"]["autograd_ms"] = fetch_backward_ms(planes, coords, g_a, g_b)
+        out["backward"]["autograd_ms"] = fetch_backward_ms(masters, coords, g_a, g_b, dtype=dtype)
         out["backward_xy"] = coords_row("gauge step's own cotangents", planes[:1], coords[:1],
                                         g_a[:, :1], g_b[:, :1])
     return out
@@ -1988,7 +2126,40 @@ def gauge_launches(args, events: list[dict], wh: int) -> dict:
     }
 
 
-PHASES = ("kernel", "rows", "backward", "occupancy", "render", "train", "staged", "gauge")
+BF16_INFOINV_CONFIG = "configs/synthetic_infoinv_tpu30k.txt"
+# The JAX package's own cut of the 30k schedule that covers its three mask
+# events at 300, 2000 and 2500 (NOTES.md:236-238).
+BF16_INFOINV_ITERS = 3000
+BF16_GAUGE_CONFIG = "configs/synthetic_triplane_tpu_bf16.txt"
+
+
+def bf16_phase(device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRAIN_WH,
+               infoinv_extra: tuple[str, ...] = (), gauge_extra: tuple[str, ...] = ()) -> dict:
+    """bfloat16 training through ``main_torch.main``: the 30k InfoInv
+    schedule cut to its three mask events (``--n_iters 3000``, masked cap
+    160 after each) and the bfloat16 gauge recipe as it is, each with its
+    events, exact launch totals, falling losses per stage, float32
+    checkpoint, stage ms/step and test PSNR, and one bfloat16 step with the
+    kernels against the plain sampler (the loss and the gradients; the
+    cotangents the backward kernels were handed must be bfloat16), with K2
+    and K2c timed on that step's own bfloat16 cotangents. The ``extra``
+    argv shrink the runs for a CPU rehearsal."""
+    infoinv = staged_phase(device, views, wh, ("--n_iters", str(BF16_INFOINV_ITERS),
+                                               *infoinv_extra),
+                           config=BF16_INFOINV_CONFIG, tag="infoinv_bf16", full=False)
+    gauge = gauge_phase(device, views, wh, gauge_extra, config=BF16_GAUGE_CONFIG,
+                        tag="gauge_bf16", full=False)
+    for run in (infoinv, gauge):
+        check(run["compute_dtype"] == "bfloat16", f"compute dtype {run['compute_dtype']}")
+    lo, hi = JAX_GAUGE_PSNR_DB
+    print(f"[bf16] test psnr: 30k InfoInv cut {infoinv['test_psnr']:.3f} dB (caps "
+          f"{[e['sample_cap'] for e in infoinv['events']]}); gauge {gauge['test_psnr']:.3f} dB "
+          f"beside the JAX package's bfloat16 {JAX_GAUGE_BF16_PSNR_DB} dB and float32 band "
+          f"{lo}-{hi} dB")
+    return {"infoinv": infoinv, "gauge": gauge}
+
+
+PHASES = ("kernel", "rows", "backward", "occupancy", "render", "train", "staged", "gauge", "bf16")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1996,7 +2167,8 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of %(default)s; the result lines are "
                              "printed only when all run")
-    phases = parser.parse_args(argv).phases.split(",")
+    parsed = parser.parse_args(argv)
+    phases = parsed.phases.split(",")
     unknown = set(phases) - set(PHASES)
     if unknown:
         parser.error(f"unknown phases {sorted(unknown)}")
@@ -2013,6 +2185,8 @@ def main(argv: list[str] | None = None) -> int:
     print(f"[device] kernels built and loaded in {build_s:.3f} s (set-up)")
     k2c_fp = cuda_kernels.backward_coords_footprint(4)
     print("[device] K2c float4 footprint: " + json.dumps(k2c_fp))
+    k2c_bf16_fp = cuda_kernels.backward_coords_footprint(4, torch.bfloat16)
+    print("[device] K2c bfloat16 4-channel footprint: " + json.dumps(k2c_bf16_fp))
 
     run = {
         "kernel": lambda: kernel_phase(device, RAYS_PER_CHUNK * 884),
@@ -2023,6 +2197,7 @@ def main(argv: list[str] | None = None) -> int:
         "occupancy": lambda: occupancy_phase(device),
         "staged": lambda: staged_phase(device),
         "gauge": lambda: gauge_phase(device),
+        "bf16": lambda: bf16_phase(device),
     }
     out = {}
     for phase in PHASES:
@@ -2040,14 +2215,19 @@ def main(argv: list[str] | None = None) -> int:
     row_cases = out["rows"]["cases"]
 
     # Each main path's launches, counted from 0 just before it.
+    bf16 = out["bf16"]
     paths = {"render": out["render"]["launches"], "train": out["train"]["launches"],
              "staged": out["staged"]["launches"],
              "staged render-only": out["staged"]["render"]["launches"],
-             "gauge": gauge["launches"], "gauge render-only": gauge["render"]["launches"]}
+             "gauge": gauge["launches"], "gauge render-only": gauge["render"]["launches"],
+             "bf16 infoinv": bf16["infoinv"]["launches"], "bf16 gauge": bf16["gauge"]["launches"]}
 
-    def entry(name, source, replaces, row, max_abs_err, at, counters=None):
+    def entry(name, source, replaces, row, max_abs_err, at, counters=None, skip=()):
+        """A kernel's line; its launches over the main paths but ``skip``
+        (the paths that launch its other dtype's variant)."""
         counters = counters or (name,)
-        by_path = {path: sum(counts[c] for c in counters) for path, counts in paths.items()}
+        by_path = {path: sum(counts[c] for c in counters) for path, counts in paths.items()
+                   if path not in skip}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2058,6 +2238,8 @@ def main(argv: list[str] | None = None) -> int:
 
     step_rows = [r for state in train["compare"].values() for r in state.get("backward", [])]
     step_rows += out["staged"]["compare"].get("backward", [])
+    bf16_k2 = bf16["infoinv"]["compare"]["backward"]
+    bf16_k2c = bf16["gauge"]["compare"]["backward"]
     k3, k4 = out["occupancy"]["k3"], out["occupancy"]["k4"]
     fused = [r for r in rows if r["fetch"] == "fused"]
     probe = next(r for r in rows if r["fetch"] == "probe")
@@ -2075,7 +2257,8 @@ def main(argv: list[str] | None = None) -> int:
               next(r for r in bwd_rows if r["fetch"] == "appearance" and r["case"] == "train"),
               max(r["max_abs_err"] for r in bwd_rows + step_rows),
               "appearance fetch: plane gradient 256x256x96 float32, channels 24:96, "
-              f"N={TRAIN_RAYS * TRAIN_CAP}, train coordinates, random cotangents"),
+              f"N={TRAIN_RAYS * TRAIN_CAP}, train coordinates, random cotangents",
+              skip=("bf16 infoinv",)),
         entry("gather_rows", "ngf_tpu_torch/ops/kernels/gather_rows.cu",
               "tools/probe_pallas.py:21,44,68",
               next(r for r in row_cases if r["case"] == "rays"), 0.0,
@@ -2097,7 +2280,23 @@ def main(argv: list[str] | None = None) -> int:
               max(r["max_abs_err"] for r in coord_rows + gauge_coord_rows),
               "gauge open step's fetch in one launch: plane and coordinate gradients of three "
               f"256x256x64 float32 planes, split 16, N={TRAIN_RAYS * TRAIN_CAP}, lego "
-              "projections, random cotangents"),
+              "projections, random cotangents", skip=("bf16 gauge",)),
+        entry("bilinear_gather_2d_backward (bfloat16)",
+              "ngf_tpu_torch/ops/kernels/bilinear_gather_backward.cu",
+              "ngf_tpu/ops/grid_sample.py:421",
+              next(r for r in bf16_k2 if r["fetch"] == "appearance"),
+              max(r["max_abs_err"] for r in bf16_k2),
+              "bfloat16 30k InfoInv cut, a masked step's own bfloat16 cotangents of the xy "
+              "plane's appearance fetch into its float32 gradient, channels 24:96",
+              counters=("bilinear_gather_2d_backward",),
+              skip=tuple(p for p in paths if p != "bf16 infoinv")),
+        entry("bilinear_gather_planes_backward_coords (bfloat16)",
+              "ngf_tpu_torch/ops/kernels/bilinear_gather_backward.cu",
+              "ngf_tpu/ops/grid_sample.py:434", bf16_k2c, bf16_k2c["max_abs_err"],
+              "bfloat16 gauge recipe, a step's own bfloat16 cotangents and bfloat16 values of "
+              f"three planes {bf16_k2c['shapes']} x 64, split 16, in one launch, float32 "
+              "gradients", counters=("bilinear_gather_planes_backward_coords",),
+              skip=tuple(p for p in paths if p != "bf16 gauge")),
     ]
     kernels[0]["rows"] = [
         {k: r[k] for k in ("case", "dtype", "ms", "bound_ms", "plain_ms", "library_ms",
@@ -2111,6 +2310,10 @@ def main(argv: list[str] | None = None) -> int:
                                                  "autograd_ms")}
                           for r in coord_rows + gauge_coord_rows]
     kernels[5].update(k2c_fp)
+    kernels[6]["rows"] = [{k: r.get(k) for k in ("case", "fetch", "dtype", "C", "ms", "bound_ms",
+                                                 "plain_ms", "library_ms")} for r in bf16_k2]
+    kernels[7].update(k2c_bf16_fp)
+    kernels[7]["autograd_ms"] = bf16_k2c.get("autograd_ms")
     kernels[1]["random_coords_ms"] = next(
         r["ms"] for r in bwd_rows if r["fetch"] == "appearance" and r["case"] == "random")
     kernels[1]["step_cotangent_ms"] = {
@@ -2120,6 +2323,9 @@ def main(argv: list[str] | None = None) -> int:
     kernels[4]["rows"] = [{k: r[k] for k in ("case", "capg", "ms", "device_ms", "bound_ms",
                                              "plain_ms", "library_ms")} for r in k4]
     kernels[4]["front_end"] = out["occupancy"]["front_end"]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} never launched on its main paths: "
+                                 f"{k['launches_by_path']}")
     kernels[2]["batch_ms"] = out["rows"]["batch"]["ms"]
     kernels[2]["batch_two_call_ms"] = out["rows"]["batch"]["two_call_ms"]
     print(card)

@@ -11,9 +11,12 @@ shrink and upsample events), and render-only evaluation of a checkpoint.
 
 It reads the same ``configs/*.txt`` and writes and reads the same ``.npz``
 checkpoints (with their occupancy mask) as `main.py`, and runs on the GPU
-unless ``--device cpu`` is given. Options the port does not carry yet
-(bfloat16, ``rgb_cap != 0``, resume, data-parallel meshes) raise, naming
-ROADMAP.md.
+unless ``--device cpu`` is given. ``--compute_dtype bfloat16`` trains the
+JAX package's bfloat16 recipe (float32 parameters and Adam, bfloat16 plane
+values and decoders with float32 sums; ``model.npz`` keeps the float32
+parameters). ``steps_per_call`` is read and has no effect: PyTorch runs one
+step at a time. Options the port does not carry yet (``rgb_cap != 0``,
+resume, data-parallel meshes) raise, naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -28,14 +31,16 @@ import torch
 
 def main(argv=None):
     from ngf_tpu_torch.config import config_parser
+    from ngf_tpu_torch.utils.precision import float32_accumulation
 
     args = config_parser(argv)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
-    if args.render_only and (args.render_test or args.render_path):
-        return run_test(args)
-    return run_train(args)
+    with float32_accumulation():
+        if args.render_only and (args.render_test or args.render_path):
+            return run_test(args)
+        return run_train(args)
 
 
 def _logfolder(args):
@@ -43,12 +48,6 @@ def _logfolder(args):
         stamp = datetime.datetime.now().strftime("-%Y%m%d-%H%M%S")
         return f"{args.basedir}/{args.expname}{stamp}"
     return f"{args.basedir}/{args.expname}"
-
-
-def _full_f32_products():
-    # Full float32 products, as the reference computes them.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def run_train(args):
@@ -72,7 +71,6 @@ def run_train(args):
         )
     check_ported(args)
     device = resolve_device(args.device)
-    _full_f32_products()
 
     train_dataset = load_dataset(
         args.dataset_name, args.datadir, split="train",
@@ -129,7 +127,6 @@ def run_test(args):
     from ngf_tpu_torch.utils.grid import grid_n_samples
 
     device = resolve_device(args.device)
-    _full_f32_products()
 
     if not args.ckpt or not os.path.exists(args.ckpt):
         print("the ckpt path does not exists!!")

@@ -57,18 +57,69 @@ def init_linear(
     return p
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The float32 product of two bfloat16 matrices, accumulated in float32
+    and not rounded: cuBLAS's ``out_dtype`` product on the card; on the CPU,
+    which has no such kernel, the product of the float32 copies (each
+    bfloat16 product is exact in float32, so the two differ only in the
+    order of the float32 sums)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _LowPrecisionLinear(torch.autograd.Function):
+    """``x @ w + b`` of bfloat16 ``x``, ``w`` and ``b`` as
+    ``jnp.dot(x, w, preferred_element_type=float32) + b`` computes it, and
+    its vjp: the product kept in float32, the bias added in float32, one
+    rounding to bfloat16. Backward, the cotangent's products with ``w`` and
+    ``x`` each in float32 and rounded once to bfloat16, and the bias's the
+    float32 sum of the cotangent rounded once, as JAX's transposes of the
+    dot and of the casts give them. ``torch.mm``'s ``out_dtype`` product has
+    no derivative of its own, hence this Function."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        x2 = x.reshape(-1, x.shape[-1])
+        y = _mm_f32(x2, w)
+        if b is not None:
+            y = y + b.float()
+        ctx.save_for_backward(x2, w)
+        ctx.has_bias, ctx.in_shape = b is not None, x.shape
+        return y.to(x.dtype).reshape(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32(g2, w.t()).to(w.dtype).reshape(ctx.in_shape)
+        if ctx.needs_input_grad[1]:
+            dw = _mm_f32(x2.t(), g2).to(w.dtype)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = g2.float().sum(0).to(w.dtype)
+        return dx, dw, db
+
+
 def apply_linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x @ w + b in the weights' dtype (`ngf_tpu/fields/decoders.py:63-70`).
 
-    The input is cast to the weights' dtype; the bias is added in float32
-    and the result cast back. (A bfloat16 product is rounded to bfloat16
-    before the bias here, where XLA keeps it in float32.)
+    The input is cast to the weights' dtype. Float32 weights: the float32
+    product plus the bias (no TF32: `main_torch.py` and the trainer keep
+    float32 products in full float32). bfloat16 weights (the bfloat16
+    recipe's ``_cast``): the product of the bfloat16 inputs kept in float32,
+    the float32 bias added, one rounding to bfloat16, as the JAX layer's
+    ``preferred_element_type=float32`` dot has it, forward and backward
+    (:class:`_LowPrecisionLinear`). On the card that is cuBLAS's bfloat16
+    product with a float32 output (``torch.mm(..., out_dtype=float32)``), on
+    the CPU the product of float32 copies; both sum in float32.
     """
     x = x.to(p["w"].dtype)
-    y = x @ p["w"]
-    if "b" in p:
-        y = y.float() + p["b"].float()
-    return y.to(x.dtype)
+    if x.dtype == torch.float32:
+        y = x @ p["w"]
+        return y + p["b"] if "b" in p else y
+    return _LowPrecisionLinear.apply(x, p["w"], p.get("b"))
 
 
 def init_mlp(gen: torch.Generator, dims: list[int], device: torch.device | str | None = None) -> Params:

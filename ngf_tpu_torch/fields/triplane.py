@@ -168,19 +168,20 @@ def _plane_feats(
     three planes, or one ``sample_fn(plane[..., channels], coords, name)``
     call per plane. Coordinates stay float32 through the sampler: a bfloat16
     coordinate moves a stencil by up to half a texel at 256-res planes. Only
-    the plane values run in the compute dtype, each plane's channels cast
-    once per call (evaluation); in float32 the whole plane reaches the
-    sampler with the channel range, so a fetch's gradient lands in its
-    channels of the plane's."""
+    the plane values run in the compute dtype. The gather takes the whole
+    float32 planes with the channel range and the compute dtype, and casts
+    inside, so a fetch's gradient lands in its channels of the float32
+    planes' as the kernels sum it; a ``sample_fn`` gets each plane's
+    channels cast with a tracked ``.to``, as the JAX package's sampler does,
+    whose backward rounds the plane gradient to the compute dtype once."""
     dt = cfg.dtype
     planes = [params[n] for n in _PLANES]
-    if planes[0].dtype != dt:
-        planes, channels = [p[..., channels].to(dt) for p in planes], slice(None)
     coords = (xy, yz, xz)
     if sample_fn is None:
-        return grid_sample_planes(planes, coords, channels, split)
+        return grid_sample_planes(planes, coords, channels, split, dtype=dt)
     full = torch.stack(
-        [sample_fn(p[..., channels], c, n) for p, c, n in zip(planes, coords, _PLANES)], dim=-2
+        [sample_fn(p[..., channels].to(dt), c, n) for p, c, n in zip(planes, coords, _PLANES)],
+        dim=-2,
     )
     return (full, None) if split is None else (full[..., :split], full[..., split:])
 

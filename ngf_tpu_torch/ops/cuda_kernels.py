@@ -21,7 +21,9 @@ planes of any shapes in one launch, split into the two decoders' inputs)
 with its one-plane call ``bilinear_gather_2d``, ``bilinear_gather_2d_backward``
 (K2, its plane gradient), ``bilinear_gather_planes_backward_coords`` (K2c,
 the plane and the coordinate gradients of a fetch of up to three planes in
-one launch, for the learned gauge's deformed coordinates), ``gather_rows``
+one launch, for the learned gauge's deformed coordinates), each in float32
+and in bfloat16 (values and cotangents; the gradients stay float32),
+``gather_rows``
 (the trainer's batch assembly),
 ``occupancy_lookup`` (K3, the alpha-mask test of point clouds) and
 ``group_sample_compact`` (K4, the grouped renderer's whole front end:
@@ -120,15 +122,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ngf_bilinear_gather_planes.restype = i32
     elif name == "bilinear_gather_backward":
         lib.ngf_bilinear_gather_2d_backward.argtypes = [
-            vp, i64, i32, vp, i64, i64, vp, i32, i32, i64, i64, i32, vp,
+            vp, i64, i32, vp, i64, i64, vp, i32, i32, i64, i64, i32, i32, vp,
         ]
         lib.ngf_bilinear_gather_2d_backward.restype = i32
         lib.ngf_bilinear_gather_planes_backward_coords.argtypes = [
-            ctypes.POINTER(i64), i32, vp, i64, i64, i32, vp, i64, i64, i32, i64, vp, i32, vp,
+            ctypes.POINTER(i64), i32, vp, i64, i64, i32, vp, i64, i64, i32, i64, vp, i32, i32, vp,
         ]
         lib.ngf_bilinear_gather_planes_backward_coords.restype = i32
         lib.ngf_bilinear_gather_planes_backward_coords_footprint.argtypes = [
-            i32, ctypes.POINTER(i32),
+            i32, i32, ctypes.POINTER(i32),
         ]
         lib.ngf_bilinear_gather_planes_backward_coords_footprint.restype = i32
     elif name == "gather_rows":
@@ -340,13 +342,14 @@ bilinear_gather_planes.launches = 0
 
 
 def backward_lanes(C: int, channel_offset: int, texel_stride: int, g_stride: int,
-                   g_ptr: int, dst_ptr: int) -> int:
-    """Channels per load and atomic of the backward kernel: 4 (float4) when
-    every such access is 16-byte aligned — C, the channel offset, the texel
-    stride and g's row stride multiples of 4 floats, both base pointers of
-    16 bytes — and 1 (scalar) otherwise."""
-    if (C % 4 or channel_offset % 4 or texel_stride % 4 or g_stride % 4
-            or g_ptr % 16 or dst_ptr % 16):
+                   g_ptr: int, dst_ptr: int, dtype: torch.dtype = torch.float32) -> int:
+    """Channels per load of the backward kernel: 4 (one load of 16 bytes of
+    float32 g or 8 of bfloat16, added with float4 atomics) when every such
+    access is aligned — C, g's row stride (in g's elements), the channel
+    offset and the gradient's texel stride multiples of 4, g's base pointer
+    of a load's bytes and the gradient's of 16 — and 1 (scalar) otherwise."""
+    if (C % 4 or g_stride % 4 or channel_offset % 4 or texel_stride % 4
+            or g_ptr % (4 * _GATHER_ITEMSIZE[dtype]) or dst_ptr % 16):
         return 1
     return 4
 
@@ -360,7 +363,9 @@ def bilinear_gather_2d_backward(
     those channels of ``grad_plane``.
 
     Args:
-      g: (..., C) float32 CUDA tensor, the gradient of the gather's output.
+      g: (..., C) float32 or bfloat16 CUDA tensor, the gradient of the
+        gather's output, read as it is (a bfloat16 cotangent is widened in
+        the kernel; the sums and the gradient stay float32).
       coords: (..., 2) float32 CUDA tensor, the gather's coordinates.
       grad_plane: (H, W, C_total) float32 CUDA tensor, channels contiguous
         and rows ``W`` texels apart: the whole plane's gradient.
@@ -384,10 +389,9 @@ def bilinear_gather_2d_backward(
         raise ValueError(f"channels {channel_offset}:{channel_offset + C} outside 0:{c_total}")
     if coords.dtype != torch.float32 or coords.shape[-1] != 2:
         raise ValueError(f"coords must be (..., 2) float32, got {tuple(coords.shape)} {coords.dtype}")
-    if g.dtype != torch.float32 or g.shape[:-1] != coords.shape[:-1]:
-        raise ValueError(
-            f"g must be float32 of shape {(*coords.shape[:-1], C)}, got {tuple(g.shape)} {g.dtype}"
-        )
+    if g.dtype not in _GATHER_DTYPES or g.shape[:-1] != coords.shape[:-1]:
+        raise ValueError(f"g must be float32 or bfloat16 of shape {(*coords.shape[:-1], C)}, "
+                         f"got {tuple(g.shape)} {g.dtype}")
     flat_c = coords.reshape(-1, 2)
     flat_g = g.reshape(-1, C)
     if flat_g.stride(1) != 1:
@@ -398,14 +402,14 @@ def bilinear_gather_2d_backward(
     texel_stride = grad_plane.stride(1)
     dst = grad_plane.data_ptr() + 4 * channel_offset
     lanes = backward_lanes(C, channel_offset, texel_stride, flat_g.stride(0),
-                           flat_g.data_ptr(), dst)
+                           flat_g.data_ptr(), dst, g.dtype)
     lib = _lib("bilinear_gather_backward")
     _launch(
         lib, lib.ngf_bilinear_gather_2d_backward, grad_plane.get_device(),
         "bilinear_gather_2d_backward",
         flat_g.data_ptr(), flat_g.stride(0), C,
         flat_c.data_ptr(), flat_c.stride(0), flat_c.stride(1),
-        dst, H, W, texel_stride, n, lanes,
+        dst, H, W, texel_stride, n, lanes, _GATHER_DTYPES[g.dtype],
     )
     bilinear_gather_2d_backward.launches += 1
 
@@ -413,12 +417,14 @@ def bilinear_gather_2d_backward(
 bilinear_gather_2d_backward.launches = 0
 
 
-def _check_cotangent(g: torch.Tensor, batch_shape, P: int, what: str) -> torch.Tensor:
-    """``g`` (..., P, C) as (N, P, C) float32 with contiguous channels."""
-    if g.dtype != torch.float32 or g.dim() < 2 or g.shape[:-1] != (*batch_shape, P):
+def _check_cotangent(g: torch.Tensor, batch_shape, P: int, dtype: torch.dtype,
+                     what: str) -> torch.Tensor:
+    """``g`` (..., P, C) of the planes' ``dtype`` as (N, P, C) with
+    contiguous channels."""
+    if g.dtype != dtype or g.dim() < 2 or g.shape[:-1] != (*batch_shape, P):
         raise ValueError(
-            f"{what} must be float32 of shape {(*batch_shape, P, g.shape[-1])}, got "
-            f"{tuple(g.shape)} {g.dtype}"
+            f"{what} must be {dtype} (the planes' dtype) of shape "
+            f"{(*batch_shape, P, g.shape[-1])}, got {tuple(g.shape)} {g.dtype}"
         )
     flat = g.reshape(-1, P, g.shape[-1])
     return flat if flat.stride(2) == 1 else flat.contiguous()
@@ -440,16 +446,19 @@ def bilinear_gather_planes_backward_coords(
     ``grads`` buffer and returns the coordinates' gradients.
 
     Args:
-      planes: 1 to 3 (H_p, W_p, C_total) float32 CUDA tensors of one channel
-        count, the fetched planes' values, each of its own H_p, W_p >= 2,
-        channels contiguous and rows ``W_p`` texels apart.
+      planes: 1 to 3 (H_p, W_p, C_total) CUDA tensors of one channel count
+        and dtype, float32 or bfloat16, the fetched planes' values, each of
+        its own H_p, W_p >= 2, channels contiguous and rows ``W_p`` texels
+        apart.
       coords: as many (..., 2) float32 CUDA tensors of one shape, each
         plane's coordinates; strided views qualify as they are.
       g_a, g_b: the gradients of the fetch's two outputs as
-        :func:`bilinear_gather_planes` returns them, (..., P, C_a) over
-        channels ``channel_offset : channel_offset + split`` and (..., P,
-        C_b) over the next C_b; strided views qualify. Either may be None
-        (its output got no gradient).
+        :func:`bilinear_gather_planes` returns them, in the planes' dtype,
+        (..., P, C_a) over channels ``channel_offset : channel_offset +
+        split`` and (..., P, C_b) over the next C_b; strided views qualify.
+        Either may be None (its output got no gradient). The kernel reads a
+        bfloat16 cotangent and bfloat16 values as they are and sums in
+        float32.
       grads: as many float32 CUDA tensors of the planes' shapes and layouts:
         the whole planes' gradients.
       channel_offset: first channel of the fetch within the planes.
@@ -472,11 +481,14 @@ def bilinear_gather_planes_backward_coords(
         )
     if g_a is None and g_b is None:
         raise ValueError("bilinear_gather_planes_backward_coords needs g_a or g_b")
+    dtype = planes[0].dtype
+    if dtype not in _GATHER_DTYPES:
+        raise ValueError(f"planes must be float32 or bfloat16, got {dtype}")
     for plane, grad in zip(planes, grads):
-        for t, what in ((plane, "plane"), (grad, "grad")):
-            if t.dim() != 3 or t.dtype != torch.float32:
+        for t, what, want in ((plane, "plane", dtype), (grad, "grad", torch.float32)):
+            if t.dim() != 3 or t.dtype != want:
                 raise ValueError(
-                    f"{what} must be (H, W, C) float32, got {tuple(t.shape)} {t.dtype}")
+                    f"{what} must be (H, W, C) {want}, got {tuple(t.shape)} {t.dtype}")
             _check_plane(t, what)
             H, W, _ = t.shape
             if H * t.stride(0) >= 2**31:
@@ -490,8 +502,8 @@ def bilinear_gather_planes_backward_coords(
         if c.shape != coords[0].shape:
             raise ValueError(f"coords differ in shape: {[tuple(c.shape) for c in coords]}")
     batch_shape = coords[0].shape[:-1]
-    flat_a = None if g_a is None else _check_cotangent(g_a, batch_shape, P, "g_a")
-    flat_b = None if g_b is None else _check_cotangent(g_b, batch_shape, P, "g_b")
+    flat_a = None if g_a is None else _check_cotangent(g_a, batch_shape, P, dtype, "g_a")
+    flat_b = None if g_b is None else _check_cotangent(g_b, batch_shape, P, dtype, "g_b")
     if split is None:
         if flat_a is None:
             raise ValueError("bilinear_gather_planes_backward_coords needs split without g_a")
@@ -511,23 +523,28 @@ def bilinear_gather_planes_backward_coords(
     out = torch.empty((n, P, 2), dtype=torch.float32, device=coords[0].device)
     if n == 0:
         return out.reshape(*batch_shape, P, 2)
+    itemsize = _GATHER_ITEMSIZE[dtype]
     desc, ptrs, strides = [], [flat_a.data_ptr()], [flat_a.stride(0), flat_a.stride(1)]
+    grad_ptrs = []
     for plane, grad, flat in zip(planes, grads, flats):
         H, W, _ = plane.shape
-        src = plane.data_ptr() + 4 * channel_offset
+        src = plane.data_ptr() + itemsize * channel_offset
         dst = grad.data_ptr() + 4 * channel_offset
         desc += [src, plane.stride(1), dst, grad.stride(1), flat.data_ptr(), flat.stride(0),
                  flat.stride(1), H, W]
-        ptrs += [src, dst]
+        ptrs.append(src)
+        grad_ptrs.append(dst)
         strides += [plane.stride(1), grad.stride(1)]
     b_ptr = b_stride_n = b_stride_p = 0
     if flat_b is not None:
         b_ptr, b_stride_n, b_stride_p = flat_b.data_ptr(), flat_b.stride(0), flat_b.stride(1)
         ptrs.append(b_ptr)
         strides += [b_stride_n, b_stride_p]
-    # float4 lanes when every 16-byte access is aligned, as `backward_lanes`.
+    # Lanes of 4 channels (16 bytes of float32, 8 of bfloat16) and float4
+    # atomics when every such access is aligned, as `backward_lanes`.
     aligned = (c_a % 4 == 0 and c_b % 4 == 0 and all(t % 4 == 0 for t in strides)
-               and all(p % 16 == 0 for p in ptrs))
+               and all(p % (4 * itemsize) == 0 for p in ptrs)
+               and all(p % 16 == 0 for p in grad_ptrs))
     lib = _lib("bilinear_gather_backward")
     _launch(
         lib, lib.ngf_bilinear_gather_planes_backward_coords, planes[0].get_device(),
@@ -535,6 +552,7 @@ def bilinear_gather_planes_backward_coords(
         (ctypes.c_longlong * len(desc))(*desc), P,
         flat_a.data_ptr(), flat_a.stride(0), flat_a.stride(1), c_a,
         b_ptr or None, b_stride_n, b_stride_p, c_b, n, out.data_ptr(), 4 if aligned else 1,
+        _GATHER_DTYPES[dtype],
     )
     bilinear_gather_planes_backward_coords.launches += 1
     return out.reshape(*batch_shape, P, 2)
@@ -543,13 +561,15 @@ def bilinear_gather_planes_backward_coords(
 bilinear_gather_planes_backward_coords.launches = 0
 
 
-def backward_coords_footprint(vec: int = 4) -> dict:
+def backward_coords_footprint(vec: int = 4, dtype: torch.dtype = torch.float32) -> dict:
     """K2c's footprint on the current card: the 256-thread blocks an SM
     holds at once, registers a thread and local (spilled) bytes a thread of
-    its ``vec``-lane variant (4 or 1)."""
+    its variant of ``vec``-channel lanes (4 or 1) over float32 or bfloat16
+    values and cotangents."""
     lib = _lib("bilinear_gather_backward")
     out = (ctypes.c_int * 3)()
-    code = lib.ngf_bilinear_gather_planes_backward_coords_footprint(vec, out)
+    code = lib.ngf_bilinear_gather_planes_backward_coords_footprint(vec, _GATHER_DTYPES[dtype],
+                                                                    out)
     if code:
         raise RuntimeError(f"K2c footprint: CUDA error {code} "
                            f"({lib.ngf_cuda_error_string(code).decode()})")

@@ -19,7 +19,12 @@ versions below. There is no fallback between the two.
 
 A fetch names its channels of the whole plane (``channels``), so its
 gradient lands in those channels of the whole plane's gradient: no slice is
-copied either way, and both outputs of a plane add into one buffer.
+copied either way, and both outputs of a plane add into one buffer. A fetch
+in another compute dtype (bfloat16 training) casts the float32 planes
+inside the fetch, once per call: the kernels read the bfloat16 values and
+the bfloat16 cotangents as they are and add the plane gradient in float32
+straight into the float32 planes' gradients, with no rounding to bfloat16
+on the way back.
 
 ``occupancy_lookup`` is the trilinear alpha-mask test ``> 0``: the
 ``occupancy_lookup`` kernel (K3) on CUDA tensors, ``occupancy_lookup_plain``
@@ -108,7 +113,8 @@ def grid_sample_2d_backward_plain(
     explicit form of the plane branch of `ngf_tpu/ops/grid_sample.py:421-501`.
 
     Args:
-      g: (..., C) gradient of the gather's output.
+      g: (..., C) gradient of the gather's output, float32 or bfloat16
+        (widened to float32, as the kernel does).
       coords: (..., 2) the gather's coordinates.
       grad_plane: (H, W, C_total) float32, contiguous.
     """
@@ -152,9 +158,11 @@ def grid_sample_2d_backward_coords_plain(
     and gy likewise with (H-1)/2.
 
     Args:
-      plane: (H, W, C), the fetched channels (a slice of a wider plane is fine).
+      plane: (H, W, C), the fetched channels (a slice of a wider plane is
+        fine), float32 or bfloat16.
       coords: (..., 2) the fetch's coordinates.
-      g: (..., C) the gradient of the fetch's output.
+      g: (..., C) the gradient of the fetch's output, float32 or bfloat16;
+        the tap sums run in float32 either way, as in the kernel.
 
     Returns:
       (..., 2) float32.
@@ -192,8 +200,9 @@ def grid_sample_planes_backward_coords_plain(
     gradient, summed over the two outputs.
 
     Args:
-      planes, coords, grads: as many (H_p, W_p, C_total) values, (..., 2)
-        coordinates and float32 (H_p, W_p, C_total) gradients.
+      planes, coords, grads: as many (H_p, W_p, C_total) values (float32 or
+        bfloat16), (..., 2) coordinates and float32 (H_p, W_p, C_total)
+        gradients.
       g_a, g_b: (..., P, C_a) over channels ``channel_offset : channel_offset
         + split`` and (..., P, C_b) over the next C_b, either None.
       split: where g_b's channels start; g_a's width by default.
@@ -234,29 +243,35 @@ def grid_sample_planes_plain(
 
 
 class _BilinearGatherPlanes(torch.autograd.Function):
-    """``grid_sample_planes`` of channels ``c0:c1``, split at ``split``: one
-    launch of the gather kernel (CUDA) or its plain version (CPU) forward.
-    Backward, each plane's gradient in one float32 (H, W, C) buffer: where
-    only the planes need a gradient, the backward kernel (CUDA) or its plain
+    """``grid_sample_planes`` of channels ``c0:c1``, split at ``split``, of
+    the planes' values in ``dtype`` (a copy of each plane where it is
+    another; None keeps the planes' own): one launch of the gather kernel
+    (CUDA) or its plain version (CPU) forward. Backward, each plane's
+    gradient in one float32 (H, W, C) buffer, whatever ``dtype``: where only
+    the planes need a gradient, the backward kernel (CUDA) or its plain
     version (CPU) adds each output's channels into it; where any plane's
     coordinates need one too (the learned gauge), K2c (CUDA, one launch for
     both gradients of every plane and both outputs) or its plain version
-    (CPU) gives both."""
+    (CPU) gives both, from the values the forward fetched. The cotangents
+    reach the kernels in the dtype they come in."""
 
     @staticmethod
-    def forward(ctx, c0, c1, split, *tensors):
+    def forward(ctx, c0, c1, split, dtype, *tensors):
         P = len(tensors) // 2
         planes, coords = tensors[:P], tensors[P:]
+        values = planes
+        if dtype is not None and dtype != planes[0].dtype:
+            values = tuple(p.to(dtype) for p in planes)
         if not planes[0].is_cuda:
-            out_a, out_b = grid_sample_planes_plain(planes, coords, slice(c0, c1), split)
+            out_a, out_b = grid_sample_planes_plain(values, coords, slice(c0, c1), split)
         elif P == 1 and split is None:
-            out_a, out_b = cuda_kernels.bilinear_gather_2d(planes[0][..., c0:c1], coords[0]), None
+            out_a, out_b = cuda_kernels.bilinear_gather_2d(values[0][..., c0:c1], coords[0]), None
             out_a = out_a.unsqueeze(-2)
         else:
-            out_a, out_b = cuda_kernels.bilinear_gather_planes(planes, coords, slice(c0, c1), split)
-        coord_grads = any(ctx.needs_input_grad[3 + P:])
-        ctx.save_for_backward(*coords, *(planes if coord_grads else ()))
-        ctx.meta = (c0, out_a.shape[-1], [(p.shape, p.dtype, p.device) for p in planes])
+            out_a, out_b = cuda_kernels.bilinear_gather_planes(values, coords, slice(c0, c1), split)
+        coord_grads = any(ctx.needs_input_grad[4 + P:])
+        ctx.save_for_backward(*coords, *(values if coord_grads else ()))
+        ctx.meta = (c0, out_a.shape[-1], [(p.shape, p.device) for p in planes])
         ctx.set_materialize_grads(False)
         return out_a, out_b
 
@@ -266,21 +281,16 @@ class _BilinearGatherPlanes(torch.autograd.Function):
         c0, split, planes = ctx.meta
         P = len(planes)
         coords, values = saved[:P], saved[P:]
-        need_planes, need_coords = ctx.needs_input_grad[3:3 + P], ctx.needs_input_grad[3 + P:]
-        none = (None,) * (3 + 2 * P)
+        need_planes, need_coords = ctx.needs_input_grad[4:4 + P], ctx.needs_input_grad[4 + P:]
+        none = (None,) * (4 + 2 * P)
         if (g_a is None and g_b is None) or not any(need_planes + need_coords):
             return none
-        _, dtype, device = planes[0]
+        device = planes[0][1]
         cuda = device.type == "cuda"
-        if cuda and dtype != torch.float32:
-            raise NotImplementedError(
-                f"the plane gradient of a {dtype} plane is not ported: see ROADMAP.md "
-                "queue 1, 'bfloat16 training'"
-            )
         coord_grads = [None] * P
         if any(need_coords):
             grads = [torch.zeros(shape, dtype=torch.float32, device=device)
-                     for shape, _, _ in planes]
+                     for shape, _ in planes]
             both = (cuda_kernels.bilinear_gather_planes_backward_coords if cuda
                     else grid_sample_planes_backward_coords_plain)
             cg = both(values, coords, g_a, g_b, grads, c0, split)
@@ -289,18 +299,19 @@ class _BilinearGatherPlanes(torch.autograd.Function):
             scatter = (cuda_kernels.bilinear_gather_2d_backward if cuda
                        else grid_sample_2d_backward_plain)
             grads = [None] * P
-            for i, (shape, _, _) in enumerate(planes):
+            for i, (shape, _) in enumerate(planes):
                 if need_planes[i]:
                     grads[i] = torch.zeros(shape, dtype=torch.float32, device=device)
                     for g, off in ((g_a, c0), (g_b, c0 + split)):
                         if g is not None:
                             scatter(g[..., i, :], coords[i], grads[i], off)
         grads = [g if need else None for g, need in zip(grads, need_planes)]
-        return (None, None, None, *grads, *coord_grads)
+        return (None, None, None, None, *grads, *coord_grads)
 
 
 def grid_sample_planes(
-    planes, coords, channels: slice = slice(None), split: int | None = None
+    planes, coords, channels: slice = slice(None), split: int | None = None,
+    dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Bilinear samples of channels ``channels`` of up to three (H_p, W_p, C)
     planes, each of its own shape and at its own (..., 2) coords in [-1, 1], split
@@ -317,6 +328,11 @@ def grid_sample_planes(
     gauge variant's deformed coordinates),
     ``bilinear_gather_planes_backward_coords`` once for both gradients of
     every plane; CPU planes take the plain versions.
+
+    ``dtype`` (bfloat16 training) fetches the planes' values in that dtype:
+    the planes are cast inside the fetch, the outputs come in ``dtype``, and
+    the plane gradients come back in the planes' own float32, summed in
+    float32 from the cotangents as they come (bfloat16 on that path).
     """
     planes, coords = tuple(planes), tuple(coords)
     device = planes[0].device
@@ -329,7 +345,7 @@ def grid_sample_planes(
         raise ValueError(f"channels must be a non-empty contiguous slice, got {channels}")
     if split is not None and not 0 < split < c1 - c0:
         raise ValueError(f"split {split} outside 1..{c1 - c0 - 1}")
-    return _BilinearGatherPlanes.apply(c0, c1, split, *planes, *coords)
+    return _BilinearGatherPlanes.apply(c0, c1, split, dtype, *planes, *coords)
 
 
 def grid_sample_2d(

@@ -9,7 +9,7 @@
 // writes the coordinate gradient of a fetch of up to three planes (see below
 // the plane branch).
 //
-// Layout. g is (N, C) float32 with rows g_stride_n elements apart. coords are
+// Layout. g is (N, C) float32 or bfloat16 with rows g_stride_n elements apart. coords are
 // (N, 2) float32 with element strides (coord_stride_n, coord_stride_k), as in
 // the forward. grad is the float32 gradient of the whole (H, W, C_total)
 // plane, texels texel_stride (= C_total) elements apart, passed as a pointer
@@ -40,10 +40,23 @@
 //   and no atomic.
 // - V = 4 adds with one float4 atomicAdd (sm_90, 16-byte aligned global
 //   memory); the wrapper picks it when C, the channel offset, the texel
-//   stride, g's row stride and both base pointers are all multiples of 4
-//   floats, and V = 1 (scalar atomics, same code) otherwise.
+//   stride and g's row stride are multiples of 4 elements, g's base pointer
+//   is aligned to a 4-channel load and the gradient's to 16 bytes, and V = 1
+//   (scalar atomics, same code) otherwise.
 // - Threads map to (segment, channel group) with the group count fixed at
 //   launch: one division per thread, none per element.
+// - A bfloat16 g (the bfloat16 recipe's cotangents) is read as it lies, 4
+//   channels an 8-byte load (V = 4) or one (V = 1), and widened to float32
+//   before the multiply; the plane gradient, the sums and the float4
+//   atomics stay float32, and so do the weights. The lanes and threads are
+//   those of float32 at the same C, with half the registers for g: 94
+//   registers, two blocks an SM (an 8-channel lane, two float4 sums a tap,
+//   held 156 registers, one block an SM, and took 1.5 times as long:
+//   PERF.md). The float32 sums round less than the JAX package's bfloat16
+//   fetch, whose vjp multiplies by weights rounded to bfloat16 and
+//   scatter-adds in bfloat16 (tests/test_torch_bf16.py measures both
+//   against a float64 gradient). A bfloat16 gradient buffer would lose the
+//   small taps of a texel's thousands of adds.
 // Adds run in an order that varies from run to run, so the result is
 // deterministic only up to float32 rounding. g goes straight from global
 // memory into registers, SEG loads in flight per thread, sent before the
@@ -60,6 +73,7 @@
 // alone changed little against scalar ones, and the time falls with the tap
 // adds per point that merging saves.
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,21 +89,27 @@ constexpr int MAX_THREADS = 256;
 // Points a block owns at most: 64 segments.
 constexpr int MAX_TILE = 64 * SEG;
 
-template <int V>
+// A lane's V channels of g (or of a plane) of element type G: `T` as they
+// lie in memory, `A` their float32 sums. load reads them, fma adds w * g to
+// the sums, add adds the sums into the float32 gradient (no atomic for an
+// all-zero sum: adding +-0 changes no float), dot is sum_c q_c g_c in float32.
+template <typename G, int V>
 struct Lanes;
 
 template <>
-struct Lanes<4> {
+struct Lanes<float, 4> {
     using T = float4;
-    static __device__ __forceinline__ T zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+    using A = float4;
+    static __device__ __forceinline__ T none() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+    static __device__ __forceinline__ A zero() { return none(); }
     static __device__ __forceinline__ T load(const float* p) {
         return __ldg(reinterpret_cast<const float4*>(p));
     }
-    static __device__ __forceinline__ T fma(float w, T g, T a) {
+    static __device__ __forceinline__ A fma(float w, T g, A a) {
         return make_float4(fmaf(w, g.x, a.x), fmaf(w, g.y, a.y), fmaf(w, g.z, a.z),
                            fmaf(w, g.w, a.w));
     }
-    static __device__ __forceinline__ void add(float* p, T a) {
+    static __device__ __forceinline__ void add(float* p, A a) {
         if (a.x != 0.0f || a.y != 0.0f || a.z != 0.0f || a.w != 0.0f) {
             atomicAdd(reinterpret_cast<float4*>(p), a);
         }
@@ -100,22 +120,66 @@ struct Lanes<4> {
 };
 
 template <>
-struct Lanes<1> {
+struct Lanes<float, 1> {
     using T = float;
-    static __device__ __forceinline__ T zero() { return 0.0f; }
+    using A = float;
+    static __device__ __forceinline__ T none() { return 0.0f; }
+    static __device__ __forceinline__ A zero() { return 0.0f; }
     static __device__ __forceinline__ T load(const float* p) { return __ldg(p); }
-    static __device__ __forceinline__ T fma(float w, T g, T a) { return fmaf(w, g, a); }
-    static __device__ __forceinline__ void add(float* p, T a) {
+    static __device__ __forceinline__ A fma(float w, T g, A a) { return fmaf(w, g, a); }
+    static __device__ __forceinline__ void add(float* p, A a) {
         if (a != 0.0f) atomicAdd(p, a);
     }
     static __device__ __forceinline__ float dot(T a, T b) { return a * b; }
 };
 
+// The bfloat16 of a 32-bit word's low (lower address) or high half, as float.
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+// Four bfloat16 channels a lane, one 8-byte load (the bfloat16 lanes of K2
+// and K2c), whose float32 sums are one float4 as at float32.
+template <>
+struct Lanes<__nv_bfloat16, 4> {
+    using T = uint2;
+    using A = float4;
+    static __device__ __forceinline__ T none() { return make_uint2(0u, 0u); }
+    static __device__ __forceinline__ A zero() { return Lanes<float, 4>::zero(); }
+    static __device__ __forceinline__ T load(const __nv_bfloat16* p) {
+        return __ldg(reinterpret_cast<const uint2*>(p));
+    }
+    static __device__ __forceinline__ A fma(float w, T g, A a) {
+        return make_float4(fmaf(w, bf16_lo(g.x), a.x), fmaf(w, bf16_hi(g.x), a.y),
+                           fmaf(w, bf16_lo(g.y), a.z), fmaf(w, bf16_hi(g.y), a.w));
+    }
+    static __device__ __forceinline__ void add(float* p, A a) { Lanes<float, 4>::add(p, a); }
+    static __device__ __forceinline__ float dot(T a, T b) {
+        return bf16_lo(a.x) * bf16_lo(b.x) + bf16_hi(a.x) * bf16_hi(b.x) +
+               bf16_lo(a.y) * bf16_lo(b.y) + bf16_hi(a.y) * bf16_hi(b.y);
+    }
+};
+
+template <>
+struct Lanes<__nv_bfloat16, 1> {
+    using T = unsigned short;
+    using A = float;
+    static __device__ __forceinline__ T none() { return 0; }
+    static __device__ __forceinline__ A zero() { return 0.0f; }
+    static __device__ __forceinline__ T load(const __nv_bfloat16* p) {
+        return __ldg(reinterpret_cast<const unsigned short*>(p));
+    }
+    static __device__ __forceinline__ A fma(float w, T g, A a) {
+        return fmaf(w, bf16_lo(g), a);
+    }
+    static __device__ __forceinline__ void add(float* p, A a) { Lanes<float, 1>::add(p, a); }
+    static __device__ __forceinline__ float dot(T a, T b) { return bf16_lo(a) * bf16_lo(b); }
+};
+
 // Adds a run's four tap sums at the stencil whose (y0, x0) texel is t00.
 template <typename L>
 __device__ __forceinline__ void add_taps(float* t00, long long right, long long down,
-                                         typename L::T a00, typename L::T a01,
-                                         typename L::T a10, typename L::T a11) {
+                                         typename L::A a00, typename L::A a01,
+                                         typename L::A a10, typename L::A a11) {
     L::add(t00, a00);
     L::add(t00 + right, a01);
     L::add(t00 + down, a10);
@@ -129,9 +193,9 @@ __device__ __forceinline__ void add_taps(float* t00, long long right, long long 
 // measured no faster).
 template <typename L>
 __device__ __forceinline__ void end_run(float* t00, int d, int W, long long right,
-                                        long long down, typename L::T& a00, typename L::T& a01,
-                                        typename L::T& a10, typename L::T& a11) {
-    const typename L::T z = L::zero();
+                                        long long down, typename L::A& a00, typename L::A& a01,
+                                        typename L::A& a10, typename L::A& a11) {
+    const typename L::A z = L::zero();
     float* t01 = t00 + right;
     float* t10 = t00 + down;
     float* t11 = t10 + right;
@@ -170,21 +234,22 @@ __device__ __forceinline__ void end_run(float* t00, int d, int W, long long righ
 }
 
 // Loads g of the n points of a segment, zero past n.
-template <typename L>
-__device__ __forceinline__ void load_segment(typename L::T (&v)[SEG], const float* gp,
+template <typename L, typename G>
+__device__ __forceinline__ void load_segment(typename L::T (&v)[SEG], const G* gp,
                                              long long g_stride_n, int n) {
 #pragma unroll
-    for (int i = 0; i < SEG; ++i) v[i] = i < n ? L::load(gp + i * g_stride_n) : L::zero();
+    for (int i = 0; i < SEG; ++i) v[i] = i < n ? L::load(gp + i * g_stride_n) : L::none();
 }
 
-template <int V>
+template <typename G, int V>
 __global__ void __launch_bounds__(MAX_THREADS) bilinear_gather_2d_backward_kernel(
-    const float* __restrict__ g, long long g_stride_n, int groups, int group_threads,
+    const G* __restrict__ g, long long g_stride_n, int groups, int group_threads,
     const float* __restrict__ coords, long long coord_stride_n,
     long long coord_stride_k, float* __restrict__ grad, int H, int W,
     long long texel_stride, long long N) {
-    using L = Lanes<V>;
+    using L = Lanes<G, V>;
     using T = typename L::T;
+    using A = typename L::A;
     __shared__ int s_start[MAX_TILE];
     __shared__ float4 s_w[MAX_TILE];
 
@@ -195,7 +260,7 @@ __global__ void __launch_bounds__(MAX_THREADS) bilinear_gather_2d_backward_kerne
     const int p0 = seg * SEG;
     const int n = min(SEG, npts - p0);
     int cg = threadIdx.x - seg * group_threads;
-    const float* gp = g + (first + p0) * g_stride_n;
+    const G* gp = g + (first + p0) * g_stride_n;
 
     // The segment's g values first: their loads are in flight while the
     // block computes the stencils.
@@ -216,7 +281,7 @@ __global__ void __launch_bounds__(MAX_THREADS) bilinear_gather_2d_backward_kerne
     const long long down = (long long)W * texel_stride;
     while (true) {
         float* dst = grad + cg * V;
-        T a00 = L::zero(), a01 = L::zero(), a10 = L::zero(), a11 = L::zero();
+        A a00 = L::zero(), a01 = L::zero(), a10 = L::zero(), a11 = L::zero();
         int run = s_start[p0];
 #pragma unroll
         for (int i = 0; i < SEG; ++i) {
@@ -243,8 +308,8 @@ __global__ void __launch_bounds__(MAX_THREADS) bilinear_gather_2d_backward_kerne
     }
 }
 
-template <int V>
-int launch(const float* g, long long g_stride_n, int C, const float* coords,
+template <typename G, int V>
+int launch(const G* g, long long g_stride_n, int C, const float* coords,
            long long coord_stride_n, long long coord_stride_k, float* grad, int H, int W,
            long long texel_stride, long long N, cudaStream_t stream) {
     const int groups = C / V;
@@ -252,7 +317,7 @@ int launch(const float* g, long long g_stride_n, int C, const float* coords,
     const int segs = min(MAX_THREADS / group_threads, MAX_TILE / SEG);
     const long long tile = (long long)segs * SEG;
     const long long blocks = (N + tile - 1) / tile;
-    bilinear_gather_2d_backward_kernel<V><<<(unsigned)blocks, segs * group_threads, 0, stream>>>(
+    bilinear_gather_2d_backward_kernel<G, V><<<(unsigned)blocks, segs * group_threads, 0, stream>>>(
         g, g_stride_n, groups, group_threads, coords, coord_stride_n, coord_stride_k, grad, H,
         W, texel_stride, N);
     return (int)cudaGetLastError();
@@ -321,6 +386,18 @@ int launch(const float* g, long long g_stride_n, int C, const float* coords,
 // Like the plane branch, it waits on the L2's atomics; on random points,
 // where every point starts a new stencil and three planes' gradients exceed
 // the L2, it reaches 16%.
+//
+// bfloat16 (the learned gauge's bfloat16 recipe). The fetched planes' values
+// and both cotangents are bfloat16 (the values are the very copy the forward
+// fetched, so the backward sees the forward's texels); the coordinates, the
+// weights, the tap sums t_j, the coordinate gradient and the plane gradients
+// stay float32. A lane holds 4 channels, one 8-byte load of g or of a tap
+// (V = 4, not 8): the lane grouping of the float32 variant (16 lanes a point
+// at C = 64), float4 atomics as there, and half its registers for taps and
+// ring slots, so the variant keeps three blocks an SM; the ring's slots are
+// 8 bytes. Where an access is not 8-byte aligned, one channel a lane (V = 1):
+// cp.async copies 4, 8 or 16 bytes, so that variant's 2-byte g goes through
+// its ring slot by an ordinary load and store.
 
 // The consecutive points a K2c lane walks, the blocks meant to share an SM
 // and the slots of a lane's ring of g values in shared memory. PERF.md
@@ -334,7 +411,7 @@ constexpr int COORD_TILE = 16 * COORD_SEG;
 constexpr int MAX_PLANES = 3;
 
 struct CoordPlanes {
-    const float* plane[MAX_PLANES];  // values, offset to the first fetched channel
+    const void* plane[MAX_PLANES];   // values (g's type), offset to the first fetched channel
     float* grad[MAX_PLANES];         // gradient, offset alike
     const float* coords[MAX_PLANES];
     long long coord_stride_n[MAX_PLANES];
@@ -355,11 +432,11 @@ __device__ __forceinline__ X pick(const X (&a)[MAX_PLANES], int p) {
 // The four taps of the stencil at texel s. A step of d = s - run = +-1 or
 // +-W keeps the two taps the new stencil shares with the last one; d = 0
 // (no last stencil) or any other step loads all four.
-template <typename L>
-__device__ __forceinline__ void load_taps(const float* src, int s, int d, int W, int right,
+template <typename L, typename G>
+__device__ __forceinline__ void load_taps(const G* src, int s, int d, int W, int right,
                                           int down, typename L::T& q00, typename L::T& q01,
                                           typename L::T& q10, typename L::T& q11) {
-    const float* t = src + (long long)s * right;
+    const G* t = src + (long long)s * right;
     if (d == 1) {  // x + 1: the x1 column becomes the x0 column
         q00 = q01;
         q10 = q11;
@@ -397,15 +474,27 @@ __host__ __device__ inline int coord_group_threads(int groups) {
     return t;
 }
 
-template <int V>
+// One element of g into the lane's ring slot: by cp.async where the element
+// is 4, 8 or 16 bytes, else by the thread itself (it alone reads the slot).
+template <typename T>
+__device__ __forceinline__ void copy_ahead(T* dst, const T* src) {
+    if constexpr (sizeof(T) >= 4) {
+        __pipeline_memcpy_async(dst, src, sizeof(T));
+    } else {
+        *dst = *src;
+    }
+}
+
+template <typename G, int V>
 __global__ void __launch_bounds__(MAX_THREADS, COORD_BLOCKS_PER_SM)
     bilinear_gather_planes_backward_coords_kernel(
-        const CoordPlanes pl, const float* __restrict__ g_a, long long ga_stride_n,
-        long long ga_stride_p, int groups_a, const float* __restrict__ g_b,
+        const CoordPlanes pl, const G* __restrict__ g_a, long long ga_stride_n,
+        long long ga_stride_p, int groups_a, const G* __restrict__ g_b,
         long long gb_stride_n, long long gb_stride_p, int groups, int group_threads, int passes,
         long long N, float2* __restrict__ coord_grad) {
-    using L = Lanes<V>;
+    using L = Lanes<G, V>;
     using T = typename L::T;
+    using A = typename L::A;
     __shared__ int s_start[COORD_TILE];
     __shared__ float4 s_w[COORD_TILE];
     __shared__ float4 s_kx[COORD_TILE];
@@ -461,26 +550,26 @@ __global__ void __launch_bounds__(MAX_THREADS, COORD_BLOCKS_PER_SM)
         const int nv = cg < groups ? n : 0;
         const bool in_a = cg < groups_a;
         const long long gs = in_a ? ga_stride_n : gb_stride_n;
-        const float* gp = (in_a ? g_a + p * ga_stride_p + cg * V
-                                : g_b + p * gb_stride_p + (cg - groups_a) * V) +
-                          (first + p0) * gs;
+        const G* gp = (in_a ? g_a + p * ga_stride_p + cg * V
+                            : g_b + p * gb_stride_p + (cg - groups_a) * V) +
+                      (first + p0) * gs;
         float* dst = pick(pl.grad, p) + cg * V;
-        const float* src = pick(pl.plane, p) + cg * V;
-        T a00 = L::zero(), a01 = L::zero(), a10 = L::zero(), a11 = L::zero();
-        T q00 = L::zero(), q01 = L::zero(), q10 = L::zero(), q11 = L::zero();
+        const G* src = static_cast<const G*>(pick(pl.plane, p)) + cg * V;
+        A a00 = L::zero(), a01 = L::zero(), a10 = L::zero(), a11 = L::zero();
+        T q00 = L::none(), q01 = L::none(), q10 = L::none(), q11 = L::none();
         // The lane's g values pass through its ring of STAGES slots in
         // shared memory: the copy of point i + STAGES - 1 goes out before
         // point i is used.
         T* ring = &s_g[0][threadIdx.x];
         for (int k = 0; k < STAGES - 1; ++k) {
-            if (k < nv) __pipeline_memcpy_async(ring + k * MAX_THREADS, gp + k * gs, sizeof(T));
+            if (k < nv) copy_ahead(ring + k * MAX_THREADS, reinterpret_cast<const T*>(gp + k * gs));
             __pipeline_commit();
         }
         int run = -1;
         for (int i = 0; i < COORD_SEG; ++i) {
             const int k = i + STAGES - 1;
             if (k < nv) {
-                __pipeline_memcpy_async(ring + (k % STAGES) * MAX_THREADS, gp + k * gs, sizeof(T));
+                copy_ahead(ring + (k % STAGES) * MAX_THREADS, reinterpret_cast<const T*>(gp + k * gs));
             }
             __pipeline_commit();
             __pipeline_wait_prior(STAGES - 1);
@@ -535,9 +624,9 @@ __global__ void __launch_bounds__(MAX_THREADS, COORD_BLOCKS_PER_SM)
     }
 }
 
-template <int V>
-int launch_coords(const CoordPlanes& pl, int P, const float* g_a, long long ga_stride_n,
-                  long long ga_stride_p, int c_a, const float* g_b, long long gb_stride_n,
+template <typename G, int V>
+int launch_coords(const CoordPlanes& pl, int P, const G* g_a, long long ga_stride_n,
+                  long long ga_stride_p, int c_a, const G* g_b, long long gb_stride_n,
                   long long gb_stride_p, int c_b, long long N, float* coord_grad,
                   cudaStream_t stream) {
     const int groups_a = c_a / V;
@@ -547,7 +636,7 @@ int launch_coords(const CoordPlanes& pl, int P, const float* g_a, long long ga_s
     const int segs = min(MAX_THREADS / group_threads, COORD_TILE / COORD_SEG);
     const long long tile = (long long)segs * COORD_SEG;
     const dim3 grid((unsigned)((N + tile - 1) / tile), (unsigned)P);
-    bilinear_gather_planes_backward_coords_kernel<V><<<grid, segs * group_threads, 0, stream>>>(
+    bilinear_gather_planes_backward_coords_kernel<G, V><<<grid, segs * group_threads, 0, stream>>>(
         pl, g_a, ga_stride_n, ga_stride_p, groups_a, g_b, gb_stride_n, gb_stride_p, groups,
         group_threads, passes, N, reinterpret_cast<float2*>(coord_grad));
     return (int)cudaGetLastError();
@@ -557,24 +646,39 @@ int launch_coords(const CoordPlanes& pl, int P, const float* g_a, long long ga_s
 
 extern "C" {
 
-// Adds the gradient of N points into grad (see above). vec = 4 takes float4
-// loads and atomics and needs C, g_stride_n, texel_stride and both pointers
-// 16-byte aligned; vec = 1 takes any layout. Launches on `stream` and returns
-// the cudaError_t of the launch (0 on success). N and C must be > 0 and
-// H * W < 2^31.
-int ngf_bilinear_gather_2d_backward(const float* g, long long g_stride_n, int C,
+// Adds the gradient of N points into grad (see above). g is float32 (dtype
+// 0) or bfloat16 (dtype 1); grad is float32. vec = 4 takes 4-channel loads
+// of g (16 bytes in float32, 8 in bfloat16) and float4 atomics and needs C,
+// g_stride_n, the channel offset and texel_stride multiples of 4, g aligned
+// to a load and grad to 16 bytes; vec = 1 takes any layout. Launches
+// on `stream` and returns the cudaError_t of the launch (0 on success). N and
+// C must be > 0 and H * W < 2^31.
+int ngf_bilinear_gather_2d_backward(const void* g, long long g_stride_n, int C,
                                     const float* coords, long long coord_stride_n,
                                     long long coord_stride_k, float* grad, int H, int W,
-                                    long long texel_stride, long long N, int vec,
+                                    long long texel_stride, long long N, int vec, int dtype,
                                     void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (vec == 4 && C % 4 == 0) {
-        return launch<4>(g, g_stride_n, C, coords, coord_stride_n, coord_stride_k, grad, H, W,
-                         texel_stride, N, s);
-    }
-    if (vec == 1) {
-        return launch<1>(g, g_stride_n, C, coords, coord_stride_n, coord_stride_k, grad, H, W,
-                         texel_stride, N, s);
+    if (dtype == 0) {
+        const float* gf = static_cast<const float*>(g);
+        if (vec == 4 && C % 4 == 0) {
+            return launch<float, 4>(gf, g_stride_n, C, coords, coord_stride_n, coord_stride_k,
+                                    grad, H, W, texel_stride, N, s);
+        }
+        if (vec == 1) {
+            return launch<float, 1>(gf, g_stride_n, C, coords, coord_stride_n, coord_stride_k,
+                                    grad, H, W, texel_stride, N, s);
+        }
+    } else if (dtype == 1) {
+        const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(g);
+        if (vec == 4 && C % 4 == 0) {
+            return launch<__nv_bfloat16, 4>(gb, g_stride_n, C, coords, coord_stride_n,
+                                            coord_stride_k, grad, H, W, texel_stride, N, s);
+        }
+        if (vec == 1) {
+            return launch<__nv_bfloat16, 1>(gb, g_stride_n, C, coords, coord_stride_n,
+                                            coord_stride_k, grad, H, W, texel_stride, N, s);
+        }
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -586,21 +690,25 @@ int ngf_bilinear_gather_2d_backward(const float* g, long long g_stride_n, int C,
 // fetch's first channel), the coordinates' pointer and two element strides,
 // and the plane's H and W. g_a holds channels 0 : c_a of the fetch and g_b
 // channels c_a : c_a + c_b (g_b may be null with c_b = 0), each with a point
-// and a plane stride. vec = 4 takes float4 loads and atomics and needs c_a,
-// c_b, every stride but the coordinates' and every pointer but theirs
-// 16-byte aligned; vec = 1 takes any layout. Launches on `stream` and
-// returns the cudaError_t of the launch (0 on success). 1 <= P <= 3, N and
-// c_a > 0, every H, W >= 2 and every plane's and gradient's H * W * texel
-// stride < 2^31.
+// and a plane stride. The planes' values and g_a, g_b are float32 (dtype 0)
+// or bfloat16 (dtype 1); the gradients and coordinates float32. vec = 4
+// takes 4-channel loads (16 bytes in float32, 8 in bfloat16) and float4
+// atomics and needs c_a, c_b and every stride but the coordinates' multiples
+// of 4, the values' and g's pointers aligned to a load and the gradients' to
+// 16 bytes; vec = 1 takes any layout. Launches on `stream` and returns the
+// cudaError_t of the launch (0 on success). 1 <= P <= 3, N and c_a > 0,
+// every H, W >= 2 and every plane's and gradient's H * W * texel stride <
+// 2^31.
 int ngf_bilinear_gather_planes_backward_coords(
-    const long long* desc, int P, const float* g_a, long long ga_stride_n,
-    long long ga_stride_p, int c_a, const float* g_b, long long gb_stride_n,
-    long long gb_stride_p, int c_b, long long N, float* coord_grad, int vec, void* stream) {
+    const long long* desc, int P, const void* g_a, long long ga_stride_n,
+    long long ga_stride_p, int c_a, const void* g_b, long long gb_stride_n,
+    long long gb_stride_p, int c_b, long long N, float* coord_grad, int vec, int dtype,
+    void* stream) {
     if (P < 1 || P > MAX_PLANES) return (int)cudaErrorInvalidValue;
     CoordPlanes pl = {};
     for (int p = 0; p < P; ++p) {
         const long long* d = desc + 9 * p;
-        pl.plane[p] = reinterpret_cast<const float*>(d[0]);
+        pl.plane[p] = reinterpret_cast<const void*>(d[0]);
         pl.plane_stride[p] = (int)d[1];
         pl.grad[p] = reinterpret_cast<float*>(d[2]);
         pl.grad_stride[p] = (int)d[3];
@@ -611,25 +719,45 @@ int ngf_bilinear_gather_planes_backward_coords(
         pl.W[p] = (int)d[8];
     }
     cudaStream_t s = (cudaStream_t)stream;
-    if (vec == 4 && c_a % 4 == 0 && c_b % 4 == 0) {
-        return launch_coords<4>(pl, P, g_a, ga_stride_n, ga_stride_p, c_a, g_b, gb_stride_n,
-                                gb_stride_p, c_b, N, coord_grad, s);
+    const bool four = vec == 4 && c_a % 4 == 0 && c_b % 4 == 0;
+    if (dtype == 0 && (four || vec == 1)) {
+        const float* a = static_cast<const float*>(g_a);
+        const float* b = static_cast<const float*>(g_b);
+        return four ? launch_coords<float, 4>(pl, P, a, ga_stride_n, ga_stride_p, c_a, b,
+                                              gb_stride_n, gb_stride_p, c_b, N, coord_grad, s)
+                    : launch_coords<float, 1>(pl, P, a, ga_stride_n, ga_stride_p, c_a, b,
+                                              gb_stride_n, gb_stride_p, c_b, N, coord_grad, s);
     }
-    if (vec == 1) {
-        return launch_coords<1>(pl, P, g_a, ga_stride_n, ga_stride_p, c_a, g_b, gb_stride_n,
-                                gb_stride_p, c_b, N, coord_grad, s);
+    if (dtype == 1 && (four || vec == 1)) {
+        const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(g_a);
+        const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(g_b);
+        return four ? launch_coords<__nv_bfloat16, 4>(pl, P, a, ga_stride_n, ga_stride_p, c_a, b,
+                                                      gb_stride_n, gb_stride_p, c_b, N,
+                                                      coord_grad, s)
+                    : launch_coords<__nv_bfloat16, 1>(pl, P, a, ga_stride_n, ga_stride_p, c_a, b,
+                                                      gb_stride_n, gb_stride_p, c_b, N,
+                                                      coord_grad, s);
     }
     return (int)cudaErrorInvalidValue;
 }
 
-// The footprint of K2c's vec-lane variant on this card: out[0] the blocks
-// of 256 threads an SM holds at once, out[1] its registers a thread, out[2]
-// its local memory a thread in bytes (spills; 0 without). Returns the
+// The footprint of K2c's variant of `vec`-channel lanes and element type
+// `dtype` (0 float32, 1 bfloat16) on this card: out[0] the blocks of 256
+// threads an SM holds at once, out[1] its registers a thread, out[2] its
+// local memory a thread in bytes (spills; 0 without). Returns the
 // cudaError_t of the queries.
-int ngf_bilinear_gather_planes_backward_coords_footprint(int vec, int* out) {
-    const void* fn = vec == 4
-        ? reinterpret_cast<const void*>(bilinear_gather_planes_backward_coords_kernel<4>)
-        : reinterpret_cast<const void*>(bilinear_gather_planes_backward_coords_kernel<1>);
+int ngf_bilinear_gather_planes_backward_coords_footprint(int vec, int dtype, int* out) {
+    const void* fn;
+    if (dtype == 0) {
+        fn = vec == 4
+            ? reinterpret_cast<const void*>(bilinear_gather_planes_backward_coords_kernel<float, 4>)
+            : reinterpret_cast<const void*>(bilinear_gather_planes_backward_coords_kernel<float, 1>);
+    } else {
+        fn = vec == 4 ? reinterpret_cast<const void*>(
+                            bilinear_gather_planes_backward_coords_kernel<__nv_bfloat16, 4>)
+                      : reinterpret_cast<const void*>(
+                            bilinear_gather_planes_backward_coords_kernel<__nv_bfloat16, 1>);
+    }
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, fn);
     if (err != cudaSuccess) return (int)err;

@@ -22,8 +22,15 @@ Differences from the JAX trainer:
   grid's uint8 copy.
 - The shrink and upsample events replace the planes with new leaf tensors
   (contiguous crops and resizes) and rebuild the optimizer over them.
-- Not ported yet, and refused with a pointer to ROADMAP.md: ``compute_dtype
-  bfloat16``, ``rgb_cap != 0``, resume, data-parallel meshes.
+- ``compute_dtype bfloat16`` trains as the JAX package does: float32
+  parameters and Adam, the planes' values fetched in bfloat16 (the gauge
+  grids in float32), bfloat16 decoders with float32 products, float32
+  densities, colours and losses. The trainer's steps, its run and its
+  evaluation renderer turn off cuBLAS's bfloat16 partial-sum reduction and
+  TF32 while they run (``utils.precision.float32_accumulation``), which
+  PyTorch allows by default and the JAX package never does.
+- Not ported yet, and refused with a pointer to ROADMAP.md: ``rgb_cap !=
+  0``, resume, data-parallel meshes.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from ..render.volume import RenderConfig, render_rays
 from ..utils.checkpoint import save_checkpoint
 from ..utils.grid import cal_n_samples, grid_n_samples, grid_step_size, n_to_reso
 from ..utils.metrics import mse2psnr, tv_loss_2d
+from ..utils.precision import float32_accumulation
 from .occupancy import (
     AlphaGrid,
     auto_sample_cap,
@@ -92,8 +100,8 @@ def check_ported(args: TrainArgs) -> None:
             "Ortho_weight > 0: the reference's vector_comp_diffs is dead code for "
             "tri-plane models; no equivalent is defined."
         )
-    if args.compute_dtype != "float32":
-        raise _not_ported(f"compute_dtype {args.compute_dtype} in training", "queue 1, 'bfloat16 training'")
+    if args.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {args.compute_dtype!r}: float32 or bfloat16")
     if args.rgb_cap != 0:
         raise _not_ported(f"rgb_cap {args.rgb_cap} (top-K shading) in training",
                           "queue 1, 'rgb_cap and mask_stride'")
@@ -249,6 +257,7 @@ class TriPlaneTrainer:
 
     # ------------------------------------------------------------------ step
 
+    @float32_accumulation()
     def loss_fn(self, rays, rgbs, generator=None, sample_fn=None):
         """MSE + L1 (+ TV) of one batch (`ngf_tpu/train/loop.py:444-482`).
         Returns (loss, mse)."""
@@ -274,6 +283,7 @@ class TriPlaneTrainer:
                     loss = loss + tv_app * 1e-2 * tv_loss_2d(self.params[name][..., dd:])
         return loss, mse
 
+    @float32_accumulation()
     def compute_grads(self, rays, rgbs, generator=None, sample_fn=None) -> torch.Tensor:
         """Gradients of one batch into the parameters' ``.grad``, averaged
         over ``microbatch`` equal chunks whose backward runs before the next
@@ -447,6 +457,7 @@ class TriPlaneTrainer:
 
     # ------------------------------------------------------------------ run
 
+    @float32_accumulation()
     def run(self) -> dict:
         """Train to ``n_iters`` with logs, periodic evaluation, mask events
         and checkpoints, then save ``model.npz``
@@ -548,6 +559,7 @@ class TriPlaneTrainer:
         params, model_cfg, device, alpha_kw = self.params, self.model_cfg, self.device, self._alpha_kw()
 
         @torch.inference_mode()
+        @float32_accumulation()
         def render(rays):
             out = render_rays(params, model_cfg, rcfg, rays.to(device), iteration=it, **alpha_kw)
             return out["rgb_map"], out["depth_map"]

@@ -12,7 +12,10 @@ the gather over planes of three shapes (the learned gauge after its shrink
 and upsample), and K2c ``bilinear_gather_planes_backward_coords`` (the plane
 and coordinate gradients of a fetch of 1 to 3 planes in one launch) alone,
 its footprint (three blocks an SM), through autograd and in a gauge train
-step.
+step; K2 and K2c on bfloat16 cotangents and planes (both lane widths,
+aligned and unaligned strides, the gauge's three shapes), their footprint,
+the bfloat16 fetch through autograd, a bfloat16 gauge train step and the
+bfloat16 decoder layer's float32 product.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports neither JAX nor `ngf_tpu`, so it runs on a GPU machine
@@ -25,7 +28,10 @@ order); bfloat16 one unit in the last place, at most 2^-7 of the value, since
 both round one float32 sum; rendered outputs 1e-4; plane gradients 1e-5 of
 the largest gradient (float32 atomics add in another order), and so the
 coordinate gradients (their tap sums run over the channels in another
-order); row gathers,
+order), from bfloat16 cotangents and planes too (kernel and plain version
+widen the same bfloat16 values and sum in float32); a bfloat16 train step
+against the plain sampler 3e-2 of each leaf's largest gradient (see the
+test); row gathers,
 occupancy lookups and the grouped front end byte for byte (a NaN output
 against a NaN, whatever its payload).
 """
@@ -361,11 +367,11 @@ def test_planes_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 def test_coordinate_gradient_on_the_card_raises(cuda):
-    """The coordinate gradient of a bfloat16 plane is not ported: its
-    backward raises, naming ROADMAP.md (float32 planes go through K2c)."""
-    plane = torch.zeros((4, 4, 3), device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    """A float16 plane is not taken: the fetch raises before any launch
+    (float32 and bfloat16 planes go through K1, K2 and K2c)."""
+    plane = torch.zeros((4, 4, 3), device=cuda, dtype=torch.float16, requires_grad=True)
     coords = torch.zeros((5, 2), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="bfloat16"):
         gs.grid_sample_2d(plane, coords).float().sum().backward()
 
 
@@ -728,7 +734,7 @@ def test_coords_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         ([p.cpu()], [c.cpu()], ga.cpu(), None, [p.cpu()], 0),  # not on the card
         ([p], [c], None, None, [p], 0),  # no cotangent
         ([p], [c], None, ga, [p], 0),  # g_b alone without its split
-        ([p.bfloat16()], [c], ga, None, [p], 0),  # plane not float32
+        ([p.bfloat16()], [c], ga, None, [p], 0),  # bfloat16 plane, float32 cotangent
         ([p], [c], ga, None, [torch.zeros((4, 6, 8), device=cuda)], 0),  # shapes differ
         ([p], [c], ga, None, [p], 1),  # channels past the plane
         ([p], [c], ga[:5], None, [p], 0),  # cotangent rows
@@ -817,3 +823,215 @@ def test_gauge_train_step_launches_and_matches_plain(cuda):
         scale = want.abs().max().item()
         assert scale > 0, k
         assert (results["kernels"][1][k] - want).abs().max().item() <= 1e-3 * scale, k
+
+
+@pytest.mark.parametrize("case", [
+    "aligned", "density_offset_0", "strided_g_aligned", "strided_g_unaligned", "scalar_lanes",
+    "outside", "runs_across_tiles",
+])
+def test_backward_kernel_bf16_matches_plain(cuda, case):
+    """K2 on a bfloat16 cotangent against its plain version on the same
+    values (both widen to float32), 1e-5 of the largest gradient, into a
+    prefilled float32 buffer; 4-channel lanes where g's offset and stride
+    allow 8-byte loads, scalar otherwise."""
+    g = torch.Generator(device=cuda).manual_seed(30)
+    coords, grad_out, c0 = _k2_inputs(case, g, cuda)
+    n, C = grad_out.shape
+    start = {"strided_g_aligned": 4, "strided_g_unaligned": 1}.get(case)
+    if start is None:
+        grad_out = torch.randn((n, C), generator=g, device=cuda).bfloat16()
+    else:  # rows 104 channels apart, from channel 4 (8 bytes in) or 1 (2 bytes in)
+        grad_out = torch.randn((n, 104), generator=g, device=cuda).bfloat16()[:, start:start + C]
+    want_lanes = 1 if case in ("strided_g_unaligned", "scalar_lanes") else 4
+    assert cuda_kernels.backward_lanes(C, c0, 96, grad_out.stride(0), grad_out.data_ptr(),
+                                       16 * 96, torch.bfloat16) == want_lanes
+    prefill = torch.randn((64, 64, 96), generator=g, device=cuda)
+    got, want = prefill.clone(), prefill.clone()
+    before = cuda_kernels.bilinear_gather_2d_backward.launches
+    cuda_kernels.bilinear_gather_2d_backward(grad_out, coords, got, c0)
+    assert cuda_kernels.bilinear_gather_2d_backward.launches == before + 1
+    gs.grid_sample_2d_backward_plain(grad_out, coords, want, c0)
+    scale = (want - prefill).abs().max().item()
+    err = (got - want).abs().max().item()
+    assert scale > 0 and err <= 1e-5 * scale, f"max abs err {err} of largest {scale}"
+    outside = torch.ones(96, dtype=torch.bool)
+    outside[c0 : c0 + C] = False
+    assert torch.equal(got[..., outside], prefill[..., outside])
+
+
+@pytest.mark.parametrize("case", ["split_16", "unaligned", "random_coords", "one_cotangent",
+                                  "scalar_lanes", "one_plane", "second_output_only"])
+def test_coords_kernel_bf16_matches_plain(cuda, case):
+    """K2c over bfloat16 values and cotangents of 1 to 3 planes of the
+    gauge's three shapes against its plain version on the same values:
+    each float32 plane and coordinate gradient to 1e-5 of its largest; the
+    cotangents as strided views, 8-byte aligned or not."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    planes, coords, g_a, g_b, c0, split = _coords_case(
+        {"unaligned": "split_16"}.get(case, case), g, cuda)
+    planes = [p.bfloat16() for p in planes]
+    n, P = coords[0].shape[0], len(planes)
+
+    def bf16(t, pad):
+        if t is None:
+            return None
+        wide = torch.randn((n, P, t.shape[-1] + pad), generator=g, device=cuda).bfloat16()
+        return wide[..., pad:] if case == "unaligned" else wide[..., :t.shape[-1]]
+
+    g_a, g_b = bf16(g_a, 3 if case == "unaligned" else 4), bf16(g_b, 3 if case == "unaligned" else 4)
+    grads = [torch.zeros(p.shape, device=cuda) for p in planes]
+    before = cuda_kernels.bilinear_gather_planes_backward_coords.launches
+    got = cuda_kernels.bilinear_gather_planes_backward_coords(planes, coords, g_a, g_b, grads,
+                                                             c0, split)
+    assert cuda_kernels.bilinear_gather_planes_backward_coords.launches == before + 1
+    want_grads = [torch.zeros(p.shape, device=cuda) for p in planes]
+    want = gs.grid_sample_planes_backward_coords_plain(planes, coords, g_a, g_b, want_grads, c0,
+                                                      split)
+    assert got.dtype == torch.float32 and all(t.dtype == torch.float32 for t in grads)
+    for a, b in (*zip(grads, want_grads), (got, want)):
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        assert scale > 0 and err <= 1e-5 * scale, f"max abs err {err} of largest {scale}"
+
+
+def test_coords_kernel_bf16_fits_three_blocks_an_sm(cuda):
+    """K2c's bfloat16 variant of 4-channel lanes: three 256-thread blocks an
+    SM and no spills, as the float32 one."""
+    fp = cuda_kernels.backward_coords_footprint(4, torch.bfloat16)
+    assert fp["blocks_per_sm"] >= 3 and fp["registers"] <= 80 and fp["local_bytes"] == 0, fp
+
+
+def test_bf16_wrappers_refuse_float16_and_mixed_dtypes(cuda):
+    """K2 takes a float32 or bfloat16 cotangent into a float32 gradient; K2c
+    takes planes and cotangents of one dtype, float32 or bfloat16, and
+    float32 gradients. Anything else raises; nothing is cast."""
+    c = torch.zeros((6, 2), device=cuda)
+    grad = torch.zeros((4, 5, 8), device=cuda)
+    for g in (torch.zeros((6, 8), device=cuda, dtype=torch.float16),
+              torch.zeros((6, 8), device=cuda, dtype=torch.float64)):
+        with pytest.raises(ValueError):
+            cuda_kernels.bilinear_gather_2d_backward(g, c, grad)
+    with pytest.raises(ValueError):
+        cuda_kernels.bilinear_gather_2d_backward(torch.zeros((6, 8), device=cuda), c,
+                                                 grad.bfloat16())
+    p = torch.zeros((4, 5, 8), device=cuda)
+    ga = torch.zeros((6, 1, 8), device=cuda)
+    bad = [
+        ([p.half()], ga.half(), [grad]),  # float16
+        ([p.bfloat16()], ga, [grad]),  # bfloat16 planes, float32 cotangent
+        ([p], ga.bfloat16(), [grad]),  # float32 planes, bfloat16 cotangent
+        ([p.bfloat16()], ga.bfloat16(), [grad.bfloat16()]),  # bfloat16 gradient
+        ([p.bfloat16(), p], ga.expand(6, 2, 8).bfloat16(), [grad, grad]),  # planes' dtypes differ
+    ]
+    for planes, g_a, grads in bad:
+        with pytest.raises(ValueError):
+            cuda_kernels.bilinear_gather_planes_backward_coords(
+                planes, [c] * len(planes), g_a, None, grads)
+
+
+def test_autograd_bf16_fetch_through_kernels(cuda):
+    """The bfloat16 fetch of float32 planes (``dtype``): one K1 launch on
+    the bfloat16 copies, K2 on the bfloat16 cotangents as they come (six),
+    or one K2c where the coordinates need a gradient; float32 gradients of
+    the float32 planes, equal to the plain versions' on the CPU to 1e-5 of
+    the largest."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    planes = _gauge_planes(g, cuda)
+    xyz = torch.rand((3000, 3), generator=g, device=cuda) * 2.1 - 1.05
+    g_a = torch.randn((3000, 3, 16), generator=g, device=cuda).bfloat16()
+    g_b = torch.randn((3000, 3, 48), generator=g, device=cuda).bfloat16()
+    names = ("bilinear_gather_planes", "bilinear_gather_2d_backward",
+             "bilinear_gather_planes_backward_coords")
+    for coord_grad in (False, True):
+        grads = {}
+        for dev in (cuda, torch.device("cpu")):
+            ps = [p.detach().to(dev).requires_grad_(True) for p in planes]
+            x = xyz.detach().to(dev).requires_grad_(coord_grad)
+            before = [cuda_kernels.KERNELS[k].launches for k in names]
+            out_a, out_b = gs.grid_sample_planes(ps, [x[:, 0:2], x[:, 1:3], x[:, 0::2]],
+                                                 slice(None), 16, dtype=torch.bfloat16)
+            assert out_a.dtype == out_b.dtype == torch.bfloat16
+            torch.autograd.backward([out_a, out_b], [g_a.to(dev), g_b.to(dev)])
+            counts = [cuda_kernels.KERNELS[k].launches - b for k, b in zip(names, before)]
+            if dev.type == "cuda":
+                assert counts == ([1, 0, 1] if coord_grad else [1, 6, 0]), counts
+            grads[dev.type] = [p.grad for p in ps] + ([x.grad] if coord_grad else [])
+        for a, b in zip(grads["cuda"], grads["cpu"]):
+            assert a.dtype == torch.float32
+            scale = b.abs().max().item()
+            assert scale > 0 and (a.cpu() - b).abs().max().item() <= 1e-5 * scale
+
+
+def test_bf16_linear_keeps_float32_products_on_the_card(cuda):
+    """The bfloat16 decoder layer on the card (cuBLAS's bfloat16 product
+    with a float32 output) against the CPU's product of float32 copies:
+    forward and every gradient equal to one bfloat16 unit in the last place
+    (2^-7 of the value), where the two float32 sums round to neighbours."""
+    from ngf_tpu_torch.fields.decoders import apply_linear
+
+    g = torch.Generator().manual_seed(33)
+    x = torch.randn((4096, 72), generator=g)
+    w, b = torch.randn((72, 64), generator=g) / 8, torch.randn(64, generator=g)
+    gy = torch.randn((4096, 64), generator=g).bfloat16()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xs, ws, bs = (t.to(dev).requires_grad_(True) for t in (x, w, b))
+        y = apply_linear({"w": ws.bfloat16(), "b": bs.bfloat16()}, xs)
+        y.backward(gy.to(dev))
+        out[dev] = [y.float().cpu(), xs.grad.cpu(), ws.grad.cpu(), bs.grad.cpu()]
+    for a, want in zip(out["cuda"], out["cpu"]):
+        assert torch.all((a - want).abs() <= 2.0 ** -7 * want.abs() + 1e-6)
+
+
+def test_bf16_gauge_train_step_launches_and_matches_plain(cuda):
+    """A grouped bfloat16 gauge train step after ``gauge_start`` on planes
+    of three shapes: two K1 launches (the float32 gauge grids, the bfloat16
+    planes), three K2 (the gauge grids), one K2c on the bfloat16 planes and
+    cotangents, one K4; the loss and every gradient against the plain
+    sampler. Tolerance 3e-2 of each leaf's largest gradient: the kernel and
+    the plain gather may round a feature to neighbouring bfloat16 values
+    (2^-8), which the bfloat16 decoders carry into every cotangent, and the
+    plain route rounds each plane's float32 gradient to bfloat16 once (the
+    ``.to`` of its planes), where the kernels add into the float32 planes."""
+    from ngf_tpu_torch import convert
+
+    cfg = dataclasses.replace(tt.TriPlaneConfig.gauge_preset(gauge_start=0), plane_res=32,
+                              gauge_res=32, compute_dtype="bfloat16")
+    params = tt.init_triplane(cfg, torch.Generator(device=cuda).manual_seed(5), cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for name, (h, w) in zip(("plane_xy", "plane_yz", "plane_xz"), GAUGE_SHAPES):
+        params[name] = 3.0 * torch.randn((h, w, 64), generator=g, device=cuda)
+    for name in ("gauge_xy", "gauge_yz", "gauge_xz"):
+        params[name] = 0.02 * torch.randn((32, 32, 2), generator=g, device=cuda)
+    leaves = dict(convert.named_leaves(params))
+    for t in leaves.values():
+        t.requires_grad_(True)
+    _, _, rays = _scene(cuda)
+    target = torch.rand((rays.shape[0], 3), generator=g, device=cuda)
+    rcfg = tv.RenderConfig(aabb=((-1.5,) * 3, (1.5,) * 3), n_samples=60, step_size=0.09,
+                           group_size=8, sample_cap=32, tile_q=0)
+    names = ("bilinear_gather_planes", "bilinear_gather_2d_backward",
+             "bilinear_gather_planes_backward_coords", "group_sample_compact")
+
+    def plain(p, c, name):
+        return gs.grid_sample_2d_plain(p.float(), c).to(p.dtype)
+
+    results = {}
+    for how, fn in (("kernels", None), ("plain", plain)):
+        for t in leaves.values():
+            t.grad = None
+        before = [cuda_kernels.KERNELS[k].launches for k in names]
+        out = tv.render_rays(params, cfg, rcfg, rays, iteration=1, sample_fn=fn,
+                             generator=torch.Generator(device=cuda).manual_seed(7))
+        loss = ((out["rgb_map"] - target) ** 2).mean()
+        loss.backward()
+        counts = [cuda_kernels.KERNELS[k].launches - b for k, b in zip(names, before)]
+        if how == "kernels":
+            assert counts == [2, 3, 1, 1]
+        results[how] = (loss.item(), {k: t.grad.clone() for k, t in leaves.items()})
+    assert abs(results["kernels"][0] - results["plain"][0]) <= 1e-2 * results["plain"][0]
+    for k, want in results["plain"][1].items():
+        scale = want.abs().max().item()
+        assert scale > 0, k
+        err = (results["kernels"][1][k] - want).abs().max().item()
+        assert err <= 3e-2 * scale, (k, err, scale)

@@ -194,18 +194,18 @@ def test_render_only_cli_matches_main(tmp_path):
 
 def test_cli_train_mode_not_ported():
     """Training mode raises, naming ROADMAP.md, for what the port does not
-    carry yet: data-parallel meshes (``mesh_shape``), bfloat16 and top-K
-    shading (``rgb_cap != 0``). Each raises before any data is built.
+    carry yet: data-parallel meshes (``mesh_shape``) and top-K shading
+    (``rgb_cap != 0``). Each raises before any data is built.
     (Events inside ``n_iters`` and ``group_size > 0`` train now:
-    `test_cli_staged_train_writes_mask_jax_reads`; so does the learned gauge:
-    `tests/test_torch_gauge.py::test_cli_gauge_train_writes_checkpoint_jax_reads`.)"""
+    `test_cli_staged_train_writes_mask_jax_reads`; so do the learned gauge:
+    `tests/test_torch_gauge.py::test_cli_gauge_train_writes_checkpoint_jax_reads`,
+    and bfloat16: `tests/test_torch_bf16.py::test_cli_bf16_configs_train_and_jax_reads`.)"""
     import main_torch
 
     base = ["--dataset_name", "synthetic", "--datadir", "synthetic:views=1,wh=8",
             "--device", "cpu", "--n_iters", "100", "--update_AlphaMask_list", "50"]
     cases = {
         "mesh_shape": ["--mesh_shape", "2x4"],
-        "bfloat16": ["--compute_dtype", "bfloat16"],
         "rgb_cap": ["--rgb_cap", "-2"],
     }
     for what, extra in cases.items():

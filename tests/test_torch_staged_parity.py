@@ -1,7 +1,10 @@
 """A tiny staged InfoInv run of the port's trainer against the JAX trainer
 (`ngf_tpu/train/loop.py:TriPlaneTrainer`) run eagerly on the CPU: six
-grouped steps (G = 8) with the mask event after the third, from identical
-weights, on the same batches with the same per-ray jitter.
+grouped steps (G = 8) with the mask event after the third, or a first
+event after the second step and a later one after the fourth (the 30k
+schedule's later events: the grid pre-culled by the previous one, no ray
+refilter, the capacity measured again), from identical weights, on the
+same batches with the same per-ray jitter.
 
 Before each JAX step the test draws the jitter that step's key gives
 (`ngf_tpu/ops/rays.py:89-90`) and hands it to the port's draw. The JAX train
@@ -13,8 +16,9 @@ which march without jitter from the entry face, run under
 planes 300 times their scale and the density bias at 0, so that the event
 finds part of the lattice occupied and drops some of the rays.
 
-Checked: the event's mask volume, its box, the kept-ray mask, the sampler's
-ids after it, the measured capacity and the L1 switch, exactly; the loss at
+Checked: each event's mask volume, its box, the kept-ray mask, the sampler's
+ids after a first event, the previous grid a later event pre-culls with,
+the measured capacity and the L1 switch, exactly; the loss at
 every step to rtol 2e-3 / atol 2e-5, as `tests/test_training_parity.py`
 holds JAX to its torch oracle; the post-event evaluation renderer's rgb and
 depth to 1e-4.
@@ -45,12 +49,12 @@ from ngf_tpu_torch.render import volume as tv  # noqa: E402
 from ngf_tpu_torch.train.loop import TriPlaneTrainer, model_config_from_args  # noqa: E402
 
 DATADIR = "synthetic:views=2,wh=16,test_views=1"
-N_ITERS, EVENT = 6, 3
+N_ITERS = 6
 ARGV = [
     "--config", os.path.join(REPO, "configs", "synthetic_infoinv_tpu.txt"), "--datadir", DATADIR,
     "--plane_res", "32", "--nSamples", "96", "--batch_size", "64", "--open_sample_cap", "32",
-    "--alpha_grid_res", "12", "--n_iters", str(N_ITERS), "--update_AlphaMask_list", str(EVENT),
-    "--prewarm_events", "0", "--eval_chunk", "64",
+    "--alpha_grid_res", "12", "--n_iters", str(N_ITERS), "--prewarm_events", "0",
+    "--eval_chunk", "64",
 ]
 
 
@@ -71,10 +75,13 @@ def _step_jitter(jtrainer) -> np.ndarray:
     return np.array(jax.random.uniform(k_jit, (jtrainer.args.batch_size, 1), dtype=jnp.float32))
 
 
-def test_staged_run_matches_jax_trainer(monkeypatch):
-    jargs = j_config_parser(ARGV)
-    targs = t_config_parser(ARGV + ["--device", "cpu"])
+@pytest.mark.parametrize("events", [(3,), (2, 4)], ids=["one_event", "later_event"])
+def test_staged_run_matches_jax_trainer(monkeypatch, events):
+    argv = ARGV + [a for e in events for a in ("--update_AlphaMask_list", str(e))]
+    jargs = j_config_parser(argv)
+    targs = t_config_parser(argv + ["--device", "cpu"])
     assert targs.group_size == 8 and targs.sample_cap == -1
+    assert [e for e in targs.update_AlphaMask_list if e <= N_ITERS] == list(events)
     jds = j_registry.load_dataset("synthetic", DATADIR, split="train", is_stack=False)
     tds = load_dataset("synthetic", DATADIR, split="train", is_stack=False)
     test_ds = load_dataset("synthetic", DATADIR, split="test", is_stack=True)
@@ -99,27 +106,35 @@ def test_staged_run_matches_jax_trainer(monkeypatch):
         losses_j.append(float(theirs.train_block(1)[0]))
         rays, rgbs = ours.next_batch()
         losses_t.append(float(ours.train_step(rays, rgbs, gen)))
-        if ours.iteration == EVENT:
+        if ours.iteration in events:
+            first = ours.iteration == events[0]
             before = ours.all_rays.clone()
+            prev = None if first else ours.alpha.volume.clone()
+            if prev is not None:  # the grid both start the later event from
+                np.testing.assert_array_equal(prev.numpy(), np.asarray(theirs.alpha.volume))
             with jax.disable_jit():
-                theirs._event_update_alpha_mask(first=True)
-            rec = ours._event_update_alpha_mask(first=True)
+                theirs._event_update_alpha_mask(first=first)
+            rec = ours._event_update_alpha_mask(first=first)
             np.testing.assert_array_equal(ours.alpha.volume.numpy(), np.asarray(theirs.alpha.volume))
             np.testing.assert_array_equal(ours.alpha.aabb.numpy(), np.asarray(theirs.alpha.aabb))
-            assert 0 < rec["voxels"] < 12 ** 3
-            # The kept rays, in order: the JAX trainer's ray set after its filter.
-            assert 0 < rec["rays_kept"] < rec["rays_before"] == before.shape[0]
+            assert 0 < rec["voxels"] < 12 ** 3 and rec["first"] == first
+            # The kept rays, in order: the JAX trainer's ray set after its
+            # filter; a later event keeps the set.
+            assert rec["rays_before"] == before.shape[0]
+            assert (0 < rec["rays_kept"] < rec["rays_before"]) if first else (
+                rec["rays_kept"] == rec["rays_before"] and not rec["refiltered"])
             np.testing.assert_array_equal(ours.all_rays.numpy(), theirs.all_rays)
             np.testing.assert_array_equal(ours.all_rgbs.numpy(), theirs.all_rgbs)
             assert ours._auto_cap == theirs._auto_cap and ours._auto_cap < targs.nSamples
             assert ours._effective_sample_cap() == theirs._effective_sample_cap()
             assert rec["capg"] == -(-ours._auto_cap // 8)
             assert ours.l1_weight == theirs.l1_weight == targs.L1_weight_rest
-            # The new sampler's first ids, from the same seed.
-            np.testing.assert_array_equal(ours.sampler.nextids().numpy(),
-                                          theirs.sampler.nextids())
-            ours.sampler._curr -= ours.sampler.batch
-            theirs.sampler._curr -= theirs.sampler.batch
+            if first:
+                # The new sampler's first ids, from the same seed.
+                np.testing.assert_array_equal(ours.sampler.nextids().numpy(),
+                                              theirs.sampler.nextids())
+                ours.sampler._curr -= ours.sampler.batch
+                theirs.sampler._curr -= theirs.sampler.batch
     np.testing.assert_allclose(losses_t, losses_j, rtol=2e-3, atol=2e-5)
     assert np.abs(np.diff(losses_j)).max() > 1e-4
     assert int(ours.rgb_stat) == theirs._rgb_stat
