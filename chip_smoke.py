@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`ngf_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernel,rows,backward,occupancy,render,train,staged,gauge,bf16]
+    python3 chip_smoke.py [--phases kernel,rows,backward,occupancy,uv,render,train,staged,gauge,bf16]
+                          [--uv_steps 3000] [--uv_bf16_steps 500]
 
 1. Device: requires CUDA, prints the card and its power limit, builds every
    kernel of the port from the sources in this checkout.
@@ -109,6 +110,26 @@
    beside their bounds, plain versions and aten's bfloat16 grid_sample
    backward; each stage's ms/step and the test PSNRs, the gauge's beside the
    JAX package's bfloat16 54.02 dB and float32 band.
+11. UV phase (run after the occupancy phase, before the profiled ones): K5
+   ``ray_march`` / ``ray_march_backward`` (the NeuTex compositing scan with
+   background and tone map, and its reverse-scan gradient) against their
+   plain versions at a train step's 576 x 64 jittered cube samples (valid
+   and invalid), a ``render_view`` chunk of 576 x 64 (forward) and 65,536
+   rays x 64, timed beside bound and plain version; then the UV recipe at
+   the `dtu_train.sh` shape (24 synthetic views of 64 x 64, 576 balanced
+   rays x 64 samples, 2500 template points, the `NeuTexConfig` widths):
+   ``uv_train_torch.py`` on the square in float32 in a subprocess,
+   SIGTERMed once it logs step 1000, its 'latest' checkpoint checked,
+   resumed in this process to ``--uv_steps`` (3000), then
+   ``uv_test_torch.py`` (the 512^2 texture, the six held-out views, renders
+   with a checkerboard ``--target_texture``); the sphere (500 steps, the
+   cube and equirect exports, an edited cube render) and the square in
+   bfloat16 (``--uv_bf16_steps``, 500). Each run: exact K5 launches (one
+   forward and one backward a step, one forward a render chunk), falling
+   losses, novel IoU and colour PSNR as `tools/uv_cert.py` computes them,
+   beside the JAX package's certificates, and one step on its trained
+   weights: ms by CUDA events, rays/s, launches, idle share, peak memory
+   and the top device ops (the products' and K5's shares).
 
 Prints per-phase lines, then the card line, a JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Any failure raises: the script
@@ -125,12 +146,14 @@ import dataclasses
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
@@ -1123,7 +1146,8 @@ def train_phase(
             want = {"bilinear_gather_planes": steps + eval_chunks, "bilinear_gather_2d": 0,
                     "bilinear_gather_2d_backward": 6 * steps,
                     "bilinear_gather_planes_backward_coords": 0, "gather_rows": iters,
-                    "occupancy_lookup": 0, "group_sample_compact": 0}
+                    "occupancy_lookup": 0, "group_sample_compact": 0, "ray_march": 0,
+                    "ray_march_backward": 0}
             check(launches == want, f"launches {launches}, expected {want}")
             result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
             result["loop"] = loop_profile(prof)
@@ -1830,6 +1854,8 @@ def staged_launches(args, events: list[dict], wh: int) -> dict:
         "gather_rows": iters + rows,
         "occupancy_lookup": k3,
         "group_sample_compact": micro * iters + evals * chunks,
+        "ray_march": 0,
+        "ray_march_backward": 0,
     }
 
 
@@ -2123,6 +2149,8 @@ def gauge_launches(args, events: list[dict], wh: int) -> dict:
         "gather_rows": iters + int(mask["refiltered"]) + 2 * subsample,
         "occupancy_lookup": -(-mask["rays_before"] // 51200) + 2 * count_chunks,
         "group_sample_compact": steps + evals * chunks,
+        "ray_march": 0,
+        "ray_march_backward": 0,
     }
 
 
@@ -2159,7 +2187,478 @@ def bf16_phase(device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRAIN_W
     return {"infoinv": infoinv, "gauge": gauge}
 
 
-PHASES = ("kernel", "rows", "backward", "occupancy", "render", "train", "staged", "gauge", "bf16")
+# ------------------------------------------------------------------- UV phase
+
+# The UV path's shapes (`UV-Mapping/dtu_train.sh`, `tools/uv_cert.py`): 24 x 24
+# balanced rays of 64 samples a step, 2500 template points, 24 synthetic
+# views of 64 x 64, six held-out views.
+UV_RAYS_SIDE, UV_SAMPLES, UV_POINTS, UV_VIEWS, UV_WH = 24, 64, 2500, 24, 64
+UV_STEPS, UV_SIGTERM_AT, UV_SPHERE_STEPS, UV_BF16_STEPS = 3000, 1000, 500, 500
+# K5's large row: enough rays that the bound is not a launch.
+UV_LARGE_RAYS = 65536
+# The JAX package's 12000-step certificates at this shape (results/uv_cert_*.json).
+JAX_UV_CERT = {"square float32": (0.9862, 12.83), "square bfloat16": (0.9857, 14.19),
+               "sphere bfloat16": (0.9791, 13.64)}
+# A tiny UV phase for the CPU test (`tests/test_torch_uv_parity.py`).
+UV_CPU_REHEARSAL = dict(views=4, wh=16, rays_side=4, samples=8, points=16, steps=6,
+                        sigterm_at=2, sphere_steps=2, bf16_steps=2, texture_res=8,
+                        large_rays=64, steps_per_call=2, print_freq=2, sampling_blocks=1)
+
+
+def host_or_cuda_ms(fn, device: torch.device, reps: int) -> float:
+    """``cuda_ms`` on the card; the host clock on the CPU (a rehearsal)."""
+    if device.type == "cuda":
+        return cuda_ms(fn, reps)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def k5_bound_ms(n: int, s: int, backward: bool, colour: bool = True) -> tuple[float, str]:
+    """Least time of one K5 launch: each input read once and each output
+    written once over HBM, its arithmetic over the float32 rate. Forward
+    reads density, dist (4 bytes), valid (1) and rgb (12) a sample, writes w
+    (4) a sample and colour and T_total (16) a ray; ~30 operations a sample
+    (exp ~10, the products, the scan). Backward reads the same inputs and
+    the cotangents of w (4 a sample) and of colour and T (16 a ray), writes
+    d density (4) and d rgb (12) a sample; ~45 operations a sample."""
+    rgb = 12 if colour else 0
+    if backward:
+        nbytes = n * s * (4 + 4 + 1 + rgb + 4 + 4 + rgb) + n * 16
+        ops = 45 * n * s
+    else:
+        nbytes = n * s * (4 + 4 + 1 + rgb + 4) + n * 16
+        ops = 30 * n * s
+    return bytes_bound_ms(nbytes, ops)
+
+
+def k5_inputs(device: torch.device, n: int, s: int, rays_side: int, views: int, wh: int,
+              seed: int = SEED):
+    """K5's inputs at n rays of s samples as the UV path makes them: a
+    synthetic DTU batch's rays (cycled up to n) through
+    ``cube_ray_generation`` with jitter (valid and invalid samples, jittered
+    segment lengths), softplus densities of a random field, radiance in
+    [0, 1.5], a zero background per 576 rays as the trainer's."""
+    from ngf_tpu_torch.data.dtu import SyntheticDtuDataset
+    from ngf_tpu_torch.ops.rays import cube_ray_generation
+
+    ds = SyntheticDtuDataset(n_views=views, wh=(wh, wh), random_sample="balanced",
+                             random_sample_size=rays_side, seed=seed)
+    dirs, cams = [], []
+    while sum(d.shape[0] for d in dirs) < n:
+        it = ds.sample()
+        dirs.append(it["raydir"][0])
+        cams.append(np.repeat(it["campos"], it["raydir"].shape[1], axis=0))
+    raydir = torch.as_tensor(np.concatenate(dirs)[:n], device=device)
+    campos = torch.as_tensor(np.concatenate(cams)[:n], device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand((n, 1, s), generator=g, device=device)
+    _, dist, valid, _ = cube_ray_generation(campos, raydir[:, None], s, 1.0, 0.05, u)
+    density = torch.nn.functional.softplus(
+        4.0 * torch.randn((n, s), generator=g, device=device))
+    rgb = 1.5 * torch.rand((n, s, 3), generator=g, device=device)
+    per = rays_side ** 2
+    bg = torch.zeros((n // per if n % per == 0 else 1, 3), device=device)
+    return density, valid.reshape(n, s), dist.reshape(n, s), rgb, bg
+
+
+def k5_rows(device: torch.device, rays_side: int, samples: int, views: int, wh: int,
+            large_rays: int) -> list[dict]:
+    """K5 forward (and backward) against its plain version at the UV path's
+    shapes: a train step (rays_side^2 rays), a ``render_view`` chunk of as
+    many rays (forward only) and ``large_rays`` rays; ms by CUDA events
+    beside the bound and the plain version; no single PyTorch call computes
+    the march, so ``library_ms`` is null."""
+    from ngf_tpu_torch.ops import compositing, cuda_kernels
+
+    cuda = device.type == "cuda"
+    fwd = cuda_kernels.ray_march if cuda else compositing.ray_march_plain
+    bwd = cuda_kernels.ray_march_backward if cuda else compositing.ray_march_backward_plain
+    per = rays_side ** 2
+    rows = []
+    for case, n, with_bwd in (("train step", per, True), ("render chunk", per, False),
+                              (f"{large_rays} rays", large_rays, True)):
+        density, valid, dist, rgb, bg = k5_inputs(device, n, samples, rays_side, views, wh)
+        if case == "render chunk":
+            bg = None  # render_view's zero background, as the kernel sees it
+        got = fwd(density, valid, dist, rgb, bg)
+        want = compositing.ray_march_plain(density, valid, dist, rgb, bg)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        scale = max(b.abs().max().item() for b in want)
+        check(err <= F32_TOL * scale, f"K5 forward {case}: {err} against {scale}")
+        reps = 50 if n <= 4096 else 20
+        bound, by = k5_bound_ms(n, samples, backward=False)
+        row = {"case": case, "N": n, "S": samples, "direction": "forward",
+               "invalid_share": 1.0 - valid.float().mean().item(),
+               "ms": host_or_cuda_ms(lambda: fwd(density, valid, dist, rgb, bg), device, reps),
+               "plain_ms": host_or_cuda_ms(
+                   lambda: compositing.ray_march_plain(density, valid, dist, rgb, bg), device, 5),
+               "bound_ms": bound, "bound_by": by, "library_ms": None, "max_abs_err": err,
+               "max_value": scale}
+        rows.append(row)
+        if with_bwd:
+            g = torch.Generator(device=device).manual_seed(SEED + n)
+            cots = (torch.randn((n, 3), generator=g, device=device),
+                    torch.randn((n, samples), generator=g, device=device),
+                    torch.randn((n,), generator=g, device=device))
+            got = bwd(density, valid, dist, rgb, bg, *cots)
+            want = compositing.ray_march_backward_plain(density, valid, dist, rgb, bg, *cots)
+            errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+            scales = [b.abs().max().item() for b in want]
+            for e, sc, what in zip(errs, scales, ("d density", "d rgb")):
+                check(e <= F32_TOL * sc, f"K5 backward {case} {what}: {e} against {sc}")
+            bound, by = k5_bound_ms(n, samples, backward=True)
+            rows.append({
+                "case": case, "N": n, "S": samples, "direction": "backward",
+                "ms": host_or_cuda_ms(lambda: bwd(density, valid, dist, rgb, bg, *cots), device, reps),
+                "plain_ms": host_or_cuda_ms(lambda: compositing.ray_march_backward_plain(
+                    density, valid, dist, rgb, bg, *cots), device, 3),
+                "bound_ms": bound, "bound_by": by, "library_ms": None,
+                "max_abs_err": max(errs), "max_value": max(scales)})
+    for r in rows:
+        print(f"[uv] K5 {r['direction']} {r['case']} (N={r['N']} x {r['S']}, invalid share "
+              f"{r.get('invalid_share', '-')}): "
+              f"{r['ms']:.5f} ms, bound {r['bound_ms']:.5f} ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, max abs err {r['max_abs_err']:.3g} of {r['max_value']:.3g}")
+    return rows
+
+
+def novel_metrics(trainer, views: int, wh: int, seed: int = 0) -> dict:
+    """Held-out silhouette IoU and colour PSNR as `tools/uv_cert.py:70-86`
+    computes them: render each novel view (the ring offset half a step),
+    PSNR of its colour, IoU of (1 - transmittance) > 0.5 with the mask."""
+    from ngf_tpu_torch.data.dtu import SyntheticDtuDataset
+
+    test = SyntheticDtuDataset(n_views=views, wh=(wh, wh), use_test_data=True, seed=seed)
+    psnrs, ious = [], []
+    chunk = trainer.dataset.random_sample_size ** 2
+    for i in test.indexes:
+        rgb, trans = trainer.render_view(test.campos[i], test.height, test.width, test.focal[i],
+                                         test.extrinsics[i, :3, :3], test.princpt[i], chunk=chunk)
+        mse = float(np.mean((rgb - test.gt_image[i]) ** 2))
+        psnrs.append(-10.0 * np.log10(max(mse, 1e-12)))
+        pred, gt = (1.0 - trans) > 0.5, test.gt_mask[i] > 0.5
+        ious.append(float(np.logical_and(pred, gt).sum()) / max(float(np.logical_or(pred, gt).sum()), 1.0))
+    return {"novel_psnr_db": float(np.mean(psnrs)), "novel_iou": float(np.mean(ious)),
+            "per_view_psnr": psnrs, "views": len(test.indexes),
+            "chunks_per_view": -(-test.height * test.width // chunk)}
+
+
+def _counts() -> dict:
+    from ngf_tpu_torch.ops import cuda_kernels
+
+    return {k: fn.launches for k, fn in cuda_kernels.KERNELS.items()}
+
+
+def _parsed_counts(text: str, tag: str) -> dict:
+    from ngf_tpu_torch.ops import cuda_kernels
+
+    line = next(ln for ln in text.splitlines() if ln.startswith(f"[{tag}] kernel launches "))
+    got = json.loads(line.split("kernel launches ", 1)[1])
+    return {k: int(got.get(k, 0)) for k in cuda_kernels.KERNELS}
+
+
+def _mean_losses(save_dir: str) -> list[dict]:
+    with open(os.path.join(save_dir, "scalars.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def uv_step_row(trainer, device: torch.device, tag: str, reps: int = 20) -> dict:
+    """One run's step on the card, on its trained weights: ms a step by CUDA
+    events over a block of ``reps`` steps (the block's host stacking and one
+    read of its losses included), rays/s, K5 launches a step, peak memory,
+    one step's profile (device time, idle share under the profiler,
+    launches; the top device ops, the products' (``gemm``) and K5's shares),
+    and the block's idle share, 1 - that device time / its ms a step."""
+    from ngf_tpu_torch.ops import cuda_kernels
+
+    items = [trainer.dataset.sample() for _ in range(reps)]
+    rays = items[0]["raydir"].shape[1]
+    trainer.train_block(items[:2])  # warm
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        trainer.train_block(items)
+        return {"ms": 1e3 * (time.perf_counter() - t0) / reps, "rays": rays}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    before = (cuda_kernels.ray_march.launches, cuda_kernels.ray_march_backward.launches)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    trainer.train_block(items)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    k5 = ((cuda_kernels.ray_march.launches - before[0]) / reps,
+          (cuda_kernels.ray_march_backward.launches - before[1]) / reps)
+    check(k5 == (1.0, 1.0), f"{tag}: K5 launches a step {k5}, want one forward and one backward")
+    out = {"ms": ms, "rays": rays, "rays_per_s": 1e3 * rays / ms, "k5_launches_per_step": k5,
+           "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+    from torch.autograd import DeviceType
+
+    one = items[:1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            trainer.train_block(one)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / 3
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation]
+    total = sum(e.self_device_time_total for e in kern) / 1e3 / 3
+    if total > 0:
+        by = sorted(kern, key=lambda e: -e.self_device_time_total)
+        share = lambda pred: sum(e.self_device_time_total for e in kern if pred(e.key)) / 1e3 / 3 / total  # noqa: E731
+        copies = sum(e.count for e in kern if e.key.startswith(("Memcpy", "Memset"))) / 3
+        out["profile"] = {
+            "host_ms": wall, "device_ms": total, "idle_share": max(0.0, 1.0 - total / wall),
+            "launches": sum(e.count for e in kern) / 3 - copies, "copies_and_sets": copies,
+            "gemm_share": share(lambda k: "gemm" in k.lower()),
+            "k5_share": share(lambda k: "ray_march" in k),
+            "top": [{"op": e.key[:90], "ms": e.self_device_time_total / 1e3 / 3,
+                     "share": e.self_device_time_total / 1e3 / 3 / total} for e in by[:8]],
+        }
+        # the 20-step block's idle share: its kernels' time against its span
+        out["block_idle_share"] = max(0.0, 1.0 - total / ms)
+    else:
+        out["profile"] = {"host_ms": wall, "device_ms": "not measured: the profiler saw no kernels"}
+    print(f"[uv] {tag} step: {ms:.3f} ms by CUDA events ({out['rays_per_s']:.0f} rays/s), K5 "
+          f"{k5} launches a step, peak {out['peak_gib']:.2f} GiB, block idle share "
+          f"{out.get('block_idle_share', 'not measured')}; profile " + json.dumps(out["profile"]))
+    return out
+
+
+def uv_sampling_rows(trainer, device: torch.device, tag: str, steps_per_call: int,
+                     blocks: int) -> dict:
+    """Where the CLI's batches come from, on a run's trained weights: ms a
+    step over ``blocks`` blocks of ``steps_per_call`` steps (each block
+    ending in its loss read, as the CLI's), with the batches sampled inline
+    before each block, as `uv_train_torch.py` does, and, for comparison,
+    by a host thread that samples the next block while the card runs this
+    one (the JAX CLI's `BlockPrefetcher`). Four segments, inline, thread,
+    thread, inline; each way's ms is the mean of its two."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    ds = trainer.dataset
+    sample = lambda: [ds.sample() for _ in range(steps_per_call)]  # noqa: E731
+    trainer.train_block(sample())  # warm
+
+    def segment(mode):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "inline":
+            for _ in range(blocks):
+                trainer.train_block(sample())
+        else:
+            with ThreadPoolExecutor(1) as pool:
+                ahead = pool.submit(sample)
+                for b in range(blocks):
+                    items = ahead.result()
+                    if b + 1 < blocks:
+                        ahead = pool.submit(sample)
+                    trainer.train_block(items)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / (blocks * steps_per_call)
+
+    got = {"inline": [], "thread": []}
+    for mode in ("inline", "thread", "thread", "inline"):
+        got[mode].append(segment(mode))
+    out = {k: float(np.mean(v)) for k, v in got.items()}
+    out["segments"] = got
+    out["thread_gain"] = 1.0 - out["thread"] / out["inline"]
+    print(f"[uv] {tag} batches: inline {out['inline']:.4f} ms a step, a block ahead on a host "
+          f"thread {out['thread']:.4f} ({100 * out['thread_gain']:.2f}% faster; segments "
+          f"{json.dumps(got)}; {blocks} blocks of {steps_per_call})")
+    return out
+
+
+def uv_phase(device: torch.device, views: int = UV_VIEWS, wh: int = UV_WH,
+             rays_side: int = UV_RAYS_SIDE, samples: int = UV_SAMPLES, points: int = UV_POINTS,
+             steps: int = UV_STEPS, sigterm_at: int = UV_SIGTERM_AT,
+             sphere_steps: int = UV_SPHERE_STEPS, bf16_steps: int = UV_BF16_STEPS,
+             texture_res: int = 512, large_rays: int = UV_LARGE_RAYS, steps_per_call: int = 20,
+             print_freq: int = 100, sampling_blocks: int = 8) -> dict:
+    """The UV-Mapping path: K5 against its plain version; the square recipe
+    in float32 through ``uv_train_torch.py`` in a subprocess, SIGTERMed once
+    it logs step ``sigterm_at``, resumed in this process to ``steps``, then
+    ``uv_test_torch.py`` (the texture, the held-out views, an edited render
+    with a checkerboard ``--target_texture``); the sphere primitive (cube
+    and equirect exports, an edited cube render) and the square recipe in
+    bfloat16. Each run's K5 launches, losses, novel IoU and PSNR and its
+    step on the card; for the square runs, inline batches against a host
+    thread (`uv_sampling_rows`)."""
+    import uv_test_torch
+    import uv_train_torch
+    from ngf_tpu_torch.fields.neutex import export_sphere_equirect, export_texture
+    from ngf_tpu_torch.ops import cuda_kernels
+    from ngf_tpu_torch.train.uv_loop import UVTrainer
+    from ngf_tpu_torch.utils.cubemap import merge_cube_to_single_texture
+    from ngf_tpu_torch.utils.image import write_png
+
+    cuda = device.type == "cuda"
+
+    def expect_k5(counts: dict, fwd: int, bwd: int, what: str) -> None:
+        """On the card: K5's launches over a run are exactly ``fwd`` forward
+        and ``bwd`` backward (one each a step, one forward a render chunk)."""
+        if cuda:
+            check((counts["ray_march"], counts["ray_march_backward"]) == (fwd, bwd),
+                  f"{what}: K5 launched {counts['ray_march']} forward and "
+                  f"{counts['ray_march_backward']} backward, want {fwd} and {bwd}")
+
+    out = {"k5": k5_rows(device, rays_side, samples, views, wh, large_rays), "runs": {},
+           "launches": {}}
+    here = os.path.dirname(os.path.abspath(__file__))
+    per_view = -(-wh * wh // rays_side ** 2)
+    test_freq = uv_train_torch.parse_args(["--sample_num", "1", "--primitive_type", "square",
+                                           "--points_per_primitive", "1"]).test_freq
+
+    def steps_and_renders(start: int, end: int) -> int:
+        """K5 forward launches of training from ``start`` to ``end``: one a
+        step, and one a chunk of the test view the CLI renders at every
+        multiple of its ``test_freq`` (one view by default)."""
+        return end - start + per_view * (end // test_freq - start // test_freq)
+    with tempfile.TemporaryDirectory() as tmp:
+        x = np.indices((256, 256)).sum(0) // 32 % 2
+        checker = os.path.join(tmp, "checker.png")
+        write_png(checker, (np.stack([x, 1 - x, 0.5 + 0 * x], -1) * 255).astype(np.uint8))
+
+        def argv(name, primitive, n, dtype="float32"):
+            return ["--dataset_name", "synthetic_dtu", "--random_sample", "balanced",
+                    "--random_sample_size", str(rays_side), "--sample_num", str(samples),
+                    "--primitive_type", primitive, "--points_per_primitive", str(points),
+                    "--lr", "1e-4", "--synthetic_views", str(views), "--synthetic_wh", str(wh),
+                    "--niter", str(n), "--compute_dtype", dtype, "--checkpoints_dir", tmp,
+                    "--name", name, "--steps_per_call", str(steps_per_call),
+                    "--print_freq", str(print_freq), "--save_iter_freq", "0",
+                    "--device", device.type]
+
+        def finish(tag, name, primitive, dtype, n):
+            cfg = uv_train_torch.make_config(uv_train_torch.parse_args(argv(name, primitive, n, dtype)))
+            ds = uv_train_torch.make_dataset(uv_train_torch.parse_args(argv(name, primitive, n, dtype)))
+            trainer = UVTrainer(cfg, ds, device=device, save_dir=os.path.join(tmp, name))
+            meta = trainer.load_networks("latest")
+            check(meta["total_steps"] == n, f"{tag}: checkpoint at {meta['total_steps']}, want {n}")
+            cuda_kernels.reset_launch_counts()
+            run = novel_metrics(trainer, views, wh)
+            expect_k5(_counts(), run["views"] * per_view, 0, f"{tag}: novel renders")
+            losses = _mean_losses(os.path.join(tmp, name))
+            run["loss_first"], run["loss_last"] = losses[0]["loss/total"], losses[-1]["loss/total"]
+            check(all(np.isfinite(r["loss/total"]) for r in losses), f"{tag}: losses {losses}")
+            if len(losses) >= 3:  # print_freq's rows; a rehearsal may log fewer
+                check(run["loss_last"] < run["loss_first"],
+                      f"{tag}: loss {run['loss_first']} -> {run['loss_last']}")
+            run["step"] = uv_step_row(trainer, device, tag)
+            print(f"[uv] {tag}: {n} steps, loss {run['loss_first']:.5f} -> {run['loss_last']:.5f}, "
+                  f"novel IoU {run['novel_iou']:.4f}, PSNR {run['novel_psnr_db']:.3f} dB"
+                  + (f" (JAX package, 12000 steps: IoU {JAX_UV_CERT[tag][0]}, "
+                     f"{JAX_UV_CERT[tag][1]} dB)" if tag in JAX_UV_CERT else ""))
+            return trainer, run
+
+        # 1. square float32: SIGTERM, resume, test CLI
+        name, sq = "uv_square", argv("uv_square", "square", steps)
+        env = {**os.environ, "PYTHONUNBUFFERED": "1"}
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, os.path.join(here, "uv_train_torch.py"), *sq],
+                                cwd=here, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        text, sent = [], False
+        try:
+            for line in proc.stdout:
+                text.append(line)
+                if not sent and line.startswith("End of iteration ") and int(line.split()[3]) >= sigterm_at:
+                    proc.send_signal(signal.SIGTERM)
+                    sent = True
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        text = "".join(text)
+        check(proc.returncode == 0 and "preempted at step" in text,
+              f"uv_train_torch under SIGTERM: rc {proc.returncode}\n{text[-3000:]}")
+        save_dir = os.path.join(tmp, name)
+        with np.load(os.path.join(save_dir, "latest_net_NeuTex.npz")) as z:
+            stopped = json.loads(bytes(z["meta"]).decode())["total_steps"]
+        check(sigterm_at <= stopped < steps, f"SIGTERM saved step {stopped}")
+        launches = {"uv square to SIGTERM": _parsed_counts(text, "uv_train_torch")}
+        sub_s = time.perf_counter() - t0
+        expect_k5(launches["uv square to SIGTERM"], steps_and_renders(0, stopped), stopped,
+                  "square float32 to the SIGTERM")
+        print(f"[uv] square float32: SIGTERM after step {sigterm_at} was logged, 'latest' at "
+              f"{stopped}, {sub_s:.1f} s in the subprocess")
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        uv_train_torch.main(sq + ["--resume_dir", save_dir])
+        resume_s = time.perf_counter() - t0
+        launches["uv square resumed"] = _counts()
+        expect_k5(launches["uv square resumed"], steps_and_renders(stopped, steps),
+                  steps - stopped, "square float32 resumed")
+        cuda_kernels.reset_launch_counts()
+        uv_test_torch.main(sq + ["--target_texture", checker])
+        launches["uv test CLI"] = _counts()
+        n_test = len(uv_train_torch.make_dataset(uv_train_torch.parse_args(sq), True).indexes)
+        expect_k5(launches["uv test CLI"], n_test * per_view, 0, "uv_test_torch")
+        outs = sorted(os.listdir(os.path.join(save_dir, "test_output")))
+        check(outs == sorted(["texture.png"] + [f"{k}-{i:03d}.png" for i in range(n_test)
+                                               for k in ("render", "transmittance")]),
+              f"uv_test_torch outputs {outs}")
+        trainer, run = finish("square float32", name, "square", "float32", steps)
+        run.update(resumed_from=stopped, subprocess_s=sub_s, resume_s=resume_s,
+                   sampling=uv_sampling_rows(trainer, device, "square float32", steps_per_call,
+                                             sampling_blocks))
+        out["runs"]["square float32"] = run
+
+        # 2. sphere float32, its exports and an edited cube render
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        uv_train_torch.main(argv("uv_sphere", "sphere", sphere_steps))
+        train_s = time.perf_counter() - t0
+        launches["uv sphere"] = _counts()
+        expect_k5(launches["uv sphere"], steps_and_renders(0, sphere_steps), sphere_steps,
+                  "sphere float32")
+        trainer, run = finish("sphere float32", "uv_sphere", "sphere", "float32", sphere_steps)
+        faces = export_texture(trainer.params, trainer.cfg, texture_res).cpu().numpy()
+        eq = export_sphere_equirect(trainer.params, trainer.cfg, texture_res).cpu().numpy()
+        check(faces.shape == (6, texture_res, texture_res, 3) and np.isfinite(faces).all()
+              and eq.shape == (texture_res, 2 * texture_res, 3) and np.isfinite(eq).all(),
+              f"sphere exports {faces.shape} {eq.shape}")
+        cross = merge_cube_to_single_texture(faces)
+        write_png(os.path.join(tmp, "uv_sphere", "texture_cube.png"),
+                  uv_train_torch.to_png(cross))
+        cube = np.stack([np.stack([x, 1 - x, 0.5 + 0 * x], -1)] * 6).astype(np.float32)
+        test = uv_train_torch.make_dataset(uv_train_torch.parse_args(
+            argv("uv_sphere", "sphere", sphere_steps)), True)
+        i = test.indexes[0]
+        rgb, _ = trainer.render_view(test.campos[i], test.height, test.width, test.focal[i],
+                                     test.extrinsics[i, :3, :3], test.princpt[i],
+                                     chunk=rays_side ** 2, edit_texture=cube)
+        check(rgb.shape == (wh, wh, 3) and np.isfinite(rgb).all(), "edited sphere render")
+        run.update(train_s=train_s, cross_shape=list(cross.shape))
+        out["runs"]["sphere float32"] = run
+
+        # 3. square bfloat16
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        uv_train_torch.main(argv("uv_bf16", "square", bf16_steps, "bfloat16"))
+        train_s = time.perf_counter() - t0
+        launches["uv bf16"] = _counts()
+        expect_k5(launches["uv bf16"], steps_and_renders(0, bf16_steps), bf16_steps,
+                  "square bfloat16")
+        trainer, run = finish("square bfloat16", "uv_bf16", "square", "bfloat16", bf16_steps)
+        run.update(train_s=train_s,
+                   sampling=uv_sampling_rows(trainer, device, "square bfloat16", steps_per_call,
+                                             sampling_blocks))
+        out["runs"]["square bfloat16"] = run
+    out["launches"] = launches
+    return out
+
+
+PHASES = ("kernel", "rows", "backward", "occupancy", "uv", "render", "train", "staged", "gauge",
+          "bf16")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2167,6 +2666,11 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of %(default)s; the result lines are "
                              "printed only when all run")
+    parser.add_argument("--uv_steps", type=int, default=UV_STEPS,
+                        help="steps of the uv phase's square float32 run (SIGTERM after "
+                             f"{UV_SIGTERM_AT}, resumed to the end)")
+    parser.add_argument("--uv_bf16_steps", type=int, default=UV_BF16_STEPS,
+                        help="steps of the uv phase's square bfloat16 run")
     parsed = parser.parse_args(argv)
     phases = parsed.phases.split(",")
     unknown = set(phases) - set(PHASES)
@@ -2198,6 +2702,7 @@ def main(argv: list[str] | None = None) -> int:
         "staged": lambda: staged_phase(device),
         "gauge": lambda: gauge_phase(device),
         "bf16": lambda: bf16_phase(device),
+        "uv": lambda: uv_phase(device, steps=parsed.uv_steps, bf16_steps=parsed.uv_bf16_steps),
     }
     out = {}
     for phase in PHASES:
@@ -2220,7 +2725,9 @@ def main(argv: list[str] | None = None) -> int:
              "staged": out["staged"]["launches"],
              "staged render-only": out["staged"]["render"]["launches"],
              "gauge": gauge["launches"], "gauge render-only": gauge["render"]["launches"],
-             "bf16 infoinv": bf16["infoinv"]["launches"], "bf16 gauge": bf16["gauge"]["launches"]}
+             "bf16 infoinv": bf16["infoinv"]["launches"], "bf16 gauge": bf16["gauge"]["launches"],
+             **out["uv"]["launches"]}
+    uv_paths = tuple(out["uv"]["launches"])
 
     def entry(name, source, replaces, row, max_abs_err, at, counters=None, skip=()):
         """A kernel's line; its launches over the main paths but ``skip``
@@ -2298,6 +2805,21 @@ def main(argv: list[str] | None = None) -> int:
               "gradients", counters=("bilinear_gather_planes_backward_coords",),
               skip=tuple(p for p in paths if p != "bf16 gauge")),
     ]
+    k5 = out["uv"]["k5"]
+    for direction, name in (("forward", "ray_march"), ("backward", "ray_march_backward")):
+        rows_d = [r for r in k5 if r["direction"] == direction]
+        kernels.append(entry(
+            name, "ngf_tpu_torch/ops/kernels/ray_march.cu", "ngf_tpu/ops/compositing.py:49",
+            next(r for r in rows_d if r["case"] == "train step"),
+            max(r["max_abs_err"] for r in rows_d),
+            f"UV train step: 1 x {UV_RAYS_SIDE ** 2} rays x {UV_SAMPLES} samples, float32, "
+            "valid and invalid samples, the colour part with the tone map"
+            + ("; random cotangents of colour, w and T_total" if direction == "backward" else ""),
+            skip=tuple(p for p in paths if p not in uv_paths)))
+        kernels[-1]["rows"] = [{k: r.get(k) for k in ("case", "N", "S", "invalid_share", "ms",
+                                                      "bound_ms", "bound_by", "plain_ms",
+                                                      "library_ms", "max_abs_err", "max_value")}
+                               for r in rows_d]
     kernels[0]["rows"] = [
         {k: r[k] for k in ("case", "dtype", "ms", "bound_ms", "plain_ms", "library_ms",
                            "taps_per_point")} for r in fused]

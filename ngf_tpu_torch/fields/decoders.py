@@ -36,16 +36,19 @@ def init_linear(
     zero_bias: bool = False,
     bias: bool = True,
     device: torch.device | str | None = None,
+    gain: float = 1.0,
 ) -> Params:
     """One float32 linear layer: {'w': (in, out), 'b': (out,)?}
     (`ngf_tpu/fields/decoders.py:31-60`); ``init`` is 'torch' or
-    'xavier_uniform' (gain 1). ``device`` None is the generator's, as in
-    every initialiser here."""
+    'xavier_uniform' (bound ``gain * sqrt(6 / (in + out))``; NeuTex's
+    layers take sqrt(2) before a ReLU and sqrt(2 / 1.04) before a leaky
+    ReLU). ``device`` None is the generator's, as in every initialiser
+    here."""
     device = gen.device if device is None else device
     if init == "torch":
         bound = 1.0 / math.sqrt(in_dim)
     elif init == "xavier_uniform":
-        bound = math.sqrt(6.0 / (in_dim + out_dim))
+        bound = gain * math.sqrt(6.0 / (in_dim + out_dim))
     else:
         raise ValueError(f"unknown init {init!r}")
     p: Params = {"w": _uniform(gen, (in_dim, out_dim), bound, device)}

@@ -1,9 +1,25 @@
-"""Alpha compositing along rays: port of `ngf_tpu/ops/compositing.py:17-46`
-(reference `InfoInv/models/FieldBase.py:12-19`)."""
+"""Alpha compositing along rays: port of `ngf_tpu/ops/compositing.py`
+(references `InfoInv/models/FieldBase.py:12-19`,
+`UV-Mapping/model/renderer.py:7-8,176-268`).
+
+- ``exclusive_transmittance`` / ``raw2alpha``: the tri-plane renderers'.
+- :func:`ray_march_plain`: NeuTex's march, background and tone map in plain
+  PyTorch with autograd through ``cumprod``: the plain version of K5.
+- :func:`march_rays`: what the UV path runs, the march with its background
+  and tone map as one ``autograd.Function``: the CUDA kernel K5
+  (``kernels/ray_march.cu``) forward and backward on a CUDA tensor, on a CPU
+  tensor the plain forward and :func:`ray_march_backward_plain`, the same
+  reverse scan as the kernel's backward.
+"""
 
 from __future__ import annotations
 
 import torch
+
+from . import cuda_kernels
+
+# 1/2.2 as the JAX tone map's Python-float exponent is taken in float32.
+INV_GAMMA = 1.0 / 2.2
 
 
 def exclusive_transmittance(alpha: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -22,3 +38,140 @@ def raw2alpha(
     alpha = 1.0 - torch.exp(-sigma * dist)
     t, t_total = exclusive_transmittance(alpha)
     return alpha, alpha * t, t_total
+
+
+def _per_ray_background(background: torch.Tensor, n: int) -> torch.Tensor:
+    return background.repeat_interleave(n // background.shape[0], dim=0)
+
+
+def ray_march_plain(density, valid, dist, rgb=None, background=None):
+    """K5's forward in plain PyTorch on (N, S) rays, as the kernel takes
+    them, differentiable through autograd: NeuTex's ``ray_march`` (or,
+    without ``rgb``, ``alpha_ray_march``), the background weighted by the
+    transmittance past the last sample, and ``simple_tone_map``
+    (`ngf_tpu/ops/compositing.py:49-95`). Returns (tone-mapped colour (N, 3)
+    or None, w (N, S), T_total (N,))."""
+    alpha = 1.0 - torch.exp(-(density * valid.to(density.dtype)) * dist)
+    t, t_total = exclusive_transmittance(alpha)
+    w, t_total = alpha * t, t_total[..., 0]
+    if rgb is None:
+        return None, w, t_total
+    c = (rgb * w[..., None]).sum(dim=-2)
+    if background is not None:
+        c = c + _per_ray_background(background, c.shape[0]) * t_total[:, None]
+    # clip((c + 1e-5)^(1/2.2), 0, 1), as maximum then minimum like jnp.clip:
+    # half the gradient at a bound, as JAX's
+    y = (c + 1e-5) ** INV_GAMMA
+    return torch.minimum(torch.maximum(y, y.new_zeros(())), y.new_ones(())), w, t_total
+
+
+def _clip_grad(y: torch.Tensor) -> torch.Tensor:
+    lo = torch.where(y > 0, 1.0, torch.where(y == 0, 0.5, 0.0))
+    m = torch.clamp_min(y, 0.0)
+    hi = torch.where(m < 1, 1.0, torch.where(m == 1, 0.5, 0.0))
+    return lo * hi
+
+
+def ray_march_backward_plain(density, valid, dist, rgb, background, g_color, g_weight, g_t):
+    """K5's backward in plain PyTorch, the kernel's reverse scan: with c_k
+    the cotangent of w_k times alpha_k and f_k = 1 - alpha_k + 1e-10, R
+    runs R_{S-1} = g_T, R_{k-1} = c_k + f_k R_k, and dL/dalpha_k =
+    T_k (g_w_k - R_k), with no division by f_k (which is 1e-10 where alpha
+    rounds to 1). Returns (d density (N, S), d rgb (N, S, 3) or None)."""
+    N, S = density.shape
+    v = valid.to(density.dtype)
+    e = torch.exp(-(density * v * dist))
+    alpha = 1.0 - e
+    f = (1.0 - alpha) + 1e-10
+    t_all = torch.cumprod(torch.cat([torch.ones_like(f[:, :1]), f], dim=1), dim=1)
+    T, t_total = t_all[:, :-1], t_all[:, -1]
+    w = alpha * T
+    gw = torch.zeros_like(w) if g_weight is None else g_weight.clone()
+    gT = torch.zeros_like(t_total) if g_t is None else g_t.clone()
+    d_rgb = None
+    if rgb is not None:
+        gc = torch.zeros((N, 3), dtype=density.dtype, device=density.device)
+        if g_color is not None:
+            c = (w[..., None] * rgb).sum(dim=1)
+            bg = None if background is None else _per_ray_background(background, N)
+            if bg is not None:
+                c = c + bg * t_total[:, None]
+            x = c + 1e-5
+            gc = g_color * _clip_grad(x ** INV_GAMMA) * (INV_GAMMA * x ** (INV_GAMMA - 1.0))
+            if bg is not None:
+                gT = gT + (gc * bg).sum(dim=-1)
+        gw = gw + (gc[:, None, :] * rgb).sum(dim=-1)
+        d_rgb = gc[:, None, :] * w[..., None]
+    r_behind = torch.empty_like(w)
+    R = gT
+    for k in range(S - 1, -1, -1):
+        r_behind[:, k] = R
+        R = gw[:, k] * alpha[:, k] + f[:, k] * R
+    d_density = T * (gw - r_behind) * e * dist * v
+    return d_density, d_rgb
+
+
+class _RayMarch(torch.autograd.Function):
+    """K5 as one autograd node: (density, rgb) -> (colour, w, T_total)."""
+
+    @staticmethod
+    def forward(ctx, density, rgb, valid, dist, background):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(density, rgb, valid, dist, background)
+        if density.is_cuda:
+            color, w, t_total = cuda_kernels.ray_march(density, valid, dist, rgb, background)
+        else:
+            color, w, t_total = ray_march_plain(density, valid, dist, rgb, background)
+        if color is None:
+            color = density.new_zeros((density.shape[0], 0))
+            ctx.mark_non_differentiable(color)
+        return color, w, t_total
+
+    @staticmethod
+    def backward(ctx, g_color, g_weight, g_t):
+        density, rgb, valid, dist, background = ctx.saved_tensors
+        if rgb is None:
+            g_color = None
+        if g_color is None and g_weight is None and g_t is None:
+            return None, None, None, None, None
+        args = (density, valid, dist, rgb, background, g_color, g_weight, g_t)
+        if density.is_cuda:
+            d_density, d_rgb = cuda_kernels.ray_march_backward(*args)
+        else:
+            d_density, d_rgb = ray_march_backward_plain(*args)
+        return d_density, d_rgb, None, None, None
+
+
+def march_rays(
+    density: torch.Tensor,
+    valid: torch.Tensor,
+    dist: torch.Tensor,
+    rgb: torch.Tensor | None = None,
+    background: torch.Tensor | None = None,
+) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor]:
+    """NeuTex's composite (`ngf_tpu/fields/neutex.py:417-423`): the ray
+    march, the background weighted by the transmittance past the last
+    sample, the tone map.
+
+    Args:
+      density: (B, R, S) float32; valid (B, R, S) bool; dist (B, R, S)
+        float32 segment lengths (no gradient).
+      rgb: (B, R, S, 3) float32 radiance, or None for the colour-free march.
+      background: (B, 3) float32, or None.
+
+    Returns:
+      (colour (B, R, 3) tone-mapped, or None without rgb; blend weights
+      (B, R, S); background weight T_total (B, R)). Differentiable in
+      density and rgb. On the card one K5 launch each way, on the CPU the
+      plain versions.
+    """
+    lead, S = density.shape[:-1], density.shape[-1]
+    flat = lambda t: t.reshape(-1, S)  # noqa: E731
+    rgb2 = None if rgb is None else rgb.reshape(-1, S, 3)
+    bg = None if background is None else background.reshape(-1, 3).to(torch.float32).contiguous()
+    color, w, t_total = _RayMarch.apply(flat(density), rgb2, flat(valid), flat(dist).detach(), bg)
+    return (
+        None if rgb is None else color.reshape(*lead, 3),
+        w.reshape(*lead, S),
+        t_total.reshape(lead),
+    )

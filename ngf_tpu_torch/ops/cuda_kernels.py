@@ -27,7 +27,9 @@ and in bfloat16 (values and cotangents; the gradients stay float32),
 (the trainer's batch assembly),
 ``occupancy_lookup`` (K3, the alpha-mask test of point clouds) and
 ``group_sample_compact`` (K4, the grouped renderer's whole front end:
-sampling, occupancy test and per-ray compaction in one launch).
+sampling, occupancy test and per-ray compaction in one launch), and
+``ray_march`` / ``ray_march_backward`` (K5, the NeuTex compositing scan with
+its background and tone map, and its reverse-scan gradient).
 """
 
 from __future__ import annotations
@@ -148,6 +150,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             vp, vp, vp, vp, vp, vp,
         ]
         lib.ngf_group_sample_compact.restype = i32
+    elif name == "ray_march":
+        common = [i64, i32, vp, i64, i64, vp, i64, i64, vp, i64, i64, vp, i64, i64, i64, vp, i64]
+        lib.ngf_ray_march_forward.argtypes = common + [vp, vp, vp, vp]
+        lib.ngf_ray_march_forward.restype = i32
+        lib.ngf_ray_march_backward.argtypes = common + [vp, vp, vp, vp, vp, vp]
+        lib.ngf_ray_march_backward.restype = i32
 
 
 def build_all() -> float:
@@ -788,6 +796,129 @@ def group_sample_compact(
 
 group_sample_compact.launches = 0
 
+def _march_inputs(density, valid, dist, rgb, background, what: str) -> list:
+    """Check K5's inputs and return the leading arguments of both entry
+    points: N, S, each input's pointer and strides, the background's pointer
+    and rays per background row."""
+    tensors = [t for t in (density, valid, dist, rgb, background) if t is not None]
+    if not _on_one_device(*tensors):
+        raise ValueError(f"{what} needs its inputs on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if density.dtype != torch.float32 or density.dim() != 2:
+        raise ValueError(f"density must be (N, S) float32, got {tuple(density.shape)} {density.dtype}")
+    N, S = density.shape
+    if S == 0:
+        raise ValueError(f"{what}: rays of no samples")
+    if valid.dtype not in (torch.bool, torch.uint8) or valid.shape != (N, S):
+        raise ValueError(f"valid must be ({N}, {S}) bool or uint8, got {tuple(valid.shape)} {valid.dtype}")
+    if dist.dtype != torch.float32 or dist.shape != (N, S):
+        raise ValueError(f"dist must be ({N}, {S}) float32, got {tuple(dist.shape)} {dist.dtype}")
+    if rgb is not None and (rgb.dtype != torch.float32 or rgb.shape != (N, S, 3)):
+        raise ValueError(f"rgb must be ({N}, {S}, 3) float32, got {tuple(rgb.shape)} {rgb.dtype}")
+    per_bg = 1
+    if background is not None:
+        if rgb is None:
+            raise ValueError(f"{what}: a background needs rgb")
+        nb = background.shape[0] if background.dim() == 2 else 0
+        if (background.dtype != torch.float32 or background.dim() != 2 or background.shape[1] != 3
+                or nb == 0 or N % nb or not background.is_contiguous()):
+            raise ValueError(f"background must be (B, 3) float32, contiguous, B dividing {N}, "
+                             f"got {tuple(background.shape)} {background.dtype}")
+        per_bg = N // nb
+    return [
+        N, S, density.data_ptr(), *density.stride(), valid.data_ptr(), *valid.stride(),
+        dist.data_ptr(), *dist.stride(),
+        None if rgb is None else rgb.data_ptr(), *(rgb.stride() if rgb is not None else (0, 0, 0)),
+        None if background is None else background.data_ptr(), per_bg,
+    ]
+
+
+def ray_march(
+    density: torch.Tensor,
+    valid: torch.Tensor,
+    dist: torch.Tensor,
+    rgb: torch.Tensor | None = None,
+    background: torch.Tensor | None = None,
+) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor]:
+    """CUDA kernel K5 (``kernels/ray_march.cu``), forward: the NeuTex ray
+    march of N rays of S samples, with the background and the tone map.
+
+    Args:
+      density: (N, S) float32 CUDA tensor, any strides.
+      valid: (N, S) bool or uint8, any strides.
+      dist: (N, S) float32 segment lengths, any strides.
+      rgb: (N, S, 3) float32 radiance, any strides, or None for the
+        colour-free march (``alpha_ray_march``).
+      background: (B, 3) float32 contiguous, B dividing N (ray n takes row
+        n // (N // B)), or None.
+
+    Returns:
+      (colour (N, 3) tone-mapped, or None without rgb; blend weights w
+      (N, S); background transmittance T_total (N,)), contiguous.
+    """
+    args = _march_inputs(density, valid, dist, rgb, background, "ray_march")
+    N, S = density.shape
+    weight = density.new_empty((N, S))
+    t_total = density.new_empty((N,))
+    color = density.new_empty((N, 3)) if rgb is not None else None
+    if N == 0:
+        return color, weight, t_total
+    lib = _lib("ray_march")
+    _launch(
+        lib, lib.ngf_ray_march_forward, density.get_device(), "ray_march", *args,
+        None if color is None else color.data_ptr(), weight.data_ptr(), t_total.data_ptr(),
+    )
+    ray_march.launches += 1
+    return color, weight, t_total
+
+
+ray_march.launches = 0
+
+
+def ray_march_backward(
+    density: torch.Tensor,
+    valid: torch.Tensor,
+    dist: torch.Tensor,
+    rgb: torch.Tensor | None,
+    background: torch.Tensor | None,
+    g_color: torch.Tensor | None,
+    g_weight: torch.Tensor | None,
+    g_t: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """CUDA kernel K5 (``kernels/ray_march.cu``), backward: from the
+    cotangents of :func:`ray_march`'s colour (N, 3), weights (N, S) and
+    T_total (N,), each float32 or None, the gradients of density (N, S) and
+    of rgb (N, S, 3; None without rgb), by a reverse scan with no division.
+    The inputs are :func:`ray_march`'s."""
+    args = _march_inputs(density, valid, dist, rgb, background, "ray_march_backward")
+    N, S = density.shape
+    cots = []
+    for g, shape, what in ((g_color, (N, 3), "g_color"), (g_weight, (N, S), "g_weight"),
+                           (g_t, (N,), "g_t")):
+        if g is not None:
+            if g.dtype != torch.float32 or tuple(g.shape) != shape or not g.is_cuda:
+                raise ValueError(f"{what} must be {shape} float32 on the card, got "
+                                 f"{tuple(g.shape)} {g.dtype} {g.device}")
+            g = g.contiguous()
+        cots.append(g)
+    if cots[0] is not None and rgb is None:
+        raise ValueError("ray_march_backward: a colour cotangent needs rgb")
+    d_density = density.new_empty((N, S))
+    d_rgb = None if rgb is None else density.new_empty((N, S, 3))
+    if N == 0:
+        return d_density, d_rgb
+    lib = _lib("ray_march")
+    _launch(
+        lib, lib.ngf_ray_march_backward, density.get_device(), "ray_march_backward", *args,
+        *(None if g is None else g.data_ptr() for g in cots),
+        d_density.data_ptr(), None if d_rgb is None else d_rgb.data_ptr(),
+    )
+    ray_march_backward.launches += 1
+    return d_density, d_rgb
+
+
+ray_march_backward.launches = 0
+
 # Every wrapper with a launch counter, by kernel name.
 KERNELS = {
     "bilinear_gather_planes": bilinear_gather_planes,
@@ -797,6 +928,8 @@ KERNELS = {
     "gather_rows": gather_rows,
     "occupancy_lookup": occupancy_lookup,
     "group_sample_compact": group_sample_compact,
+    "ray_march": ray_march,
+    "ray_march_backward": ray_march_backward,
 }
 
 

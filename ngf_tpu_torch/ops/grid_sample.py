@@ -29,7 +29,9 @@ on the way back.
 ``occupancy_lookup`` is the trilinear alpha-mask test ``> 0``: the
 ``occupancy_lookup`` kernel (K3) on CUDA tensors, ``occupancy_lookup_plain``
 on CPU tensors. ``max_pool_3d`` dilates the mask and ``resize_bilinear_2d``
-resizes a plane at the upsample event, both library calls.
+resizes a plane at the upsample event, both library calls, and so is
+``grid_sample_2d_border`` (``align_corners=False``, border padding), the UV
+path's edited-texture lookup, off its training path.
 """
 
 from __future__ import annotations
@@ -488,6 +490,20 @@ def resize_bilinear_2d(plane: torch.Tensor, new_hw: tuple[int, int]) -> torch.Te
     out = F.interpolate(plane.permute(2, 0, 1)[None], size=tuple(new_hw), mode="bilinear",
                         align_corners=True)
     return out[0].permute(1, 2, 0).contiguous()
+
+
+def grid_sample_2d_border(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of an (H, W, C) plane with ``align_corners=False``
+    and border padding (`ngf_tpu/ops/grid_sample.py:616-648`): coordinate c
+    maps to pixel ((c + 1) * size - 1) / 2, taps outside clamp to the edge;
+    ``coords[..., 0]`` indexes W, ``coords[..., 1]`` H. Returns (..., C).
+    ``F.grid_sample`` (ROADMAP.md queue 2 item 3: a library call)."""
+    H, W, C = plane.shape
+    lead = coords.shape[:-1]
+    img = plane.permute(2, 0, 1)[None].to(coords.dtype)
+    grid = coords.reshape(1, 1, -1, 2)
+    out = F.grid_sample(img, grid, mode="bilinear", padding_mode="border", align_corners=False)
+    return out[0, :, 0].t().reshape(*lead, C)
 
 
 def max_pool_3d(volume: torch.Tensor, kernel: int = 3) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Ray-AABB clipping and fixed-step sampling along rays.
 
-Port of `ngf_tpu/ops/rays.py:19-94` (reference
-`InfoInv/models/FieldBase.py:118-137`). Randomness is injected: the caller
-passes the per-ray jitter tensor, and evaluation passes none.
+Port of `ngf_tpu/ops/rays.py:19-147` (references
+`InfoInv/models/FieldBase.py:118-137`, `UV-Mapping/model/renderer.py:79-141`).
+Randomness is injected: the caller passes the jitter tensor, and evaluation
+passes none.
 """
 
 from __future__ import annotations
@@ -69,3 +70,51 @@ def stratified_sample(
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     inbbox = ((pts >= aabb[0]) & (pts <= aabb[1])).all(dim=-1)
     return pts, z_vals, inbbox
+
+
+def cube_ray_generation(
+    campos: torch.Tensor,
+    raydir: torch.Tensor,
+    point_count: int,
+    domain_size: float = 1.0,
+    jitter: float = 0.0,
+    u: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """NeuTex cube ray generation (`ngf_tpu/ops/rays.py:97-147`): slab-test
+    the rays against [-domain, domain]^3, march from the entry (clamped at
+    0) in steps dt = 2 * domain / S whose lengths are jittered by
+    ``jitter * dt * (u - 0.5)``, and sample the segments' midpoints.
+
+    The direction is divided by as it is, with no guard for zero
+    components, as the JAX function does.
+
+    Args:
+      campos: (B, 3); raydir: (B, R, 3) unit directions.
+      point_count: S.
+      u: (B, R, S) uniform draws in [0, 1), or None for no jitter (as
+        ``jitter`` 0).
+
+    Returns:
+      raypos (B, R, S, 3), segment_length (B, R, S), valid (B, R, S) bool,
+      mid_ts (B, R, S).
+    """
+    t1 = (-domain_size - campos[:, None, :]) / raydir
+    t2 = (domain_size - campos[:, None, :]) / raydir
+    lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
+    tmin = torch.maximum(lo[..., 0], torch.maximum(lo[..., 1], lo[..., 2]))
+    tmax = torch.minimum(hi[..., 0], torch.minimum(hi[..., 1], hi[..., 2]))
+    t_start = torch.where(tmin < tmax, tmin, torch.zeros_like(tmin)).clamp_min(0.0)
+
+    dt = domain_size * 2.0 / point_count
+    shape = (raydir.shape[0], raydir.shape[1], point_count)
+    if jitter > 0.0 and u is not None:
+        segment_length = dt + dt * jitter * (u - 0.5)
+    else:
+        segment_length = torch.full(shape, dt, dtype=raydir.dtype, device=raydir.device)
+    end_ts = torch.cumsum(segment_length, dim=2)
+    end_ts = torch.cat([torch.zeros_like(end_ts[..., :1]), end_ts], dim=2)
+    end_ts = t_start[:, :, None] + end_ts
+    mid_ts = 0.5 * (end_ts[..., :-1] + end_ts[..., 1:])
+    raypos = campos[:, None, None, :] + raydir[:, :, None, :] * mid_ts[..., None]
+    valid = ((raypos > -domain_size) & (raypos < domain_size)).all(dim=-1)
+    return raypos, segment_length, valid, mid_ts

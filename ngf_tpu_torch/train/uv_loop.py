@@ -1,0 +1,315 @@
+"""Training and rendering of the UV-Mapping (NeuTex) subsystem.
+
+Port of `ngf_tpu/train/uv_loop.py:UVTrainer` (reference
+`UV-Mapping/train.py:84-175`, `UV-Mapping/model/model.py:66-381`): one
+view's sampled pixel batch a step; Adam (0.9, 0.999, 1e-8) in one group
+over the subnetworks that are not frozen; the 'lambda', 'step' and
+'plateau' learning-rate policies; colour, background-transmittance, origin
+and inverse-mapping losses; full-image renders chunked by rays; whole-model
+and per-subnetwork checkpoints.
+
+Differences from the JAX trainer:
+- PyTorch runs eagerly, one step at a time: ``train_block`` runs its items'
+  steps in a Python loop (the JAX trainer fuses them into one ``lax.scan``),
+  keeps the losses on the device and reads them once, at the block's end.
+  For 'plateau' the block is still the controller's metric block: it
+  updates once per call, from the block's mean colour loss.
+- Draws come from a ``torch.Generator`` on the device (seeded with
+  ``seed``): the segment jitter ``u`` and the template points, per step.
+  ``train_block`` also takes them injected (``draws``), so a test can hand
+  it the JAX trainer's.
+- The whole-model checkpoint keeps the optimizer state in optax's leaf order
+  (``extra/opt/<i>``, `convert.adam_to_optax_leaves`), so the JAX trainer
+  resumes from the port's checkpoints and the port from the JAX one's. The
+  generator's state goes under ``extra/torch_generator``; the JAX key
+  (``extra/key``) has no meaning here, and a checkpoint without the
+  generator's state (one the JAX trainer wrote) reseeds the generator from
+  (seed, step).
+- The 512-wide inverse network maps the samples back only when the
+  inverse-mapping loss weighs more than 0, and ``render_view`` runs neither
+  it nor the template (XLA drops that dead work in the JAX trainer).
+- Products sum in float32 (no TF32, no bfloat16 reduction) while the steps
+  and renders run (``utils.precision.float32_accumulation``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from ..convert import adam_from_optax_leaves, adam_to_optax_leaves, sorted_named_leaves
+from ..data.dtu import get_rays_dir
+from ..fields.neutex import (
+    NeuTexConfig,
+    init_neutex,
+    neutex_forward,
+    neutex_losses,
+    template_random_points,
+)
+from ..utils.checkpoint import load_checkpoint, load_extra_arrays, save_checkpoint
+from ..utils.device import resolve_device
+from ..utils.precision import float32_accumulation
+
+SUBNETWORKS = {
+    # `Model.get_subnetworks` (`UV-Mapping/model/model.py:375-381`)
+    "geometry": "net_geometry_decoder",
+    "inverse": "inverse_network",
+    "gauge": "gauge_network",
+    "texture": "net_texture",
+}
+LR_POLICIES = ("lambda", "step", "plateau")
+
+
+def lambda_lr(step: int, niter: int, niter_decay: int) -> float:
+    """'lambda' policy (`ngf_tpu/train/uv_loop.py:45-48`): constant through
+    ``niter``, then linear decay over ``niter_decay``."""
+    return 1.0 - max(0, step - niter) / float(niter_decay + 1)
+
+
+def step_lr(step: int, decay_iters: int) -> float:
+    """'step' policy (`ngf_tpu/train/uv_loop.py:51-53`): x0.1 every decay_iters."""
+    return 0.1 ** (step // decay_iters)
+
+
+class UVTrainer:
+    """Owns the NeuTex parameters, the optimizer and the generator."""
+
+    def __init__(
+        self,
+        cfg: NeuTexConfig,
+        dataset=None,
+        lr: float = 1e-4,
+        niter: int = 500_000,
+        niter_decay: int = 0,
+        loss_weights: dict[str, float] | None = None,
+        seed: int = 0,
+        save_dir: str | None = None,
+        freeze: list[str] | None = None,
+        lr_policy: str = "lambda",
+        lr_decay_iters: int = 50,
+        device: torch.device | str = "cuda",
+    ):
+        """``device`` 'cuda' (the default) raises without a card; 'cpu'
+        runs K5's plain version."""
+        if lr_policy not in LR_POLICIES:
+            raise NotImplementedError(f"lr policy {lr_policy!r}")
+        self.cfg = cfg
+        self.dataset = dataset
+        self.save_dir = save_dir
+        self.loss_weights = dict(loss_weights or {
+            "color": 1.0, "bg": 1.0, "origin": 1.0, "inverse_mapping": 0.0
+        })
+        self.lr, self.niter, self.niter_decay = lr, niter, niter_decay
+        self.lr_policy, self.lr_decay_iters = lr_policy, lr_decay_iters
+        self.seed = seed
+        self.device = resolve_device(str(device))
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.params = init_neutex(cfg, self.gen)
+        self.step_count = 0
+        # The working ReduceLROnPlateau of `ngf_tpu/train/uv_loop.py:101-110,197-208`.
+        self._plateau = ({"best": float("inf"), "bad": 0, "mult": 1.0}
+                         if lr_policy == "plateau" else None)
+
+        # Frozen subnetworks (`BaseModel.freeze_subnetworks`) take no
+        # gradient, no moments and no update, as optax.set_to_zero.
+        frozen = {SUBNETWORKS[f] for f in (freeze or [])}
+        self.trainable = [t for path, t in sorted_named_leaves(self.params)
+                          if path.split("/")[0] not in frozen]
+        for t in self.trainable:
+            t.requires_grad_(True)
+        self.adam = torch.optim.Adam(self.trainable, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        self.schedule_count = 0
+
+    # ---------------------------------------------------------------- steps
+
+    def _schedule(self, count: int) -> float:
+        if self.lr_policy == "lambda":
+            return lambda_lr(count, self.niter, self.niter_decay)
+        if self.lr_policy == "step":
+            return step_lr(count, self.lr_decay_iters)
+        return 1.0
+
+    def _plateau_update(self, color_loss: float) -> None:
+        """mode min, factor 0.2, relative threshold 0.01, patience 5, per
+        metric block (`ngf_tpu/train/uv_loop.py:197-208`)."""
+        st = self._plateau
+        if color_loss < st["best"] * (1.0 - 0.01):
+            st["best"] = color_loss
+            st["bad"] = 0
+        else:
+            st["bad"] += 1
+            if st["bad"] > 5:
+                st["mult"] *= 0.2
+                st["bad"] = 0
+
+    def _draw_one(self, B: int, R: int) -> dict[str, torch.Tensor]:
+        u = torch.rand((B, R, self.cfg.sample_num), generator=self.gen, device=self.device)
+        tmpl = template_random_points(self.cfg, self.cfg.points_per_primitive, self.gen)
+        return {"u": u, "template": tmpl}
+
+    def _step(self, campos, raydir, gt, bg, trans, u, template) -> list[torch.Tensor]:
+        weights = self.loss_weights
+        out = neutex_forward(self.params, self.cfg, campos, raydir, bg, u=u, template=template,
+                             inverse=weights.get("inverse_mapping", 0) > 0)
+        total, losses = neutex_losses(out, gt, trans, weights)
+        self.adam.zero_grad(set_to_none=True)
+        total.backward()
+        self._apply_update()
+        return losses
+
+    def _apply_update(self) -> None:
+        """One Adam update from the gradients in ``.grad``, at ``lr`` times
+        the schedule at the update count times the plateau multiplier (optax:
+        ``scale_by_adam``, then ``scale_by_schedule`` from count 0)."""
+        mult = self._plateau["mult"] if self._plateau is not None else 1.0
+        for g in self.adam.param_groups:
+            g["lr"] = self.lr * self._schedule(self.schedule_count) * mult
+        self.adam.step()
+        self.schedule_count += 1
+
+    @float32_accumulation()
+    def train_block(self, items: list[dict[str, np.ndarray]],
+                    draws: list[dict] | None = None) -> dict[str, np.ndarray]:
+        """``len(items)`` optimizer steps, one item (a view's pixel batch,
+        `data.dtu`'s ``get_item``) each. ``draws``: per step ``u`` (B, R, S)
+        and ``template`` (P, uv_dim), arrays or tensors, or None to draw them
+        from the generator. Returns each loss per step, (T,) numpy arrays,
+        read from the device once."""
+        dev = self.device
+
+        def stack(name):
+            return torch.as_tensor(np.stack([it[name] for it in items])).to(dev)
+
+        campos, raydir = stack("campos"), stack("raydir")
+        gt, bg = stack("gt_image"), stack("background_color")
+        trans = stack("transmittance") if "transmittance" in items[0] else None
+        if draws is None:
+            draws = [self._draw_one(raydir.shape[1], raydir.shape[2]) for _ in items]
+        rows, names = [], None
+        for t, d in enumerate(draws):
+            u = torch.as_tensor(d["u"], dtype=torch.float32, device=dev)
+            tmpl = torch.as_tensor(d["template"], dtype=torch.float32, device=dev)
+            losses = self._step(campos[t], raydir[t], gt[t], bg[t],
+                                None if trans is None else trans[t], u, tmpl)
+            names = list(losses)
+            rows.append(torch.stack([losses[k].detach() for k in names]))
+        self.step_count += len(items)
+        table = torch.stack(rows).cpu().numpy()
+        out = {k: table[:, i] for i, k in enumerate(names)}
+        if self._plateau is not None and "color" in out:
+            self._plateau_update(float(out["color"].mean()))
+        return out
+
+    def train_step(self, item: dict[str, np.ndarray]) -> dict[str, float]:
+        """One step on one item."""
+        return {k: float(v[-1]) for k, v in self.train_block([item]).items()}
+
+    # ------------------------------------------------------------- rendering
+
+    @torch.no_grad()
+    @float32_accumulation()
+    def render_view(self, campos: np.ndarray, height: int, width: int, focal, rot, princpt,
+                    chunk: int = 1024, edit_texture=None,
+                    edit_mode: int = 0) -> tuple[np.ndarray, np.ndarray]:
+        """A full image chunked by rays (`ngf_tpu/train/uv_loop.py:247-292`):
+        no jitter, a black background. Returns (rgb (H, W, 3), transmittance
+        (H, W)) as numpy."""
+        px, py = np.meshgrid(np.arange(width, dtype=np.float32),
+                             np.arange(height, dtype=np.float32))
+        raydir = get_rays_dir(np.stack([px, py], -1), focal, rot, princpt).reshape(-1, 3)
+        raydir = torch.as_tensor(raydir.astype(np.float32), device=self.device)
+        edit = (None if edit_texture is None
+                else torch.as_tensor(np.asarray(edit_texture, np.float32), device=self.device))
+        cam = torch.as_tensor(np.asarray(campos, np.float32)[None], device=self.device)
+        bg = torch.zeros((1, 3), device=self.device)
+        rgbs, trans = [], []
+        for i in range(0, raydir.shape[0], chunk):
+            out = neutex_forward(self.params, self.cfg, cam, raydir[None, i:i + chunk], bg,
+                                 edit_texture=edit, edit_mode=edit_mode, inverse=False)
+            rgbs.append(out["color"][0])
+            trans.append(out["transmittance"][0])
+        return (torch.cat(rgbs).reshape(height, width, 3).cpu().numpy(),
+                torch.cat(trans).reshape(height, width).cpu().numpy())
+
+    # ----------------------------------------------------------- checkpoints
+
+    def save_networks(self, epoch: str | int, other_states: dict | None = None) -> None:
+        """``{epoch}_net_NeuTex.npz`` (the parameters, the meta and the
+        optimizer's optax leaves) and one ``{epoch}_subnet_<name>.npz`` a
+        subnetwork (`ngf_tpu/train/uv_loop.py:326-357`)."""
+        if self.save_dir is None:
+            raise ValueError("save_networks needs a save_dir")
+        os.makedirs(self.save_dir, exist_ok=True)
+        cfg = dataclasses.asdict(self.cfg)
+        meta = {"cfg": cfg, "step": self.step_count, "plateau": self._plateau,
+                **(other_states or {})}
+        leaves = adam_to_optax_leaves(self.adam, self.trainable, self.schedule_count)
+        extra = {f"opt/{i:04d}": leaf for i, leaf in enumerate(leaves)}
+        extra["torch_generator"] = self.gen.get_state().numpy()
+        save_checkpoint(os.path.join(self.save_dir, f"{epoch}_net_NeuTex.npz"), self.params,
+                        meta, extra_arrays=extra)
+        for friendly, name in SUBNETWORKS.items():
+            save_checkpoint(os.path.join(self.save_dir, f"{epoch}_subnet_{friendly}.npz"),
+                            self.params[name], {"cfg": cfg})
+
+    def load_params(self, tree) -> None:
+        """Set the parameters from a tree of arrays or tensors with the same
+        names and shapes (a JAX package's ``init_neutex``, say), in place."""
+        self._copy_params(self.params, tree)
+
+    def _copy_params(self, dst, src) -> None:
+        """Copy a tree of arrays into this trainer's tensors, in place (the
+        optimizer keeps its references)."""
+        src_leaves = dict(sorted_named_leaves(src))
+        dst_leaves = dict(sorted_named_leaves(dst))
+        if set(src_leaves) != set(dst_leaves):
+            raise ValueError(f"checkpoint names differ: {sorted(set(src_leaves) ^ set(dst_leaves))}")
+        with torch.no_grad():
+            for k, t in dst_leaves.items():
+                v = src_leaves[k]
+                v = v.detach() if torch.is_tensor(v) else torch.as_tensor(np.array(v))
+                if tuple(v.shape) != tuple(t.shape):
+                    raise ValueError(f"{k}: checkpoint shape {tuple(v.shape)}, model {tuple(t.shape)}")
+                t.copy_(v)
+
+    def load_networks(self, epoch: str | int, resume_dir: str | None = None) -> dict:
+        """Restore ``{epoch}_net_NeuTex.npz`` written by either package: the
+        parameters, the step, the plateau state and, where its leaves fit
+        this trainer's trainable parameters, the optimizer state (as the JAX
+        trainer, `ngf_tpu/train/uv_loop.py:359-382`, which otherwise keeps
+        its fresh state; this one says so)."""
+        path = os.path.join(resume_dir or self.save_dir, f"{epoch}_net_NeuTex.npz")
+        params, meta, _, _ = load_checkpoint(path, "cpu")
+        self._copy_params(self.params, params)
+        self.step_count = int(meta.get("step", 0))
+        extra = load_extra_arrays(path)
+        n_opt = sum(1 for k in extra if k.startswith("opt/"))
+        try:
+            self.schedule_count = adam_from_optax_leaves(
+                self.adam, self.trainable, [extra[f"opt/{i:04d}"] for i in range(n_opt)])
+        except (ValueError, KeyError) as e:
+            print(f"{path}: optimizer state not restored ({e})")
+        if "torch_generator" in extra:
+            self.gen.set_state(torch.as_tensor(extra["torch_generator"], dtype=torch.uint8))
+        else:
+            self.gen.manual_seed(self.seed * 1_000_003 + self.step_count)
+        if meta.get("plateau") and self._plateau is not None:
+            self._plateau = dict(meta["plateau"])
+        return meta
+
+    def load_subnetworks(self, epoch: str | int, names: list[str],
+                         resume_dir: str | None = None) -> None:
+        """Warm-start subnetworks from ``{epoch}_subnet_<name>.npz``
+        (`ngf_tpu/train/uv_loop.py:384-396`); a missing file is reported and
+        skipped."""
+        for friendly in names:
+            path = os.path.join(resume_dir or self.save_dir, f"{epoch}_subnet_{friendly}.npz")
+            if not os.path.isfile(path):
+                print(f"cannot load {path}")
+                continue
+            sub, _, _, _ = load_checkpoint(path, "cpu")
+            self._copy_params(self.params[SUBNETWORKS[friendly]], sub)
+

@@ -1,10 +1,13 @@
 """Self-describing ``.npz`` checkpoints with a packed occupancy bitmap.
 
-Port of `ngf_tpu/utils/checkpoint.py:23-67,189-215`: the parameter tree
+Port of `ngf_tpu/utils/checkpoint.py:23-138,189-232`: the parameter tree
 flattened to ``param/<path>`` arrays, a JSON ``meta`` blob (model and render
-configuration, training state) and the alpha volume bit-packed with
-``np.packbits`` under ``alphaMask/``. Files written by either package load in
-the other. The JAX package's Orbax directory form is not read here.
+configuration, training state), the alpha volume bit-packed with
+``np.packbits`` under ``alphaMask/``, and training-resume state (optimizer
+moments, counts, the generator's state) as ``extra/<name>`` arrays. Files
+written by either package load in the other. A save writes a temporary file
+and renames it over the old one, so a kill mid-write leaves the old file
+whole. The JAX package's Orbax directory form is not read here.
 """
 
 from __future__ import annotations
@@ -58,9 +61,11 @@ def save_checkpoint(
     meta: dict | None = None,
     alpha_volume: torch.Tensor | np.ndarray | None = None,
     alpha_aabb: torch.Tensor | np.ndarray | None = None,
+    extra_arrays: dict[str, Any] | None = None,
 ) -> None:
-    """Write the parameter tree (+ optional binary occupancy volume) to one
-    ``.npz`` at ``path`` (`ngf_tpu/utils/checkpoint.py:56-67,82-116`)."""
+    """Write the parameter tree (+ optional binary occupancy volume and
+    ``extra/`` arrays) to one ``.npz`` at ``path``
+    (`ngf_tpu/utils/checkpoint.py:56-67,82-137`)."""
     arrays = {f"param/{k}": v for k, v in _flatten(params_to_numpy(params)).items()}
     blob = dict(meta or {})
     if alpha_volume is not None:
@@ -68,9 +73,17 @@ def save_checkpoint(
         arrays["alphaMask/mask"] = np.packbits(vol.reshape(-1))
         arrays["alphaMask/aabb"] = np.asarray(torch.as_tensor(alpha_aabb).cpu(), np.float32)
         blob["alphaMask.shape"] = list(vol.shape)
+    for k, v in (extra_arrays or {}).items():
+        arrays[f"extra/{k}"] = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
     arrays["meta"] = np.frombuffer(json.dumps(blob).encode(), dtype=np.uint8)
-    with open(path, "wb") as f:
-        np.savez(f, **arrays)
+    tmp = f"{path}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def load_checkpoint(path: str, device: torch.device | str):
@@ -94,3 +107,11 @@ def load_checkpoint(path: str, device: torch.device | str):
         {k[len("param/"):]: v for k, v in arrays.items() if k.startswith("param/")}
     )
     return params_from_numpy(params, device), meta, alpha_volume, alpha_aabb
+
+
+def load_extra_arrays(path: str) -> dict[str, np.ndarray]:
+    """The ``extra/`` arrays (training-resume state) of an ``.npz``
+    checkpoint, without the prefix; empty where it has none
+    (`ngf_tpu/utils/checkpoint.py:218-232`)."""
+    with np.load(path) as z:
+        return {k[len("extra/"):]: z[k] for k in z.files if k.startswith("extra/")}

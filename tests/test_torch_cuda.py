@@ -15,7 +15,10 @@ its footprint (three blocks an SM), through autograd and in a gauge train
 step; K2 and K2c on bfloat16 cotangents and planes (both lane widths,
 aligned and unaligned strides, the gauge's three shapes), their footprint,
 the bfloat16 fetch through autograd, a bfloat16 gauge train step and the
-bfloat16 decoder layer's float32 product.
+bfloat16 decoder layer's float32 product; K5 ``ray_march`` and
+``ray_march_backward`` (the NeuTex compositing scan and its reverse scan) at
+the UV path's shapes, with alpha rounding to 1, strided inputs, without
+colour, and through ``march_rays``'s autograd one cotangent at a time.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports neither JAX nor `ngf_tpu`, so it runs on a GPU machine
@@ -28,7 +31,9 @@ order); bfloat16 one unit in the last place, at most 2^-7 of the value, since
 both round one float32 sum; rendered outputs 1e-4; plane gradients 1e-5 of
 the largest gradient (float32 atomics add in another order), and so the
 coordinate gradients (their tap sums run over the channels in another
-order), from bfloat16 cotangents and planes too (kernel and plain version
+order), from bfloat16 cotangents and planes too, and K5's outputs and gradients
+(the same float32 scan; the plain version's cumprod and sums round in
+another order) (kernel and plain version
 widen the same bfloat16 values and sum in float32); a bfloat16 train step
 against the plain sampler 3e-2 of each leaf's largest gradient (see the
 test); row gathers,
@@ -66,7 +71,7 @@ def cuda():
 def test_build_from_source(cuda):
     assert cuda_kernels.build_all() >= 0.0
     for name in ("bilinear_gather", "bilinear_gather_backward", "gather_rows",
-                 "occupancy_lookup", "group_compact"):
+                 "occupancy_lookup", "group_compact", "ray_march"):
         assert any(cuda_kernels.BUILD_DIR.glob(f"lib{name}-*.so")), name
 
 
@@ -1035,3 +1040,150 @@ def test_bf16_gauge_train_step_launches_and_matches_plain(cuda):
         assert scale > 0, k
         err = (results["kernels"][1][k] - want).abs().max().item()
         assert err <= 3e-2 * scale, (k, err, scale)
+
+
+# ------------------------------------------------------------------- K5
+
+
+def _march_inputs(cuda, n, s, seed=0, alpha_one=False, strided=False):
+    """K5's inputs at n rays of s samples: densities up to 60 (alpha near 1
+    on many samples), a fifth of the samples invalid, the NeuTex segment
+    lengths 2/s +- 2.5%, radiance in [0, 1.5], a background per 576 rays
+    (one for all where 576 does not divide n)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    density = torch.rand((n, s), generator=g, device=cuda) * 60.0
+    if alpha_one:
+        density[: n // 2, s // 3] = 1e4  # alpha rounds to 1, f = 1e-10
+    valid = torch.rand((n, s), generator=g, device=cuda) > 0.2
+    dist = (2.0 / s) * (1.0 + 0.05 * (torch.rand((n, s), generator=g, device=cuda) - 0.5))
+    rgb = torch.rand((n, s, 4 if strided else 3), generator=g, device=cuda) * 1.5
+    rgb = rgb[..., :3]
+    bg = torch.rand((n // 576 if n % 576 == 0 else 1, 3), generator=g, device=cuda)
+    return density, valid, dist, rgb, bg
+
+
+def _march_cotangents(cuda, n, s, seed=1):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn((n, 3), generator=g, device=cuda),
+            torch.randn((n, s), generator=g, device=cuda),
+            torch.randn((n,), generator=g, device=cuda))
+
+
+def _close(got, want, what):
+    scale = max(want.abs().max().item(), 1e-30)
+    err = (got - want).abs().max().item()
+    assert err <= F32_TOL * scale, (what, err, scale)
+
+
+@pytest.mark.parametrize("case", ["train", "render", "large", "alpha_one", "strided", "no_colour"])
+def test_ray_march_kernel_matches_plain(cuda, case):
+    from ngf_tpu_torch.ops import compositing as tcomp
+
+    n = {"train": 576, "render": 576, "large": 65536}.get(case, 1152)
+    s = 64
+    density, valid, dist, rgb, bg = _march_inputs(
+        cuda, n, s, alpha_one=case == "alpha_one", strided=case == "strided")
+    if case == "no_colour":
+        rgb = bg = None
+    if case == "strided":
+        valid = valid.to(torch.uint8)
+        density = torch.cat([density, density], dim=1)[:, ::2]
+    before = (cuda_kernels.ray_march.launches, cuda_kernels.ray_march_backward.launches)
+    got = cuda_kernels.ray_march(density, valid, dist, rgb, bg)
+    want = tcomp.ray_march_plain(density, valid, dist, rgb, bg)
+    for a, b, what in zip(got, want, ("colour", "w", "T_total")):
+        if b is None:
+            assert a is None
+        else:
+            _close(a, b, what)
+    if case == "render":
+        return
+    cots = _march_cotangents(cuda, n, s)
+    if rgb is None:
+        cots = (None,) + cots[1:]
+    got = cuda_kernels.ray_march_backward(density, valid, dist, rgb, bg, *cots)
+    want = tcomp.ray_march_backward_plain(density, valid, dist, rgb, bg, *cots)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in got if t is not None)
+    _close(got[0], want[0], "d density")
+    if rgb is None:
+        assert got[1] is None
+    else:
+        _close(got[1], want[1], "d rgb")
+    assert (cuda_kernels.ray_march.launches - before[0],
+            cuda_kernels.ray_march_backward.launches - before[1]) == (1, 1)
+
+
+@pytest.mark.parametrize("which", ["colour", "weights", "transmittance"])
+def test_ray_march_autograd_each_cotangent_alone(cuda, which):
+    """``march_rays`` on the card (one K5 launch each way) against autograd
+    through the plain cumprod version, one output's cotangent at a time."""
+    from ngf_tpu_torch.ops import compositing as tcomp
+
+    density, valid, dist, rgb, bg = _march_inputs(cuda, 1152, 64, seed=3)
+    density = (density * 0.05).reshape(2, 576, 64)
+    rgb, valid, dist = rgb.reshape(2, 576, 64, 3), valid.reshape(2, 576, 64), dist.reshape(2, 576, 64)
+    k = ("colour", "weights", "transmittance").index(which)
+    grads = []
+    for route in ("kernel", "plain"):
+        d = density.clone().requires_grad_(True)
+        c = rgb.clone().requires_grad_(True)
+        before = cuda_kernels.ray_march_backward.launches
+        if route == "kernel":
+            outs = tcomp.march_rays(d, valid, dist, c, bg)
+        else:
+            col, w, t = tcomp.ray_march_plain(d.reshape(-1, 64), valid.reshape(-1, 64),
+                                              dist.reshape(-1, 64), c.reshape(-1, 64, 3), bg)
+            outs = (col.reshape(2, 576, 3), w.reshape(2, 576, 64), t.reshape(2, 576))
+        (outs[k] * torch.linspace(-1, 1, outs[k].numel(), device=cuda).reshape(outs[k].shape)).sum().backward()
+        if route == "kernel":
+            assert cuda_kernels.ray_march_backward.launches == before + 1
+        grads.append((d.grad, c.grad))
+    _close(grads[0][0], grads[1][0], "d density")
+    if which == "colour":
+        _close(grads[0][1], grads[1][1], "d rgb")
+    else:
+        assert grads[0][1].abs().max().item() == 0.0
+
+
+def test_ray_march_refuses_what_the_kernel_does_not_take(cuda):
+    density, valid, dist, rgb, bg = _march_inputs(cuda, 576, 64)
+    with pytest.raises(ValueError):
+        cuda_kernels.ray_march(density.cpu(), valid, dist, rgb, bg)
+    with pytest.raises(ValueError):
+        cuda_kernels.ray_march(density.double(), valid, dist, rgb, bg)
+    with pytest.raises(ValueError):
+        cuda_kernels.ray_march(density, valid.float(), dist, rgb, bg)
+    with pytest.raises(ValueError):
+        cuda_kernels.ray_march(density, valid, dist, rgb, torch.zeros((5, 3), device=cuda))
+
+
+def test_uv_train_steps_launch_k5_and_match_the_cpu(cuda):
+    """Two `UVTrainer` steps of a small NeuTex on the card (one K5 launch
+    each way a step) against the same steps on the CPU (K5's plain
+    versions), from the same weights and draws: the first step's losses to
+    1e-4 (float32 sums in another order), the second's to 1e-3 (Adam's first
+    move turns gradients at the level of float32 rounding into moves of lr
+    either way)."""
+    from ngf_tpu_torch.data.dtu import SyntheticDtuDataset
+    from ngf_tpu_torch.fields.neutex import NeuTexConfig
+    from ngf_tpu_torch.train.uv_loop import UVTrainer
+
+    cfg = NeuTexConfig(sample_num=16, points_per_primitive=64, geo_hidden=64, geo_layers=3,
+                       tex_width=64, tex_layers1=2, tex_layers2=1)
+    ds = SyntheticDtuDataset(n_views=4, wh=(16, 16), random_sample="balanced",
+                             random_sample_size=8, seed=0)
+    items = [ds.sample() for _ in range(2)]
+    g = torch.Generator().manual_seed(0)
+    draws = [{"u": torch.rand((1, 64, 16), generator=g),
+              "template": torch.rand((64, 2), generator=g) * 2 - 1} for _ in items]
+    on_card, on_cpu = UVTrainer(cfg, ds, seed=3, device=cuda), UVTrainer(cfg, ds, device="cpu")
+    on_cpu.load_params(on_card.params)
+    before = (cuda_kernels.ray_march.launches, cuda_kernels.ray_march_backward.launches)
+    got = on_card.train_block(items, draws=draws)
+    assert (cuda_kernels.ray_march.launches - before[0],
+            cuda_kernels.ray_march_backward.launches - before[1]) == (2, 2)
+    want = on_cpu.train_block(items, draws=draws)
+    for k, w in want.items():
+        for step, rtol in ((0, 1e-4), (1, 1e-3)):
+            assert abs(got[k][step] - w[step]) <= rtol * max(abs(w[step]), 1e-6), (k, step)

@@ -309,18 +309,22 @@ def test_jet_colormap_matches_opencv():
 
 
 def test_port_imports_neither_jax_nor_ngf_tpu():
-    """Import every module of the port, `main_torch` and `chip_smoke` in a
-    fresh interpreter: neither `jax` nor any `ngf_tpu.*` module is loaded."""
+    """Import every module of the port, `main_torch`, `chip_smoke` and the UV
+    CLIs `uv_train_torch` and `uv_test_torch` in a fresh interpreter: neither
+    `jax` nor any `ngf_tpu.*` module is loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ngf_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(ngf_tpu_torch.__path__, 'ngf_tpu_torch.')]\n"
-        "for m in mods + ['main_torch', 'chip_smoke']:\n"
+        "for m in mods + ['main_torch', 'chip_smoke', 'uv_train_torch', 'uv_test_torch']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ngf_tpu'))\n"
-        "assert len(mods) >= 30, mods\n"
+        "assert len(mods) >= 37, mods\n"
         "assert {'ngf_tpu_torch.train.loop', 'ngf_tpu_torch.train.state',\n"
-        "        'ngf_tpu_torch.ops.gather', 'ngf_tpu_torch.data.sampler'} <= set(mods), mods\n"
+        "        'ngf_tpu_torch.ops.gather', 'ngf_tpu_torch.data.sampler',\n"
+        "        'ngf_tpu_torch.data.dtu',\n"
+        "        'ngf_tpu_torch.fields.neutex', 'ngf_tpu_torch.train.uv_loop',\n"
+        "        'ngf_tpu_torch.utils.cubemap', 'ngf_tpu_torch.utils.scalars'} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n"
     )
