@@ -59,19 +59,23 @@
 6. Render phase: a random InfoInv tri-plane model at full width, saved as a
    checkpoint with the lego geometry, rendered through ``main_torch.main``
    (render-only, one 800 x 800 synthetic test view, 4096-ray chunks). The
-   gather's launch count over that run must be 1 per chunk; one chunk is
-   rendered again with the plain sampler and compared, timed, and profiled
-   (device time by op, torch.profiler).
+   gather's and K5's tri-plane composite's launch counts over that run must
+   be 1 per chunk; one chunk is rendered again with the plain sampler and
+   compared, timed, and profiled (device time by op, torch.profiler, K5's
+   share, no ``cumprod``); then K5's tri-plane rows on that chunk's own
+   composite inputs (4096 x 884).
 7. Train phase: ``main_torch.main`` in training mode with
    ``configs/synthetic_infoinv_tpu.txt --group_size 0`` at full width (30
    synthetic 128 x 128 views, one test view), 300 steps, under the profiler.
-   Each step must launch 1 gather, 6 gather backwards and 1 row gather;
+   Each step must launch 1 gather, 6 gather backwards, 1 row gather and
+   K5's tri-plane composite once each way (once a chunk in evaluation);
    the steps may copy to the card only the ids, once per epoch; the losses
    must be finite and fall; the checkpoint and the final evaluation's PNG
    must exist. Then one step on one batch with the kernels and with the
    plain sampler, compared, on the trained weights and on opaque ones, with
    the backward kernel run alone on the step's own cotangents; then ms per
-   step, rays/s, peak memory and a profile.
+   step, rays/s, peak memory and a profile; then K5's tri-plane rows on a
+   step's own composite inputs and cotangents (4096 x 512).
 8. Staged phase: ``main_torch.main`` on ``configs/synthetic_infoinv_tpu.txt``
    as it is (grouped path, 1600 steps, the mask event at 600, 30 synthetic
    128 x 128 views, one test view). The event must run once (its voxels,
@@ -81,8 +85,10 @@
    and the evaluation chunks; the losses must fall in both stages; the
    checkpoint must carry its mask. Then one masked step with the kernels
    against the plain sampler, the open and masked stages' ms/step, the
-   masked step's profile with its launches per step, and the checkpoint
-   rendered once by the render-only CLI (K3 on the dense path).
+   masked step's profile with its launches per step, K5's tri-plane rows on
+   an open and a masked step's own inputs (grouped, one constant length),
+   and the checkpoint rendered once by the render-only CLI (K3 on the
+   dense path).
 9. Gauge phase: ``main_torch.main`` on ``configs/synthetic_triplane_tpu.txt``
    as it is (the learned gauge, 1600 grouped steps, the gauge on at 400, the
    mask event with the shrink at 600, the upsample at 800, the same data).
@@ -96,7 +102,8 @@
    three planes in one launch, and the xy plane alone), K1 on its planes
    of three shapes, the stages' ms/step, the events' phases, the
    test PSNR beside the JAX package's band, the checkpoint through the
-   render-only CLI, and the upsampled stage's step profiled.
+   render-only CLI, the upsampled stage's step profiled, and K5's tri-plane
+   rows on that step's own inputs.
 10. bfloat16 phase: ``main_torch.main`` on ``configs/synthetic_infoinv_tpu30k.txt
    --n_iters 3000`` (the 30k schedule cut to its three mask events at 300,
    2000 and 2500, masked cap 160, bfloat16, the same data) and on
@@ -131,6 +138,12 @@
    weights: ms by CUDA events, rays/s, launches, idle share, peak memory
    and the top device ops (the products' and K5's shares).
 
+Each K5 tri-plane row (``k5_triplane_rows``) holds the kernel against its
+plain pair beside its bound and the composite as the renderers ran it
+before K5: the plain forward is its ``cumprod`` chain, timed also forward
+and backward through autograd, by CUDA events. Every profiled tri-plane step must run no
+``cumprod``.
+
 Prints per-phase lines, then the card line, a JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Any failure raises: the script
 then exits non-zero and prints no ``ok`` line. ``--phases`` runs a subset
@@ -146,6 +159,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -1040,6 +1054,10 @@ def render_phase(
             check(launches["bilinear_gather_planes"] == n_chunks
                   and launches["bilinear_gather_2d"] == 0,
                   f"gather launches {launches} for {n_chunks} chunks")
+            # One K5 tri-plane composite per chunk, and no backward.
+            check(launches["ray_march_triplane"] == n_chunks
+                  and launches["ray_march_triplane_backward"] == 0,
+                  f"composite launches {launches} for {n_chunks} chunks")
 
         params, model_cfg, rcfg = load_model(ckpt, device)
     rays = chunk_rays(wh, chunk, device)
@@ -1072,7 +1090,9 @@ def render_phase(
                   f"{chunk_peak:.2f} GiB in one kernel chunk")
             result.update(chunk_ms=ms, chunk_plain_ms=plain_ms, peak_gib=peak,
                           chunk_peak_gib=chunk_peak)
-            profile_chunk(lambda: render_rays(params, model_cfg, rcfg, rays))
+            result["profile"] = profile_chunk(lambda: render_rays(params, model_cfg, rcfg, rays))
+            result["k5"] = step_k5_rows("render chunk",
+                                        lambda: render_rays(params, model_cfg, rcfg, rays))
     return result
 
 
@@ -1147,7 +1167,8 @@ def train_phase(
                     "bilinear_gather_2d_backward": 6 * steps,
                     "bilinear_gather_planes_backward_coords": 0, "gather_rows": iters,
                     "occupancy_lookup": 0, "group_sample_compact": 0, "ray_march": 0,
-                    "ray_march_backward": 0}
+                    "ray_march_backward": 0, "ray_march_triplane": steps + eval_chunks,
+                    "ray_march_triplane_backward": steps}
             check(launches == want, f"launches {launches}, expected {want}")
             result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
             result["loop"] = loop_profile(prof)
@@ -1180,7 +1201,10 @@ def train_phase(
               f"{step_peak:.2f} GiB in the timed steps, {result['peak_gib']:.2f} GiB over "
               f"main_torch.main")
         result.update(step_ms=ms, step_peak_gib=step_peak)
-        profile_chunk(step, reps=2, unit="step")
+        result["profile"] = profile_chunk(step, reps=2, unit="step")
+        result["k5"] = step_k5_rows(
+            "dense train step", lambda: trainer.compute_grads(*trainer.next_batch(), trainer.gen))
+        trainer.optimizer.zero_grad()
     return result
 
 
@@ -1331,11 +1355,190 @@ def profile_chunk(fn, reps: int = 3, unit: str = "chunk") -> dict:
            "device_ms": sum(e.self_device_time_total for e in device) / 1e3 / reps,
            "launches": sum(e.count for e in device) / reps - copies, "copies_and_sets": copies}
     out["idle_share"] = max(0.0, 1.0 - out["device_ms"] / wall_ms)
+    # K5's share of the device time, and no cumprod left on the path.
+    out["k5_ms"] = sum(e.self_device_time_total for e in device
+                       if "ray_march" in e.key) / 1e3 / reps
+    out["k5_share"] = out["k5_ms"] / out["device_ms"] if out["device_ms"] else 0.0
+    out["cumprod_calls"] = sum(e.count for e in events if "cumprod" in e.key) / reps
+    # Each K5 kernel's device ms a launch in this run (by its name).
+    out["k5_kernels"] = {}
+    for e in device:
+        name = re.search(r"ray_march_(\w+)_kernel", e.key)
+        if name:
+            out["k5_kernels"][name.group(1)] = e.self_device_time_total / 1e3 / e.count
+    check(out["cumprod_calls"] == 0, f"cumprod ran in the profiled {unit}")
     print(f"[profile] {wall_ms:.3f} ms/{unit} on the host clock under the profiler, "
           f"{out['device_ms']:.3f} ms/{unit} of device time, idle share "
           f"{out['idle_share']:.3f}, {out['launches']:.1f} kernel launches and "
-          f"{copies:.1f} copies and sets per {unit}")
+          f"{copies:.1f} copies and sets per {unit}; K5 {out['k5_ms']:.4f} ms "
+          f"({out['k5_share']:.4f} of device time)")
     return out
+
+
+# ------------------------------------------------------- K5, tri-plane mode
+
+
+@contextlib.contextmanager
+def composite_inputs():
+    """Records the inputs of the first tri-plane composite inside the block
+    (``render.volume.composite``: sigma, dist, rgb, z, the rays' last
+    component, the background, the threshold, whether w is written) and,
+    when a backward follows, the cotangents of its rgb_map and acc: the
+    path's own inputs for K5's tri-plane rows."""
+    from ngf_tpu_torch.render import volume
+
+    seen: dict = {}
+    real = volume.composite
+
+    def spy(sigma, dist, rgb, z, ray_last, background, thres, weights=False):
+        out = real(sigma, dist, rgb, z, ray_last, background, thres, weights)
+        if "sigma" not in seen:
+            seen.update(sigma=sigma.detach(), rgb=rgb.detach(), z=z, ray_last=ray_last,
+                        dist=dist.detach() if isinstance(dist, torch.Tensor) else dist,
+                        background=background, thres=thres, weights=weights)
+            def keep(name):
+                def hook(g):
+                    if g is not None:
+                        seen[name] = g.detach()
+                return hook
+
+            for name, t in (("g_rgb", out[0]), ("g_acc", out[1])):
+                if t.requires_grad:
+                    t.register_hook(keep(name))
+        return out
+
+    volume.composite = spy
+    try:
+        yield seen
+    finally:
+        volume.composite = real
+
+
+def k5_triplane_bound_ms(n: int, s: int, backward: bool, per_sample_dist: bool,
+                         weights: bool) -> tuple[float, str]:
+    """Least time of one K5 tri-plane launch: each input read once and each
+    output written once over HBM, its arithmetic over the float32 rate.
+    Forward: sigma, z (4 bytes), dist (4, none for the grouped constant)
+    and rgb (12) read a sample, w (4) written when asked; the rays' last
+    component (4) read and rgb_map, y (12 each), acc and depth (4 each)
+    written a ray; ~30 operations a sample (exp ~10, the scan, the sums).
+    Backward: sigma, dist, rgb read, d sigma (4) and d rgb (12) written a
+    sample; y, the cotangents of rgb_map (12 each) and acc (4) read a ray;
+    ~45 operations a sample."""
+    dist = 4 if per_sample_dist else 0
+    if backward:
+        nbytes = n * s * (4 + dist + 12 + 4 + 12) + n * 28
+        ops = 45 * n * s
+    else:
+        nbytes = n * s * (4 + dist + 4 + 12 + (4 if weights else 0)) + n * 36
+        ops = 30 * n * s
+    return bytes_bound_ms(nbytes, ops)
+
+
+def k5_triplane_rows(case: str, c: dict) -> list[dict]:
+    """K5's tri-plane mode on a path's own inputs (``composite_inputs``):
+    forward and, with the step's cotangents, backward against
+    ``composite_plain`` / ``composite_backward_plain`` (acc, depth, w,
+    gradients to F32_TOL of each one's scale; rgb_map and y against the
+    plain sums under the kernel's own mask, the samples whose w falls the
+    other side of the threshold counted and their rays left out of the
+    gradients' comparison), timed by CUDA events (the wrapper's host time
+    at these sizes) and in a CUDA graph (device time) beside the bound and
+    the plain versions. The plain forward is the ``cumprod`` chain the
+    renderers ran before K5; ``before_fwd_bwd_ms`` times it forward and
+    backward through autograd. No single PyTorch call computes the
+    composite: ``library_ms`` is null."""
+    from ngf_tpu_torch.ops import compositing, cuda_kernels
+
+    sigma, dist, rgb, z, last = c["sigma"], c["dist"], c["rgb"], c["z"], c["ray_last"]
+    bg, thres, weights = c["background"], c["thres"], c["weights"]
+    n, s = sigma.shape
+    per_sample = isinstance(dist, torch.Tensor)
+
+    def fwd(want_w=weights):
+        return cuda_kernels.ray_march_triplane(sigma, dist, rgb, z, last, bg, thres, want_w)
+
+    def plain():
+        return compositing.composite_plain(sigma, dist, rgb, z, last, bg, thres)
+
+    rgb_map, y, acc, depth, _ = fwd()
+    w = fwd(True)[4]
+    p_map, p_y, p_acc, p_depth, p_w = plain()
+    flips = (w > thres) != (p_w > thres)
+    y_mine = ((p_w * (w > thres).to(w.dtype))[..., None] * rgb).sum(-2)
+    if bg is not None:
+        y_mine = y_mine + bg * (1.0 - p_acc[:, None])
+    errs, scales = {}, {}
+    for what, a, b in (("rgb_map", rgb_map, y_mine.clamp(0.0, 1.0)), ("y", y, y_mine),
+                       ("acc", acc, p_acc), ("depth", depth, p_depth), ("w", w, p_w)):
+        errs[what] = (a - b).abs().max().item()
+        scales[what] = b.abs().max().item()
+        check(errs[what] <= F32_TOL * scales[what],
+              f"K5 tri-plane forward {case} {what}: {errs[what]} against {scales[what]}")
+    check(bool(((p_w[flips] - thres).abs() <= 1e-5 * thres).all()),
+          f"K5 tri-plane {case}: a mask bit flipped far from the threshold")
+    train = "g_rgb" in c
+    bound, by = k5_triplane_bound_ms(n, s, False, per_sample, weights)
+    reps = 20
+    row = {"case": case, "N": n, "S": s, "direction": "forward", "weights": weights,
+           "per_sample_dist": per_sample, "background": None if bg is None else (
+               "drawn" if isinstance(bg, torch.Tensor) else float(bg)),
+           "ms": cuda_ms(fwd, reps), "graph_ms": graph_ms(fwd), "bound_ms": bound, "bound_by": by,
+           "plain_ms": cuda_ms(plain, 5), "library_ms": None,
+           "max_abs_err": max(errs.values()), "errs": errs, "scales": scales,
+           "mask_flips": int(flips.sum().item()),
+           "shaded_share": (w > thres).float().mean().item()}
+    rows = [row]
+    if train:
+        g_rgb, g_acc = c["g_rgb"], c.get("g_acc")
+        args = (sigma, dist, rgb, bg, thres)
+
+        def before_fwd_bwd():
+            s_, c_ = sigma.clone().requires_grad_(True), rgb.clone().requires_grad_(True)
+            out = compositing.composite_plain(s_, dist, c_, z, last, bg, thres)
+            torch.autograd.backward([out[0], out[2]], [
+                g_rgb, torch.zeros_like(out[2]) if g_acc is None else g_acc])
+
+        got = cuda_kernels.ray_march_triplane_backward(*args, y, g_rgb, g_acc)
+        want = compositing.composite_backward_plain(*args, p_y, g_rgb, g_acc)
+        ok = ~flips.any(-1)
+        b_errs = {}
+        for what, a, b in zip(("d sigma", "d rgb"), got, want):
+            b_errs[what] = (a[ok] - b[ok]).abs().max().item()
+            scale = b[ok].abs().max().item()
+            check(b_errs[what] <= F32_TOL * scale,
+                  f"K5 tri-plane backward {case} {what}: {b_errs[what]} against {scale}")
+        bound, by = k5_triplane_bound_ms(n, s, True, per_sample, weights)
+        bwd = lambda: cuda_kernels.ray_march_triplane_backward(*args, y, g_rgb, g_acc)  # noqa: E731
+        rows.append({
+            "case": case, "N": n, "S": s, "direction": "backward",
+            "ms": cuda_ms(bwd, reps), "graph_ms": graph_ms(bwd),
+            "bound_ms": bound, "bound_by": by,
+            "plain_ms": cuda_ms(lambda: compositing.composite_backward_plain(
+                *args, p_y, g_rgb, g_acc), 3),
+            "library_ms": None, "before_fwd_bwd_ms": cuda_ms(before_fwd_bwd, 5),
+            "max_abs_err": max(b_errs.values()), "errs": b_errs,
+            "rays_compared": int(ok.sum().item())})
+        rows[1]["kernel_fwd_bwd_graph_ms"] = row["graph_ms"] + rows[1]["graph_ms"]
+    for r in rows:
+        print(f"[k5] tri-plane {r['direction']} {case} (N={n} x {s}): {r['ms']:.5f} ms, in a "
+              f"CUDA graph {r['graph_ms']:.5f}, bound {r['bound_ms']:.5f} ({r['bound_by']}, "
+              f"{r['bound_ms'] / r['graph_ms']:.1%} of the graph's), plain "
+              f"{r['plain_ms']:.4f} ms"
+              + (f", before {r['before_fwd_bwd_ms']:.4f} ms forward and backward"
+                 if 'before_fwd_bwd_ms' in r else "") + ", max abs err "
+              f"{r['max_abs_err']:.3g}" + (f", mask flips {r['mask_flips']}, shaded "
+                                           f"{r['shaded_share']:.4f}" if 'mask_flips' in r else ""))
+    return rows
+
+
+def step_k5_rows(case: str, fn) -> list[dict]:
+    """K5's tri-plane rows on the composite inputs of ``fn()`` (a render
+    chunk, or a train step's gradients with its cotangents)."""
+    with composite_inputs() as seen:
+        fn()
+    check("sigma" in seen, f"{case}: no tri-plane composite ran")
+    return k5_triplane_rows(case, seen)
 
 
 def ball_volume(res: int, device: torch.device, seed: int = SEED) -> torch.Tensor:
@@ -1796,6 +1999,7 @@ def staged_phase(
             if cuda:
                 check(r_launches["occupancy_lookup"] == chunks
                       and r_launches["bilinear_gather_planes"] == chunks
+                      and r_launches["ray_march_triplane"] == chunks
                       and r_launches["group_sample_compact"] == 0,
                       f"render-only launches {r_launches}")
             result["render"] = {"psnr": psnrs[0], "launches": r_launches, "chunks": chunks}
@@ -1806,8 +2010,10 @@ def staged_phase(
     ds = load_dataset("synthetic", f"synthetic:views=1,wh={wh}", split="train", is_stack=False)
     trainer = TriPlaneTrainer(args, ds, init_params=params, device=device)
     step = lambda: trainer.train_step(*trainer.next_batch(), trainer.gen)  # noqa: E731
+    grads = lambda: trainer.compute_grads(*trainer.next_batch(), trainer.gen)  # noqa: E731
     if cuda and full:
         result["open_step_ms"] = cuda_ms(step, reps=10, warmup=2)
+        result["k5_open"] = step_k5_rows("open grouped step", grads)
     trainer._event_update_alpha_mask(first=True)  # this view's rays and the L1 weight
     trainer.alpha = AlphaGrid.from_volume(vol, vaabb)
     trainer._auto_cap = events[-1]["sample_cap"]
@@ -1822,6 +2028,8 @@ def staged_phase(
               f"(cap {ev['sample_cap']}, capg {ev['capg']}), event phases "
               f"{json.dumps(ev['phases_s'])}, peak {result['peak_gib']:.2f} GiB over the run")
         result["masked_step_profile"] = profile_chunk(step, reps=2, unit="masked step")
+        result["k5_masked"] = step_k5_rows("masked grouped step", grads)
+        trainer.optimizer.zero_grad()
     return result
 
 
@@ -1833,7 +2041,8 @@ def staged_launches(args, events: list[dict], wh: int) -> dict:
     event's grid chunks (the lattice pre-culled by the last grid), and every
     event's count chunks; ``gather_rows`` for the first event's rebuilt
     table and for every event's count subsample; per evaluation chunk one K1
-    and one K4."""
+    and one K4; one K5 tri-plane composite per step (and its backward) and
+    per evaluation chunk."""
     iters, micro = args.n_iters, max(1, args.microbatch)
     r = args.alpha_grid_res
     grid_chunks = -(-r ** 3 // (256 * 256 * 8))
@@ -1856,6 +2065,8 @@ def staged_launches(args, events: list[dict], wh: int) -> dict:
         "group_sample_compact": micro * iters + evals * chunks,
         "ray_march": 0,
         "ray_march_backward": 0,
+        "ray_march_triplane": micro * iters + evals * chunks,
+        "ray_march_triplane_backward": micro * iters,
     }
 
 
@@ -1988,7 +2199,8 @@ def gauge_phase(
             check(len(psnrs) == 1 and math.isfinite(psnrs[0]), f"render-only psnr {psnrs}")
             if cuda:
                 want = {k: 0 for k in r_launches}
-                want.update(bilinear_gather_planes=2 * chunks, occupancy_lookup=chunks)
+                want.update(bilinear_gather_planes=2 * chunks, occupancy_lookup=chunks,
+                            ray_march_triplane=chunks)
                 check(r_launches == want, f"render-only launches {r_launches}, expected {want}")
             result["render"] = {"psnr": psnrs[0], "launches": r_launches, "chunks": chunks}
 
@@ -2017,6 +2229,10 @@ def gauge_phase(
         result["k1_three_shapes"] = three_shape_row(
             [trainer.params[n].detach() for n in PLANE_NAMES], result["compare"]["coords"])
         result["upsampled_step_profile"] = profile_chunk(step, reps=2, unit="upsampled gauge step")
+        result["k5_upsampled"] = step_k5_rows(
+            "upsampled gauge step",
+            lambda: trainer.compute_grads(*trainer.next_batch(), trainer.gen))
+        trainer.optimizer.zero_grad()
     return result
 
 
@@ -2128,7 +2344,9 @@ def gauge_launches(args, events: list[dict], wh: int) -> dict:
     plane and coordinate gradients) and one K4, and one ``gather_rows``; the
     mask event's two K1 per grid chunk, its K3 (filter and count chunks) and
     ``gather_rows`` (the rebuilt table, the count subsample); the upsample's
-    K3 count chunks and subsample; per evaluation chunk two K1 and one K4."""
+    K3 count chunks and subsample; per evaluation chunk two K1 and one K4;
+    one K5 tri-plane composite per step (and its backward) and per
+    evaluation chunk."""
     iters, micro = args.n_iters, max(1, args.microbatch)
     mask, up = events
     r = args.alpha_grid_res
@@ -2151,6 +2369,8 @@ def gauge_launches(args, events: list[dict], wh: int) -> dict:
         "group_sample_compact": steps + evals * chunks,
         "ray_march": 0,
         "ray_march_backward": 0,
+        "ray_march_triplane": steps + evals * chunks,
+        "ray_march_triplane_backward": steps,
     }
 
 
@@ -2293,6 +2513,7 @@ def k5_rows(device: torch.device, rays_side: int, samples: int, views: int, wh: 
         row = {"case": case, "N": n, "S": samples, "direction": "forward",
                "invalid_share": 1.0 - valid.float().mean().item(),
                "ms": host_or_cuda_ms(lambda: fwd(density, valid, dist, rgb, bg), device, reps),
+               "graph_ms": graph_ms(lambda: fwd(density, valid, dist, rgb, bg)) if cuda else None,
                "plain_ms": host_or_cuda_ms(
                    lambda: compositing.ray_march_plain(density, valid, dist, rgb, bg), device, 5),
                "bound_ms": bound, "bound_by": by, "library_ms": None, "max_abs_err": err,
@@ -2313,6 +2534,8 @@ def k5_rows(device: torch.device, rays_side: int, samples: int, views: int, wh: 
             rows.append({
                 "case": case, "N": n, "S": samples, "direction": "backward",
                 "ms": host_or_cuda_ms(lambda: bwd(density, valid, dist, rgb, bg, *cots), device, reps),
+                "graph_ms": graph_ms(lambda: bwd(density, valid, dist, rgb, bg, *cots))
+                if cuda else None,
                 "plain_ms": host_or_cuda_ms(lambda: compositing.ray_march_backward_plain(
                     density, valid, dist, rgb, bg, *cots), device, 3),
                 "bound_ms": bound, "bound_by": by, "library_ms": None,
@@ -2320,7 +2543,8 @@ def k5_rows(device: torch.device, rays_side: int, samples: int, views: int, wh: 
     for r in rows:
         print(f"[uv] K5 {r['direction']} {r['case']} (N={r['N']} x {r['S']}, invalid share "
               f"{r.get('invalid_share', '-')}): "
-              f"{r['ms']:.5f} ms, bound {r['bound_ms']:.5f} ({r['bound_by']}), plain "
+              f"{r['ms']:.5f} ms, in a CUDA graph {r['graph_ms']}, bound {r['bound_ms']:.5f} "
+              f"({r['bound_by']}), plain "
               f"{r['plain_ms']:.4f} ms, max abs err {r['max_abs_err']:.3g} of {r['max_value']:.3g}")
     return rows
 
@@ -2805,6 +3029,36 @@ def main(argv: list[str] | None = None) -> int:
               "gradients", counters=("bilinear_gather_planes_backward_coords",),
               skip=tuple(p for p in paths if p != "bf16 gauge")),
     ]
+    tri_rows = (out["render"]["k5"] + train["k5"] + out["staged"]["k5_open"]
+                + out["staged"]["k5_masked"] + gauge["k5_upsampled"])
+    k5_fp = cuda_kernels.ray_march_footprint(TRAIN_CAP)
+    print("[device] K5 footprint: " + json.dumps(k5_fp))
+    profiles = {"render chunk": out["render"]["profile"], "dense train step": train["profile"],
+                "masked grouped step": out["staged"]["masked_step_profile"],
+                "upsampled gauge step": gauge["upsampled_step_profile"]}
+    k5_shares = {k: {f: p[f] for f in ("host_ms", "device_ms", "k5_ms", "k5_share")}
+                 for k, p in profiles.items()}
+    print("[k5] tri-plane share of the profiled steps: " + json.dumps(k5_shares))
+    for r in tri_rows:
+        if r["case"] in profiles:
+            r["step_device_ms"] = profiles[r["case"]]["k5_kernels"].get(f"triplane_{r['direction']}")
+    for direction, name in (("forward", "ray_march_triplane"),
+                            ("backward", "ray_march_triplane_backward")):
+        rows_d = [r for r in tri_rows if r["direction"] == direction]
+        kernels.append(entry(
+            name, "ngf_tpu_torch/ops/kernels/ray_march.cu", "ngf_tpu/ops/compositing.py:32",
+            next(r for r in rows_d if r["case"] == "dense train step"),
+            max(r["max_abs_err"] for r in rows_d),
+            f"K5 tri-plane mode, dense InfoInv train step: {TRAIN_RAYS} rays x {TRAIN_CAP} "
+            "samples of the trained model, float32, per-sample lengths, white background"
+            + ("; the step's own cotangents" if direction == "backward" else ""),
+            skip=uv_paths))
+        kernels[-1]["rows"] = [{k: r.get(k) for k in (
+            "case", "N", "S", "ms", "graph_ms", "step_device_ms", "bound_ms", "bound_by",
+            "plain_ms", "library_ms", "before_fwd_bwd_ms", "kernel_fwd_bwd_graph_ms", "max_abs_err", "mask_flips",
+            "shaded_share")} for r in rows_d]
+        kernels[-1]["footprint"] = k5_fp[f"triplane_{direction}"]
+    kernels[-1]["k5_share_of_profiled_steps"] = k5_shares
     k5 = out["uv"]["k5"]
     for direction, name in (("forward", "ray_march"), ("backward", "ray_march_backward")):
         rows_d = [r for r in k5 if r["direction"] == direction]
@@ -2816,10 +3070,10 @@ def main(argv: list[str] | None = None) -> int:
             "valid and invalid samples, the colour part with the tone map"
             + ("; random cotangents of colour, w and T_total" if direction == "backward" else ""),
             skip=tuple(p for p in paths if p not in uv_paths)))
-        kernels[-1]["rows"] = [{k: r.get(k) for k in ("case", "N", "S", "invalid_share", "ms",
-                                                      "bound_ms", "bound_by", "plain_ms",
-                                                      "library_ms", "max_abs_err", "max_value")}
-                               for r in rows_d]
+        kernels[-1]["rows"] = [{k: r.get(k) for k in (
+            "case", "N", "S", "invalid_share", "ms", "graph_ms", "bound_ms", "bound_by", "plain_ms",
+            "library_ms", "max_abs_err", "max_value")} for r in rows_d]
+        kernels[-1]["footprint"] = k5_fp[f"neutex_{direction}"]
     kernels[0]["rows"] = [
         {k: r[k] for k in ("case", "dtype", "ms", "bound_ms", "plain_ms", "library_ms",
                            "taps_per_point")} for r in fused]

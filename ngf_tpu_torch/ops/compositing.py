@@ -2,7 +2,13 @@
 (references `InfoInv/models/FieldBase.py:12-19`,
 `UV-Mapping/model/renderer.py:7-8,176-268`).
 
-- ``exclusive_transmittance`` / ``raw2alpha``: the tri-plane renderers'.
+- ``exclusive_transmittance`` / ``raw2alpha``: the tri-plane renderers'
+  weights, building blocks of :func:`composite_plain`.
+- :func:`composite`: what the tri-plane renderers run, their whole
+  composite (weights, shading mask, colour with its background and clip,
+  acc, depth) as one ``autograd.Function``: K5's tri-plane mode forward and
+  backward on a CUDA tensor, on a CPU tensor :func:`composite_plain` and
+  :func:`composite_backward_plain`, the same reverse scan as the kernel's.
 - :func:`ray_march_plain`: NeuTex's march, background and tone map in plain
   PyTorch with autograd through ``cumprod``: the plain version of K5.
 - :func:`march_rays`: what the UV path runs, the march with its background
@@ -175,3 +181,123 @@ def march_rays(
         w.reshape(*lead, S),
         t_total.reshape(lead),
     )
+
+
+def composite_plain(sigma, dist, rgb, z, ray_last, background, thres: float):
+    """K5's tri-plane forward in plain PyTorch: the renderers' composite
+    after the field (`ngf_tpu/render/volume.py:311-358,469-505`).
+
+    Args:
+      sigma: (N, S) density times the valid mask; dist: (N, S) segment
+        lengths or one number; rgb: (N, S, 3); z: (N, S) depths; ray_last:
+        (N,) each ray's last component.
+      background: b of ``y = sum w m rgb + b (1 - acc)``: a number, a
+        0-dim tensor (the training draw), or None (nothing added).
+      thres: the shading threshold, ``m = w > thres``.
+
+    Returns:
+      (rgb_map = clip(y, 0, 1) (N, 3), y (N, 3), acc (N,), depth (N,, no
+      gradient), w (N, S)); differentiable through autograd, the clip as
+      ``jnp.clip`` (maximum then minimum: half the gradient at a bound).
+    """
+    _, w, _ = raw2alpha(sigma, dist)
+    acc = w.sum(dim=-1)
+    mask = (w > thres).to(w.dtype)
+    y = ((w * mask)[..., None] * rgb).sum(dim=-2)
+    if background is not None:
+        y = y + background * (1.0 - acc[..., None])
+    rgb_map = torch.minimum(torch.maximum(y, y.new_zeros(())), y.new_ones(()))
+    depth = ((w * z).sum(dim=-1) + (1.0 - acc) * ray_last).detach()
+    return rgb_map, y, acc, depth, w
+
+
+def composite_backward_plain(sigma, dist, rgb, background, thres: float, rgb_lin, g_rgb, g_acc):
+    """K5's tri-plane backward in plain PyTorch, the kernel's reverse scan
+    (as :func:`ray_march_backward_plain`): from the cotangents of rgb_map
+    (N, 3) and acc (N,) (each may be None) and the forward's y
+    (``rgb_lin``), the gradients of sigma (N, S) and rgb (N, S, 3). With
+    gw_k = m_k gy . rgb_k + g_acc - b sum(gy), gy the colour's cotangent
+    through the clip (half at a bound), R runs R_{S-1} = 0, R_{k-1} =
+    gw_k alpha_k + f_k R_k and dL/dalpha_k = T_k (gw_k - R_k): no division
+    by f_k. w and its mask are the forward's, bit for bit."""
+    N, S = sigma.shape
+    e = torch.exp(-sigma * dist)
+    alpha = 1.0 - e
+    t, _ = exclusive_transmittance(alpha)
+    w = alpha * t
+    shaded = (w > thres).to(w.dtype)
+    f = (1.0 - alpha) + 1e-10
+    gy = sigma.new_zeros((N, 3)) if g_rgb is None else g_rgb * _clip_grad(rgb_lin)
+    ga = sigma.new_zeros((N,)) if g_acc is None else g_acc
+    if background is not None:
+        ga = ga - background * gy.sum(dim=-1)
+    gw = ga[:, None] + shaded * (gy[:, None, :] * rgb).sum(dim=-1)
+    d_rgb = gy[:, None, :] * (w * shaded)[..., None]
+    if not isinstance(dist, torch.Tensor):
+        dist = torch.full_like(sigma, dist)
+    r_behind = torch.empty_like(w)
+    R = sigma.new_zeros((N,))
+    for k in range(S - 1, -1, -1):
+        r_behind[:, k] = R
+        R = gw[:, k] * alpha[:, k] + f[:, k] * R
+    return t * (gw - r_behind) * e * dist, d_rgb
+
+
+class _Composite(torch.autograd.Function):
+    """K5's tri-plane mode as one autograd node: (sigma, rgb) -> (rgb_map,
+    acc, depth, w)."""
+
+    @staticmethod
+    def forward(ctx, sigma, rgb, dist, z, ray_last, background, thres, weights):
+        ctx.set_materialize_grads(False)
+        if sigma.is_cuda:
+            rgb_map, y, acc, depth, w = cuda_kernels.ray_march_triplane(
+                sigma, dist, rgb, z, ray_last, background, thres, weights)
+        else:
+            rgb_map, y, acc, depth, w = composite_plain(
+                sigma, dist, rgb, z, ray_last, background, thres)
+            w = w if weights else None
+        tensors = [t if isinstance(t, torch.Tensor) else None for t in (dist, background)]
+        ctx.save_for_backward(sigma, rgb, y, *tensors)
+        ctx.dist = None if tensors[0] is not None else dist
+        ctx.background = None if tensors[1] is not None else background
+        ctx.thres = thres
+        ctx.mark_non_differentiable(depth, *([] if w is None else [w]))
+        return rgb_map, acc, depth, w
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_acc, g_depth, g_w):
+        sigma, rgb, y, dist_t, bg_t = ctx.saved_tensors
+        if g_rgb is None and g_acc is None:
+            return (None,) * 8
+        dist = ctx.dist if dist_t is None else dist_t
+        background = ctx.background if bg_t is None else bg_t
+        args = (sigma, dist, rgb, background, ctx.thres, y, g_rgb, g_acc)
+        if sigma.is_cuda:
+            d_sigma, d_rgb = cuda_kernels.ray_march_triplane_backward(*args)
+        else:
+            d_sigma, d_rgb = composite_backward_plain(*args)
+        return d_sigma, d_rgb, None, None, None, None, None, None
+
+
+def composite(
+    sigma: torch.Tensor,
+    dist: torch.Tensor | float,
+    rgb: torch.Tensor,
+    z: torch.Tensor,
+    ray_last: torch.Tensor,
+    background: torch.Tensor | float | None,
+    thres: float,
+    weights: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """The tri-plane renderers' composite (`ngf_tpu/render/volume.py:311-358`
+    grouped, `:469-505` dense): weights, shading mask, colour with the
+    background and the clip, acc and depth, in one K5 launch each way on
+    the card and the plain pair on the CPU. Arguments as
+    :func:`composite_plain`'s; ``dist`` and the depth inputs get no
+    gradient. Returns (rgb_map (N, 3), acc (N,), depth (N,), w (N, S) when
+    ``weights``, else None); differentiable in sigma and rgb."""
+    if isinstance(dist, torch.Tensor):
+        dist = dist.detach()
+    return _Composite.apply(sigma, rgb, dist, z.detach(), ray_last.detach(), background,
+                            float(thres), weights)

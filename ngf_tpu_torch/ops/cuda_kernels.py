@@ -29,7 +29,10 @@ and in bfloat16 (values and cotangents; the gradients stay float32),
 ``group_sample_compact`` (K4, the grouped renderer's whole front end:
 sampling, occupancy test and per-ray compaction in one launch), and
 ``ray_march`` / ``ray_march_backward`` (K5, the NeuTex compositing scan with
-its background and tone map, and its reverse-scan gradient).
+its background and tone map, and its reverse-scan gradient) with K5's
+tri-plane mode ``ray_march_triplane`` / ``ray_march_triplane_backward`` (the
+tri-plane renderers' composite: weights, shading mask, colour with its
+background and clip, acc and depth).
 """
 
 from __future__ import annotations
@@ -156,6 +159,18 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ngf_ray_march_forward.restype = i32
         lib.ngf_ray_march_backward.argtypes = common + [vp, vp, vp, vp, vp, vp]
         lib.ngf_ray_march_backward.restype = i32
+        f32 = ctypes.c_float
+        tri = [i64, i32, vp, i64, i64, vp, i64, i64, f32, vp, i64, i64, i64]
+        lib.ngf_ray_march_triplane_forward.argtypes = tri + [
+            vp, i64, i64, vp, i64, vp, f32, f32, vp, vp, vp, vp, vp, vp,
+        ]
+        lib.ngf_ray_march_triplane_forward.restype = i32
+        lib.ngf_ray_march_triplane_backward.argtypes = tri + [vp, f32, f32, vp, vp, vp, vp, vp, vp]
+        lib.ngf_ray_march_triplane_backward.restype = i32
+        lib.ngf_ray_march_max_samples.argtypes = []
+        lib.ngf_ray_march_max_samples.restype = i32
+        lib.ngf_ray_march_footprint.argtypes = [i32, i32, ctypes.POINTER(i32)]
+        lib.ngf_ray_march_footprint.restype = i32
 
 
 def build_all() -> float:
@@ -796,6 +811,17 @@ def group_sample_compact(
 
 group_sample_compact.launches = 0
 
+# The most samples a ray of K5 may have: its backward keeps S/32 floats a
+# warp in 48 KB of shared memory (`ngf_ray_march_max_samples`).
+MARCH_MAX_SAMPLES = 49152
+
+
+def _check_samples(S: int, what: str) -> None:
+    if not 0 < S <= MARCH_MAX_SAMPLES:
+        raise ValueError(f"{what}: rays of {S} samples; the kernel takes 1 to "
+                         f"{MARCH_MAX_SAMPLES}")
+
+
 def _march_inputs(density, valid, dist, rgb, background, what: str) -> list:
     """Check K5's inputs and return the leading arguments of both entry
     points: N, S, each input's pointer and strides, the background's pointer
@@ -807,8 +833,7 @@ def _march_inputs(density, valid, dist, rgb, background, what: str) -> list:
     if density.dtype != torch.float32 or density.dim() != 2:
         raise ValueError(f"density must be (N, S) float32, got {tuple(density.shape)} {density.dtype}")
     N, S = density.shape
-    if S == 0:
-        raise ValueError(f"{what}: rays of no samples")
+    _check_samples(S, what)
     if valid.dtype not in (torch.bool, torch.uint8) or valid.shape != (N, S):
         raise ValueError(f"valid must be ({N}, {S}) bool or uint8, got {tuple(valid.shape)} {valid.dtype}")
     if dist.dtype != torch.float32 or dist.shape != (N, S):
@@ -919,6 +944,158 @@ def ray_march_backward(
 
 ray_march_backward.launches = 0
 
+
+def _triplane_inputs(sigma, dist, rgb, background, thres, what: str) -> list:
+    """Check the tri-plane mode's inputs and return the leading arguments of
+    both entry points: N, S, sigma's pointer and strides, dist's (or none
+    and the constant), rgb's, the background's pointer (or none) and
+    constant, and the threshold."""
+    if not isinstance(sigma, torch.Tensor) or sigma.dtype != torch.float32 or sigma.dim() != 2:
+        raise ValueError(f"sigma must be (N, S) float32, got {getattr(sigma, 'shape', sigma)} "
+                         f"{getattr(sigma, 'dtype', '')}")
+    N, S = sigma.shape
+    _check_samples(S, what)
+    tensors = [sigma, rgb] + [t for t in (dist, background) if isinstance(t, torch.Tensor)]
+    if not _on_one_device(*tensors):
+        raise ValueError(f"{what} needs its inputs on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if rgb.dtype != torch.float32 or rgb.shape != (N, S, 3):
+        raise ValueError(f"rgb must be ({N}, {S}, 3) float32, got {tuple(rgb.shape)} {rgb.dtype}")
+    if isinstance(dist, torch.Tensor):
+        if dist.dtype != torch.float32 or dist.shape != (N, S):
+            raise ValueError(f"dist must be ({N}, {S}) float32 or a number, got "
+                             f"{tuple(dist.shape)} {dist.dtype}")
+        d_args = [dist.data_ptr(), *dist.stride(), 0.0]
+    else:
+        d_args = [None, 0, 0, float(dist)]
+    if isinstance(background, torch.Tensor):
+        if background.dtype != torch.float32 or background.numel() != 1:
+            raise ValueError(f"background must be one float32 value, got "
+                             f"{tuple(background.shape)} {background.dtype}")
+        b_args = [background.data_ptr(), 0.0]
+    else:
+        b_args = [None, 0.0 if background is None else float(background)]
+    return [N, S, sigma.data_ptr(), *sigma.stride(), *d_args, rgb.data_ptr(), *rgb.stride(),
+            *b_args, float(thres)]
+
+
+def ray_march_triplane(
+    sigma: torch.Tensor,
+    dist: torch.Tensor | float,
+    rgb: torch.Tensor,
+    z: torch.Tensor,
+    ray_last: torch.Tensor,
+    background: torch.Tensor | float | None,
+    thres: float,
+    weights: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """CUDA kernel K5 (``kernels/ray_march.cu``), tri-plane mode, forward:
+    the renderers' composite of N rays of S samples.
+
+    Args:
+      sigma: (N, S) float32 CUDA tensor (the density times the valid mask),
+        any strides.
+      dist: (N, S) float32 segment lengths, any strides, or one number for
+        every sample (the grouped path's).
+      rgb: (N, S, 3) float32 radiance, any strides.
+      z: (N, S) float32 sample depths, any strides.
+      ray_last: (N,) float32, any stride: each ray's last component.
+      background: b of ``y = sum w m rgb + b (1 - acc)``: one float32
+        value on the card (the training draw), a number, or None (0).
+      thres: the shading threshold on w.
+      weights: also write w.
+
+    Returns:
+      (rgb_map (N, 3) = clip(y, 0, 1), y (N, 3), acc (N,), depth (N,),
+      w (N, S) or None), contiguous.
+    """
+    args = _triplane_inputs(sigma, dist, rgb, background, thres, "ray_march_triplane")
+    N, S = sigma.shape
+    for t, shape, what in ((z, (N, S), "z"), (ray_last, (N,), "ray_last")):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape or not _on_one_device(sigma, t):
+            raise ValueError(f"{what} must be {shape} float32 on sigma's device, got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device}")
+    rgb_map, rgb_lin = sigma.new_empty((N, 3)), sigma.new_empty((N, 3))
+    acc, depth = sigma.new_empty((N,)), sigma.new_empty((N,))
+    w = sigma.new_empty((N, S)) if weights else None
+    if N == 0:
+        return rgb_map, rgb_lin, acc, depth, w
+    lib = _lib("ray_march")
+    _launch(
+        lib, lib.ngf_ray_march_triplane_forward, sigma.get_device(), "ray_march_triplane",
+        *args[:13], z.data_ptr(), *z.stride(), ray_last.data_ptr(), ray_last.stride(0),
+        *args[13:], rgb_map.data_ptr(), rgb_lin.data_ptr(), acc.data_ptr(), depth.data_ptr(),
+        None if w is None else w.data_ptr(),
+    )
+    ray_march_triplane.launches += 1
+    return rgb_map, rgb_lin, acc, depth, w
+
+
+ray_march_triplane.launches = 0
+
+
+def ray_march_triplane_backward(
+    sigma: torch.Tensor,
+    dist: torch.Tensor | float,
+    rgb: torch.Tensor,
+    background: torch.Tensor | float | None,
+    thres: float,
+    rgb_lin: torch.Tensor,
+    g_rgb: torch.Tensor | None,
+    g_acc: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA kernel K5 (``kernels/ray_march.cu``), tri-plane mode, backward:
+    from the cotangents of :func:`ray_march_triplane`'s rgb_map (N, 3) and
+    acc (N,), each float32 or None, and its y (``rgb_lin``), the gradients
+    of sigma (N, S) and rgb (N, S, 3), by a reverse scan with no division.
+    The clip passes half the gradient where y lies on 0 or 1, as
+    ``jnp.clip``. The other inputs are the forward's."""
+    args = _triplane_inputs(sigma, dist, rgb, background, thres, "ray_march_triplane_backward")
+    N, S = sigma.shape
+    cots = []
+    for g, shape, what in ((rgb_lin, (N, 3), "rgb_lin"), (g_rgb, (N, 3), "g_rgb"),
+                           (g_acc, (N,), "g_acc")):
+        if g is not None:
+            if g.dtype != torch.float32 or tuple(g.shape) != shape or not _on_one_device(sigma, g):
+                raise ValueError(f"{what} must be {shape} float32 on sigma's device, got "
+                                 f"{tuple(g.shape)} {g.dtype} {g.device}")
+            g = g.contiguous()
+        cots.append(g)
+    if cots[0] is None:
+        raise ValueError("ray_march_triplane_backward needs the forward's rgb_lin")
+    d_sigma, d_rgb = sigma.new_empty((N, S)), sigma.new_empty((N, S, 3))
+    if N == 0:
+        return d_sigma, d_rgb
+    lib = _lib("ray_march")
+    _launch(
+        lib, lib.ngf_ray_march_triplane_backward, sigma.get_device(),
+        "ray_march_triplane_backward", *args, *(None if g is None else g.data_ptr() for g in cots),
+        d_sigma.data_ptr(), d_rgb.data_ptr(),
+    )
+    ray_march_triplane_backward.launches += 1
+    return d_sigma, d_rgb
+
+
+ray_march_triplane_backward.launches = 0
+
+def ray_march_footprint(S: int) -> dict:
+    """K5's footprint on the current card at rays of S samples, by kernel
+    (NeuTex and tri-plane, forward and backward): the blocks of eight warps
+    an SM holds at once, registers a thread and local (spilled) bytes a
+    thread."""
+    lib = _lib("ray_march")
+    out = {}
+    for which, name in enumerate(("neutex_forward", "neutex_backward", "triplane_forward",
+                                  "triplane_backward")):
+        got = (ctypes.c_int * 3)()
+        code = lib.ngf_ray_march_footprint(which, S, got)
+        if code:
+            raise RuntimeError(f"K5 footprint: CUDA error {code} "
+                               f"({lib.ngf_cuda_error_string(code).decode()})")
+        out[name] = {"blocks_per_sm": got[0], "registers": got[1], "local_bytes": got[2]}
+    return out
+
+
 # Every wrapper with a launch counter, by kernel name.
 KERNELS = {
     "bilinear_gather_planes": bilinear_gather_planes,
@@ -930,6 +1107,8 @@ KERNELS = {
     "group_sample_compact": group_sample_compact,
     "ray_march": ray_march,
     "ray_march_backward": ray_march_backward,
+    "ray_march_triplane": ray_march_triplane,
+    "ray_march_triplane_backward": ray_march_triplane_backward,
 }
 
 

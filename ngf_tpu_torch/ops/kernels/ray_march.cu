@@ -1,123 +1,199 @@
-// K5: the NeuTex ray march (compositing scan), forward and backward, for
-// Hopper (sm_90a).
+// K5: the compositing scan along rays, forward and backward, for Hopper
+// (sm_90a), in two modes over one warp-scan core.
 //
-// Replaces the hand-written XLA op `ray_march` with `simple_tone_map` and the
-// background term (ngf_tpu/ops/compositing.py:49,78, wired at
-// ngf_tpu/fields/neutex.py:417-423) and its colour-free form `alpha_ray_march`
-// (ngf_tpu/ops/compositing.py:83); no Pallas kernel, XLA fuses the cumprod.
-// For each ray of S samples:
+// NeuTex mode replaces the hand-written XLA op `ray_march` with
+// `simple_tone_map` and the background term (ngf_tpu/ops/compositing.py:49,78,
+// wired at ngf_tpu/fields/neutex.py:417-423) and its colour-free form
+// `alpha_ray_march` (ngf_tpu/ops/compositing.py:83). Tri-plane mode replaces
+// `raw2alpha` (ngf_tpu/ops/compositing.py:32) with the renderers' composite
+// after it (ngf_tpu/render/volume.py:311-358 grouped, :469-505 dense). No
+// Pallas kernel: XLA fuses the cumprod. For each ray of S samples:
 //
-//   sigma_k = density_k * valid_k,  alpha_k = 1 - exp(-sigma_k * dist_k)
-//   f_k     = (1 - alpha_k) + 1e-10,    T_0 = 1,  T_{k+1} = T_k * f_k
-//   w_k     = alpha_k * T_k,            T_total = T_S
-//   colour  = clip((sum_k w_k rgb_k + bg * T_total + 1e-5)^(1/2.2), 0, 1)
+//   alpha_k = 1 - exp(-sigma_k * dist_k),  f_k = (1 - alpha_k) + 1e-10
+//   T_0 = 1,  T_{k+1} = T_k * f_k,  w_k = alpha_k * T_k
 //
-// Forward writes w (N, S), T_total (N) and, with rgb, the tone-mapped colour
-// (N, 3). Backward takes the cotangents of colour, w and T_total (each may
-// be absent) and writes d density (N, S) and, with rgb, d rgb (N, S, 3). No
-// gradient reaches dist: NeuTex stops the sample positions' gradient
-// (ngf_tpu/fields/neutex.py:401).
+// NeuTex: sigma_k = density_k * valid_k; writes w (N, S), T_total = T_S (N)
+// and, with rgb, colour = clip((sum_k w_k rgb_k + bg * T_total + 1e-5)^(1/2.2),
+// 0, 1) (N, 3). No gradient reaches dist (ngf_tpu/fields/neutex.py:401).
 //
-// Backward without division. With c_k = gw_k alpha_k (gw_k the cotangent
-// of w_k, colour's share included) and R the cotangent carried from behind,
-//   R_{S-1} = gT,  R_{k-1} = c_k + f_k R_k,  dL/dalpha_k = T_k (gw_k - R_k),
+// Tri-plane: sigma is the field's density times the valid mask, dist a
+// per-sample length or one constant (the grouped path's); with
+// m_k = (w_k > thres), acc = sum_k w_k,
+//   y = sum_k w_k m_k rgb_k + b (1 - acc),  rgb_map = clip(y, 0, 1),
+//   depth = sum_k w_k z_k + (1 - acc) ray_last   (no gradient),
+// b the background (1 white, the batch's 0/1 draw, or 0). Writes rgb_map,
+// y (N, 3; the backward's clip derivative reads it), acc, depth (N) and, when
+// asked, w (N, S).
+//
+// Backward without division. With gw_k the cotangent of w_k (every output's
+// share through w: colour, acc, w itself) and R the cotangent carried from
+// behind,
+//   R_{S-1} = g_T,  R_{k-1} = gw_k alpha_k + f_k R_k,  dL/dalpha_k = T_k (gw_k - R_k),
 // a reverse scan that never divides by f_k: alpha_k rounds to 1 in float32
 // once sigma dist >~ 17, f_k is then 1e-10 and the T_k behind it underflow,
-// where a cumprod gradient of the form sum(...) / f_k breaks. The backward
-// first recomputes T_k in sample order and parks it in its own d density
-// row (the same thread overwrites each entry with the gradient in the
-// reverse sweep), so nothing is saved between forward and backward but the
-// inputs.
+// where a cumprod gradient of the form sum(...) / f_k breaks. The clip passes
+// half the gradient where y meets a bound exactly, as jnp.clip does.
 //
-// Layout. density, valid and dist are (N, S) with a ray stride and a sample
-// stride each, read as they lie (valid is bool or uint8, 0 or 1); rgb is
-// (N, S, 3) with three strides, read as it lies in the texture MLP's output;
-// bg is (N / rays_per_bg, 3) contiguous, ray n taking row n / rays_per_bg.
-// Cotangents and outputs are contiguous.
-//
-// Design. One thread per ray, a sequential scan over its samples: at
-// S = 64 the scan is short and the work per ray small. Blocks of 64 rays
-// spread the 576 rays of a NeuTex step over 9 SMs. Bound on an H100: memory,
-// N * S * 25 bytes forward (density, dist, three rgb channels read, valid,
-// w written): 0.92 MB and 0.28 us at 576 x 64, far below a launch, so the
-// launch and the scan's latency are what it costs; 105 MB and 31 us at
-// 65,536 rays. The threads of a warp read addresses S elements apart, so
-// each sample's loads touch a sector per thread; L1 keeps those sectors for
-// the next seven samples. A warp per ray with a shuffle scan would read
-// coalesced: later work.
+// Design: a warp a ray, in tiles of 32 samples. Lane j of tile t holds sample
+// 32t + j, so the loads of density, dist, z, valid and rgb are coalesced.
+// - T: an inclusive product scan of f over the tile by __shfl_up_sync (five
+//   steps); its exclusive form is the scan shifted by one lane (no
+//   division); times the carry, which lane 31's product then advances.
+// - Forward sums: each lane keeps partial sums (w m rgb, w, w z), reduced
+//   once at the ray's end by __shfl_xor_sync.
+// - Backward: a first pass keeps each tile's starting T in shared memory (S/32
+//   floats a warp; reading only sigma and dist in tri-plane mode, whose y comes
+//   from the forward). The reverse pass rescans each tile from its starting T
+//   while its data is still in L1/L2, and runs the recurrence above as a
+//   suffix scan of the affine maps R -> c + f R over the tile by
+//   __shfl_down_sync, with the carry from the tile behind.
+// - The threshold mask is the forward's bit for bit: the backward recomputes w
+//   by the same code on the same inputs (the scan and the carry in
+//   round-to-nearest intrinsics, which the compiler neither contracts nor
+//   reorders), and reads the forward's y for the clip. The NeuTex backward
+//   recomputes its linear colour the same way.
+// - Eight warps a block: 72 blocks for a UV step's 576 rays, 512 for a
+//   4096-ray train batch.
+// Bound on an H100: memory. Tri-plane forward per sample: sigma, dist, z (4
+// bytes each; a constant dist 0) and rgb (12) read, w (4) written when asked;
+// backward: sigma, dist, rgb read, d sigma (4) and d rgb (12) written. NeuTex
+// adds valid (1) and, backward, the cotangent of w (4).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 64;
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr unsigned FULL = 0xffffffffu;
 // 1/2.2 rounded once to float, as the float32 power of the JAX tone map
 // takes its Python-float exponent.
 constexpr float INV_GAMMA = (float)(1.0 / 2.2);
 
-struct Inputs {
+struct Args {
     long long N;
     int S;
-    const float* density; long long d_rs, d_ss;
-    const unsigned char* valid; long long v_rs, v_ss;
-    const float* dist; long long t_rs, t_ss;
-    const float* rgb; long long c_rs, c_ss, c_cs;
-    const float* bg; long long rays_per_bg;
+    const float* sigma; long long s_rs, s_ss;
+    const unsigned char* valid; long long v_rs, v_ss;  // NeuTex; null in tri-plane
+    const float* dist; long long t_rs, t_ss;          // null: every sample dist_const
+    float dist_const;
+    const float* rgb; long long c_rs, c_ss, c_cs;     // null: no colour (NeuTex)
+    // NeuTex
+    const float* bg; long long rays_per_bg;          // (N / rays_per_bg, 3) or null
+    // Tri-plane
+    const float* z; long long z_rs, z_ss;
+    const float* ray_last; long long r_rs;
+    const float* bg_ptr; float bg_const;              // b: *bg_ptr, or bg_const without it
+    float thres;
 };
 
-struct Sample {
-    float alpha, e, f, dist, valid;
+// One sample's loaded values; a lane past the ray's end holds zeros, so
+// alpha 0 and f 1: it adds nothing and leaves T as it is.
+struct Loaded {
+    float sigma = 0.0f, dist = 0.0f, valid = 1.0f, r = 0.0f, g = 0.0f, b = 0.0f, z = 0.0f;
 };
 
-__device__ __forceinline__ Sample load_sample(const Inputs& in, long long n, int k) {
-    Sample s;
-    s.valid = (float)in.valid[n * in.v_rs + k * in.v_ss];
-    s.dist = in.dist[n * in.t_rs + k * in.t_ss];
-    const float sigma = in.density[n * in.d_rs + k * in.d_ss] * s.valid;
-    s.e = expf(-(sigma * s.dist));
-    s.alpha = 1.0f - s.e;
-    s.f = (1.0f - s.alpha) + 1e-10f;
+template <bool TRI>
+__device__ __forceinline__ Loaded load(const Args& a, long long n, int k, bool colour, bool depth) {
+    Loaded s;
+    if (k >= a.S) return s;
+    s.sigma = a.sigma[n * a.s_rs + k * a.s_ss];
+    if (!TRI) {
+        s.valid = (float)a.valid[n * a.v_rs + k * a.v_ss];
+        s.sigma = __fmul_rn(s.sigma, s.valid);
+    }
+    s.dist = a.dist != nullptr ? a.dist[n * a.t_rs + k * a.t_ss] : a.dist_const;
+    if (colour) {
+        const float* c = a.rgb + n * a.c_rs + k * a.c_ss;
+        s.r = c[0];
+        s.g = c[a.c_cs];
+        s.b = c[2 * a.c_cs];
+    }
+    if (depth) s.z = a.z[n * a.z_rs + k * a.z_ss];
     return s;
 }
 
-__device__ __forceinline__ float rgb_at(const Inputs& in, long long n, int k, int ch) {
-    return in.rgb[n * in.c_rs + k * in.c_ss + ch * in.c_cs];
+struct Alpha {
+    float e, alpha, f;
+};
+
+__device__ __forceinline__ Alpha alpha_of(const Loaded& s) {
+    Alpha o;
+    o.e = expf(-__fmul_rn(s.sigma, s.dist));
+    o.alpha = __fsub_rn(1.0f, o.e);
+    o.f = __fadd_rn(__fsub_rn(1.0f, o.alpha), 1e-10f);
+    return o;
 }
 
-__global__ void __launch_bounds__(THREADS) ray_march_forward_kernel(
-    Inputs in, float* __restrict__ color, float* __restrict__ weight,
-    float* __restrict__ t_total) {
-    const long long n = (long long)blockIdx.x * THREADS + threadIdx.x;
-    if (n >= in.N) return;
-    const int S = in.S;
-    float T = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
-    float* wrow = weight + n * S;
-#pragma unroll 4
-    for (int k = 0; k < S; ++k) {
-        const Sample s = load_sample(in, n, k);
-        const float w = s.alpha * T;
-        wrow[k] = w;
-        if (in.rgb != nullptr) {
-            c0 += w * rgb_at(in, n, k, 0);
-            c1 += w * rgb_at(in, n, k, 1);
-            c2 += w * rgb_at(in, n, k, 2);
+// T of this lane's sample: the carry (T at the tile's first sample) times the
+// exclusive product of f over the lanes before it. Advances the carry past
+// the tile.
+__device__ __forceinline__ float tile_transmittance(float f, float& carry, int lane) {
+    float p = f;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const float q = __shfl_up_sync(FULL, p, d);
+        if (lane >= d) p = __fmul_rn(q, p);
+    }
+    float before = __shfl_up_sync(FULL, p, 1);
+    if (lane == 0) before = 1.0f;
+    const float T = __fmul_rn(carry, before);
+    carry = __fmul_rn(carry, __shfl_sync(FULL, p, 31));
+    return T;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) v = __fadd_rn(v, __shfl_xor_sync(FULL, v, d));
+    return v;
+}
+
+// A ray's forward sums, the same in every lane.
+struct Sums {
+    float c[3] = {0.0f, 0.0f, 0.0f};
+    float acc = 0.0f, wz = 0.0f, t_total = 1.0f;
+};
+
+// The forward sweep over one ray, tile by tile, shared by the forward kernels
+// and the backward's first pass so that both compute every w, mask and sum
+// alike. Writes w when `weight` is given and each tile's starting T when
+// `tstart` is; sums the colour when `colour`, and (tri-plane) the depth when
+// `depth`.
+template <bool TRI>
+__device__ Sums sweep(const Args& a, long long n, int lane, bool colour, bool depth,
+                      float* __restrict__ weight, float* __restrict__ tstart) {
+    const int tiles = (a.S + 31) / 32;
+    float carry = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, acc = 0.0f, wz = 0.0f;
+    Loaded cur = load<TRI>(a, n, lane, colour, depth);
+    for (int t = 0; t < tiles; ++t) {
+        const int k = 32 * t + lane;
+        Loaded nxt;
+        if (t + 1 < tiles) nxt = load<TRI>(a, n, k + 32, colour, depth);
+        const Alpha s = alpha_of(cur);
+        if (tstart != nullptr && lane == 0) tstart[t] = carry;
+        const float T = tile_transmittance(s.f, carry, lane);
+        const float w = __fmul_rn(s.alpha, T);
+        if (weight != nullptr && k < a.S) weight[n * a.S + k] = w;
+        if (colour && (!TRI || w > a.thres)) {
+            c0 = __fmaf_rn(w, cur.r, c0);
+            c1 = __fmaf_rn(w, cur.g, c1);
+            c2 = __fmaf_rn(w, cur.b, c2);
         }
-        T *= s.f;
+        if (TRI) acc = __fadd_rn(acc, w);
+        if (depth) wz = __fmaf_rn(w, cur.z, wz);
+        cur = nxt;
     }
-    t_total[n] = T;
-    if (in.rgb == nullptr) return;
-    if (in.bg != nullptr) {
-        const float* b = in.bg + (n / in.rays_per_bg) * 3;
-        c0 += b[0] * T;
-        c1 += b[1] * T;
-        c2 += b[2] * T;
+    Sums out;
+    out.t_total = carry;
+    if (colour) {
+        out.c[0] = warp_sum(c0);
+        out.c[1] = warp_sum(c1);
+        out.c[2] = warp_sum(c2);
     }
-    const float c[3] = {c0, c1, c2};
-    for (int ch = 0; ch < 3; ++ch) {
-        const float y = powf(c[ch] + 1e-5f, INV_GAMMA);
-        color[n * 3 + ch] = fminf(fmaxf(y, 0.0f), 1.0f);
-    }
+    if (TRI) out.acc = warp_sum(acc);
+    if (depth) out.wz = warp_sum(wz);
+    return out;
 }
 
 // d clip(y, 0, 1) / dy as jnp.clip's maximum-then-minimum gives it: half
@@ -129,71 +205,194 @@ __device__ __forceinline__ float clip_grad(float y) {
     return lo * hi;
 }
 
-__global__ void __launch_bounds__(THREADS) ray_march_backward_kernel(
-    Inputs in, const float* __restrict__ g_color, const float* __restrict__ g_weight,
-    const float* __restrict__ g_t, float* __restrict__ d_density, float* __restrict__ d_rgb) {
-    const long long n = (long long)blockIdx.x * THREADS + threadIdx.x;
-    if (n >= in.N) return;
-    const int S = in.S;
-    float* drow = d_density + n * S;
+// clip(y, 0, 1) that keeps a NaN, as jnp.clip does.
+__device__ __forceinline__ float clip01(float y) {
+    return y < 0.0f ? 0.0f : (y > 1.0f ? 1.0f : y);
+}
 
-    // Sweep 1, in sample order: T_k into this ray's d density row, the
-    // linear colour for the tone map's derivative.
-    float T = 1.0f, c[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-    for (int k = 0; k < S; ++k) {
-        const Sample s = load_sample(in, n, k);
-        drow[k] = T;
-        if (in.rgb != nullptr) {
-            const float w = s.alpha * T;
-            for (int ch = 0; ch < 3; ++ch) c[ch] += w * rgb_at(in, n, k, ch);
-        }
-        T *= s.f;
+__device__ __forceinline__ float background(const Args& a) {
+    return a.bg_ptr != nullptr ? *a.bg_ptr : a.bg_const;
+}
+
+// ---------------------------------------------------------------- forward
+
+__global__ void __launch_bounds__(THREADS) ray_march_neutex_forward_kernel(
+    Args a, float* __restrict__ color, float* __restrict__ weight, float* __restrict__ t_total) {
+    const long long n = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (n >= a.N) return;
+    const bool colour = a.rgb != nullptr;
+    const Sums s = sweep<false>(a, n, lane, colour, false, weight, nullptr);
+    if (lane == 0) t_total[n] = s.t_total;
+    if (!colour || lane >= 3) return;
+    float c = lane == 0 ? s.c[0] : (lane == 1 ? s.c[1] : s.c[2]);
+    if (a.bg != nullptr)
+        c = __fadd_rn(c, __fmul_rn(a.bg[(n / a.rays_per_bg) * 3 + lane], s.t_total));
+    const float y = powf(__fadd_rn(c, 1e-5f), INV_GAMMA);
+    color[n * 3 + lane] = fminf(fmaxf(y, 0.0f), 1.0f);
+}
+
+__global__ void __launch_bounds__(THREADS) ray_march_triplane_forward_kernel(
+    Args a, float* __restrict__ rgb_map, float* __restrict__ rgb_lin, float* __restrict__ acc,
+    float* __restrict__ depth, float* __restrict__ weight) {
+    const long long n = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (n >= a.N) return;
+    const Sums s = sweep<true>(a, n, lane, true, true, weight, nullptr);
+    const float miss = __fsub_rn(1.0f, s.acc);
+    if (lane < 3) {
+        const float c = lane == 0 ? s.c[0] : (lane == 1 ? s.c[1] : s.c[2]);
+        const float y = __fadd_rn(c, __fmul_rn(background(a), miss));
+        rgb_lin[n * 3 + lane] = y;
+        rgb_map[n * 3 + lane] = clip01(y);
+    } else if (lane == 3) {
+        acc[n] = s.acc;
+        depth[n] = __fadd_rn(s.wz, __fmul_rn(miss, a.ray_last[n * a.r_rs]));
     }
+}
 
-    // Cotangent of the linear colour and of T_total.
-    float gc[3] = {0.0f, 0.0f, 0.0f};
+// --------------------------------------------------------------- backward
+
+// The reverse pass over one ray. gc: the cotangent of the masked colour sum;
+// g_acc: the cotangent every w takes through acc (tri-plane); g_weight: the
+// cotangent of w (NeuTex, or null); R: the carry from behind the last sample.
+template <bool TRI>
+__device__ void reverse_pass(const Args& a, long long n, int lane, const float* tstart,
+                             const float gc[3], float g_acc, const float* __restrict__ g_weight,
+                             float R, float* __restrict__ d_sigma, float* __restrict__ d_rgb) {
+    const int tiles = (a.S + 31) / 32;
+    const bool colour = a.rgb != nullptr;
+    Loaded cur = load<TRI>(a, n, 32 * (tiles - 1) + lane, colour, false);
+    for (int t = tiles - 1; t >= 0; --t) {
+        const int k = 32 * t + lane;
+        Loaded nxt;
+        if (t > 0) nxt = load<TRI>(a, n, k - 32, colour, false);
+        const Alpha s = alpha_of(cur);
+        float carry = tstart[t];
+        const float T = tile_transmittance(s.f, carry, lane);
+        const float w = __fmul_rn(s.alpha, T);
+        const bool shaded = colour && (!TRI || w > a.thres);
+        float gw = g_acc;
+        if (g_weight != nullptr && k < a.S) gw += g_weight[n * a.S + k];
+        if (shaded) gw += gc[0] * cur.r + gc[1] * cur.g + gc[2] * cur.b;
+        // Suffix scan of the maps R -> c + f R over lanes lane..31.
+        float cm = gw * s.alpha, fm = s.f;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const float cb = __shfl_down_sync(FULL, cm, d);
+            const float fb = __shfl_down_sync(FULL, fm, d);
+            if (lane + d < 32) {
+                cm = cm + fm * cb;
+                fm = fm * fb;
+            }
+        }
+        const float before = cm + fm * R;  // R at the sample ahead of this lane's
+        float r_k = __shfl_down_sync(FULL, before, 1);
+        if (lane == 31) r_k = R;
+        R = __shfl_sync(FULL, before, 0);
+        if (k < a.S) {
+            // NeuTex: d sigma / d density is valid.
+            d_sigma[n * a.S + k] = T * (gw - r_k) * s.e * cur.dist * cur.valid;
+            if (d_rgb != nullptr) {
+                float* dr = d_rgb + (n * a.S + k) * 3;
+                const float ws = shaded ? w : 0.0f;
+                dr[0] = gc[0] * ws;
+                dr[1] = gc[1] * ws;
+                dr[2] = gc[2] * ws;
+            }
+        }
+        cur = nxt;
+    }
+}
+
+__global__ void __launch_bounds__(THREADS) ray_march_neutex_backward_kernel(
+    Args a, const float* __restrict__ g_color, const float* __restrict__ g_weight,
+    const float* __restrict__ g_t, float* __restrict__ d_density, float* __restrict__ d_rgb) {
+    extern __shared__ float tstarts[];
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const long long n = (long long)blockIdx.x * WARPS + warp;
+    if (n >= a.N) return;
+    float* tstart = tstarts + warp * ((a.S + 31) / 32);
+    const bool colour = a.rgb != nullptr;
+    // The forward's sums again, bit for bit, and each tile's starting T.
+    const Sums s = sweep<false>(a, n, lane, colour && g_color != nullptr, false, nullptr, tstart);
+    __syncwarp();
     float gT = g_t != nullptr ? g_t[n] : 0.0f;
-    if (in.rgb != nullptr && g_color != nullptr) {
-        const float* b = in.bg != nullptr ? in.bg + (n / in.rays_per_bg) * 3 : nullptr;
+    float gc[3] = {0.0f, 0.0f, 0.0f};
+    if (colour && g_color != nullptr) {
+        const float* b = a.bg != nullptr ? a.bg + (n / a.rays_per_bg) * 3 : nullptr;
         for (int ch = 0; ch < 3; ++ch) {
-            if (b != nullptr) c[ch] += b[ch] * T;
-            const float x = c[ch] + 1e-5f;
+            float c = s.c[ch];
+            if (b != nullptr) c = __fadd_rn(c, __fmul_rn(b[ch], s.t_total));
+            const float x = __fadd_rn(c, 1e-5f);
             const float y = powf(x, INV_GAMMA);
             gc[ch] = g_color[n * 3 + ch] * clip_grad(y) * (INV_GAMMA * powf(x, INV_GAMMA - 1.0f));
             if (b != nullptr) gT += gc[ch] * b[ch];
         }
     }
-
-    // Sweep 2, in reverse: R carries the cotangent from behind sample k.
-    float R = gT;
-#pragma unroll 4
-    for (int k = S - 1; k >= 0; --k) {
-        const Sample s = load_sample(in, n, k);
-        const float Tk = drow[k];
-        float gw = g_weight != nullptr ? g_weight[n * S + k] : 0.0f;
-        if (in.rgb != nullptr) {
-            float* dr = d_rgb != nullptr ? d_rgb + (n * S + k) * 3 : nullptr;
-            const float w = s.alpha * Tk;
-            for (int ch = 0; ch < 3; ++ch) {
-                gw += gc[ch] * rgb_at(in, n, k, ch);
-                if (dr != nullptr) dr[ch] = gc[ch] * w;
-            }
-        }
-        const float d_alpha = Tk * (gw - R);
-        R = gw * s.alpha + s.f * R;
-        drow[k] = d_alpha * s.e * s.dist * s.valid;
-    }
+    reverse_pass<false>(a, n, lane, tstart, gc, 0.0f, g_weight, gT, d_density, d_rgb);
 }
 
-unsigned blocks_for(long long N) { return (unsigned)((N + THREADS - 1) / THREADS); }
+__global__ void __launch_bounds__(THREADS) ray_march_triplane_backward_kernel(
+    Args a, const float* __restrict__ rgb_lin, const float* __restrict__ g_rgb,
+    const float* __restrict__ g_acc, float* __restrict__ d_sigma, float* __restrict__ d_rgb) {
+    extern __shared__ float tstarts[];
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const long long n = (long long)blockIdx.x * WARPS + warp;
+    if (n >= a.N) return;
+    float* tstart = tstarts + warp * ((a.S + 31) / 32);
+    // Only each tile's starting T: sigma and dist, the carry as the forward's.
+    sweep<true>(a, n, lane, false, false, nullptr, tstart);
+    __syncwarp();
+    float gc[3] = {0.0f, 0.0f, 0.0f};
+    if (g_rgb != nullptr)
+        for (int ch = 0; ch < 3; ++ch) gc[ch] = g_rgb[n * 3 + ch] * clip_grad(rgb_lin[n * 3 + ch]);
+    // y = C + b (1 - acc): every w takes -b sum(gc) through acc.
+    const float ga = (g_acc != nullptr ? g_acc[n] : 0.0f) - background(a) * (gc[0] + gc[1] + gc[2]);
+    reverse_pass<true>(a, n, lane, tstart, gc, ga, nullptr, 0.0f, d_sigma, d_rgb);
+}
+
+unsigned blocks_for(long long N) { return (unsigned)((N + WARPS - 1) / WARPS); }
+size_t tstart_bytes(int S) { return (size_t)WARPS * ((S + 31) / 32) * sizeof(float); }
+
+Args neutex_args(long long N, int S, const float* density, long long d_rs, long long d_ss,
+                 const unsigned char* valid, long long v_rs, long long v_ss,
+                 const float* dist, long long t_rs, long long t_ss,
+                 const float* rgb, long long c_rs, long long c_ss, long long c_cs,
+                 const float* bg, long long rays_per_bg) {
+    Args a{};
+    a.N = N; a.S = S;
+    a.sigma = density; a.s_rs = d_rs; a.s_ss = d_ss;
+    a.valid = valid; a.v_rs = v_rs; a.v_ss = v_ss;
+    a.dist = dist; a.t_rs = t_rs; a.t_ss = t_ss;
+    a.rgb = rgb; a.c_rs = c_rs; a.c_ss = c_ss; a.c_cs = c_cs;
+    a.bg = bg; a.rays_per_bg = rays_per_bg;
+    return a;
+}
+
+Args triplane_args(long long N, int S, const float* sigma, long long s_rs, long long s_ss,
+                   const float* dist, long long t_rs, long long t_ss, float dist_const,
+                   const float* rgb, long long c_rs, long long c_ss, long long c_cs,
+                   const float* bg, float bg_const, float thres) {
+    Args a{};
+    a.N = N; a.S = S;
+    a.sigma = sigma; a.s_rs = s_rs; a.s_ss = s_ss;
+    a.dist = dist; a.t_rs = t_rs; a.t_ss = t_ss; a.dist_const = dist_const;
+    a.rgb = rgb; a.c_rs = c_rs; a.c_ss = c_ss; a.c_cs = c_cs;
+    a.bg_ptr = bg; a.bg_const = bg_const; a.thres = thres;
+    return a;
+}
 
 }  // namespace
 
 extern "C" {
 
-// rgb null: no colour (color and bg ignored). bg null: no background.
-// Returns the cudaError_t of the launch (0 on success). N > 0, S > 0.
+// Returns the cudaError_t of the launch (0 on success). N > 0, 0 < S <=
+// ngf_ray_march_max_samples().
+
+int ngf_ray_march_max_samples() { return (int)(48 * 1024 / (WARPS * sizeof(float))) * 32; }
+
+// NeuTex. rgb null: no colour (color and bg ignored). bg null: no background.
 int ngf_ray_march_forward(long long N, int S,
                           const float* density, long long d_rs, long long d_ss,
                           const unsigned char* valid, long long v_rs, long long v_ss,
@@ -201,10 +400,10 @@ int ngf_ray_march_forward(long long N, int S,
                           const float* rgb, long long c_rs, long long c_ss, long long c_cs,
                           const float* bg, long long rays_per_bg,
                           float* color, float* weight, float* t_total, void* stream) {
-    const Inputs in{N, S, density, d_rs, d_ss, valid, v_rs, v_ss, dist, t_rs, t_ss,
-                    rgb, c_rs, c_ss, c_cs, bg, rays_per_bg};
-    ray_march_forward_kernel<<<blocks_for(N), THREADS, 0, (cudaStream_t)stream>>>(
-        in, color, weight, t_total);
+    const Args a = neutex_args(N, S, density, d_rs, d_ss, valid, v_rs, v_ss, dist, t_rs, t_ss,
+                               rgb, c_rs, c_ss, c_cs, bg, rays_per_bg);
+    ray_march_neutex_forward_kernel<<<blocks_for(N), THREADS, 0, (cudaStream_t)stream>>>(
+        a, color, weight, t_total);
     return (int)cudaGetLastError();
 }
 
@@ -218,11 +417,71 @@ int ngf_ray_march_backward(long long N, int S,
                            const float* bg, long long rays_per_bg,
                            const float* g_color, const float* g_weight, const float* g_t,
                            float* d_density, float* d_rgb, void* stream) {
-    const Inputs in{N, S, density, d_rs, d_ss, valid, v_rs, v_ss, dist, t_rs, t_ss,
-                    rgb, c_rs, c_ss, c_cs, bg, rays_per_bg};
-    ray_march_backward_kernel<<<blocks_for(N), THREADS, 0, (cudaStream_t)stream>>>(
-        in, g_color, g_weight, g_t, d_density, d_rgb);
+    const Args a = neutex_args(N, S, density, d_rs, d_ss, valid, v_rs, v_ss, dist, t_rs, t_ss,
+                               rgb, c_rs, c_ss, c_cs, bg, rays_per_bg);
+    ray_march_neutex_backward_kernel<<<blocks_for(N), THREADS, tstart_bytes(S),
+                                       (cudaStream_t)stream>>>(
+        a, g_color, g_weight, g_t, d_density, d_rgb);
     return (int)cudaGetLastError();
+}
+
+// Tri-plane. dist null: every sample's length is dist_const. bg null: the
+// background is bg_const. ray_last: rays[:, -1] with ray stride r_rs.
+// weight null: w is not written.
+int ngf_ray_march_triplane_forward(long long N, int S,
+                                   const float* sigma, long long s_rs, long long s_ss,
+                                   const float* dist, long long t_rs, long long t_ss,
+                                   float dist_const,
+                                   const float* rgb, long long c_rs, long long c_ss, long long c_cs,
+                                   const float* z, long long z_rs, long long z_ss,
+                                   const float* ray_last, long long r_rs,
+                                   const float* bg, float bg_const, float thres,
+                                   float* rgb_map, float* rgb_lin, float* acc, float* depth,
+                                   float* weight, void* stream) {
+    Args a = triplane_args(N, S, sigma, s_rs, s_ss, dist, t_rs, t_ss, dist_const,
+                           rgb, c_rs, c_ss, c_cs, bg, bg_const, thres);
+    a.z = z; a.z_rs = z_rs; a.z_ss = z_ss;
+    a.ray_last = ray_last; a.r_rs = r_rs;
+    ray_march_triplane_forward_kernel<<<blocks_for(N), THREADS, 0, (cudaStream_t)stream>>>(
+        a, rgb_map, rgb_lin, acc, depth, weight);
+    return (int)cudaGetLastError();
+}
+
+// rgb_lin: the forward's y (N, 3). g_rgb (N, 3), g_acc (N): contiguous or null.
+int ngf_ray_march_triplane_backward(long long N, int S,
+                                    const float* sigma, long long s_rs, long long s_ss,
+                                    const float* dist, long long t_rs, long long t_ss,
+                                    float dist_const,
+                                    const float* rgb, long long c_rs, long long c_ss, long long c_cs,
+                                    const float* bg, float bg_const, float thres,
+                                    const float* rgb_lin, const float* g_rgb, const float* g_acc,
+                                    float* d_sigma, float* d_rgb, void* stream) {
+    const Args a = triplane_args(N, S, sigma, s_rs, s_ss, dist, t_rs, t_ss, dist_const,
+                                 rgb, c_rs, c_ss, c_cs, bg, bg_const, thres);
+    ray_march_triplane_backward_kernel<<<blocks_for(N), THREADS, tstart_bytes(S),
+                                         (cudaStream_t)stream>>>(
+        a, rgb_lin, g_rgb, g_acc, d_sigma, d_rgb);
+    return (int)cudaGetLastError();
+}
+
+// The footprint of K5's kernel `which` (0 NeuTex forward, 1 NeuTex backward,
+// 2 tri-plane forward, 3 tri-plane backward) on this card at rays of S
+// samples: out[0] the blocks of eight warps an SM holds at once, out[1] its
+// registers a thread, out[2] its local memory a thread in bytes (spills; 0
+// without). Returns the cudaError_t of the queries.
+int ngf_ray_march_footprint(int which, int S, int* out) {
+    const void* fns[4] = {reinterpret_cast<const void*>(ray_march_neutex_forward_kernel),
+                          reinterpret_cast<const void*>(ray_march_neutex_backward_kernel),
+                          reinterpret_cast<const void*>(ray_march_triplane_forward_kernel),
+                          reinterpret_cast<const void*>(ray_march_triplane_backward_kernel)};
+    if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
+    if (err != cudaSuccess) return (int)err;
+    out[1] = attr.numRegs;
+    out[2] = (int)attr.localSizeBytes;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], fns[which], THREADS, which % 2 ? tstart_bytes(S) : 0);
 }
 
 const char* ngf_cuda_error_string(int code) {

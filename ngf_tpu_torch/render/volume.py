@@ -15,7 +15,9 @@ Two paths, as in the JAX package:
   (K4) samples, queries the occupancy mask once or twice per group and
   compacts per ray in one launch, and the planes are fetched by K1.
 The dense path and :func:`compute_alpha_grid_chunk` test an occupancy volume
-with :func:`occupancy_lookup` (K3).
+with :func:`occupancy_lookup` (K3). Both paths composite with K5's
+tri-plane mode (:func:`~ngf_tpu_torch.ops.compositing.composite`): one
+launch forward and, in training, one backward.
 Not ported: ``rgb_cap`` (top-K shading) and ``mask_stride > 1`` on the dense
 path; both raise.
 """
@@ -39,7 +41,7 @@ from ..fields.triplane import (
     triplane_rgb_from_feats,
 )
 from ..ops.compaction import group_sample_compact
-from ..ops.compositing import raw2alpha
+from ..ops.compositing import composite
 from ..ops.grid_sample import normalize_coord, occupancy_lookup
 from ..ops.rays import stratified_sample
 
@@ -109,16 +111,17 @@ def _ray_jitter(generator: torch.Generator, n: int, device) -> torch.Tensor:
     return torch.rand((n, 1), generator=generator, device=device)
 
 
-def _background(rgb_map, acc_map, white_bg: bool, generator, device):
-    """Composite the background and clamp (`ngf_tpu/render/volume.py:347-353,494-501`):
-    white, or in training without a white background white for the whole
-    batch with probability 1/2 (`FieldBase.py:270`)."""
+def _background(white_bg: bool, generator, device):
+    """The background the composite adds times ``1 - acc``
+    (`ngf_tpu/render/volume.py:347-353,494-501`): white (1), or in training
+    without a white background white for the whole batch with probability
+    1/2 (`FieldBase.py:270`), a 0/1 value drawn on the device; in evaluation
+    without it none."""
     if white_bg:
-        rgb_map = rgb_map + (1.0 - acc_map[..., None])
-    elif generator is not None:
-        mix = (torch.rand((), generator=generator, device=device) < 0.5).to(rgb_map.dtype)
-        rgb_map = rgb_map + mix * (1.0 - acc_map[..., None])
-    return rgb_map.clamp(0.0, 1.0)
+        return 1.0
+    if generator is not None:
+        return (torch.rand((), generator=generator, device=device) < 0.5).to(torch.float32)
+    return None
 
 
 def render_rays(
@@ -206,24 +209,18 @@ def render_rays(
     else:
         sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn)
     sigma = sigma * vmask
-    _, weight, _ = raw2alpha(sigma, dists * rcfg.distance_scale)
-    acc_map = weight.sum(dim=-1)
-
-    # rgb only where the blend weight clears the threshold (`FieldBase.py:261-265`).
-    rgb_mask = (weight > rcfg.ray_march_weight_thres).to(pts.dtype)
     views = viewdirs[:, None, :].expand(n, s, 3)
     if sample_fn is None:
         rgb = triplane_rgb_from_feats(params, model_cfg, rgb_feat, views)
     else:
         rgb = triplane_rgb(params, model_cfg, xy, yz, xz, views, sample_fn)
-    rgb = rgb * rgb_mask[..., None]
-    rgb_map = _background((weight[..., None] * rgb).sum(dim=-2), acc_map, rcfg.white_bg,
-                          generator, rays.device)
-
-    depth_map = (weight * z_vals).sum(dim=-1)
-    # As `ngf_tpu/render/volume.py:503-506` has it: the last ray component
-    # (the z of the direction) fills the missed transmittance.
-    depth_map = (depth_map + (1.0 - acc_map) * rays[..., -1]).detach()
+    # The composite (K5): rgb only where the blend weight clears the
+    # threshold (`FieldBase.py:261-265`); as `ngf_tpu/render/volume.py:503-506`
+    # has it, the last ray component (the z of the direction) fills the
+    # missed transmittance of the depth.
+    rgb_map, acc_map, depth_map, _ = composite(
+        sigma, dists * rcfg.distance_scale, rgb, z_vals, rays[:, -1],
+        _background(rcfg.white_bg, generator, rays.device), rcfg.ray_march_weight_thres)
     return {"rgb_map": rgb_map, "depth_map": depth_map, "acc_map": acc_map}
 
 
@@ -289,26 +286,24 @@ def _render_rays_grouped(
     else:
         sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn)
     sigma = sigma * vmask
-    # One float32 step length for every sample (`volume.py:311`).
-    _, weight, _ = raw2alpha(sigma, float(np.float32(rcfg.step_size * rcfg.distance_scale)))
-    acc_map = weight.sum(dim=-1)
-
-    rgb_mask = (weight > rcfg.ray_march_weight_thres).to(weight.dtype) * vmask
     views = viewdirs[:, None, :].expand(n, capg * G, 3)
     if sample_fn is None:
         rgb = triplane_rgb_from_feats(params, model_cfg, rgb_feat, views)
     else:
         rgb = triplane_rgb(params, model_cfg, xy, yz, xz, views, sample_fn)
-    rgb_map = _background(((weight * rgb_mask)[..., None] * rgb).sum(dim=-2), acc_map,
-                          rcfg.white_bg, generator, rays.device)
-
-    depth_map = (weight * z_c).sum(dim=-1)
-    depth_map = (depth_map + (1.0 - acc_map) * rays[..., -1]).detach()
+    # The composite (K5) at one float32 step length for every sample
+    # (`volume.py:311`). The shading mask's ``* vmask`` is implied: a culled
+    # sample has sigma 0, so w 0, which does not clear the threshold.
+    train = generator is not None
+    rgb_map, acc_map, depth_map, weight = composite(
+        sigma, float(np.float32(rcfg.step_size * rcfg.distance_scale)), rgb, z_c, rays[:, -1],
+        _background(rcfg.white_bg, generator, rays.device), rcfg.ray_march_weight_thres,
+        weights=train)
     out = {"rgb_map": rgb_map, "depth_map": depth_map, "acc_map": acc_map}
-    if generator is not None:
+    if train:
         # Per ray, the groups whose best blend weight clears the shading
         # threshold (`volume.py:359-371`): the statistic behind rgb_cap -2.
-        best = weight.detach().reshape(n, capg, G).amax(-1)
+        best = weight.reshape(n, capg, G).amax(-1)
         out["shaded_groups"] = (best > rcfg.ray_march_weight_thres).sum(-1, dtype=torch.int32)
     return out
 

@@ -18,7 +18,13 @@ the bfloat16 fetch through autograd, a bfloat16 gauge train step and the
 bfloat16 decoder layer's float32 product; K5 ``ray_march`` and
 ``ray_march_backward`` (the NeuTex compositing scan and its reverse scan) at
 the UV path's shapes, with alpha rounding to 1, strided inputs, without
-colour, and through ``march_rays``'s autograd one cotangent at a time.
+colour, and through ``march_rays``'s autograd one cotangent at a time; K5's
+tri-plane mode ``ray_march_triplane`` and its backward against
+``composite_plain`` and ``composite_backward_plain`` (dense and grouped
+lengths, the three backgrounds, alpha 1, empty rays, strided inputs, a
+render chunk's 884 samples), the threshold mask the same bit for bit in
+both directions, its refusals, and the dense and grouped renders
+compositing in one launch each way with no ``cumprod``.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports neither JAX nor `ngf_tpu`, so it runs on a GPU machine
@@ -1156,6 +1162,192 @@ def test_ray_march_refuses_what_the_kernel_does_not_take(cuda):
         cuda_kernels.ray_march(density, valid.float(), dist, rgb, bg)
     with pytest.raises(ValueError):
         cuda_kernels.ray_march(density, valid, dist, rgb, torch.zeros((5, 3), device=cuda))
+
+
+# ------------------------------------------------------- K5, tri-plane mode
+
+THRES = 1e-4
+TRIPLANE_CASES = ["dense_train", "render", "grouped_draw0", "grouped_draw1", "opaque", "empty",
+                  "strided"]
+
+
+def _triplane_inputs(cuda, case, n=2048, s=300, seed=0):
+    """(sigma, dist, rgb, z, ray_last, background, weights) of a tri-plane
+    case: densities over five decades across the rays (blend weights on
+    both sides of the threshold), dense per-sample lengths with the
+    trailing zero or the grouped constant, the background white, drawn 0 or
+    1, or none; runs of sigma dist = 20 (alpha 1) up to 88 samples; rays of
+    no density and of acc below 6e-8 (rgb_map exactly 1)."""
+    if case == "render":
+        n, s = 512, 884
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    z = torch.sort(2.0 + 4.0 * torch.rand((n, s), generator=g, device=cuda), dim=-1).values
+    keep = torch.rand((n, s), generator=g, device=cuda) < 0.6
+    sigma = 3.0 * torch.rand((n, s), generator=g, device=cuda) * keep
+    sigma = sigma * torch.logspace(-5, 0, n, device=cuda)[:, None]
+    rgb = torch.rand((n, s, 4 if case == "strided" else 3), generator=g, device=cuda)[..., :3]
+    ray_last = 2.0 * torch.rand((n, 6), generator=g, device=cuda)[:, -1] - 1.0
+    dist = torch.cat([z[:, 1:] - z[:, :-1], torch.zeros_like(z[:, :1])], -1) * 25.0
+    background = {"render": None, "grouped_draw0": torch.zeros((), device=cuda),
+                  "grouped_draw1": torch.ones((), device=cuda)}.get(case, 1.0)
+    if case.startswith("grouped") or case in ("opaque", "empty"):
+        dist = 0.25
+        sigma = 8.0 * sigma
+    if case == "opaque":
+        for i in range(0, n, 2):
+            run = (i * 11) % 89
+            sigma[i, 5:5 + run] = 80.0
+    if case == "empty":
+        sigma[: n // 4] = 0.0
+        sigma[n // 4: n // 2] = 1e-9
+    if case == "strided":
+        sigma = torch.cat([sigma, sigma], dim=1)[:, ::2]
+        z = z.t().contiguous().t()
+        dist = dist.t().contiguous().t()
+    return sigma, dist, rgb, z, ray_last, background, case != "render"
+
+
+@pytest.mark.parametrize("case", TRIPLANE_CASES)
+def test_ray_march_triplane_matches_plain(cuda, case):
+    """K5's tri-plane mode against ``composite_plain`` and
+    ``composite_backward_plain``: acc, depth and w to F32_TOL of their
+    scale; rgb_map against the plain sums under the kernel's own mask (a w
+    within rounding of the threshold may fall the other way: such samples
+    are counted, and their rays left out of the gradients' comparison)."""
+    from ngf_tpu_torch.ops import compositing as tcomp
+
+    sigma, dist, rgb, z, ray_last, bg, weights = _triplane_inputs(cuda, case)
+    before = (cuda_kernels.ray_march_triplane.launches,
+              cuda_kernels.ray_march_triplane_backward.launches)
+    rgb_map, y, acc, depth, w = cuda_kernels.ray_march_triplane(
+        sigma, dist, rgb, z, ray_last, bg, THRES, weights)
+    assert (w is not None) == weights
+    if w is None:
+        w = cuda_kernels.ray_march_triplane(sigma, dist, rgb, z, ray_last, bg, THRES, True)[4]
+    p_map, p_y, p_acc, p_depth, p_w = tcomp.composite_plain(sigma, dist, rgb, z, ray_last, bg,
+                                                            THRES)
+    for a, b, what in ((acc, p_acc, "acc"), (depth, p_depth, "depth"), (w, p_w, "w")):
+        _close(a, b, what)
+    flips = (w > THRES) != (p_w > THRES)
+    assert bool(((p_w[flips] - THRES).abs() <= 1e-5 * THRES).all()), "a mask bit far from thres"
+    mine = (w > THRES).to(w.dtype)
+    y_mine = ((p_w * mine)[..., None] * rgb).sum(-2)
+    if bg is not None:
+        y_mine = y_mine + bg * (1.0 - p_acc[:, None])
+    _close(y, y_mine, "y")
+    _close(rgb_map, y_mine.clamp(0.0, 1.0), "rgb_map")
+    if case == "empty":
+        assert bool((rgb_map[: sigma.shape[0] // 2] == 1.0).all())
+    if case == "render":
+        return
+    g = torch.Generator(device=cuda).manual_seed(1)
+    g_rgb = torch.randn((sigma.shape[0], 3), generator=g, device=cuda)
+    g_acc = torch.randn((sigma.shape[0],), generator=g, device=cuda)
+    got = cuda_kernels.ray_march_triplane_backward(sigma, dist, rgb, bg, THRES, y, g_rgb, g_acc)
+    want = tcomp.composite_backward_plain(sigma, dist, rgb, bg, THRES, p_y, g_rgb, g_acc)
+    torch.cuda.synchronize()
+    ok = ~flips.any(-1)
+    assert ok.float().mean().item() > 0.99
+    for a, b, what in zip(got, want, ("d sigma", "d rgb")):
+        assert bool(torch.isfinite(a).all()), what
+        _close(a[ok], b[ok], what)
+    assert (cuda_kernels.ray_march_triplane.launches - before[0],
+            cuda_kernels.ray_march_triplane_backward.launches - before[1]) == (
+        1 if weights else 2, 1)
+
+
+def test_ray_march_triplane_mask_is_the_forwards(cuda):
+    """No threshold bit flips between the directions: with a colour
+    cotangent of ones and no background, d rgb of a ray inside the clip is
+    w m, bit for bit the forward's w and mask."""
+    sigma, dist, rgb, z, ray_last, _, _ = _triplane_inputs(cuda, "dense_train", seed=3)
+    rgb_map, y, _, _, w = cuda_kernels.ray_march_triplane(sigma, dist, rgb, z, ray_last, None,
+                                                          THRES, True)
+    ones = torch.ones_like(rgb_map)
+    _, d_rgb = cuda_kernels.ray_march_triplane_backward(sigma, dist, rgb, None, THRES, y, ones,
+                                                        None)
+    inside = ((y > 0) & (y < 1)).all(-1)
+    assert inside.float().mean().item() > 0.5
+    shaded = w * (w > THRES)
+    for ch in range(3):
+        assert torch.equal(d_rgb[inside, :, ch], shaded[inside])
+    m = (w[inside] > THRES)
+    assert bool(m.any()) and bool((~m & (w[inside] > 0)).any())
+
+
+def test_ray_march_triplane_refuses_what_the_kernel_does_not_take(cuda):
+    sigma, dist, rgb, z, ray_last, _, _ = _triplane_inputs(cuda, "dense_train", n=64, s=40)
+    rm = cuda_kernels.ray_march_triplane
+    with pytest.raises(ValueError):
+        rm(sigma.cpu(), dist, rgb, z, ray_last, 1.0, THRES)
+    with pytest.raises(ValueError):
+        rm(sigma.double(), dist, rgb, z, ray_last, 1.0, THRES)
+    with pytest.raises(ValueError):
+        rm(sigma, dist, rgb[:, :, :2], z, ray_last, 1.0, THRES)
+    with pytest.raises(ValueError):
+        rm(sigma, dist[:, :-1], rgb, z, ray_last, 1.0, THRES)
+    with pytest.raises(ValueError):
+        rm(sigma, dist, rgb, z, ray_last[:-1], 1.0, THRES)
+    with pytest.raises(ValueError):
+        rm(sigma, dist, rgb, z, ray_last, torch.ones(2, device=cuda), THRES)
+    with pytest.raises(ValueError):
+        rm(sigma[:, :0], dist[:, :0], rgb[:, :0], z[:, :0], ray_last, 1.0, THRES)
+    big = cuda_kernels.MARCH_MAX_SAMPLES + 1
+    with pytest.raises(ValueError):
+        rm(torch.zeros((1, big), device=cuda), 0.25, torch.zeros((1, big, 3), device=cuda),
+           torch.zeros((1, big), device=cuda), ray_last[:1], 1.0, THRES)
+    with pytest.raises(ValueError):
+        cuda_kernels.ray_march_triplane_backward(sigma, dist, rgb, 1.0, THRES, None,
+                                                 torch.ones((64, 3), device=cuda), None)
+    lib = cuda_kernels._lib("ray_march")
+    assert lib.ngf_ray_march_max_samples() == cuda_kernels.MARCH_MAX_SAMPLES
+
+
+@pytest.mark.parametrize("path", ["dense_eval", "grouped_train"])
+def test_renders_composite_through_one_k5_launch_each_way(cuda, path):
+    """A dense evaluation chunk composites in one K5 tri-plane launch, a
+    grouped train step in one forward and one backward, and no
+    ``aten::cumprod`` runs (profiler rows); the outputs against the
+    CPU's plain pair on the same fields to RENDER_TOL."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ngf_tpu_torch.ops import compositing as tcomp
+
+    cfg, params, rays = _scene(cuda, seed=6)
+    grouped = path == "grouped_train"
+    rcfg = tv.RenderConfig(aabb=((-1.5,) * 3, (1.5,) * 3), n_samples=60, step_size=0.09,
+                           group_size=8 if grouped else 0, tile_q=0, white_bg=not grouped)
+    names = ("ray_march_triplane", "ray_march_triplane_backward")
+    captured = {}
+    composite = tcomp.composite
+
+    def spy(*args, **kw):
+        captured["args"] = (args, kw)
+        return composite(*args, **kw)
+
+    tv.composite = spy
+    try:
+        before = [cuda_kernels.KERNELS[k].launches for k in names]
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            leaf = params["plane_xy"].requires_grad_(grouped)
+            out = tv.render_rays(params, cfg, rcfg, rays, generator=torch.Generator(
+                device=cuda).manual_seed(3) if grouped else None)
+            if grouped:
+                (out["rgb_map"].sum() + out["acc_map"].sum()).backward()
+        counts = [cuda_kernels.KERNELS[k].launches - b for k, b in zip(names, before)]
+    finally:
+        tv.composite = composite
+        params["plane_xy"].requires_grad_(False)
+    assert counts == ([1, 1] if grouped else [1, 0])
+    assert not [e for e in prof.key_averages() if "cumprod" in e.key]
+    if grouped:
+        assert leaf.grad is not None and leaf.grad.abs().max().item() > 0
+        assert out["shaded_groups"].dtype == torch.int32
+    args, kw = captured["args"]
+    cpu = [a.detach().cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    want = tcomp.composite_plain(*cpu[:6], cpu[6])
+    for k, ref in zip(("rgb_map", "acc_map", "depth_map"), (want[0], want[2], want[3])):
+        assert (out[k].detach().cpu() - ref).abs().max().item() <= RENDER_TOL, k
 
 
 def test_uv_train_steps_launch_k5_and_match_the_cpu(cuda):
