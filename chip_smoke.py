@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`ngf_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernel,rows,backward,occupancy,uv,render,train,staged,gauge,bf16]
+    python3 chip_smoke.py [--phases kernel,rows,backward,occupancy,uv,render,train,staged,gauge,bf16,lego]
                           [--uv_steps 3000] [--uv_bf16_steps 500]
 
 1. Device: requires CUDA, prints the card and its power limit, builds every
@@ -137,6 +137,25 @@
    beside the JAX package's certificates, and one step on its trained
    weights: ms by CUDA events, rays/s, launches, idle share, peak memory
    and the top device ops (the products' and K5's shares).
+
+12. Lego phase (last): the lego recipe ``configs/lego_infoinv_tpu.txt``
+   (bfloat16, grouped, measured capacity, mask events at 300, 2000 and 2500,
+   ``mask_stride`` 4, an evaluation at 2100) cut to ``--n_iters 2600
+   --save_every 500``, on a Blender-format scene written from the cached
+   synthetic views (30 train and 1 test view, ``transforms_*.json`` and
+   PNGs, read back through ``load_dataset("blender", ..., downsample=6.25)``
+   and checked against the written pixels and the synthetic rays). Through
+   ``main_torch.py``: a subprocess SIGTERMed once ``log.txt`` passes 1000
+   (exit 0, ``model.npz`` with its resume state, the periodic saves'
+   ``ckpt/blocked_s`` rows), resumed with ``--ckpt`` in this process to 2600
+   (the later events once each, not as first events; falling losses in each
+   stage; exact launch totals), and once uninterrupted (exact launch
+   totals); the two test PSNRs within 0.3 dB. Then a trainer restored from
+   a checkpoint against the one that saved it (parameters, optimizer
+   leaves, counts, grid, ray table, generator and next ids equal; one more
+   step's loss to 1e-5), and the full-width checkpoint's cost: the seconds a
+   synchronous and a background save block the loop, the background write,
+   the file's size and ``from_checkpoint``'s seconds.
 
 Each K5 tri-plane row (``k5_triplane_rows``) holds the kernel against its
 plain pair beside its bound and the composite as the renderers ran it
@@ -1932,12 +1951,7 @@ def staged_phase(
         print(f"[{tag}] events {json.dumps(events)}")
         print(f"[{tag}] stages {json.dumps(stats['stages'])}")
         check(len(mses) == iters and all(math.isfinite(m) for m in mses), f"losses {mses}")
-        bounds = [0, *event_its, iters]
-        for lo, hi in zip(bounds[:-1], bounds[1:]):
-            part = mses[lo:hi]
-            k = max(1, min(20, len(part) // 4))
-            first, last = sum(part[:k]) / k, sum(part[-k:]) / k
-            check(last < first, f"stage {lo}-{hi}: mse of the last {k} steps {last} >= first {first}")
+        check_stages_fall(mses, [0, *event_its, iters])
         check([(e["kind"], e["iteration"], e["first"]) for e in events]
               == [("mask", it, i == 0) for i, it in enumerate(event_its)], f"events {events}")
         for ev in events:
@@ -2033,7 +2047,18 @@ def staged_phase(
     return result
 
 
-def staged_launches(args, events: list[dict], wh: int) -> dict:
+def check_stages_fall(mses: list[float], bounds: list[int], start: int = 0) -> None:
+    """The mean MSE of the last steps of each stage between ``bounds``
+    (iterations; ``mses[0]`` is the loss of step ``start + 1``) lies below
+    that of its first steps."""
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        part = mses[lo - start:hi - start]
+        k = max(1, min(20, len(part) // 4))
+        first, last = sum(part[:k]) / k, sum(part[-k:]) / k
+        check(last < first, f"stage {lo}-{hi}: mse of the last {k} steps {last} >= first {first}")
+
+
+def staged_launches(args, events: list[dict], wh: int, start: int = 0) -> dict:
     """The launches a staged run must make: per step (microbatch chunks)
     one K1, six K2 and one K4 (the grouped front end, the occupancy test
     after the first event included), and one ``gather_rows``; per mask event
@@ -2042,8 +2067,11 @@ def staged_launches(args, events: list[dict], wh: int) -> dict:
     event's count chunks; ``gather_rows`` for the first event's rebuilt
     table and for every event's count subsample; per evaluation chunk one K1
     and one K4; one K5 tri-plane composite per step (and its backward) and
-    per evaluation chunk."""
-    iters, micro = args.n_iters, max(1, args.microbatch)
+    per evaluation chunk. A run resumed at ``start`` makes the steps and
+    evaluations after it, and one ``gather_rows`` more: the kept rays'
+    table rebuilt at the checkpoint's ids."""
+    micro = max(1, args.microbatch)
+    iters = args.n_iters - start
     r = args.alpha_grid_res
     grid_chunks = -(-r ** 3 // (256 * 256 * 8))
     k3 = rows = 0
@@ -2051,8 +2079,9 @@ def staged_launches(args, events: list[dict], wh: int) -> dict:
         counted = min(ev["rays_kept"], 65536) if args.sample_cap == -1 else 0
         k3 += (-(-ev["rays_before"] // 51200) if ev["first"] else grid_chunks) + -(-counted // 16384)
         rows += int(ev["refiltered"]) + int(ev["rays_kept"] > 65536 and args.sample_cap == -1)
+    rows += int(start > 0)
     chunks = -(-wh * wh // args.eval_chunk)  # one test view
-    vis = [v for v in range(args.vis_every, iters + 1, args.vis_every)] if (
+    vis = [v for v in range(args.vis_every, args.n_iters + 1, args.vis_every) if v > start] if (
         args.N_vis != 0 and args.vis_every > 0) else []
     evals = len(vis) + 1  # and the final one
     return {
@@ -2405,6 +2434,270 @@ def bf16_phase(device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRAIN_W
           f"beside the JAX package's bfloat16 {JAX_GAUGE_BF16_PSNR_DB} dB and float32 band "
           f"{lo}-{hi} dB")
     return {"infoinv": infoinv, "gauge": gauge}
+
+
+# ----------------------------------------------------------------- lego phase
+
+# The north star's recipe (`configs/lego_infoinv_tpu.txt`: bfloat16, grouped,
+# measured capacity, mask events at 300, 2000 and 2500, mask_stride 4, an
+# evaluation at 2100) cut to 2600 steps, on a Blender-format scene written
+# from the synthetic views: 800 / 6.25 = 128 pixels a side.
+LEGO_CONFIG = "configs/lego_infoinv_tpu.txt"
+LEGO_DOWNSAMPLE = 6.25
+LEGO_ITERS, LEGO_SAVE_EVERY, LEGO_SIGTERM_AFTER = 2600, 500, 1000
+# Same-seed reruns on the card differ by 0.02-0.07 dB (K2's atomics).
+LEGO_PSNR_GAP_DB = 0.3
+
+
+def write_blender_scene(root: str, views: int, wh: int, test_views: int = 1) -> dict:
+    """The synthetic scene's views as a Blender-format scene under ``root``:
+    ``transforms_{train,test}.json`` (``camera_angle_x`` from the views'
+    focal, each pose a Blender-convention c2w) and RGBA PNGs (opaque).
+    Returns each split's rays and the colours the PNGs hold, as the loader
+    must read them back."""
+    from ngf_tpu_torch.data import load_dataset
+    from PIL import Image
+
+    spec = f"synthetic:views={views},wh={wh},test_views={test_views}"
+    out = {}
+    for split in ("train", "test"):
+        ds = load_dataset("synthetic", spec, split=split, is_stack=True)
+        # The focal from the corner pixel's direction: x / -z = (0.5 - w/2) / f.
+        d = ds.directions[0, 0]
+        focal = (0.5 - wh / 2) / (float(d[0]) / -float(d[2]))
+        frames, rgbs = [], []
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        for i, c2w in enumerate(ds.poses):
+            rgb8 = np.round(np.clip(ds.all_rgbs[i], 0.0, 1.0) * 255.0).astype(np.uint8)
+            rgba = np.concatenate([rgb8, np.full(rgb8.shape[:2] + (1,), 255, np.uint8)], -1)
+            Image.fromarray(rgba, "RGBA").save(os.path.join(root, split, f"r_{i}.png"))
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": np.asarray(c2w, np.float64).tolist()})
+            rgbs.append(rgb8.astype(np.float32) / 255.0)
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 2.0 * math.atan(0.5 * wh / focal), "frames": frames}, f)
+        out[split] = {"rays": ds.all_rays, "rgbs": np.stack(rgbs)}
+    return out
+
+
+def _log_iteration(path: str) -> int:
+    """The last iteration ``log.txt`` has reached (0 before its first line)."""
+    if not os.path.exists(path):
+        return 0
+    with open(path) as f:
+        its = [int(m.group(1)) for m in re.finditer(r"^Iteration (\d+):", f.read(), re.M)]
+    return max(its, default=0)
+
+
+def _same_trainers(a, b) -> dict:
+    """What a trainer restored by ``from_checkpoint`` must equal in the
+    trainer that saved it: parameters, optimizer leaves and counts, grid,
+    ray table, generator state and the sampler's next ids (drawn from both)."""
+    from ngf_tpu_torch.convert import sorted_named_leaves
+
+    la, lb = a.optimizer.to_optax_leaves(), b.optimizer.to_optax_leaves()
+    same = {
+        "params": all(torch.equal(x, y) for (_, x), (_, y) in zip(
+            sorted_named_leaves(a.params), sorted_named_leaves(b.params))),
+        "optimizer": len(la) == len(lb) and all(np.array_equal(x, y) for x, y in zip(la, lb))
+        and a.optimizer.count == b.optimizer.count,
+        "occ": torch.equal(a.alpha.occ, b.alpha.occ),
+        "batch_table": torch.equal(a.batch_table, b.batch_table),
+        "generator": torch.equal(a.gen.get_state(), b.gen.get_state()),
+        "next_ids": torch.equal(a.sampler.nextids(), b.sampler.nextids()),
+    }
+    check(all(same.values()), f"restored trainer differs: {same}")
+    return same
+
+
+def lego_phase(device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRAIN_WH,
+               iters: int = LEGO_ITERS, save_every: int = LEGO_SAVE_EVERY,
+               sigterm_after: int = LEGO_SIGTERM_AFTER, downsample: float = LEGO_DOWNSAMPLE,
+               extra: tuple[str, ...] = (), reps: int = 3) -> dict:
+    """The lego recipe on a Blender-format scene written from the synthetic
+    views (`write_blender_scene`), through ``main_torch.py``: a run
+    SIGTERMed once ``log.txt`` passes ``sigterm_after`` (in a subprocess;
+    exit 0, a resumable ``model.npz``), resumed with ``--ckpt`` to ``iters``
+    across the later events (in this process: exact launch totals, events,
+    falling losses), and an uninterrupted run (exact launch totals), whose
+    test PSNRs must lie within ``LEGO_PSNR_GAP_DB``. Then a trainer restored
+    from a checkpoint against the trainer that saved it (bit for bit, one
+    more step's loss), and the full-width checkpoint's cost: seconds the
+    loop is blocked by a synchronous and a background save, the file's
+    size, ``from_checkpoint``'s seconds. ``extra`` argv shrink the runs for
+    a CPU rehearsal."""
+    import main_torch
+    from ngf_tpu_torch.config import config_parser
+    from ngf_tpu_torch.convert import named_leaves
+    from ngf_tpu_torch.data import load_dataset
+    from ngf_tpu_torch.ops import cuda_kernels
+    from ngf_tpu_torch.train.loop import TriPlaneTrainer
+
+    cuda = device.type == "cuda"
+    here = os.path.dirname(os.path.abspath(__file__))
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = os.path.join(tmp, "scene")
+        t0 = time.perf_counter()
+        written = write_blender_scene(scene, views, wh)
+        for split in ("train", "test"):
+            ds = load_dataset("blender", scene, split=split, downsample=downsample, is_stack=True)
+            check(ds.img_wh == (wh, wh) and np.array_equal(ds.all_rgbs, written[split]["rgbs"]),
+                  f"{split}: loaded colours differ from the written pixels")
+            rays = ds.all_rays.reshape(-1, 6)
+            check(np.isfinite(rays).all()
+                  and np.abs(np.linalg.norm(rays[:, 3:], axis=-1) - 1.0).max() < 1e-5,
+                  f"{split}: rays not finite and unit-norm")
+            ray_err = float(np.abs(rays - written[split]["rays"].reshape(-1, 6)).max())
+            check(ray_err < 1e-4, f"{split}: rays {ray_err} from the synthetic views'")
+        out["scene_s"] = time.perf_counter() - t0
+        print(f"[lego] Blender scene of {views} + 1 synthetic views at {wh}^2 written and read "
+              f"back in {out['scene_s']:.3f} s (rays within {ray_err:.2e} of the synthetic ones)")
+
+        def argv(expname: str) -> list[str]:
+            return ["--config", os.path.join(here, LEGO_CONFIG), "--datadir", scene,
+                    "--downsample_train", str(downsample), "--downsample_test", str(downsample),
+                    "--n_iters", str(iters), "--save_every", str(save_every), "--basedir", tmp,
+                    "--expname", expname, "--device", device.type, *extra]
+
+        args = config_parser(argv("lego"))
+        event_its = sorted({e for e in args.update_AlphaMask_list if 0 < e <= iters})
+        check(args.dataset_name == "blender" and args.compute_dtype == "bfloat16"
+              and args.group_size > 0 and args.sample_cap == -1, f"lego args {args}")
+
+        # 1. SIGTERM once log.txt passes sigterm_after.
+        run = os.path.join(tmp, "lego")
+        log = os.path.join(tmp, "sigterm.log")
+        t0 = time.perf_counter()
+        with open(log, "w") as f:
+            proc = subprocess.Popen([sys.executable, os.path.join(here, "main_torch.py"),
+                                     *argv("lego")], cwd=here, stdout=f, stderr=subprocess.STDOUT,
+                                    env={**os.environ, "PYTHONUNBUFFERED": "1"})
+            sent_at = None
+            try:
+                while proc.poll() is None and time.perf_counter() - t0 < 900:
+                    if sent_at is None and _log_iteration(os.path.join(run, "log.txt")) > sigterm_after:
+                        proc.send_signal(signal.SIGTERM)
+                        sent_at = _log_iteration(os.path.join(run, "log.txt"))
+                    time.sleep(0.05)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+        text = open(log).read()
+        sub_s = time.perf_counter() - t0
+        check(proc.returncode == 0 and sent_at is not None
+              and "[trainer] preempted at iteration" in text,
+              f"main_torch under SIGTERM: rc {proc.returncode}, sent at {sent_at}\n{text[-3000:]}")
+        ckpt = os.path.join(run, "model.npz")
+        with np.load(ckpt) as z:
+            meta = json.loads(bytes(z["meta"]).decode())
+        stopped = int(meta["iteration"])
+        check(sigterm_after < stopped < iters and "resume" in meta, f"SIGTERM saved {stopped}")
+        rows = [json.loads(line) for line in open(os.path.join(run, "scalars.jsonl"))]
+        blocked = [(r["step"], r["ckpt/blocked_s"]) for r in rows if "ckpt/blocked_s" in r]
+        check([s for s, _ in blocked] == list(range(save_every, stopped + 1, save_every)),
+              f"periodic saves {blocked}")
+        print(f"[lego] SIGTERM after log.txt passed {sigterm_after} (sent at {sent_at}): exit 0, "
+              f"model.npz at {stopped}, {sub_s:.1f} s in the subprocess; periodic saves' blocked "
+              f"seconds {blocked}")
+        out["sigterm"] = {"stopped": stopped, "sent_at": sent_at, "subprocess_s": sub_s,
+                          "blocked_s": blocked}
+
+        # 2. Resume with --ckpt to the end, across the later events.
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        resumed = main_torch.main(argv("lego") + ["--ckpt", ckpt])
+        resume_s = time.perf_counter() - t0
+        launches = _counts()
+        mses, events = resumed["train_mses"], resumed["events"]
+        later = [e for e in event_its if e > stopped]
+        check(resumed["iterations"] == iters and len(mses) == iters - stopped
+              and all(math.isfinite(m) for m in mses), f"resumed losses {len(mses)}")
+        check([(e["kind"], e["iteration"], e["first"], e["refiltered"]) for e in events]
+              == [("mask", it, False, False) for it in later], f"resumed events {events}")
+        check_stages_fall(mses, [stopped, *later, iters], start=stopped)
+        psnr = resumed["test_psnrs"]
+        check(len(psnr) == 1 and math.isfinite(psnr[0]), f"resumed test psnr {psnr}")
+        if cuda:
+            want = staged_launches(args, events, wh, start=stopped)
+            check(launches == want, f"resumed launches {launches}, expected {want}")
+        print(f"[lego] resumed at {stopped} to {iters}: {resume_s:.1f} s, events "
+              f"{[(e['iteration'], e['sample_cap']) for e in events]}, test psnr {psnr[0]:.3f} dB, "
+              f"launches {launches}")
+        out["resumed"] = {"s": resume_s, "launches": launches, "events": events,
+                          "test_psnr": psnr[0], "stages": resumed["stages"]}
+
+        # 3. The same run uninterrupted.
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        straight = main_torch.main(argv("straight"))
+        straight_s = time.perf_counter() - t0
+        launches = _counts()
+        mses, events = straight["train_mses"], straight["events"]
+        check(len(mses) == iters and all(math.isfinite(m) for m in mses), "straight losses")
+        check([(e["iteration"], e["first"]) for e in events]
+              == [(it, i == 0) for i, it in enumerate(event_its)], f"straight events {events}")
+        check_stages_fall(mses, [0, *event_its, iters])
+        if cuda:
+            want = staged_launches(args, events, wh)
+            check(launches == want, f"straight launches {launches}, expected {want}")
+        gap = abs(psnr[0] - straight["test_psnrs"][0])
+        print(f"[lego] uninterrupted: {straight_s:.1f} s, test psnr {straight['test_psnrs'][0]:.3f}"
+              f" dB; resumed {psnr[0]:.3f} dB, gap {gap:.3f} dB (limit {LEGO_PSNR_GAP_DB}); "
+              f"launches {launches}")
+        check(gap <= LEGO_PSNR_GAP_DB, f"resumed psnr {psnr[0]} vs uninterrupted "
+                                       f"{straight['test_psnrs'][0]}")
+        out.update(launches=launches, straight_s=straight_s,
+                   test_psnr=straight["test_psnrs"][0], psnr_gap_db=gap,
+                   events=events, stages=straight["stages"])
+
+        # 4. Restoration bit for bit, and one more step's loss.
+        train_ds = load_dataset("blender", scene, split="train", downsample=downsample,
+                                is_stack=False)
+        a = TriPlaneTrainer.from_checkpoint(os.path.join(tmp, "straight", "model.npz"), args,
+                                            train_ds, device=device)
+        a.train_step(*a.next_batch(), a.gen)
+        saved = os.path.join(tmp, "saved.npz")
+        a.save(saved)
+        b = TriPlaneTrainer.from_checkpoint(saved, args, train_ds, device=device)
+        out["restored_equal"] = _same_trainers(a, b)
+        rays, rgbs = a.next_batch()
+        b.next_batch()
+        la = float(a.train_step(rays, rgbs, a.gen))
+        lb = float(b.train_step(rays, rgbs, b.gen))
+        check(math.isclose(la, lb, rel_tol=1e-5), f"one more step: loss {la} vs restored {lb}")
+        print(f"[lego] restored trainer equal to the saving one at {a.iteration - 1} "
+              f"({', '.join(out['restored_equal'])}); one more step's loss {la} vs {lb}")
+
+        # 5. The full-width checkpoint's cost.
+        def synced(fn):
+            if cuda:
+                torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            r = fn()
+            if cuda:
+                torch.cuda.synchronize(device)
+            return time.perf_counter() - t, r
+
+        path = os.path.join(tmp, "timed.npz")
+        cost = {"sync_blocked_s": [], "background_blocked_s": [], "background_write_s": [],
+                "from_checkpoint_s": []}
+        for _ in range(reps):
+            cost["sync_blocked_s"].append(a.save(path))
+            cost["background_blocked_s"].append(a.save(path, background=True))
+            cost["background_write_s"].append(synced(a._ckpt_writer.wait)[0])
+            cost["from_checkpoint_s"].append(synced(lambda: TriPlaneTrainer.from_checkpoint(
+                path, args, train_ds, device=device))[0])
+        cost["file_bytes"] = os.path.getsize(path)
+        # The parameters and Adam's two moments.
+        cost["state_bytes"] = 3 * sum(t.numel() * t.element_size()
+                                      for _, t in named_leaves(a.params))
+        print("[lego] checkpoint " + json.dumps(cost))
+        check(not cuda or max(cost["background_blocked_s"]) < min(cost["sync_blocked_s"]),
+              f"a background save blocks as long as a synchronous one: {cost}")
+        out["checkpoint"] = cost
+    return out
 
 
 # ------------------------------------------------------------------- UV phase
@@ -2882,7 +3175,7 @@ def uv_phase(device: torch.device, views: int = UV_VIEWS, wh: int = UV_WH,
 
 
 PHASES = ("kernel", "rows", "backward", "occupancy", "uv", "render", "train", "staged", "gauge",
-          "bf16")
+          "bf16", "lego")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2927,6 +3220,7 @@ def main(argv: list[str] | None = None) -> int:
         "gauge": lambda: gauge_phase(device),
         "bf16": lambda: bf16_phase(device),
         "uv": lambda: uv_phase(device, steps=parsed.uv_steps, bf16_steps=parsed.uv_bf16_steps),
+        "lego": lambda: lego_phase(device),
     }
     out = {}
     for phase in PHASES:
@@ -2950,7 +3244,10 @@ def main(argv: list[str] | None = None) -> int:
              "staged render-only": out["staged"]["render"]["launches"],
              "gauge": gauge["launches"], "gauge render-only": gauge["render"]["launches"],
              "bf16 infoinv": bf16["infoinv"]["launches"], "bf16 gauge": bf16["gauge"]["launches"],
+             "lego": out["lego"]["launches"], "lego resumed": out["lego"]["resumed"]["launches"],
              **out["uv"]["launches"]}
+    # The bfloat16 InfoInv paths, whose K2 launches are its bfloat16 variant.
+    bf16_infoinv = ("bf16 infoinv", "lego", "lego resumed")
     uv_paths = tuple(out["uv"]["launches"])
 
     def entry(name, source, replaces, row, max_abs_err, at, counters=None, skip=()):
@@ -2989,7 +3286,7 @@ def main(argv: list[str] | None = None) -> int:
               max(r["max_abs_err"] for r in bwd_rows + step_rows),
               "appearance fetch: plane gradient 256x256x96 float32, channels 24:96, "
               f"N={TRAIN_RAYS * TRAIN_CAP}, train coordinates, random cotangents",
-              skip=("bf16 infoinv",)),
+              skip=bf16_infoinv),
         entry("gather_rows", "ngf_tpu_torch/ops/kernels/gather_rows.cu",
               "tools/probe_pallas.py:21,44,68",
               next(r for r in row_cases if r["case"] == "rays"), 0.0,
@@ -3020,7 +3317,7 @@ def main(argv: list[str] | None = None) -> int:
               "bfloat16 30k InfoInv cut, a masked step's own bfloat16 cotangents of the xy "
               "plane's appearance fetch into its float32 gradient, channels 24:96",
               counters=("bilinear_gather_2d_backward",),
-              skip=tuple(p for p in paths if p != "bf16 infoinv")),
+              skip=tuple(p for p in paths if p not in bf16_infoinv)),
         entry("bilinear_gather_planes_backward_coords (bfloat16)",
               "ngf_tpu_torch/ops/kernels/bilinear_gather_backward.cu",
               "ngf_tpu/ops/grid_sample.py:434", bf16_k2c, bf16_k2c["max_abs_err"],

@@ -11,12 +11,16 @@ shrink and upsample events), and render-only evaluation of a checkpoint.
 
 It reads the same ``configs/*.txt`` and writes and reads the same ``.npz``
 checkpoints (with their occupancy mask) as `main.py`, and runs on the GPU
-unless ``--device cpu`` is given. ``--compute_dtype bfloat16`` trains the
+unless ``--device cpu`` is given. In training mode ``--ckpt`` resumes the
+run that wrote the checkpoint (either package's), and SIGTERM stops a run
+after its current step with a resumable ``model.npz`` and exit code 0.
+``--dataset_name blender`` reads a Blender-format scene (``--datadir`` with
+``transforms_{train,test}.json``). ``--compute_dtype bfloat16`` trains the
 JAX package's bfloat16 recipe (float32 parameters and Adam, bfloat16 plane
 values and decoders with float32 sums; ``model.npz`` keeps the float32
 parameters). ``steps_per_call`` is read and has no effect: PyTorch runs one
 step at a time. Options the port does not carry yet (``rgb_cap != 0``,
-resume, data-parallel meshes) raise, naming ROADMAP.md.
+data-parallel meshes) raise, naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -51,20 +55,17 @@ def _logfolder(args):
 
 
 def run_train(args):
-    """Train (InfoInv or the learned gauge), save ``model.npz``, then the
-    final evaluations (`main.py:45-117`). Returns the trainer's statistics
-    with the test PSNRs under ``test_psnrs`` (empty when no test views were
-    rendered)."""
+    """Train (InfoInv or the learned gauge), or resume the run that wrote
+    ``--ckpt``, save ``model.npz``, then the final evaluations
+    (`main.py:45-117`). Returns the trainer's statistics with the test PSNRs
+    under ``test_psnrs`` (empty when no test views were rendered). A run
+    stopped by SIGTERM saves ``model.npz`` and returns before the final
+    evaluations."""
     from ngf_tpu_torch.data import load_dataset
     from ngf_tpu_torch.render.evaluation import evaluation, evaluation_path
     from ngf_tpu_torch.train.loop import TriPlaneTrainer, check_ported
     from ngf_tpu_torch.utils.device import resolve_device
 
-    if args.ckpt:
-        raise NotImplementedError(
-            "resuming training from --ckpt is not ported to ngf_tpu_torch yet: see "
-            "ROADMAP.md queue 1, 'resume'"
-        )
     if args.export_mesh:
         raise NotImplementedError(
             "export_mesh is not ported to ngf_tpu_torch yet: see ROADMAP.md, items still missing"
@@ -82,9 +83,20 @@ def run_train(args):
     )
     logfolder = _logfolder(args)
     os.makedirs(logfolder, exist_ok=True)
-    trainer = TriPlaneTrainer(args, train_dataset, test_dataset, logfolder, device=device)
+    if args.ckpt:
+        # --ckpt in training mode resumes the run that wrote it (`main.py:74-81`).
+        trainer = TriPlaneTrainer.from_checkpoint(
+            args.ckpt, args, train_dataset, test_dataset, logfolder, device=device
+        )
+        print(f"[trainer] resumed from {args.ckpt} at iteration {trainer.iteration}", flush=True)
+    else:
+        trainer = TriPlaneTrainer(args, train_dataset, test_dataset, logfolder, device=device)
     stats = trainer.run()
     print(f"training done: { {k: v for k, v in stats.items() if k != 'train_mses'} }")
+    if stats["preempted"]:
+        # Stopped by SIGTERM: the checkpoint is written; the evaluations
+        # wait for the resumed run.
+        return {**stats, "test_psnrs": []}
 
     # The final evaluations march the full geometry-derived sample count
     # with no compaction (`main.py:92-95`).

@@ -10,4 +10,6 @@ and learned-gauge tri-plane recipes (K3, K4, K2c) and bfloat16 training.
 And the UV-Mapping (NeuTex) subsystem (`fields/neutex.py`,
 `train/uv_loop.py`, `data/dtu.py`; CLIs `uv_train_torch.py` and
 `uv_test_torch.py`), with the compositing scan K5 `ops/kernels/ray_march.cu`.
+Then tri-plane training resume (`--ckpt` in training mode, SIGTERM saving,
+background periodic saves) and the Blender loader (`data/blender.py`).
 """

@@ -110,7 +110,8 @@ def adam_to_optax_leaves(
     nu = [s["exp_avg_sq"] if "exp_avg_sq" in s else torch.zeros_like(p) for s, p in zip(states, params)]
     return (
         [np.asarray(count, np.int32)]
-        + [t.detach().cpu().numpy().astype(np.float32) for t in mu + nu]
+        # Host copies: a snapshot that later in-place steps do not reach.
+        + [t.detach().to("cpu", torch.float32, copy=True).numpy() for t in mu + nu]
         + [np.asarray(schedule_count, np.int32)]
     )
 

@@ -1,6 +1,7 @@
 """Host-side (numpy) camera and ray geometry: the part of
-`ngf_tpu/data/geometry.py` that the synthetic scene and the evaluation path
-use (`InfoInv/dataLoader/ray_utils.py`, `nsvf.py:10-34`), copied."""
+`ngf_tpu/data/geometry.py` that the synthetic scene, the Blender loader and
+the evaluation path use (`InfoInv/dataLoader/ray_utils.py`, `nsvf.py:10-34`),
+copied."""
 
 from __future__ import annotations
 
@@ -15,6 +16,18 @@ def _pixel_grid(h: int, w: int):
         indexing="xy",
     )
     return i, j
+
+
+def get_ray_directions(h: int, w: int, focal, center=None) -> np.ndarray:
+    """OpenCV-convention camera rays (+z forward), (H, W, 3).
+
+    `ray_utils.py:24-42`: x right, y down, z forward; NOT normalized.
+    """
+    i, j = _pixel_grid(h, w)
+    cx, cy = center if center is not None else (w / 2, h / 2)
+    return np.stack(
+        [(i - cx) / focal[0], (j - cy) / focal[1], np.ones_like(i)], -1
+    ).astype(np.float32)
 
 
 def get_ray_directions_blender(h: int, w: int, focal, center=None) -> np.ndarray:

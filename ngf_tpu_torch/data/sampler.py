@@ -24,16 +24,30 @@ class SimpleSampler:
         self._ids: np.ndarray | None = None
         self._curr = self.total
 
-    def nextids(self) -> np.ndarray:
-        if self._ids is None or self._curr + self.batch > self.total:
+    def _draw(self) -> bool:
+        """Move the stream past one batch, drawing a new permutation when
+        fewer than ``batch`` ids remain; returns whether it drew one."""
+        new = self._ids is None or self._curr + self.batch > self.total
+        if new:
             self._ids = self._rng.permutation(self.total)
             self._curr = 0
-        out = self._ids[self._curr : self._curr + self.batch]
         self._curr += self.batch
+        return new
+
+    def nextids(self) -> np.ndarray:
+        self._draw()
+        out = self._ids[self._curr - self.batch : self._curr]
         if out.shape[0] < self.batch:  # dataset smaller than one batch
             reps = int(np.ceil(self.batch / max(out.shape[0], 1)))
             out = np.tile(out, reps)[: self.batch]
         return out
+
+    def skip(self, n: int) -> None:
+        """Advance the stream as ``n`` calls of :meth:`nextids` would,
+        without building their ids: a resumed trainer's position
+        (`ngf_tpu/train/loop.py:201-207`)."""
+        for _ in range(n):
+            self._draw()
 
 
 class DeviceSampler(SimpleSampler):
@@ -41,29 +55,30 @@ class DeviceSampler(SimpleSampler):
     tensors on ``device``.
 
     Each epoch's permutation is copied to the device once (pinned and
-    asynchronous on a card); a batch is then a slice of it there, so a step
-    copies nothing from the host. A set smaller than one batch is tiled on
-    the host first, as :class:`SimpleSampler` tiles it, and then every call
-    is an epoch. ``uploads`` counts the copies.
+    asynchronous on a card), when its first batch is asked for; a batch is
+    then a slice of it there, so a step copies nothing from the host, and
+    :meth:`skip` copies only the permutation it stops in. A set smaller
+    than one batch is tiled on the host first, as :class:`SimpleSampler`
+    tiles it, and then every call is an epoch. ``uploads`` counts the
+    copies.
     """
 
     def __init__(self, total: int, batch: int, seed: int = 0, device: torch.device | str = "cpu"):
         super().__init__(total, batch, seed)
         self.device = torch.device(device)
         self._device_ids: torch.Tensor | None = None
+        self._uploaded: np.ndarray | None = None  # the permutation _device_ids holds
         self.uploads = 0
 
     def nextids(self) -> torch.Tensor:
-        if self._ids is None or self._curr + self.batch > self.total:
-            self._ids = self._rng.permutation(self.total)
-            self._curr = 0
+        self._draw()
+        if self._uploaded is not self._ids:
             ids = torch.from_numpy(self._ids)
             if self.total < self.batch:
                 ids = ids.repeat(-(-self.batch // max(self.total, 1)))[: self.batch]
             if self.device.type == "cuda":
                 ids = ids.pin_memory()
             self._device_ids = ids.to(self.device, non_blocking=True)
+            self._uploaded = self._ids
             self.uploads += 1
-        out = self._device_ids[self._curr : self._curr + self.batch]
-        self._curr += self.batch
-        return out
+        return self._device_ids[self._curr - self.batch : self._curr]

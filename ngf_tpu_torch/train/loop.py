@@ -7,7 +7,10 @@ samples, the bbox ray filter and the epoch sampler, the optimizer, the loss
 renderer, the occupancy mask events (grid, L1 switch, ray refilter, measured
 sample capacity), the learned gauge's shrink (at its first mask event) and
 upsample events with their optimizer resets, the run loop with its logs,
-evaluations and checkpoint, and the final evaluation renderer.
+``scalars.jsonl``, evaluations, periodic checkpoints written off the loop
+and a SIGTERM drain, training resume from either package's checkpoint
+(:meth:`TriPlaneTrainer.from_checkpoint`), and the final evaluation
+renderer.
 
 Differences from the JAX trainer:
 - The training rays and colours live on the device as one (N, 9) table,
@@ -29,14 +32,22 @@ Differences from the JAX trainer:
   evaluation renderer turn off cuBLAS's bfloat16 partial-sum reduction and
   TF32 while they run (``utils.precision.float32_accumulation``), which
   PyTorch allows by default and the JAX package never does.
+- The checkpoint carries the generator's state (``extra/torch_generator``)
+  beside the JAX key (``extra/key``, a threefry key of the seed, which the
+  JAX trainer requires and the port does not read). A resume restores the
+  state where the checkpoint was written on the same device type, and
+  otherwise (another device type, or the JAX package) reseeds from
+  ``(seed, iteration)`` and says so: the jitter and the backgrounds then
+  differ from an uninterrupted run's, all else is restored exactly.
 - Not ported yet, and refused with a pointer to ROADMAP.md: ``rgb_cap !=
-  0``, resume, data-parallel meshes.
+  0``, data-parallel meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import signal
 import time
 
 import numpy as np
@@ -56,10 +67,17 @@ from ..fields.triplane import (
 from ..ops.gather import gather_rows
 from ..render.evaluation import evaluation
 from ..render.volume import RenderConfig, render_rays
-from ..utils.checkpoint import save_checkpoint
+from ..utils.checkpoint import (
+    AsyncCheckpointWriter,
+    load_checkpoint,
+    load_extra_arrays,
+    pack_checkpoint,
+    write_arrays_atomic,
+)
 from ..utils.grid import cal_n_samples, grid_n_samples, grid_step_size, n_to_reso
 from ..utils.metrics import mse2psnr, tv_loss_2d
 from ..utils.precision import float32_accumulation
+from ..utils.scalars import ScalarWriter
 from .occupancy import (
     AlphaGrid,
     auto_sample_cap,
@@ -160,21 +178,38 @@ class TriPlaneTrainer:
         # One record per event (mask, upsample): what it produced and its
         # phases' seconds.
         self.events: list[dict] = []
+        self._scalars: ScalarWriter | None = None  # set while run() runs with a logfolder
+        self._ckpt_writer = AsyncCheckpointWriter()
+        self._stop_requested = False
 
         # Bbox ray filter and sampler (`ngf_tpu/train/loop.py:183-199`).
-        all_rays = np.asarray(train_dataset.all_rays, np.float32).reshape(-1, 6)
-        all_rgbs = np.asarray(train_dataset.all_rgbs, np.float32).reshape(-1, 3)
+        # ``_ray_ids``: the kept rays as indices into the dataset's order
+        # (the bbox filter's here, composed with the first mask event's),
+        # which a checkpoint carries so that a resume rebuilds the same set.
+        table = self._dataset_table()
+        self._ray_ids = np.arange(table.shape[0], dtype=np.int64)
         if args.filter_rays:
-            keep = filter_rays_bbox(all_rays, self.aabb)
-            all_rays, all_rgbs = all_rays[keep], all_rgbs[keep]
-        # One (N, 9) table, rays in columns 0:6 and colours in 6:9, so that
-        # a batch is one row gather; ``all_rays`` and ``all_rgbs`` are views.
-        self.batch_table = torch.from_numpy(np.concatenate([all_rays, all_rgbs], 1)).to(self.device)
-        self.all_rays, self.all_rgbs = self.batch_table[:, :6], self.batch_table[:, 6:]
-        self.sampler = DeviceSampler(all_rays.shape[0], args.batch_size, args.seed, self.device)
+            self._ray_ids = self._ray_ids[filter_rays_bbox(table[:, :6], self.aabb)]
+        self._set_table(torch.from_numpy(table[self._ray_ids]).to(self.device))
+        self.sampler = DeviceSampler(self._ray_ids.size, args.batch_size, args.seed, self.device)
+        # The iteration the sampler was made at (`ngf_tpu/train/loop.py:1313-1319`).
+        self._sampler_birth = 0
         self._make_optimizer()
 
     # ------------------------------------------------------------------ setup
+
+    def _dataset_table(self) -> np.ndarray:
+        """The training set's (N, 9) rows in the dataset's order: rays in
+        columns 0:6, colours in 6:9."""
+        ds = self.train_dataset
+        return np.concatenate([np.asarray(ds.all_rays, np.float32).reshape(-1, 6),
+                               np.asarray(ds.all_rgbs, np.float32).reshape(-1, 3)], 1)
+
+    def _set_table(self, table: torch.Tensor) -> None:
+        """The device-resident (N, 9) table of the kept rays, so that a batch
+        is one row gather; ``all_rays`` and ``all_rgbs`` are its views."""
+        self.batch_table = table
+        self.all_rays, self.all_rgbs = table[:, :6], table[:, 6:]
 
     def _voxel_schedule(self) -> list[int]:
         """The upsample events' voxel counts (`ngf_tpu/train/loop.py:236-258`):
@@ -361,9 +396,10 @@ class TriPlaneTrainer:
             keep = filter_rays_alpha(self.all_rays, self.alpha, self.aabb, near, far, self.step_size)
             ids = keep.nonzero().squeeze(1)
             if ids.numel():
-                self.batch_table = gather_rows(self.batch_table, ids)
-                self.all_rays, self.all_rgbs = self.batch_table[:, :6], self.batch_table[:, 6:]
+                self._set_table(gather_rows(self.batch_table, ids))
+                self._ray_ids = self._ray_ids[ids.cpu().numpy()]
                 self.sampler = DeviceSampler(ids.numel(), a.batch_size, a.seed, self.device)
+                self._sampler_birth = self.iteration
                 rec["refiltered"] = True
             else:
                 # Degenerate occupancy: keep the training set (`loop.py:1320-1323`).
@@ -444,7 +480,8 @@ class TriPlaneTrainer:
         return rec
 
     def _event_phase_report(self, kind: str, t: dict) -> dict:
-        """Print the event's phases in seconds, successive timestamps
+        """Print the event's phases in seconds, successive timestamps, and
+        write them to ``scalars.jsonl`` as ``event/<kind>_<phase>_s``
         (`ngf_tpu/train/loop.py:1416-1434`); returns them."""
         parts, prev = {}, t["start"]
         for k, v in t.items():
@@ -453,22 +490,38 @@ class TriPlaneTrainer:
                 prev = v
         print(f"[trainer] {kind} event @{self.iteration}: "
               + " ".join(f"{k} {v:.2f}s" for k, v in parts.items()), flush=True)
+        if self._scalars is not None:
+            self._scalars.write(self.iteration,
+                                {f"event/{kind}_{k}_s": round(v, 2) for k, v in parts.items()})
         return parts
 
     # ------------------------------------------------------------------ run
 
+    def _on_sigterm(self, signum, frame) -> None:
+        self._stop_requested = True
+        print("[trainer] SIGTERM: will checkpoint and exit after this step", flush=True)
+
     @float32_accumulation()
-    def run(self) -> dict:
-        """Train to ``n_iters`` with logs, periodic evaluation, mask events
-        and checkpoints, then save ``model.npz``
+    def run(self, progress_cb=None) -> dict:
+        """Train to ``n_iters`` with logs, ``scalars.jsonl``, periodic
+        evaluation, mask events and checkpoints, then save ``model.npz``
         (`ngf_tpu/train/loop.py:1495-1645`). At an iteration with both, the
-        evaluation runs before the events, and the mask event before the
-        upsample, as in the JAX trainer."""
+        evaluation runs before the events, the mask event before the
+        upsample, and the events before the checkpoint, as in the JAX
+        trainer. ``save_every`` saves are written off the loop
+        (:meth:`save` with ``background=True``); the final save waits for
+        them. With a logfolder, SIGTERM (installed from the main thread,
+        the previous handler restored on return) finishes the current step
+        and its events, saves ``model.npz`` synchronously and returns with
+        ``preempted`` True. ``progress_cb(iteration, mse)`` is called after
+        every step, with the last MSE read back from the device."""
         args = self.args
         log_path = None
         if self.logfolder:
             os.makedirs(os.path.join(self.logfolder, "imgs_vis"), exist_ok=True)
             log_path = os.path.join(self.logfolder, "log.txt")
+            self._scalars = ScalarWriter(self.logfolder)
+        scalars = self._scalars
         psnrs_test = [0.0]
         # MSEs stay device scalars until a log needs them, so the host does
         # not wait for the card after every step.
@@ -482,65 +535,90 @@ class TriPlaneTrainer:
         stages: list[dict] = []
         t0 = stage_t = time.time()
         stage_it = self.iteration
-        # A profiler span around the steps (`chip_smoke.py` counts the
-        # host-to-device copies inside it).
-        with torch.profiler.record_function("train_loop"):
-            while self.iteration < args.n_iters:
-                pending.append(self.train_step(*self.next_batch(), self.gen))
-                it = self.iteration
-                boundary = it == args.n_iters or it in masks or it in ups
-                if boundary:
-                    self._sync()
-                    stages.append({"from": stage_it, "to": it, "s": time.time() - stage_t})
-                log_now = log_path is not None and it % args.progress_refresh_rate == 0
-                vis_now = (
-                    args.N_vis != 0 and args.vis_every > 0 and it % args.vis_every == 0
-                    and self.test_dataset is not None and self.logfolder
-                )
-                if log_now or vis_now or it == args.n_iters:
-                    mses += torch.stack(pending).tolist()
-                    pending = []
-                if log_now:
-                    train_psnr = np.mean([mse2psnr(m) for m in mses[-50:]])
-                    with open(log_path, "a") as f:
-                        f.write(
-                            f"Iteration {it:05d}: train_psnr = {train_psnr:.2f}"
-                            f" test_psnr = {float(np.mean(psnrs_test)):.2f} mse = {mses[-1]:.6f}\n"
-                        )
-                if vis_now:
-                    psnrs_test = evaluation(
-                        self.test_dataset, self.make_eval_render_fn(iteration=it),
-                        os.path.join(self.logfolder, "imgs_vis"), n_vis=args.N_vis,
-                        prtx=f"{it:06d}_", chunk=args.eval_chunk, compute_extra_metrics=False,
-                    ) or [0.0]
-                    if log_path:
+        self._stop_requested = False
+        prev_term = None
+        if self.logfolder:
+            try:
+                prev_term = signal.signal(signal.SIGTERM, self._on_sigterm)
+            except ValueError:  # not the main thread: no drain
+                pass
+        try:
+            # A profiler span around the steps (`chip_smoke.py` counts the
+            # host-to-device copies inside it).
+            with torch.profiler.record_function("train_loop"):
+                while self.iteration < args.n_iters and not self._stop_requested:
+                    pending.append(self.train_step(*self.next_batch(), self.gen))
+                    it = self.iteration
+                    boundary = it == args.n_iters or it in masks or it in ups or self._stop_requested
+                    if boundary:
+                        self._sync()
+                        stages.append({"from": stage_it, "to": it, "s": time.time() - stage_t})
+                    log_now = log_path is not None and it % args.progress_refresh_rate == 0
+                    vis_now = (
+                        args.N_vis != 0 and args.vis_every > 0 and it % args.vis_every == 0
+                        and self.test_dataset is not None and self.logfolder
+                    )
+                    if log_now or vis_now:
+                        mses += torch.stack(pending).tolist()
+                        pending = []
+                    if log_now:
+                        train_psnr = np.mean([mse2psnr(m) for m in mses[-50:]])
+                        with open(log_path, "a") as f:
+                            f.write(
+                                f"Iteration {it:05d}: train_psnr = {train_psnr:.2f}"
+                                f" test_psnr = {float(np.mean(psnrs_test)):.2f} mse = {mses[-1]:.6f}\n"
+                            )
+                        scalars.write(it, {"train/psnr": train_psnr, "train/mse": mses[-1],
+                                           "train/l1_weight": self.l1_weight,
+                                           "train/shaded_groups_p999": int(self.rgb_stat.item())})
+                    if vis_now:
+                        psnrs_test = evaluation(
+                            self.test_dataset, self.make_eval_render_fn(iteration=it),
+                            os.path.join(self.logfolder, "imgs_vis"), n_vis=args.N_vis,
+                            prtx=f"{it:06d}_", chunk=args.eval_chunk, compute_extra_metrics=False,
+                        ) or [0.0]
                         with open(log_path, "a") as f:
                             f.write(f"Iteration {it:05d}: test/psnr = "
                                     f"{float(np.mean(psnrs_test)):.2f}\n")
-                if it in masks:
-                    # The first event is the first without a grid (`loop.py:1517-1521`).
-                    self._event_update_alpha_mask(first=self.alpha is None)
-                if it in ups:
-                    self._event_upsample()
-                save_now = args.save_every > 0 and it % args.save_every == 0
-                if save_now and it < args.n_iters and self.logfolder:
-                    self.save(os.path.join(self.logfolder, "model.npz"))
-                if boundary:
-                    self._sync()
-                    stage_t, stage_it = time.time(), it
+                        scalars.write(it, {"test/psnr": float(np.mean(psnrs_test))})
+                    if it in masks:
+                        # The first event is the first without a grid (`loop.py:1517-1521`).
+                        self._event_update_alpha_mask(first=self.alpha is None)
+                    if it in ups:
+                        self._event_upsample()
+                    save_now = args.save_every > 0 and it % args.save_every == 0
+                    if save_now and it < args.n_iters and self.logfolder:
+                        # The final save below covers n_iters.
+                        blocked = self.save(os.path.join(self.logfolder, "model.npz"), background=True)
+                        scalars.write(it, {"ckpt/blocked_s": round(blocked, 3)})
+                    if boundary:
+                        self._sync()
+                        stage_t, stage_it = time.time(), it
+                    if progress_cb is not None:
+                        progress_cb(it, mses[-1] if mses else None)
+        finally:
+            if prev_term is not None:
+                signal.signal(signal.SIGTERM, prev_term)
+        if pending:
+            mses += torch.stack(pending).tolist()
         wall = time.time() - t0
         if self.logfolder:
-            self.save(os.path.join(self.logfolder, "model.npz"))
+            path = os.path.join(self.logfolder, "model.npz")
+            self.save(path)
+            if self._stop_requested:
+                print(f"[trainer] preempted at iteration {self.iteration}; resumable checkpoint "
+                      f"written to {path}", flush=True)
         return {
             "iterations": self.iteration,
             "wall_time_s": wall,
             "final_train_mse": mses[-1] if mses else None,
-            "rays_per_sec": args.batch_size * self.iteration / max(wall, 1e-9),
+            "rays_per_sec": args.batch_size * len(mses) / max(wall, 1e-9),
             "train_mses": mses,
             "id_uploads": self.sampler.uploads,
             "events": self.events,
             "stages": stages,
             "shaded_groups_p999": int(self.rgb_stat.item()),
+            "preempted": self._stop_requested,
         }
 
     def make_eval_render_fn(self, iteration: int | None = None, full: bool = False):
@@ -566,12 +644,20 @@ class TriPlaneTrainer:
 
         return render
 
-    def save(self, path: str) -> None:
-        """Write the parameters, the geometry and the occupancy mask as an
-        ``.npz`` checkpoint that `main_torch.py` and `ngf_tpu` read
-        (`ngf_tpu/train/loop.py:1676-1734` without the resume state)."""
+    def save(self, path: str, background: bool = False) -> float:
+        """Write a resumable ``.npz`` checkpoint that `main_torch.py` and
+        `ngf_tpu` read (`ngf_tpu/train/loop.py:1676-1734`): the parameters,
+        the geometry, the occupancy mask, ``meta["resume"]`` and the
+        ``extra/`` arrays (the optimizer's optax leaves, the JAX key, the
+        kept rays' ids, the generator's state). ``background=True`` blocks
+        only for the host snapshot and leaves the write to the background
+        writer; otherwise the write in flight is waited for and the file
+        written before returning. Returns the seconds the caller was
+        blocked."""
+        t0 = time.time()
+        a = self.args
         meta = {
-            "subsystem": self.args.subsystem,
+            "subsystem": a.subsystem,
             "model_cfg": dataclasses.asdict(self.model_cfg),
             "aabb": self.aabb.tolist(),
             "grid_size": self.grid_size,
@@ -579,11 +665,107 @@ class TriPlaneTrainer:
             "n_samples": self.n_samples,
             "near_far": [float(v) for v in self.train_dataset.near_far],
             "iteration": self.iteration,
+            "resume": {
+                "l1_weight": float(self.l1_weight),
+                "auto_cap": None if self._auto_cap is None else int(self._auto_cap),
+                "rgb_stat": int(self.rgb_stat.item()),
+                "auto_rgb_cap": 0,  # rgb_cap != 0 is refused (check_ported)
+                "n_voxel_list": list(self.n_voxel_list),
+                "sampler_birth": self._sampler_birth,
+                "generator_device": self.device.type,
+            },
         }
+        extra = {f"opt/{i:04d}": leaf for i, leaf in enumerate(self.optimizer.to_optax_leaves())}
+        extra["key"] = _threefry_key(a.seed)
+        extra["ray_ids"] = self._ray_ids
+        extra["torch_generator"] = self.gen.get_state()
         alpha = self.alpha
-        save_checkpoint(path, self.params, meta,
-                        alpha_volume=None if alpha is None else alpha.volume,
-                        alpha_aabb=None if alpha is None else alpha.aabb)
+        arrays = pack_checkpoint(self.params, meta,
+                                 alpha_volume=None if alpha is None else alpha.volume,
+                                 alpha_aabb=None if alpha is None else alpha.aabb,
+                                 extra_arrays=extra)
+        if background:
+            self._ckpt_writer.submit(path, arrays)
+        else:
+            self._ckpt_writer.wait()
+            write_arrays_atomic(path, arrays)
+        return time.time() - t0
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        path: str,
+        args: TrainArgs,
+        train_dataset: RayDataset,
+        test_dataset: RayDataset | None = None,
+        logfolder: str | None = None,
+        device: torch.device | str = "cuda",
+    ) -> "TriPlaneTrainer":
+        """A trainer that continues the run that wrote ``path`` (by either
+        package's :meth:`save`) under the same ``args``
+        (`ngf_tpu/train/loop.py:1736-1785,147-225`): the iteration, box,
+        grid, step, sample count, L1 weight, capacities, voxel schedule,
+        occupancy grid, kept rays, sampler position, optimizer state and
+        generator. Raises ValueError for a checkpoint without resume state,
+        one of another subsystem, and optimizer leaves that do not fit."""
+        params, meta, alpha_volume, alpha_aabb = load_checkpoint(path, device)
+        extra = load_extra_arrays(path)
+        if "resume" not in meta or "key" not in extra:
+            raise ValueError(f"{path} has no training-resume state (params-only checkpoint): "
+                             "re-save it with the current trainer or use --render_only")
+        if meta["subsystem"] != args.subsystem:
+            raise ValueError(f"checkpoint subsystem {meta['subsystem']!r} != configured "
+                             f"{args.subsystem!r}")
+        trainer = cls(args, train_dataset, test_dataset, logfolder, init_params=params,
+                      device=device)
+        trainer._restore(meta, extra, alpha_volume, alpha_aabb)
+        return trainer
+
+    def _restore(self, meta: dict, extra: dict, alpha_volume, alpha_aabb) -> None:
+        """Set the training state a checkpoint carries
+        (`ngf_tpu/train/loop.py:147-225`) over a freshly built trainer."""
+        a, r = self.args, meta["resume"]
+        if int(r["auto_rgb_cap"]) != 0:
+            raise _not_ported(f"a checkpoint with auto_rgb_cap {r['auto_rgb_cap']} (top-K shading)",
+                              "queue 1, 'rgb_cap and mask_stride'")
+        self.iteration = int(meta["iteration"])
+        self.aabb = np.asarray(meta["aabb"], np.float32)
+        self.grid_size = [int(v) for v in meta["grid_size"]]
+        self.reso_cur = list(self.grid_size)
+        self.step_size = float(meta["step_size"])
+        self.n_samples = int(meta["n_samples"])
+        self.l1_weight = float(r["l1_weight"])
+        self._auto_cap = None if r.get("auto_cap") is None else int(r["auto_cap"])
+        self.rgb_stat = torch.tensor(int(r["rgb_stat"]), dtype=torch.int32, device=self.device)
+        self.n_voxel_list = [int(v) for v in r["n_voxel_list"]]
+        self._sampler_birth = int(r["sampler_birth"])
+        if alpha_volume is not None:
+            self.alpha = AlphaGrid.from_volume(alpha_volume, alpha_aabb)
+        # The kept rays: the dataset's rows at the checkpoint's ids, gathered
+        # on the device; the sampler at the same point of its stream.
+        self._ray_ids = np.asarray(extra["ray_ids"], np.int64)
+        table = self._dataset_table()
+        if self._ray_ids.size == 0 or not 0 <= self._ray_ids.min() <= self._ray_ids.max() < len(table):
+            raise ValueError(f"the checkpoint's {self._ray_ids.size} ray ids do not index the "
+                             f"dataset's {len(table)} rays: another dataset than the run's")
+        table = torch.from_numpy(table).to(self.device)
+        self._set_table(gather_rows(table, torch.from_numpy(self._ray_ids).to(self.device)))
+        self.sampler = DeviceSampler(self._ray_ids.size, a.batch_size, a.seed, self.device)
+        self.sampler.skip(self.iteration - self._sampler_birth)
+        n_opt = sum(1 for k in extra if k.startswith("opt/"))
+        self.optimizer.load_optax_leaves([extra[f"opt/{i:04d}"] for i in range(n_opt)])
+        state = extra.get("torch_generator")
+        if state is not None and r.get("generator_device") == self.device.type:
+            self.gen.set_state(torch.from_numpy(np.ascontiguousarray(state, np.uint8)))
+        else:
+            self.gen.manual_seed(a.seed * 1_000_003 + self.iteration)
+            print(f"[trainer] generator reseeded from (seed {a.seed}, iteration {self.iteration}): "
+                  f"the checkpoint holds no {self.device.type} generator state", flush=True)
+
+
+def _threefry_key(seed: int) -> np.ndarray:
+    """``jax.random.PRNGKey(seed)`` as numpy: the uint32[2] threefry key."""
+    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
 
 
 _PLANES = ("plane_xy", "plane_yz", "plane_xz")

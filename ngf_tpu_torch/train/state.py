@@ -5,15 +5,18 @@ Port of `ngf_tpu/train/state.py` (reference `InfoInv/main.py:235-243,
 eps 1e-8; planes (``plane_*``) at ``lr_init``, gauge grids (``gauge_*``) at
 ``lr_basis * 0.1``, everything else at ``lr_basis``; before update t
 (counted from 0) every group's rate is ``base * ratio ** (t / decay_iters)``.
+Its state converts to and from the JAX optimizer's optax leaves, the form
+both packages' checkpoints keep.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
-from ..convert import named_leaves
+from ..convert import adam_from_optax_leaves, adam_to_optax_leaves, named_leaves, sorted_named_leaves
 
 
 def group_lr(name: str, lr_init: float, lr_basis: float) -> float:
@@ -32,6 +35,8 @@ class TriPlaneOptimizer:
 
     ``count`` is the schedule's count of updates taken (optax's
     ``_scale_by_leaf_lr`` state); Adam keeps its own ``step`` per parameter.
+    Both start from 0 with each new optimizer, as the JAX trainer's
+    ``_make_optimizer(reset=True)`` restarts both of its counts.
     """
 
     def __init__(
@@ -69,3 +74,20 @@ class TriPlaneOptimizer:
             g["lr"] = g["base_lr"] * scale
         self.adam.step()
         self.count += 1
+
+    def _sorted_leaves(self) -> list[torch.Tensor]:
+        return [t for _, t in sorted_named_leaves(self.params)]
+
+    def to_optax_leaves(self) -> list[np.ndarray]:
+        """The state as the leaves of the JAX trainer's ``optax.chain(
+        scale_by_adam, _scale_by_leaf_lr, scale)`` (`ngf_tpu/train/state.py:62-75`):
+        Adam's count, the first moments, the second moments (parameters in
+        sorted leaf order), then the schedule's count."""
+        return adam_to_optax_leaves(self.adam, self._sorted_leaves(), self.count)
+
+    def load_optax_leaves(self, leaves: list[np.ndarray]) -> None:
+        """Set the state from :meth:`to_optax_leaves`' form, written by
+        either package. Moments map to parameters by name, so the order of
+        Adam's groups does not matter; a leaf that does not fit raises
+        ValueError."""
+        self.count = adam_from_optax_leaves(self.adam, self._sorted_leaves(), leaves)

@@ -1,38 +1,28 @@
 """Self-describing ``.npz`` checkpoints with a packed occupancy bitmap.
 
-Port of `ngf_tpu/utils/checkpoint.py:23-138,189-232`: the parameter tree
+Port of `ngf_tpu/utils/checkpoint.py:23-232`: the parameter tree
 flattened to ``param/<path>`` arrays, a JSON ``meta`` blob (model and render
 configuration, training state), the alpha volume bit-packed with
 ``np.packbits`` under ``alphaMask/``, and training-resume state (optimizer
 moments, counts, the generator's state) as ``extra/<name>`` arrays. Files
-written by either package load in the other. A save writes a temporary file
-and renames it over the old one, so a kill mid-write leaves the old file
-whole. The JAX package's Orbax directory form is not read here.
+written by either package load in the other. A save is a host snapshot
+(:func:`pack_checkpoint`) and a write to a temporary file renamed over the
+old one (:func:`write_arrays_atomic`), so a kill mid-write leaves the old
+file whole; :class:`AsyncCheckpointWriter` runs the write on a thread. The
+JAX package's Orbax directory form is not read here.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 from typing import Any
 
 import numpy as np
 import torch
 
-from ..convert import params_from_numpy, params_to_numpy
-
-
-def _flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
-    flat = {}
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            flat.update(_flatten(v, f"{prefix}{k}/"))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            flat.update(_flatten(v, f"{prefix}{i}/"))
-    else:
-        flat[prefix[:-1]] = np.asarray(tree)
-    return flat
+from ..convert import named_leaves, params_from_numpy
 
 
 def _unflatten(flat: dict[str, np.ndarray]) -> Any:
@@ -55,6 +45,91 @@ def _unflatten(flat: dict[str, np.ndarray]) -> Any:
     return listify(root)
 
 
+def _host(v: Any) -> np.ndarray:
+    """A host copy of a tensor, so that later in-place updates of the
+    training state do not reach the snapshot; an array as it is."""
+    if torch.is_tensor(v):
+        return v.detach().to("cpu", copy=True).numpy()
+    return np.asarray(v)
+
+
+def pack_checkpoint(
+    params: Any,
+    meta: dict | None = None,
+    alpha_volume: torch.Tensor | np.ndarray | None = None,
+    alpha_aabb: torch.Tensor | np.ndarray | None = None,
+    extra_arrays: dict[str, Any] | None = None,
+) -> dict[str, np.ndarray]:
+    """The checkpoint's arrays on the host: the blocking part of a save
+    (`ngf_tpu/utils/checkpoint.py:56-80`). Pair with
+    :func:`write_arrays_atomic` or :class:`AsyncCheckpointWriter`."""
+    arrays = {f"param/{k}": _host(v) for k, v in named_leaves(params)}
+    blob = dict(meta or {})
+    if alpha_volume is not None:
+        vol = _host(alpha_volume) > 0.5
+        arrays["alphaMask/mask"] = np.packbits(vol.reshape(-1))
+        arrays["alphaMask/aabb"] = _host(alpha_aabb).astype(np.float32)
+        blob["alphaMask.shape"] = list(vol.shape)
+    for k, v in (extra_arrays or {}).items():
+        arrays[f"extra/{k}"] = _host(v)
+    arrays["meta"] = np.frombuffer(json.dumps(blob).encode(), dtype=np.uint8)
+    return arrays
+
+
+def write_arrays_atomic(path: str, arrays: dict[str, np.ndarray]) -> None:
+    """``np.savez`` of ``arrays`` to ``<path>.tmp``, flushed and synced,
+    then renamed over ``path`` (`ngf_tpu/utils/checkpoint.py:119-137`): a
+    crash mid-write leaves the old file whole and no ``.tmp`` behind."""
+    tmp = f"{path}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            # A file object: np.savez would append ".npz" to a name.
+            np.savez(f, **arrays)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+class AsyncCheckpointWriter:
+    """One background thread writing :func:`pack_checkpoint`'s arrays
+    (`ngf_tpu/utils/checkpoint.py:140-186`).
+
+    The training thread pays only for the host snapshot; ``np.savez`` and
+    the atomic rename run on a worker. One write is in flight at a time:
+    ``submit`` first joins the previous write and re-raises its error, so a
+    failed write is loud at the next save or :meth:`wait`. Call
+    :meth:`wait` before a synchronous save of the same file and before the
+    process exits."""
+
+    def __init__(self) -> None:
+        self._thread: threading.Thread | None = None
+        self._exc: BaseException | None = None
+
+    def wait(self) -> None:
+        """Block until the write in flight finishes; re-raise its error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+
+    def submit(self, path: str, arrays: dict[str, np.ndarray]) -> None:
+        self.wait()
+
+        def run() -> None:
+            try:
+                write_arrays_atomic(path, arrays)
+            except BaseException as e:  # noqa: BLE001 - re-raised by the next wait or submit
+                self._exc = e
+
+        self._thread = threading.Thread(target=run, name="ckpt-writer", daemon=True)
+        self._thread.start()
+
+
 def save_checkpoint(
     path: str,
     params: Any,
@@ -64,26 +139,9 @@ def save_checkpoint(
     extra_arrays: dict[str, Any] | None = None,
 ) -> None:
     """Write the parameter tree (+ optional binary occupancy volume and
-    ``extra/`` arrays) to one ``.npz`` at ``path``
-    (`ngf_tpu/utils/checkpoint.py:56-67,82-137`)."""
-    arrays = {f"param/{k}": v for k, v in _flatten(params_to_numpy(params)).items()}
-    blob = dict(meta or {})
-    if alpha_volume is not None:
-        vol = np.asarray(torch.as_tensor(alpha_volume).cpu()) > 0.5
-        arrays["alphaMask/mask"] = np.packbits(vol.reshape(-1))
-        arrays["alphaMask/aabb"] = np.asarray(torch.as_tensor(alpha_aabb).cpu(), np.float32)
-        blob["alphaMask.shape"] = list(vol.shape)
-    for k, v in (extra_arrays or {}).items():
-        arrays[f"extra/{k}"] = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
-    arrays["meta"] = np.frombuffer(json.dumps(blob).encode(), dtype=np.uint8)
-    tmp = f"{path}.tmp"
-    try:
-        with open(tmp, "wb") as f:
-            np.savez(f, **arrays)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    ``extra/`` arrays) to one ``.npz`` at ``path``, synchronously
+    (`ngf_tpu/utils/checkpoint.py:82-116`)."""
+    write_arrays_atomic(path, pack_checkpoint(params, meta, alpha_volume, alpha_aabb, extra_arrays))
 
 
 def load_checkpoint(path: str, device: torch.device | str):

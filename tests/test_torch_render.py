@@ -250,7 +250,7 @@ def test_cuda_requested_without_card_raises():
 
 def test_unported_dataset_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_dataset("blender", "./data/nerf_synthetic/lego", split="test")
+        load_dataset("llff", "./data/nerf_llff_data/fern", split="test")
 
 
 @pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(REPO, "configs", "*.txt"))),
