@@ -19,8 +19,24 @@ after its current step with a resumable ``model.npz`` and exit code 0.
 JAX package's bfloat16 recipe (float32 parameters and Adam, bfloat16 plane
 values and decoders with float32 sums; ``model.npz`` keeps the float32
 parameters). ``steps_per_call`` is read and has no effect: PyTorch runs one
-step at a time. Options the port does not carry yet (``rgb_cap != 0``,
-data-parallel meshes) raise, naming ROADMAP.md.
+step at a time. ``rgb_cap != 0``, which the port does not carry yet, raises,
+naming ROADMAP.md.
+
+Several ranks (one process each) train one model when the environment opts
+in (`ngf_tpu_torch/parallel/mesh.py:maybe_initialize_distributed`): torchrun
+with ``NGF_DISTRIBUTED=1``, or ``NGF_COORDINATOR=host:port
+NGF_NUM_PROCESSES=N NGF_PROCESS_ID=i`` in each process::
+
+    NGF_DISTRIBUTED=1 torchrun --nproc_per_node 8 main_torch.py \\
+        --config configs/synthetic_infoinv_tpu.txt [--mesh_shape 4x2]
+
+``--mesh_shape DxS`` trains on a D x S (data x sample) mesh (D * S must be
+the number of ranks; a sample axis of more than one rank trains the dense
+sample-parallel renderer); without it several ranks form a data mesh. Each
+rank runs on ``cuda:LOCAL_RANK`` unless ``--device`` names a device (ranks
+that share one card: ``--device cuda:0`` with ``NGF_DIST_BACKEND=gloo``;
+``--device cpu`` trains over gloo on the CPU). Rank 0 writes the logs,
+checkpoints and evaluations.
 """
 
 from __future__ import annotations
@@ -37,7 +53,10 @@ def main(argv=None):
     from ngf_tpu_torch.config import config_parser
     from ngf_tpu_torch.utils.precision import float32_accumulation
 
+    from ngf_tpu_torch.parallel import maybe_initialize_distributed
+
     args = config_parser(argv)
+    maybe_initialize_distributed(device_type=torch.device(args.device).type)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
@@ -54,24 +73,58 @@ def _logfolder(args):
     return f"{args.basedir}/{args.expname}"
 
 
+def _rank_device(name: str):
+    """The device of this rank: ``name`` as given, except a bare 'cuda'
+    among several ranks, which is ``cuda:LOCAL_RANK``."""
+    import torch.distributed as dist
+
+    from ngf_tpu_torch.parallel import local_rank
+    from ngf_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(name)
+    if device.type == "cuda" and device.index is None and dist.is_initialized():
+        device = torch.device("cuda", local_rank())
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    return device
+
+
+def make_training_mesh(mesh_shape: str):
+    """The mesh of ``--mesh_shape DxS`` (`main.py:67-73`): ``make_mesh_2d(D,
+    S)`` when D * S > 1, else none; without the flag a data mesh over every
+    rank when there are several. D * S must be the number of ranks."""
+    import torch.distributed as dist
+
+    from ngf_tpu_torch.parallel import make_mesh, make_mesh_2d
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if mesh_shape:
+        d, s = (int(v) for v in mesh_shape.lower().split("x"))
+        if d * s != world:
+            raise ValueError(f"--mesh_shape {mesh_shape} needs {d * s} ranks; this run has {world}")
+        return make_mesh_2d(d, s) if d * s > 1 else None
+    return make_mesh() if world > 1 else None
+
+
 def run_train(args):
     """Train (InfoInv or the learned gauge), or resume the run that wrote
     ``--ckpt``, save ``model.npz``, then the final evaluations
     (`main.py:45-117`). Returns the trainer's statistics with the test PSNRs
     under ``test_psnrs`` (empty when no test views were rendered). A run
     stopped by SIGTERM saves ``model.npz`` and returns before the final
-    evaluations."""
+    evaluations. Under a mesh only rank 0 runs the final evaluations; the
+    other ranks return after training with no test PSNRs."""
     from ngf_tpu_torch.data import load_dataset
     from ngf_tpu_torch.render.evaluation import evaluation, evaluation_path
     from ngf_tpu_torch.train.loop import TriPlaneTrainer, check_ported
-    from ngf_tpu_torch.utils.device import resolve_device
 
     if args.export_mesh:
         raise NotImplementedError(
             "export_mesh is not ported to ngf_tpu_torch yet: see ROADMAP.md, items still missing"
         )
     check_ported(args)
-    device = resolve_device(args.device)
+    device = _rank_device(args.device)
+    mesh = make_training_mesh(args.mesh_shape)
 
     train_dataset = load_dataset(
         args.dataset_name, args.datadir, split="train",
@@ -86,14 +139,15 @@ def run_train(args):
     if args.ckpt:
         # --ckpt in training mode resumes the run that wrote it (`main.py:74-81`).
         trainer = TriPlaneTrainer.from_checkpoint(
-            args.ckpt, args, train_dataset, test_dataset, logfolder, device=device
+            args.ckpt, args, train_dataset, test_dataset, logfolder, device=device, mesh=mesh
         )
         print(f"[trainer] resumed from {args.ckpt} at iteration {trainer.iteration}", flush=True)
     else:
-        trainer = TriPlaneTrainer(args, train_dataset, test_dataset, logfolder, device=device)
+        trainer = TriPlaneTrainer(args, train_dataset, test_dataset, logfolder, device=device,
+                                  mesh=mesh)
     stats = trainer.run()
     print(f"training done: { {k: v for k, v in stats.items() if k != 'train_mses'} }")
-    if stats["preempted"]:
+    if stats["preempted"] or (mesh is not None and mesh.rank != 0):
         # Stopped by SIGTERM: the checkpoint is written; the evaluations
         # wait for the resumed run.
         return {**stats, "test_psnrs": []}

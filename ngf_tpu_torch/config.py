@@ -166,10 +166,11 @@ class TrainArgs:
     # while keeping the measured-fastest forward. Grouped path, even
     # group_size (see ops/grid_sample.py:grid_sample_2d_blocks_duobwd).
     duo_bwd: int = 0
-    # Device-mesh shape "DATAxSAMPLE" (e.g. "4x2"): rays sharded over the
-    # data axis, samples-per-ray over the sample axis (the sequence-parallel
-    # analog, SURVEY.md §5). "" = 1D data mesh over all devices. With a
-    # sample axis the trainer uses the dense sample-parallel renderer
+    # Mesh shape "DATAxSAMPLE" (e.g. "4x2") over the run's ranks: rays
+    # split over the data axis, samples-per-ray over the sample axis (the
+    # sequence-parallel analog, SURVEY.md §5). "" = a 1D data mesh when
+    # there are several ranks. With a sample axis of more than one rank the
+    # trainer uses the dense sample-parallel renderer
     # (parallel/sample_parallel.py): occupancy culling and fixed-capacity
     # compaction are per-chip concepts and are NOT applied there — the mode
     # exists to scale samples-per-ray beyond one chip's memory/appetite.

@@ -9,6 +9,12 @@
   acc, depth) as one ``autograd.Function``: K5's tri-plane mode forward and
   backward on a CUDA tensor, on a CPU tensor :func:`composite_plain` and
   :func:`composite_backward_plain`, the same reverse scan as the kernel's.
+- :func:`composite_shard`: what the sample-parallel renderer runs, one
+  shard's share of the composite from a starting transmittance that an
+  exchange between the shards provides: K5's shard mode (a totals launch
+  and a composite launch forward, one launch backward) on a CUDA tensor, on
+  a CPU tensor its plain versions :func:`composite_shard_totals_plain`,
+  :func:`composite_shard_plain` and :func:`composite_shard_backward_plain`.
 - :func:`ray_march_plain`: NeuTex's march, background and tone map in plain
   PyTorch with autograd through ``cumprod``: the plain version of K5.
 - :func:`march_rays`: what the UV path runs, the march with its background
@@ -301,3 +307,181 @@ def composite(
         dist = dist.detach()
     return _Composite.apply(sigma, rgb, dist, z.detach(), ray_last.detach(), background,
                             float(thres), weights)
+
+
+def composite_shard_totals_plain(sigma: torch.Tensor, dist) -> torch.Tensor:
+    """K5's shard-mode totals in plain PyTorch: t_end = prod_k (1 - alpha_k
+    + 1e-10) over the shard's samples (`ngf_tpu/parallel/sample_parallel.py:
+    99-103`). sigma (N, S); dist (N, S) or a number. Returns (N,)."""
+    _, t_total = exclusive_transmittance(1.0 - torch.exp(-sigma * dist))
+    return t_total[:, 0]
+
+
+def composite_shard_plain(sigma, dist, rgb, z, t0, thres: float):
+    """K5's shard-mode composite in plain PyTorch: one shard's share of the
+    sample-parallel composite (`ngf_tpu/parallel/sample_parallel.py:105-117`)
+    from its starting transmittance t0 (N,): w = (alpha T) t0 in the JAX
+    package's order, m = w > thres, and the partial sums, with no
+    background, clip or depth fill.
+
+    Returns:
+      (y = sum m w rgb (N, 3), acc = sum w (N,), depth = sum w z (N,),
+      local (N, 4): sum m alpha T rgb and sum alpha T, from which the
+      gradient of t0 follows without a pass over the samples, w (N, S)).
+    """
+    alpha = 1.0 - torch.exp(-sigma * dist)
+    t, _ = exclusive_transmittance(alpha)
+    wl = alpha * t
+    w = wl * t0[:, None]
+    mask = (w > thres).to(w.dtype)
+    y = ((w * mask)[..., None] * rgb).sum(dim=-2)
+    local = torch.cat([((wl * mask)[..., None] * rgb).sum(dim=-2), wl.sum(dim=-1, keepdim=True)], -1)
+    return y, w.sum(dim=-1), (w * z).sum(dim=-1), local, w
+
+
+def composite_shard_backward_plain(sigma, dist, rgb, t0, thres: float, g_y, g_acc, g_tend):
+    """K5's shard-mode backward in plain PyTorch, the kernel's reverse scan:
+    from the cotangents of y (N, 3), acc (N,) and t_end (N,) (each may be
+    None), the gradients of sigma (N, S), rgb (N, S, 3) and t0 (N,). With
+    gw_k = g_acc + m_k g_y . rgb_k the cotangent of w_k, the cotangent of
+    alpha_k T_k is t0 gw_k, R runs R_{S-1} = g_tend, R_{k-1} = t0 gw_k
+    alpha_k + f_k R_k and dL/dalpha_k = T_k (t0 gw_k - R_k); dL/dt0 =
+    sum_k gw_k alpha_k T_k. No division by t0 or f_k (t0 is 0 behind opaque
+    shards, f_k 1e-10 where alpha rounds to 1). w and its mask are the
+    forward's, bit for bit."""
+    N, S = sigma.shape
+    e = torch.exp(-sigma * dist)
+    alpha = 1.0 - e
+    t, _ = exclusive_transmittance(alpha)
+    wl = alpha * t
+    w = wl * t0[:, None]
+    shaded = (w > thres).to(w.dtype)
+    gy = sigma.new_zeros((N, 3)) if g_y is None else g_y
+    ga = sigma.new_zeros((N,)) if g_acc is None else g_acc
+    gw = ga[:, None] + shaded * (gy[:, None, :] * rgb).sum(dim=-1)
+    d_rgb = gy[:, None, :] * (w * shaded)[..., None]
+    d_t0 = (gw * wl).sum(dim=-1)
+    gw = gw * t0[:, None]
+    f = (1.0 - alpha) + 1e-10
+    if not isinstance(dist, torch.Tensor):
+        dist = torch.full_like(sigma, dist)
+    r_behind = torch.empty_like(w)
+    R = sigma.new_zeros((N,)) if g_tend is None else g_tend
+    for k in range(S - 1, -1, -1):
+        r_behind[:, k] = R
+        R = gw[:, k] * alpha[:, k] + f[:, k] * R
+    return t * (gw - r_behind) * e * dist, d_rgb, d_t0
+
+
+class _ShardState:
+    """What a shard's two autograd nodes share: the composite's inputs, and
+    the cotangents of y and acc, which its backward hands to the totals'
+    backward."""
+
+    def __init__(self, dist, thres: float):
+        self.dist, self.thres = dist, thres
+        self.t0 = self.g_y = self.g_acc = None
+
+
+class _ShardTotals(torch.autograd.Function):
+    """(sigma, rgb) -> t_end: forward K5's totals launch; backward the
+    shard's one backward launch, run last (every cotangent of the shard has
+    reached it: t_end's from the exchange, y's and acc's from
+    :class:`_ShardComposite`), for sigma and rgb."""
+
+    @staticmethod
+    def forward(ctx, sigma, rgb, state):
+        ctx.set_materialize_grads(False)
+        if sigma.is_cuda:
+            t_end = cuda_kernels.ray_march_triplane_totals(sigma, state.dist)
+        else:
+            t_end = composite_shard_totals_plain(sigma, state.dist)
+        ctx.save_for_backward(sigma, rgb)
+        ctx.state = state
+        return t_end
+
+    @staticmethod
+    def backward(ctx, g_tend):
+        st = ctx.state
+        sigma, rgb = ctx.saved_tensors
+        if g_tend is None and st.g_y is None and st.g_acc is None:
+            return None, None, None
+        args = (sigma, st.dist, rgb, st.t0, st.thres, st.g_y, st.g_acc, g_tend)
+        if sigma.is_cuda:
+            d_sigma, d_rgb, _ = cuda_kernels.ray_march_triplane_shard_backward(*args)
+        else:
+            d_sigma, d_rgb, _ = composite_shard_backward_plain(*args)
+        return d_sigma, d_rgb, None
+
+
+class _ShardComposite(torch.autograd.Function):
+    """t0 -> (y, acc, depth) of a shard: forward K5's composite launch (on
+    sigma and rgb, whose gradients :class:`_ShardTotals` gives); backward
+    the gradient of t0 from the forward's local sums, and the cotangents of
+    y and acc kept for :class:`_ShardTotals`."""
+
+    @staticmethod
+    def forward(ctx, t0, sigma, rgb, z, state):
+        ctx.set_materialize_grads(False)
+        if sigma.is_cuda:
+            y, acc, depth, local, _ = cuda_kernels.ray_march_triplane_shard(
+                sigma, state.dist, rgb, z, t0, state.thres)
+        else:
+            y, acc, depth, local, _ = composite_shard_plain(sigma, state.dist, rgb, z, t0, state.thres)
+        state.t0 = t0.detach()
+        ctx.save_for_backward(local)
+        ctx.state = state
+        ctx.mark_non_differentiable(depth)
+        return y, acc, depth
+
+    @staticmethod
+    def backward(ctx, g_y, g_acc, g_depth):
+        st = ctx.state
+        (local,) = ctx.saved_tensors
+        st.g_y, st.g_acc = g_y, g_acc
+        d_t0 = None
+        if g_acc is not None:
+            d_t0 = g_acc * local[:, 3]
+        if g_y is not None:
+            d_y = (g_y * local[:, :3]).sum(dim=-1)
+            d_t0 = d_y if d_t0 is None else d_t0 + d_y
+        return d_t0, None, None, None, None
+
+
+def composite_shard(
+    sigma: torch.Tensor,
+    dist: torch.Tensor | float,
+    rgb: torch.Tensor,
+    z: torch.Tensor,
+    thres: float,
+    exchange,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One shard's share of the sample-parallel composite
+    (`ngf_tpu/parallel/sample_parallel.py:97-117`): its total transmittance
+    t_end, ``t0 = exchange(t_end)`` (the product of the earlier shards'
+    totals, by the caller's exchange between the shards), then the partial
+    sums from t0.
+
+    Args:
+      sigma: (N, S) the shard's density times its valid mask; dist (N, S)
+        or one number; rgb (N, S, 3); z (N, S) depths; thres the shading
+        threshold.
+      exchange: ``t_end (N,) -> t0 (N,)``, differentiable.
+
+    Returns:
+      (y = sum m w rgb (N, 3), acc (N,), depth = sum w z (N,, no gradient)),
+      with w = (alpha T) t0 and m = w > thres: no background, clip or depth
+      fill, which follow the sums over the shards. Differentiable in sigma,
+      rgb and, through t0, the exchange. On the card K5's shard mode: a
+      totals launch before the exchange, a composite launch after it, and
+      one backward launch once every cotangent has arrived; on the CPU the
+      plain versions.
+    """
+    if isinstance(dist, torch.Tensor):
+        dist = dist.detach()
+    state = _ShardState(dist, float(thres))
+    t_end = _ShardTotals.apply(sigma, rgb, state)
+    t0 = exchange(t_end)
+    if t_end.requires_grad and not t0.requires_grad:
+        raise ValueError("composite_shard: the exchange must keep t0 differentiable in t_end")
+    return _ShardComposite.apply(t0, sigma.detach(), rgb.detach(), z.detach(), state)

@@ -32,7 +32,10 @@ sampling, occupancy test and per-ray compaction in one launch), and
 its background and tone map, and its reverse-scan gradient) with K5's
 tri-plane mode ``ray_march_triplane`` / ``ray_march_triplane_backward`` (the
 tri-plane renderers' composite: weights, shading mask, colour with its
-background and clip, acc and depth).
+background and clip, acc and depth) and its shard mode
+``ray_march_triplane_totals`` / ``ray_march_triplane_shard`` /
+``ray_march_triplane_shard_backward`` (the sample-parallel renderer's
+composite of one shard of a ray's samples, from a starting transmittance).
 """
 
 from __future__ import annotations
@@ -167,6 +170,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ngf_ray_march_triplane_forward.restype = i32
         lib.ngf_ray_march_triplane_backward.argtypes = tri + [vp, f32, f32, vp, vp, vp, vp, vp, vp]
         lib.ngf_ray_march_triplane_backward.restype = i32
+        lib.ngf_ray_march_triplane_totals.argtypes = tri[:9] + [vp, vp]
+        lib.ngf_ray_march_triplane_totals.restype = i32
+        lib.ngf_ray_march_triplane_shard_forward.argtypes = tri + [
+            vp, i64, i64, vp, f32, vp, vp, vp, vp, vp, vp,
+        ]
+        lib.ngf_ray_march_triplane_shard_forward.restype = i32
+        lib.ngf_ray_march_triplane_shard_backward.argtypes = tri + [
+            vp, f32, vp, vp, vp, vp, vp, vp, vp,
+        ]
+        lib.ngf_ray_march_triplane_shard_backward.restype = i32
         lib.ngf_ray_march_max_samples.argtypes = []
         lib.ngf_ray_march_max_samples.restype = i32
         lib.ngf_ray_march_footprint.argtypes = [i32, i32, ctypes.POINTER(i32)]
@@ -947,19 +960,19 @@ ray_march_backward.launches = 0
 
 def _triplane_inputs(sigma, dist, rgb, background, thres, what: str) -> list:
     """Check the tri-plane mode's inputs and return the leading arguments of
-    both entry points: N, S, sigma's pointer and strides, dist's (or none
-    and the constant), rgb's, the background's pointer (or none) and
-    constant, and the threshold."""
+    its entry points: N, S, sigma's pointer and strides, dist's (or none
+    and the constant), rgb's (zeros without rgb: the shard mode's totals),
+    the background's pointer (or none) and constant, and the threshold."""
     if not isinstance(sigma, torch.Tensor) or sigma.dtype != torch.float32 or sigma.dim() != 2:
         raise ValueError(f"sigma must be (N, S) float32, got {getattr(sigma, 'shape', sigma)} "
                          f"{getattr(sigma, 'dtype', '')}")
     N, S = sigma.shape
     _check_samples(S, what)
-    tensors = [sigma, rgb] + [t for t in (dist, background) if isinstance(t, torch.Tensor)]
+    tensors = [t for t in (sigma, rgb, dist, background) if isinstance(t, torch.Tensor)]
     if not _on_one_device(*tensors):
         raise ValueError(f"{what} needs its inputs on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
-    if rgb.dtype != torch.float32 or rgb.shape != (N, S, 3):
+    if rgb is not None and (rgb.dtype != torch.float32 or rgb.shape != (N, S, 3)):
         raise ValueError(f"rgb must be ({N}, {S}, 3) float32, got {tuple(rgb.shape)} {rgb.dtype}")
     if isinstance(dist, torch.Tensor):
         if dist.dtype != torch.float32 or dist.shape != (N, S):
@@ -975,8 +988,8 @@ def _triplane_inputs(sigma, dist, rgb, background, thres, what: str) -> list:
         b_args = [background.data_ptr(), 0.0]
     else:
         b_args = [None, 0.0 if background is None else float(background)]
-    return [N, S, sigma.data_ptr(), *sigma.stride(), *d_args, rgb.data_ptr(), *rgb.stride(),
-            *b_args, float(thres)]
+    r_args = [None, 0, 0, 0] if rgb is None else [rgb.data_ptr(), *rgb.stride()]
+    return [N, S, sigma.data_ptr(), *sigma.stride(), *d_args, *r_args, *b_args, float(thres)]
 
 
 def ray_march_triplane(
@@ -1078,15 +1091,134 @@ def ray_march_triplane_backward(
 
 ray_march_triplane_backward.launches = 0
 
+
+def _check_rays(t: torch.Tensor | None, shape, sigma: torch.Tensor, what: str) -> torch.Tensor | None:
+    """A per-ray input of the shard mode: float32 of ``shape`` on sigma's
+    device, or None; returned contiguous."""
+    if t is None:
+        return None
+    if t.dtype != torch.float32 or tuple(t.shape) != shape or not _on_one_device(sigma, t):
+        raise ValueError(f"{what} must be {shape} float32 on sigma's device, got "
+                         f"{tuple(t.shape)} {t.dtype} {t.device}")
+    return t.contiguous()
+
+
+def ray_march_triplane_totals(sigma: torch.Tensor, dist: torch.Tensor | float) -> torch.Tensor:
+    """CUDA kernel K5 (``kernels/ray_march.cu``), tri-plane shard mode,
+    totals: t_end = prod_k (1 - alpha_k + 1e-10) over the N rays of S
+    samples of one shard (`ngf_tpu/parallel/sample_parallel.py:99-103`), by
+    the forward's scan. sigma (N, S) float32, any strides; dist (N, S) or
+    one number. Returns t_end (N,)."""
+    args = _triplane_inputs(sigma, dist, None, None, 0.0, "ray_march_triplane_totals")
+    N = sigma.shape[0]
+    t_end = sigma.new_empty((N,))
+    if N == 0:
+        return t_end
+    lib = _lib("ray_march")
+    _launch(lib, lib.ngf_ray_march_triplane_totals, sigma.get_device(),
+            "ray_march_triplane_totals", *args[:9], t_end.data_ptr())
+    ray_march_triplane_totals.launches += 1
+    return t_end
+
+
+ray_march_triplane_totals.launches = 0
+
+
+def ray_march_triplane_shard(
+    sigma: torch.Tensor,
+    dist: torch.Tensor | float,
+    rgb: torch.Tensor,
+    z: torch.Tensor,
+    t0: torch.Tensor,
+    thres: float,
+    weights: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """CUDA kernel K5 (``kernels/ray_march.cu``), tri-plane shard mode,
+    composite: one shard's share of the sample-parallel composite
+    (`ngf_tpu/parallel/sample_parallel.py:105-117`) from the starting
+    transmittance t0 (N,): w = (alpha T) t0, m = w > thres, and the partial
+    sums with no background, clip or depth fill.
+
+    Args: sigma, dist, rgb, z as :func:`ray_march_triplane`'s; t0 (N,)
+    float32; thres the shading threshold; weights: also write w.
+
+    Returns:
+      (y = sum m w rgb (N, 3), acc = sum w (N,), depth = sum w z (N,),
+      local (N, 4): sum m alpha T rgb and sum alpha T, w (N, S) or None),
+      contiguous.
+    """
+    args = _triplane_inputs(sigma, dist, rgb, None, thres, "ray_march_triplane_shard")
+    N, S = sigma.shape
+    t0 = _check_rays(t0, (N,), sigma, "t0")
+    if z.dtype != torch.float32 or tuple(z.shape) != (N, S) or not _on_one_device(sigma, z):
+        raise ValueError(f"z must be ({N}, {S}) float32 on sigma's device, got "
+                         f"{tuple(z.shape)} {z.dtype} {z.device}")
+    y, local = sigma.new_empty((N, 3)), sigma.new_empty((N, 4))
+    acc, depth = sigma.new_empty((N,)), sigma.new_empty((N,))
+    w = sigma.new_empty((N, S)) if weights else None
+    if N == 0:
+        return y, acc, depth, local, w
+    lib = _lib("ray_march")
+    _launch(
+        lib, lib.ngf_ray_march_triplane_shard_forward, sigma.get_device(),
+        "ray_march_triplane_shard", *args[:13], z.data_ptr(), *z.stride(), t0.data_ptr(),
+        float(thres), y.data_ptr(), acc.data_ptr(), depth.data_ptr(), local.data_ptr(),
+        None if w is None else w.data_ptr(),
+    )
+    ray_march_triplane_shard.launches += 1
+    return y, acc, depth, local, w
+
+
+ray_march_triplane_shard.launches = 0
+
+
+def ray_march_triplane_shard_backward(
+    sigma: torch.Tensor,
+    dist: torch.Tensor | float,
+    rgb: torch.Tensor,
+    t0: torch.Tensor,
+    thres: float,
+    g_y: torch.Tensor | None,
+    g_acc: torch.Tensor | None,
+    g_tend: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """CUDA kernel K5 (``kernels/ray_march.cu``), tri-plane shard mode,
+    backward: from the cotangents of :func:`ray_march_triplane_shard`'s y
+    (N, 3) and acc (N,) and of :func:`ray_march_triplane_totals`'s t_end
+    (N,), each float32 or None, the gradients of sigma (N, S), rgb (N, S, 3)
+    and t0 (N,), in one launch: the reverse scan with the t_end term folded
+    in, dividing by neither t0 nor f. The other inputs are the forward's."""
+    args = _triplane_inputs(sigma, dist, rgb, None, thres, "ray_march_triplane_shard_backward")
+    N, S = sigma.shape
+    t0 = _check_rays(t0, (N,), sigma, "t0")
+    cots = [_check_rays(g, shape, sigma, what) for g, shape, what in (
+        (g_y, (N, 3), "g_y"), (g_acc, (N,), "g_acc"), (g_tend, (N,), "g_tend"))]
+    d_sigma, d_rgb, d_t0 = sigma.new_empty((N, S)), sigma.new_empty((N, S, 3)), sigma.new_empty((N,))
+    if N == 0:
+        return d_sigma, d_rgb, d_t0
+    lib = _lib("ray_march")
+    _launch(
+        lib, lib.ngf_ray_march_triplane_shard_backward, sigma.get_device(),
+        "ray_march_triplane_shard_backward", *args[:13], t0.data_ptr(), float(thres),
+        *(None if g is None else g.data_ptr() for g in cots),
+        d_sigma.data_ptr(), d_rgb.data_ptr(), d_t0.data_ptr(),
+    )
+    ray_march_triplane_shard_backward.launches += 1
+    return d_sigma, d_rgb, d_t0
+
+
+ray_march_triplane_shard_backward.launches = 0
+
 def ray_march_footprint(S: int) -> dict:
     """K5's footprint on the current card at rays of S samples, by kernel
-    (NeuTex and tri-plane, forward and backward): the blocks of eight warps
-    an SM holds at once, registers a thread and local (spilled) bytes a
-    thread."""
+    (NeuTex, tri-plane and its shard mode, forward and backward, and the
+    shard mode's totals): the blocks of eight warps an SM holds at once,
+    registers a thread and local (spilled) bytes a thread."""
     lib = _lib("ray_march")
     out = {}
     for which, name in enumerate(("neutex_forward", "neutex_backward", "triplane_forward",
-                                  "triplane_backward")):
+                                  "triplane_backward", "shard_forward", "shard_backward",
+                                  "shard_totals")):
         got = (ctypes.c_int * 3)()
         code = lib.ngf_ray_march_footprint(which, S, got)
         if code:
@@ -1109,6 +1241,9 @@ KERNELS = {
     "ray_march_backward": ray_march_backward,
     "ray_march_triplane": ray_march_triplane,
     "ray_march_triplane_backward": ray_march_triplane_backward,
+    "ray_march_triplane_totals": ray_march_triplane_totals,
+    "ray_march_triplane_shard": ray_march_triplane_shard,
+    "ray_march_triplane_shard_backward": ray_march_triplane_shard_backward,
 }
 
 

@@ -25,6 +25,24 @@
 // y (N, 3; the backward's clip derivative reads it), acc, depth (N) and, when
 // asked, w (N, S).
 //
+// Tri-plane shard mode replaces the per-shard composite of the
+// sample-parallel renderer (ngf_tpu/parallel/sample_parallel.py:99-130): a
+// ray's samples are split over shards, and a shard starts its scan at t0, the
+// product of the earlier shards' totals, which it learns only after an
+// exchange. So it runs as two launches forward:
+//   totals:    t_end = prod_k f_k over the shard (JAX's `local_total`),
+//   composite: w_k = (alpha_k T_k) t0 in JAX's order, m_k = (w_k > thres),
+//              the partial sums y = sum_k m_k w_k rgb_k, acc = sum_k w_k,
+//              depth = sum_k w_k z_k (no background, no clip, no depth fill:
+//              the renderer adds them after the sums are reduced over the
+//              shards), and the local sums sum_k m_k alpha_k T_k rgb_k and
+//              sum_k alpha_k T_k (N, 4), from which dL/dt0 = g_acc . acc_loc +
+//              g_y . y_loc needs no pass over the samples;
+// and one launch backward: from the cotangents of y, acc and t_end, d sigma
+// and d rgb by the reverse scan below with gw_k scaled by t0 and R_{S-1} =
+// g_tend (the t_end term folded in without dividing by t0 or f: a shard behind
+// opaque samples has t0 = 0), and dL/dt0 = sum_k gw_k alpha_k T_k.
+//
 // Backward without division. With gw_k the cotangent of w_k (every output's
 // share through w: colour, acc, w itself) and R the cotangent carried from
 // behind,
@@ -86,6 +104,7 @@ struct Args {
     const float* ray_last; long long r_rs;
     const float* bg_ptr; float bg_const;              // b: *bg_ptr, or bg_const without it
     float thres;
+    const float* t0;                                  // shard mode: (N) starting transmittance
 };
 
 // One sample's loaded values; a lane past the ray's end holds zeros, so
@@ -153,18 +172,22 @@ __device__ __forceinline__ float warp_sum(float v) {
 struct Sums {
     float c[3] = {0.0f, 0.0f, 0.0f};
     float acc = 0.0f, wz = 0.0f, t_total = 1.0f;
+    float loc[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // shard mode: sum m alpha T rgb, sum alpha T
 };
 
 // The forward sweep over one ray, tile by tile, shared by the forward kernels
 // and the backward's first pass so that both compute every w, mask and sum
 // alike. Writes w when `weight` is given and each tile's starting T when
 // `tstart` is; sums the colour when `colour`, and (tri-plane) the depth when
-// `depth`.
-template <bool TRI>
+// `depth`. SHARD: w is alpha T times the ray's t0, and the local sums are
+// kept beside the others.
+template <bool TRI, bool SHARD = false>
 __device__ Sums sweep(const Args& a, long long n, int lane, bool colour, bool depth,
                       float* __restrict__ weight, float* __restrict__ tstart) {
     const int tiles = (a.S + 31) / 32;
+    const float t0 = SHARD ? a.t0[n] : 1.0f;
     float carry = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, acc = 0.0f, wz = 0.0f;
+    float l0 = 0.0f, l1 = 0.0f, l2 = 0.0f, lacc = 0.0f;
     Loaded cur = load<TRI>(a, n, lane, colour, depth);
     for (int t = 0; t < tiles; ++t) {
         const int k = 32 * t + lane;
@@ -173,14 +196,21 @@ __device__ Sums sweep(const Args& a, long long n, int lane, bool colour, bool de
         const Alpha s = alpha_of(cur);
         if (tstart != nullptr && lane == 0) tstart[t] = carry;
         const float T = tile_transmittance(s.f, carry, lane);
-        const float w = __fmul_rn(s.alpha, T);
+        const float wl = __fmul_rn(s.alpha, T);
+        const float w = SHARD ? __fmul_rn(wl, t0) : wl;
         if (weight != nullptr && k < a.S) weight[n * a.S + k] = w;
         if (colour && (!TRI || w > a.thres)) {
             c0 = __fmaf_rn(w, cur.r, c0);
             c1 = __fmaf_rn(w, cur.g, c1);
             c2 = __fmaf_rn(w, cur.b, c2);
+            if (SHARD) {
+                l0 = __fmaf_rn(wl, cur.r, l0);
+                l1 = __fmaf_rn(wl, cur.g, l1);
+                l2 = __fmaf_rn(wl, cur.b, l2);
+            }
         }
         if (TRI) acc = __fadd_rn(acc, w);
+        if (SHARD) lacc = __fadd_rn(lacc, wl);
         if (depth) wz = __fmaf_rn(w, cur.z, wz);
         cur = nxt;
     }
@@ -193,6 +223,12 @@ __device__ Sums sweep(const Args& a, long long n, int lane, bool colour, bool de
     }
     if (TRI) out.acc = warp_sum(acc);
     if (depth) out.wz = warp_sum(wz);
+    if (SHARD) {
+        out.loc[0] = warp_sum(l0);
+        out.loc[1] = warp_sum(l1);
+        out.loc[2] = warp_sum(l2);
+        out.loc[3] = warp_sum(lacc);
+    }
     return out;
 }
 
@@ -232,13 +268,27 @@ __global__ void __launch_bounds__(THREADS) ray_march_neutex_forward_kernel(
     color[n * 3 + lane] = fminf(fmaxf(y, 0.0f), 1.0f);
 }
 
+// SHARD: rgb_lin takes the partial y, acc and depth the partial sums, `local`
+// (N, 4) the local sums; rgb_map is not written.
+template <bool SHARD>
 __global__ void __launch_bounds__(THREADS) ray_march_triplane_forward_kernel(
     Args a, float* __restrict__ rgb_map, float* __restrict__ rgb_lin, float* __restrict__ acc,
-    float* __restrict__ depth, float* __restrict__ weight) {
+    float* __restrict__ depth, float* __restrict__ weight, float* __restrict__ local) {
     const long long n = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     if (n >= a.N) return;
-    const Sums s = sweep<true>(a, n, lane, true, true, weight, nullptr);
+    const Sums s = sweep<true, SHARD>(a, n, lane, true, true, weight, nullptr);
+    if (SHARD) {
+        if (lane < 3) {
+            rgb_lin[n * 3 + lane] = lane == 0 ? s.c[0] : (lane == 1 ? s.c[1] : s.c[2]);
+            local[n * 4 + lane] = lane == 0 ? s.loc[0] : (lane == 1 ? s.loc[1] : s.loc[2]);
+        } else if (lane == 3) {
+            acc[n] = s.acc;
+            depth[n] = s.wz;
+            local[n * 4 + 3] = s.loc[3];
+        }
+        return;
+    }
     const float miss = __fsub_rn(1.0f, s.acc);
     if (lane < 3) {
         const float c = lane == 0 ? s.c[0] : (lane == 1 ? s.c[1] : s.c[2]);
@@ -251,17 +301,33 @@ __global__ void __launch_bounds__(THREADS) ray_march_triplane_forward_kernel(
     }
 }
 
+// Shard mode's totals: t_end = prod_k f_k over the shard, from sigma and dist
+// alone, by the forward's scan.
+__global__ void __launch_bounds__(THREADS) ray_march_triplane_totals_kernel(
+    Args a, float* __restrict__ t_end) {
+    const long long n = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (n >= a.N) return;
+    const Sums s = sweep<true>(a, n, lane, false, false, nullptr, nullptr);
+    if (lane == 0) t_end[n] = s.t_total;
+}
+
 // --------------------------------------------------------------- backward
 
 // The reverse pass over one ray. gc: the cotangent of the masked colour sum;
 // g_acc: the cotangent every w takes through acc (tri-plane); g_weight: the
 // cotangent of w (NeuTex, or null); R: the carry from behind the last sample.
-template <bool TRI>
+// SHARD: w and the cotangent of alpha T are scaled by the ray's t0, and
+// d_t0 (N) takes sum_k gw_k alpha_k T_k.
+template <bool TRI, bool SHARD = false>
 __device__ void reverse_pass(const Args& a, long long n, int lane, const float* tstart,
                              const float gc[3], float g_acc, const float* __restrict__ g_weight,
-                             float R, float* __restrict__ d_sigma, float* __restrict__ d_rgb) {
+                             float R, float* __restrict__ d_sigma, float* __restrict__ d_rgb,
+                             float* __restrict__ d_t0 = nullptr) {
     const int tiles = (a.S + 31) / 32;
     const bool colour = a.rgb != nullptr;
+    const float t0 = SHARD ? a.t0[n] : 1.0f;
+    float gt0 = 0.0f;
     Loaded cur = load<TRI>(a, n, 32 * (tiles - 1) + lane, colour, false);
     for (int t = tiles - 1; t >= 0; --t) {
         const int k = 32 * t + lane;
@@ -270,11 +336,16 @@ __device__ void reverse_pass(const Args& a, long long n, int lane, const float* 
         const Alpha s = alpha_of(cur);
         float carry = tstart[t];
         const float T = tile_transmittance(s.f, carry, lane);
-        const float w = __fmul_rn(s.alpha, T);
+        const float wl = __fmul_rn(s.alpha, T);
+        const float w = SHARD ? __fmul_rn(wl, t0) : wl;
         const bool shaded = colour && (!TRI || w > a.thres);
         float gw = g_acc;
         if (g_weight != nullptr && k < a.S) gw += g_weight[n * a.S + k];
         if (shaded) gw += gc[0] * cur.r + gc[1] * cur.g + gc[2] * cur.b;
+        if (SHARD) {
+            gt0 += gw * wl;
+            gw *= t0;  // the cotangent of alpha_k T_k
+        }
         // Suffix scan of the maps R -> c + f R over lanes lane..31.
         float cm = gw * s.alpha, fm = s.f;
 #pragma unroll
@@ -302,6 +373,10 @@ __device__ void reverse_pass(const Args& a, long long n, int lane, const float* 
             }
         }
         cur = nxt;
+    }
+    if (SHARD) {
+        gt0 = warp_sum(gt0);
+        if (lane == 0) d_t0[n] = gt0;
     }
 }
 
@@ -333,9 +408,13 @@ __global__ void __launch_bounds__(THREADS) ray_march_neutex_backward_kernel(
     reverse_pass<false>(a, n, lane, tstart, gc, 0.0f, g_weight, gT, d_density, d_rgb);
 }
 
+// SHARD: g_rgb is the cotangent of the partial y itself (no clip, no
+// background), g_tend that of t_end (or null), and d_t0 is written.
+template <bool SHARD>
 __global__ void __launch_bounds__(THREADS) ray_march_triplane_backward_kernel(
     Args a, const float* __restrict__ rgb_lin, const float* __restrict__ g_rgb,
-    const float* __restrict__ g_acc, float* __restrict__ d_sigma, float* __restrict__ d_rgb) {
+    const float* __restrict__ g_acc, const float* __restrict__ g_tend,
+    float* __restrict__ d_sigma, float* __restrict__ d_rgb, float* __restrict__ d_t0) {
     extern __shared__ float tstarts[];
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const long long n = (long long)blockIdx.x * WARPS + warp;
@@ -345,11 +424,18 @@ __global__ void __launch_bounds__(THREADS) ray_march_triplane_backward_kernel(
     sweep<true>(a, n, lane, false, false, nullptr, tstart);
     __syncwarp();
     float gc[3] = {0.0f, 0.0f, 0.0f};
-    if (g_rgb != nullptr)
-        for (int ch = 0; ch < 3; ++ch) gc[ch] = g_rgb[n * 3 + ch] * clip_grad(rgb_lin[n * 3 + ch]);
-    // y = C + b (1 - acc): every w takes -b sum(gc) through acc.
-    const float ga = (g_acc != nullptr ? g_acc[n] : 0.0f) - background(a) * (gc[0] + gc[1] + gc[2]);
-    reverse_pass<true>(a, n, lane, tstart, gc, ga, nullptr, 0.0f, d_sigma, d_rgb);
+    float ga = g_acc != nullptr ? g_acc[n] : 0.0f, R = 0.0f;
+    if (SHARD) {
+        if (g_rgb != nullptr)
+            for (int ch = 0; ch < 3; ++ch) gc[ch] = g_rgb[n * 3 + ch];
+        if (g_tend != nullptr) R = g_tend[n];
+    } else {
+        if (g_rgb != nullptr)
+            for (int ch = 0; ch < 3; ++ch) gc[ch] = g_rgb[n * 3 + ch] * clip_grad(rgb_lin[n * 3 + ch]);
+        // y = C + b (1 - acc): every w takes -b sum(gc) through acc.
+        ga -= background(a) * (gc[0] + gc[1] + gc[2]);
+    }
+    reverse_pass<true, SHARD>(a, n, lane, tstart, gc, ga, nullptr, R, d_sigma, d_rgb, d_t0);
 }
 
 unsigned blocks_for(long long N) { return (unsigned)((N + WARPS - 1) / WARPS); }
@@ -442,8 +528,8 @@ int ngf_ray_march_triplane_forward(long long N, int S,
                            rgb, c_rs, c_ss, c_cs, bg, bg_const, thres);
     a.z = z; a.z_rs = z_rs; a.z_ss = z_ss;
     a.ray_last = ray_last; a.r_rs = r_rs;
-    ray_march_triplane_forward_kernel<<<blocks_for(N), THREADS, 0, (cudaStream_t)stream>>>(
-        a, rgb_map, rgb_lin, acc, depth, weight);
+    ray_march_triplane_forward_kernel<false><<<blocks_for(N), THREADS, 0, (cudaStream_t)stream>>>(
+        a, rgb_map, rgb_lin, acc, depth, weight, nullptr);
     return (int)cudaGetLastError();
 }
 
@@ -458,30 +544,90 @@ int ngf_ray_march_triplane_backward(long long N, int S,
                                     float* d_sigma, float* d_rgb, void* stream) {
     const Args a = triplane_args(N, S, sigma, s_rs, s_ss, dist, t_rs, t_ss, dist_const,
                                  rgb, c_rs, c_ss, c_cs, bg, bg_const, thres);
-    ray_march_triplane_backward_kernel<<<blocks_for(N), THREADS, tstart_bytes(S),
-                                         (cudaStream_t)stream>>>(
-        a, rgb_lin, g_rgb, g_acc, d_sigma, d_rgb);
+    ray_march_triplane_backward_kernel<false><<<blocks_for(N), THREADS, tstart_bytes(S),
+                                                (cudaStream_t)stream>>>(
+        a, rgb_lin, g_rgb, g_acc, nullptr, d_sigma, d_rgb, nullptr);
+    return (int)cudaGetLastError();
+}
+
+// Tri-plane shard mode. dist null: every sample's length is dist_const.
+// totals: t_end (N).
+int ngf_ray_march_triplane_totals(long long N, int S,
+                                  const float* sigma, long long s_rs, long long s_ss,
+                                  const float* dist, long long t_rs, long long t_ss,
+                                  float dist_const, float* t_end, void* stream) {
+    const Args a = triplane_args(N, S, sigma, s_rs, s_ss, dist, t_rs, t_ss, dist_const,
+                                 nullptr, 0, 0, 0, nullptr, 0.0f, 0.0f);
+    ray_march_triplane_totals_kernel<<<blocks_for(N), THREADS, 0, (cudaStream_t)stream>>>(
+        a, t_end);
+    return (int)cudaGetLastError();
+}
+
+// composite: t0 (N) contiguous; writes y (N, 3), acc, depth (N), local
+// (N, 4) and, unless weight is null, w (N, S).
+int ngf_ray_march_triplane_shard_forward(long long N, int S,
+                                         const float* sigma, long long s_rs, long long s_ss,
+                                         const float* dist, long long t_rs, long long t_ss,
+                                         float dist_const,
+                                         const float* rgb, long long c_rs, long long c_ss,
+                                         long long c_cs,
+                                         const float* z, long long z_rs, long long z_ss,
+                                         const float* t0, float thres,
+                                         float* y, float* acc, float* depth, float* local,
+                                         float* weight, void* stream) {
+    Args a = triplane_args(N, S, sigma, s_rs, s_ss, dist, t_rs, t_ss, dist_const,
+                           rgb, c_rs, c_ss, c_cs, nullptr, 0.0f, thres);
+    a.z = z; a.z_rs = z_rs; a.z_ss = z_ss;
+    a.t0 = t0;
+    ray_march_triplane_forward_kernel<true><<<blocks_for(N), THREADS, 0, (cudaStream_t)stream>>>(
+        a, nullptr, y, acc, depth, weight, local);
+    return (int)cudaGetLastError();
+}
+
+// backward: g_y (N, 3), g_acc, g_tend (N): contiguous or null; writes d_sigma
+// (N, S), d_rgb (N, S, 3) and d_t0 (N).
+int ngf_ray_march_triplane_shard_backward(long long N, int S,
+                                          const float* sigma, long long s_rs, long long s_ss,
+                                          const float* dist, long long t_rs, long long t_ss,
+                                          float dist_const,
+                                          const float* rgb, long long c_rs, long long c_ss,
+                                          long long c_cs,
+                                          const float* t0, float thres,
+                                          const float* g_y, const float* g_acc,
+                                          const float* g_tend,
+                                          float* d_sigma, float* d_rgb, float* d_t0,
+                                          void* stream) {
+    Args a = triplane_args(N, S, sigma, s_rs, s_ss, dist, t_rs, t_ss, dist_const,
+                           rgb, c_rs, c_ss, c_cs, nullptr, 0.0f, thres);
+    a.t0 = t0;
+    ray_march_triplane_backward_kernel<true><<<blocks_for(N), THREADS, tstart_bytes(S),
+                                               (cudaStream_t)stream>>>(
+        a, nullptr, g_y, g_acc, g_tend, d_sigma, d_rgb, d_t0);
     return (int)cudaGetLastError();
 }
 
 // The footprint of K5's kernel `which` (0 NeuTex forward, 1 NeuTex backward,
-// 2 tri-plane forward, 3 tri-plane backward) on this card at rays of S
-// samples: out[0] the blocks of eight warps an SM holds at once, out[1] its
+// 2 tri-plane forward, 3 tri-plane backward, 4 shard forward, 5 shard
+// backward, 6 shard totals) on this card at rays of S samples: out[0] the blocks of eight warps an SM holds at once, out[1] its
 // registers a thread, out[2] its local memory a thread in bytes (spills; 0
 // without). Returns the cudaError_t of the queries.
 int ngf_ray_march_footprint(int which, int S, int* out) {
-    const void* fns[4] = {reinterpret_cast<const void*>(ray_march_neutex_forward_kernel),
-                          reinterpret_cast<const void*>(ray_march_neutex_backward_kernel),
-                          reinterpret_cast<const void*>(ray_march_triplane_forward_kernel),
-                          reinterpret_cast<const void*>(ray_march_triplane_backward_kernel)};
-    if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
+    const void* fns[7] = {
+        reinterpret_cast<const void*>(ray_march_neutex_forward_kernel),
+        reinterpret_cast<const void*>(ray_march_neutex_backward_kernel),
+        reinterpret_cast<const void*>(ray_march_triplane_forward_kernel<false>),
+        reinterpret_cast<const void*>(ray_march_triplane_backward_kernel<false>),
+        reinterpret_cast<const void*>(ray_march_triplane_forward_kernel<true>),
+        reinterpret_cast<const void*>(ray_march_triplane_backward_kernel<true>),
+        reinterpret_cast<const void*>(ray_march_triplane_totals_kernel)};
+    if (which < 0 || which > 6) return (int)cudaErrorInvalidValue;
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
     if (err != cudaSuccess) return (int)err;
     out[1] = attr.numRegs;
     out[2] = (int)attr.localSizeBytes;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[0], fns[which], THREADS, which % 2 ? tstart_bytes(S) : 0);
+        &out[0], fns[which], THREADS, (which == 1 || which == 3 || which == 5) ? tstart_bytes(S) : 0);
 }
 
 const char* ngf_cuda_error_string(int code) {

@@ -111,6 +111,15 @@ def _ray_jitter(generator: torch.Generator, n: int, device) -> torch.Tensor:
     return torch.rand((n, 1), generator=generator, device=device)
 
 
+def _jitter_rows(generator: torch.Generator, n: int, device, rows) -> torch.Tensor:
+    """The jitter of ``n`` rays that are rows ``[first, first + n)`` of a
+    batch of ``total`` (``rows = (first, total)``; None: the whole batch):
+    drawn for the whole batch and sliced, so that every rank of a parallel
+    run draws the same numbers and keeps its own."""
+    first, total = rows or (0, n)
+    return _ray_jitter(generator, total, device)[first:first + n]
+
+
 def _background(white_bg: bool, generator, device):
     """The background the composite adds times ``1 - acc``
     (`ngf_tpu/render/volume.py:347-353,494-501`): white (1), or in training
@@ -135,6 +144,7 @@ def render_rays(
     alpha_aabb: torch.Tensor | None = None,
     sample_fn=None,
     generator: torch.Generator | None = None,
+    rows: tuple[int, int] | None = None,
 ) -> dict[str, torch.Tensor]:
     """Render a chunk of rays (`ngf_tpu/render/volume.py:375-508`).
 
@@ -153,6 +163,10 @@ def render_rays(
         one uniform jitter per ray and, when not ``white_bg``, the random
         background are drawn from it, on the rays' device. None renders
         deterministically, as evaluation does.
+      rows: ``(first, total)``: the rays are rows ``[first, first + N)`` of
+        a batch of ``total`` whose draws are made whole on every rank of a
+        data-parallel run (:func:`_jitter_rows`); None: the rays are the
+        batch.
 
     Returns:
       dict with 'rgb_map' (N, 3), 'depth_map' (N,, no gradient) and
@@ -167,7 +181,7 @@ def render_rays(
     if rcfg.group_size > 0:
         return _render_rays_grouped(
             params, model_cfg, rcfg, rays, iteration=iteration, alpha_volume=alpha_volume,
-            alpha_aabb=alpha_aabb, sample_fn=sample_fn, generator=generator,
+            alpha_aabb=alpha_aabb, sample_fn=sample_fn, generator=generator, rows=rows,
         )
     if rcfg.mask_stride > 1:
         raise NotImplementedError(
@@ -177,7 +191,7 @@ def render_rays(
     aabb = rcfg.aabb_tensor(rays.device)
     rays_o, viewdirs = rays[:, 0:3], rays[:, 3:6]
 
-    jitter = None if generator is None else _ray_jitter(generator, rays.shape[0], rays.device)
+    jitter = None if generator is None else _jitter_rows(generator, rays.shape[0], rays.device, rows)
     pts, z_vals, valid = stratified_sample(
         rays_o, viewdirs, aabb, rcfg.near, rcfg.far, rcfg.n_samples, rcfg.step_size, jitter
     )
@@ -251,6 +265,7 @@ def _render_rays_grouped(
     alpha_aabb: torch.Tensor | None,
     sample_fn,
     generator: torch.Generator | None,
+    rows: tuple[int, int] | None,
 ) -> dict[str, torch.Tensor]:
     """The group-compacted path (`ngf_tpu/render/volume.py:170-372`).
 
@@ -272,7 +287,7 @@ def _render_rays_grouped(
     S, G = rcfg.n_samples, rcfg.group_size
     ng = -(-S // G)
 
-    jitter = None if generator is None else _ray_jitter(generator, n, rays.device)
+    jitter = None if generator is None else _jitter_rows(generator, n, rays.device, rows)
     cap = rcfg.sample_cap if rcfg.sample_cap else S
     capg = min(ng, -(-cap // G))
     volume = None if alpha_volume is None else _occupancy_bytes(alpha_volume)

@@ -9,8 +9,8 @@ sample capacity), the learned gauge's shrink (at its first mask event) and
 upsample events with their optimizer resets, the run loop with its logs,
 ``scalars.jsonl``, evaluations, periodic checkpoints written off the loop
 and a SIGTERM drain, training resume from either package's checkpoint
-(:meth:`TriPlaneTrainer.from_checkpoint`), and the final evaluation
-renderer.
+(:meth:`TriPlaneTrainer.from_checkpoint`), the final evaluation renderer,
+and the two parallel modes over ``torch.distributed`` (``mesh``).
 
 Differences from the JAX trainer:
 - The training rays and colours live on the device as one (N, 9) table,
@@ -39,8 +39,28 @@ Differences from the JAX trainer:
   otherwise (another device type, or the JAX package) reseeds from
   ``(seed, iteration)`` and says so: the jitter and the backgrounds then
   differ from an uninterrupted run's, all else is restored exactly.
+- Under a mesh (`ngf_tpu_torch/parallel/mesh.py`) every rank is a process
+  on one device with the whole parameters. Every rank draws the same global
+  batch ids, jitter and background from the same streams and keeps its
+  data slice (rows ``[i b, (i + 1) b)`` of each microbatch chunk); the
+  parameters start from rank 0's; the gradients, the MSE and the chunks'
+  top shaded-group counts go through one all-reduce a step (SUM over the
+  world, the gradients then divided by the data axis's size), so every
+  rank applies the same update and the parameters stay equal bit for bit.
+  The events run on every rank on that replicated state. Rank 0 writes the
+  logs, ``scalars.jsonl``, the evaluations and the checkpoints (the same
+  format at any world size), the others wait at a barrier; a SIGTERM on
+  any rank stops every rank at the same step (a MAX all-reduce of the flag
+  at each log step and event). A mesh with a 'sample' axis of more than one
+  rank trains the dense sample-parallel renderer
+  (`ngf_tpu_torch/parallel/sample_parallel.py`) with sample_cap, rgb_cap
+  and group_size 0, mask_stride 1, no occupancy grid in the step and
+  n_samples padded to a multiple of the axis, as the JAX trainer does; a
+  sample axis of one rank is the data mode (the JAX trainer takes the
+  sample-parallel renderer for every 2-D mesh). L1 and TV count once: only
+  the ranks of sample index 0 add them.
 - Not ported yet, and refused with a pointer to ROADMAP.md: ``rgb_cap !=
-  0``, data-parallel meshes.
+  0``.
 """
 
 from __future__ import annotations
@@ -65,6 +85,9 @@ from ..fields.triplane import (
     upsample_planes,
 )
 from ..ops.gather import gather_rows
+from ..parallel import collectives
+from ..parallel.mesh import Mesh, shard_batch
+from ..parallel.sample_parallel import render_rays_sp
 from ..render.evaluation import evaluation
 from ..render.volume import RenderConfig, render_rays
 from ..utils.checkpoint import (
@@ -126,8 +149,6 @@ def check_ported(args: TrainArgs) -> None:
     if args.group_size == 0 and args.mask_stride > 1:
         raise _not_ported(f"mask_stride {args.mask_stride} on the dense path",
                           "queue 1, 'rgb_cap and mask_stride'")
-    if args.mesh_shape:
-        raise _not_ported(f"mesh_shape {args.mesh_shape!r}", "queue 1, item 5, 'Parallel modes'")
     if args.batch_size % max(1, args.microbatch):
         raise ValueError(f"batch_size {args.batch_size} is not a multiple of microbatch {args.microbatch}")
 
@@ -144,13 +165,21 @@ class TriPlaneTrainer:
         logfolder: str | None = None,
         init_params=None,
         device: torch.device | str = "cuda",
+        mesh: Mesh | None = None,
     ):
         check_ported(args)
         self.args = args
         self.train_dataset = train_dataset
         self.test_dataset = test_dataset
-        self.logfolder = logfolder
+        self.mesh = mesh
+        # Under a mesh rank 0 writes what the run writes; ``_shared_io``
+        # says whether some rank does, so every rank meets at its barriers.
+        self._shared_io = logfolder is not None
+        self.logfolder = logfolder if mesh is None or mesh.rank == 0 else None
         self.device = torch.device(device)
+        if mesh is not None and args.batch_size % (mesh.n_data * max(1, args.microbatch)):
+            raise ValueError(f"batch_size {args.batch_size} does not split into {args.microbatch} "
+                             f"microbatch chunks over {mesh.n_data} data ranks")
 
         # Geometry and samples (`ngf_tpu/train/loop.py:112-122`).
         self.model_cfg = model_config_from_args(args)
@@ -180,7 +209,12 @@ class TriPlaneTrainer:
         self.events: list[dict] = []
         self._scalars: ScalarWriter | None = None  # set while run() runs with a logfolder
         self._ckpt_writer = AsyncCheckpointWriter()
+        # SIGTERM seen by this process; the stop every rank has agreed on.
+        self._term_seen = False
         self._stop_requested = False
+        # Under a mesh: each microbatch chunk's top shaded-group counts of
+        # this rank's rays, reduced with the step's gradients.
+        self._stat_parts: list[tuple[torch.Tensor, int]] = []
 
         # Bbox ray filter and sampler (`ngf_tpu/train/loop.py:183-199`).
         # ``_ray_ids``: the kept rays as indices into the dataset's order
@@ -195,8 +229,27 @@ class TriPlaneTrainer:
         # The iteration the sampler was made at (`ngf_tpu/train/loop.py:1313-1319`).
         self._sampler_birth = 0
         self._make_optimizer()
+        self._broadcast_params()
 
     # ------------------------------------------------------------------ setup
+
+    @property
+    def _sample_parallel(self) -> bool:
+        """A mesh whose 'sample' axis has more than one rank: train with the
+        dense sample-parallel renderer (`ngf_tpu/train/loop.py:389-393`)."""
+        return self.mesh is not None and self.mesh.n_sample > 1
+
+    def _broadcast_params(self) -> None:
+        """Every rank takes rank 0's parameters (one broadcast of a flat
+        buffer)."""
+        if self.mesh is None:
+            return
+        leaves = [p for _, p in named_leaves(self.params)]
+        with torch.no_grad():
+            flat = torch.cat([p.reshape(-1) for p in leaves])
+            torch.distributed.broadcast(flat, src=0)
+            for p, v in zip(leaves, flat.split([p.numel() for p in leaves])):
+                p.copy_(v.view_as(p))
 
     def _dataset_table(self) -> np.ndarray:
         """The training set's (N, 9) rows in the dataset's order: rays in
@@ -285,28 +338,58 @@ class TriPlaneTrainer:
             duo_bwd=bool(self.args.duo_bwd),
         )
 
+    def _sp_render_cfg(self) -> RenderConfig:
+        """The sample-parallel step's configuration: dense, with n_samples
+        padded to a multiple of the sample axis (`ngf_tpu/train/loop.py:411-420`)."""
+        rcfg = self._render_cfg()
+        n_sp = self.mesh.n_sample
+        return dataclasses.replace(rcfg, sample_cap=0, rgb_cap=0, group_size=0, mask_stride=1,
+                                   n_samples=-(-rcfg.n_samples // n_sp) * n_sp)
+
     def _alpha_kw(self) -> dict:
         if self.alpha is None:
             return {}
         return {"alpha_volume": self.alpha.occ, "alpha_aabb": self.alpha.aabb}
+
+    def _rows(self, n: int) -> tuple[int, int] | None:
+        """Under a mesh, the rows of a microbatch chunk of the global batch
+        that this rank's ``n`` rays are (:func:`render_rays`' ``rows``)."""
+        if self.mesh is None:
+            return None
+        return self.mesh.data_index * n, self.mesh.n_data * n
 
     # ------------------------------------------------------------------ step
 
     @float32_accumulation()
     def loss_fn(self, rays, rgbs, generator=None, sample_fn=None):
         """MSE + L1 (+ TV) of one batch (`ngf_tpu/train/loop.py:444-482`).
-        Returns (loss, mse)."""
-        out = render_rays(
-            self.params, self.model_cfg, self._render_cfg(), rays,
-            iteration=self.iteration, sample_fn=sample_fn, generator=generator,
-            **self._alpha_kw(),
-        )
+        Returns (loss, mse). Under a mesh: the MSE of this rank's rays, and
+        L1 and TV only on the ranks of sample index 0, so that the world's
+        sum of the gradients counts them once."""
+        rows = self._rows(rays.shape[0])
+        if self._sample_parallel:
+            out = render_rays_sp(
+                self.params, self.model_cfg, self._sp_render_cfg(), rays, self.mesh,
+                iteration=self.iteration, generator=generator, rows=rows,
+            )
+        else:
+            out = render_rays(
+                self.params, self.model_cfg, self._render_cfg(), rays,
+                iteration=self.iteration, sample_fn=sample_fn, generator=generator, rows=rows,
+                **self._alpha_kw(),
+            )
         mse = ((out["rgb_map"] - rgbs) ** 2).mean()
         cnt = out.get("shaded_groups")
         if cnt is not None:
             # ~p99.9 of the batch: the 5th-largest per-ray count.
             k = min(5, cnt.shape[0])
-            self.rgb_stat = torch.maximum(self.rgb_stat, torch.topk(cnt, k).values[k - 1])
+            top = torch.topk(cnt, k).values
+            if self.mesh is None:
+                self.rgb_stat = torch.maximum(self.rgb_stat, top[k - 1])
+            else:
+                self._stat_parts.append((top, cnt.shape[0]))
+        if self.mesh is not None and self.mesh.sample_index != 0:
+            return mse, mse
         loss = mse + self.l1_weight * density_l1(self.params)
         tv_density, tv_app = self.args.TV_weight_density, self.args.TV_weight_app
         if tv_density > 0 or tv_app > 0:
@@ -339,18 +422,55 @@ class TriPlaneTrainer:
 
     def train_step(self, rays, rgbs, generator=None, sample_fn=None) -> torch.Tensor:
         """One optimizer step on a batch (`one_step`,
-        `ngf_tpu/train/loop.py:486-523`); returns the MSE as a device scalar."""
+        `ngf_tpu/train/loop.py:486-523`); returns the MSE as a device scalar
+        (under a mesh the global batch's, on every rank)."""
         mse = self.compute_grads(rays, rgbs, generator, sample_fn)
+        if self.mesh is not None:
+            mse = self._reduce_step(mse)
         self.optimizer.step()
         self.iteration += 1
         return mse
+
+    def _reduce_step(self, mse: torch.Tensor) -> torch.Tensor:
+        """The step's one all-reduce under a mesh: the gradients, the MSE
+        and each microbatch chunk's top shaded-group counts in one flat
+        buffer, summed over the world. The gradients are then divided by the
+        data axis's size (the sample ranks' add up to their rays'
+        gradient), the MSE by the world's (the global batch's mean), and the
+        running ``rgb_stat`` takes each chunk's 5th-largest count over the
+        data ranks' union. Returns the global MSE."""
+        mesh = self.mesh
+        leaves = [p for _, p in named_leaves(self.params) if p.grad is not None]
+        parts, self._stat_parts = self._stat_parts, []
+        slots = torch.full((len(parts), mesh.size, 5), 0.0, device=self.device)
+        for i, (top, _) in enumerate(parts):
+            slots[i, mesh.rank] = -1.0
+            slots[i, mesh.rank, :top.numel()] = top.to(torch.float32)
+        flat = torch.cat([p.grad.reshape(-1) for p in leaves]
+                         + [mse.reshape(1).to(torch.float32), slots.reshape(-1)])
+        torch.distributed.all_reduce(flat)
+        sizes = [p.numel() for p in leaves]
+        n_grad = sum(sizes)
+        flat[:n_grad].div_(mesh.n_data)
+        for p, g in zip(leaves, flat[:n_grad].split(sizes)):
+            p.grad.copy_(g.view_as(p.grad))
+        for chunk, (_, n) in zip(flat[n_grad + 1:].view(len(parts), mesh.size * 5), parts):
+            k = min(5, n * mesh.n_data)
+            self.rgb_stat = torch.maximum(
+                self.rgb_stat, torch.topk(chunk, k).values[k - 1].to(torch.int32))
+        return flat[n_grad] / mesh.size
 
     def next_batch(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(rays (B, 6), rgbs (B, 3)) at the sampler's next ids: one row
         gather of the device-resident table at ids already on the device
         (`ngf_tpu/train/loop.py:1438-1451`). Both are views of one (B, 9)
-        tensor."""
-        rows = gather_rows(self.batch_table, self.sampler.nextids())
+        tensor. Under a mesh: this rank's rows of the global batch, its
+        data slice of each microbatch chunk."""
+        ids = self.sampler.nextids()
+        if self.mesh is not None:
+            micro = max(1, self.args.microbatch)
+            ids = shard_batch(self.mesh, ids.view(micro, -1).t()).t().reshape(-1)
+        rows = gather_rows(self.batch_table, ids)
         return rows[:, :6], rows[:, 6:]
 
     # ----------------------------------------------------------------- events
@@ -498,8 +618,22 @@ class TriPlaneTrainer:
     # ------------------------------------------------------------------ run
 
     def _on_sigterm(self, signum, frame) -> None:
-        self._stop_requested = True
-        print("[trainer] SIGTERM: will checkpoint and exit after this step", flush=True)
+        self._term_seen = True
+        if self.mesh is None:
+            self._stop_requested = True
+        print("[trainer] SIGTERM: will checkpoint and exit after this step"
+              + (" (once the ranks agree)" if self.mesh is not None else ""), flush=True)
+
+    def _agree_stop(self, agree_now: bool) -> None:
+        """Under a mesh, the stop every rank takes: at the steps where
+        every rank meets (``agree_now``: log steps and events), if any rank
+        has seen SIGTERM. (Alone, the handler stops the run itself.)"""
+        if self.mesh is not None and agree_now and not self._stop_requested:
+            self._stop_requested = collectives.any_rank(self._term_seen)
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            torch.distributed.barrier()
 
     @float32_accumulation()
     def run(self, progress_cb=None) -> dict:
@@ -514,7 +648,9 @@ class TriPlaneTrainer:
         the previous handler restored on return) finishes the current step
         and its events, saves ``model.npz`` synchronously and returns with
         ``preempted`` True. ``progress_cb(iteration, mse)`` is called after
-        every step, with the last MSE read back from the device."""
+        every step, with the last MSE read back from the device. Under a
+        mesh every rank runs it; rank 0 writes and the others meet it at a
+        barrier after each evaluation and save."""
         args = self.args
         log_path = None
         if self.logfolder:
@@ -535,9 +671,9 @@ class TriPlaneTrainer:
         stages: list[dict] = []
         t0 = stage_t = time.time()
         stage_it = self.iteration
-        self._stop_requested = False
+        self._term_seen = self._stop_requested = False
         prev_term = None
-        if self.logfolder:
+        if self._shared_io:
             try:
                 prev_term = signal.signal(signal.SIGTERM, self._on_sigterm)
             except ValueError:  # not the main thread: no drain
@@ -549,6 +685,7 @@ class TriPlaneTrainer:
                 while self.iteration < args.n_iters and not self._stop_requested:
                     pending.append(self.train_step(*self.next_batch(), self.gen))
                     it = self.iteration
+                    self._agree_stop(it % args.progress_refresh_rate == 0 or it in masks or it in ups)
                     boundary = it == args.n_iters or it in masks or it in ups or self._stop_requested
                     if boundary:
                         self._sync()
@@ -556,9 +693,9 @@ class TriPlaneTrainer:
                     log_now = log_path is not None and it % args.progress_refresh_rate == 0
                     vis_now = (
                         args.N_vis != 0 and args.vis_every > 0 and it % args.vis_every == 0
-                        and self.test_dataset is not None and self.logfolder
+                        and self.test_dataset is not None and self._shared_io
                     )
-                    if log_now or vis_now:
+                    if log_now or (vis_now and self.logfolder):
                         mses += torch.stack(pending).tolist()
                         pending = []
                     if log_now:
@@ -571,7 +708,7 @@ class TriPlaneTrainer:
                         scalars.write(it, {"train/psnr": train_psnr, "train/mse": mses[-1],
                                            "train/l1_weight": self.l1_weight,
                                            "train/shaded_groups_p999": int(self.rgb_stat.item())})
-                    if vis_now:
+                    if vis_now and self.logfolder:
                         psnrs_test = evaluation(
                             self.test_dataset, self.make_eval_render_fn(iteration=it),
                             os.path.join(self.logfolder, "imgs_vis"), n_vis=args.N_vis,
@@ -581,16 +718,21 @@ class TriPlaneTrainer:
                             f.write(f"Iteration {it:05d}: test/psnr = "
                                     f"{float(np.mean(psnrs_test)):.2f}\n")
                         scalars.write(it, {"test/psnr": float(np.mean(psnrs_test))})
+                    if vis_now:
+                        self._barrier()
                     if it in masks:
                         # The first event is the first without a grid (`loop.py:1517-1521`).
                         self._event_update_alpha_mask(first=self.alpha is None)
                     if it in ups:
                         self._event_upsample()
                     save_now = args.save_every > 0 and it % args.save_every == 0
-                    if save_now and it < args.n_iters and self.logfolder:
+                    if save_now and it < args.n_iters and self._shared_io:
                         # The final save below covers n_iters.
-                        blocked = self.save(os.path.join(self.logfolder, "model.npz"), background=True)
-                        scalars.write(it, {"ckpt/blocked_s": round(blocked, 3)})
+                        if self.logfolder:
+                            blocked = self.save(os.path.join(self.logfolder, "model.npz"),
+                                                background=True)
+                            scalars.write(it, {"ckpt/blocked_s": round(blocked, 3)})
+                        self._barrier()
                     if boundary:
                         self._sync()
                         stage_t, stage_it = time.time(), it
@@ -608,6 +750,8 @@ class TriPlaneTrainer:
             if self._stop_requested:
                 print(f"[trainer] preempted at iteration {self.iteration}; resumable checkpoint "
                       f"written to {path}", flush=True)
+        if self._shared_io:
+            self._barrier()
         return {
             "iterations": self.iteration,
             "wall_time_s": wall,
@@ -700,14 +844,16 @@ class TriPlaneTrainer:
         test_dataset: RayDataset | None = None,
         logfolder: str | None = None,
         device: torch.device | str = "cuda",
+        mesh: Mesh | None = None,
     ) -> "TriPlaneTrainer":
         """A trainer that continues the run that wrote ``path`` (by either
         package's :meth:`save`) under the same ``args``
         (`ngf_tpu/train/loop.py:1736-1785,147-225`): the iteration, box,
         grid, step, sample count, L1 weight, capacities, voxel schedule,
         occupancy grid, kept rays, sampler position, optimizer state and
-        generator. Raises ValueError for a checkpoint without resume state,
-        one of another subsystem, and optimizer leaves that do not fit."""
+        generator (a checkpoint of any world size, under any ``mesh``).
+        Raises ValueError for a checkpoint without resume state, one of
+        another subsystem, and optimizer leaves that do not fit."""
         params, meta, alpha_volume, alpha_aabb = load_checkpoint(path, device)
         extra = load_extra_arrays(path)
         if "resume" not in meta or "key" not in extra:
@@ -717,7 +863,7 @@ class TriPlaneTrainer:
             raise ValueError(f"checkpoint subsystem {meta['subsystem']!r} != configured "
                              f"{args.subsystem!r}")
         trainer = cls(args, train_dataset, test_dataset, logfolder, init_params=params,
-                      device=device)
+                      device=device, mesh=mesh)
         trainer._restore(meta, extra, alpha_volume, alpha_aabb)
         return trainer
 

@@ -18,6 +18,15 @@ whose acc is below 6e-8 on a white background (rgb_map exactly 1, where the
 clip passes half the gradient, as ``jnp.clip`` does); blend weights on both
 sides of the shading threshold.
 
+K5's shard mode (the sample-parallel renderer's composite of one shard of
+a ray's samples from a starting transmittance t0): its plain pair
+``composite_shard_plain`` / ``composite_shard_backward_plain`` and the
+totals against `ngf_tpu/parallel/sample_parallel.py:95-117`'s arithmetic for
+one shard and ``jax.vjp`` of it (the gradients of sigma, rgb and t0 from
+cotangents of y, acc and t_end), with t0 random and t0 = 0 behind opaque
+samples; and 2 or 4 shards chained through ``composite_shard``'s exchange
+against the whole-ray composite and its ``jax.vjp``.
+
 Tolerances: outputs and gradients 1e-5 of each one's largest magnitude
 (float32 products and sums over up to 128 samples in another order); the
 render's plane gradients 1e-4 of the largest, as `tests/test_torch_grouped.py`
@@ -236,3 +245,123 @@ def test_render_gradients_with_opaque_samples_match_jax_vjp():
     for n in PLANES:
         np.testing.assert_allclose(tparams[n].grad.numpy(), np.asarray(want[n]), rtol=0,
                                    atol=GRAD_REL_TOL * scale, err_msg=n)
+
+
+def _jax_shard(sigma, rgb, z, t0, dist):
+    """One shard of `ngf_tpu/parallel/sample_parallel.py:95-117` from its
+    prefix ``t0``: (y, acc, depth) before the sums over the shards, and the
+    shard's total ``local_total``."""
+    alpha = 1.0 - jnp.exp(-sigma * dist)
+    one_m = 1.0 - alpha + 1e-10
+    local_excl = jnp.cumprod(
+        jnp.concatenate([jnp.ones_like(one_m[:, :1]), one_m[:, :-1]], -1), -1)
+    local_total = local_excl[:, -1] * one_m[:, -1]
+    weight = alpha * local_excl * t0[:, None]
+    rgb_mask = (weight > THRES).astype(weight.dtype)
+    y = jnp.sum(weight[..., None] * (rgb * rgb_mask[..., None]), -2)
+    return y, jnp.sum(weight, -1), jnp.sum(weight * z, -1), local_total
+
+
+def _shard_inputs(case, n=48, s=96, seed=0):
+    """The grouped constant length, densities over five decades, and for
+    ``opaque`` runs of sigma dist = 20 up to 88 samples; t0 random in
+    (0, 1], with t0 = 0 (behind an opaque shard) on a quarter of the rays
+    for ``opaque``."""
+    sigma, _, rgb, z, ray_last, vmask, _ = _inputs("grouped_draw1" if case != "opaque" else case,
+                                                   n=n, s=s, seed=seed)
+    sigma = sigma * vmask
+    t0 = (1.0 - np.random.default_rng(seed + 1).uniform(size=n)).astype(np.float32)
+    if case == "opaque":
+        t0[: n // 4] = 0.0
+    return sigma, rgb, z, ray_last, t0
+
+
+@pytest.mark.parametrize("case", ["random", "opaque"])
+def test_shard_plain_pair_matches_jax_shard_and_its_vjp(case):
+    """``composite_shard_totals_plain``, ``composite_shard_plain`` and
+    ``composite_shard_backward_plain`` against one shard's arithmetic in the
+    JAX package and ``jax.vjp`` of it in sigma, rgb and t0 (cotangents of y,
+    acc and t_end); the autograd nodes' gradient of t0 (from the forward's
+    local sums) likewise; no NaN with t0 = 0 and alpha 1."""
+    sigma, rgb, z, _, t0 = _shard_inputs(case)
+    n = sigma.shape[0]
+    rng = np.random.default_rng(3)
+    g_y, g_acc, g_tend = (rng.normal(size=sh).astype(np.float32) for sh in ((n, 3), (n,), (n,)))
+
+    want, vjp = jax.vjp(lambda s_, c_, t_: _jax_shard(s_, c_, jnp.asarray(z), t_, STEP_DIST),
+                        jnp.asarray(sigma), jnp.asarray(rgb), jnp.asarray(t0))
+    want_grads = vjp((jnp.asarray(g_y), jnp.asarray(g_acc), jnp.zeros(n, jnp.float32),
+                      jnp.asarray(g_tend)))
+    ts, tr, tz, tt0 = (torch.from_numpy(a) for a in (sigma, rgb, z, t0))
+    y, acc, depth, local, w = t_comp.composite_shard_plain(ts, STEP_DIST, tr, tz, tt0, THRES)
+    t_end = t_comp.composite_shard_totals_plain(ts, STEP_DIST)
+    for a, b, what in zip((y, acc, depth, t_end), want, ("y", "acc", "depth", "t_end")):
+        _close(a.numpy(), b, what)
+    got = t_comp.composite_shard_backward_plain(ts, STEP_DIST, tr, tt0, THRES,
+                                                *(torch.from_numpy(g) for g in (g_y, g_acc, g_tend)))
+    for a, b, what in zip(got, want_grads, ("d sigma", "d rgb", "d t0")):
+        assert np.isfinite(a.numpy()).all(), what
+        _close(a.numpy(), b, what)
+    # Through the autograd nodes: t0 a leaf the exchange returns.
+    s_ = ts.clone().requires_grad_(True)
+    c_ = tr.clone().requires_grad_(True)
+    t0_ = tt0.clone().requires_grad_(True)
+    held = {}
+
+    def exchange(t_end_):
+        held["t_end"] = t_end_
+        return t0_ + 0.0 * t_end_
+
+    y2, acc2, _ = t_comp.composite_shard(s_, STEP_DIST, c_, tz, THRES, exchange)
+    ((y2 * torch.from_numpy(g_y)).sum() + (acc2 * torch.from_numpy(g_acc)).sum()
+     + (held["t_end"] * torch.from_numpy(g_tend)).sum()).backward()
+    for a, b, what in zip((s_.grad, c_.grad, t0_.grad), want_grads, ("d sigma", "d rgb", "d t0")):
+        _close(a.numpy(), b, "autograd " + what)
+    if case == "opaque":
+        assert (sigma * STEP_DIST >= 20).sum(-1).max() > 40
+        assert (y.numpy()[: n // 4] == 0).all() and np.abs(np.asarray(want_grads[0])).max() > 0
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("case", ["random", "opaque"])
+def test_chained_shards_equal_the_whole_composite(m, case):
+    """m shards chained through ``composite_shard`` (each exchange the
+    product of the earlier shards' totals), their sums with the white
+    background and the clip, against the whole-ray composite: rgb_map, acc
+    and depth, and the gradients of sigma and rgb against ``jax.vjp`` of
+    the JAX renderers' whole composite."""
+    sigma, rgb, z, ray_last, _ = _shard_inputs(case, s=96)
+    n, S = sigma.shape
+    rng = np.random.default_rng(4)
+    g_rgb, g_acc = rng.normal(size=(n, 3)).astype(np.float32), rng.normal(size=n).astype(np.float32)
+    want, vjp = jax.vjp(
+        lambda s_, c_: _jax_composite(s_, STEP_DIST, c_, jnp.asarray(z), jnp.asarray(ray_last),
+                                      "white")[:3], jnp.asarray(sigma), jnp.asarray(rgb))
+    want_ds, want_drgb = vjp((jnp.asarray(g_rgb), jnp.asarray(g_acc), jnp.zeros(n, jnp.float32)))
+
+    s_ = torch.from_numpy(sigma).requires_grad_(True)
+    c_ = torch.from_numpy(rgb).requires_grad_(True)
+    tz = torch.from_numpy(z)
+    totals, sums = [], []
+    k = S // m
+    for j in range(m):
+        def exchange(t_end, j=j):
+            totals.append(t_end)
+            t0 = torch.ones_like(t_end) + 0.0 * t_end
+            for t in totals[:j]:
+                t0 = t0 * t
+            return t0
+
+        sums.append(t_comp.composite_shard(s_[:, j * k:(j + 1) * k], STEP_DIST,
+                                           c_[:, j * k:(j + 1) * k], tz[:, j * k:(j + 1) * k],
+                                           THRES, exchange))
+    y = sum(p[0] for p in sums)
+    acc = sum(p[1] for p in sums)
+    depth = sum(p[2] for p in sums) + (1.0 - acc.detach()) * torch.from_numpy(ray_last)
+    rgb_map = torch.minimum(torch.maximum(y + (1.0 - acc[:, None]), y.new_zeros(())), y.new_ones(()))
+    ((rgb_map * torch.from_numpy(g_rgb)).sum() + (acc * torch.from_numpy(g_acc)).sum()).backward()
+    for a, b, what in zip((rgb_map, acc, depth), want, ("rgb_map", "acc", "depth")):
+        _close(a.detach().numpy(), b, what)
+    _close(s_.grad.numpy(), want_ds, "d sigma")
+    _close(c_.grad.numpy(), want_drgb, "d rgb")
+    assert np.isfinite(s_.grad.numpy()).all()

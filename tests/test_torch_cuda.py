@@ -24,7 +24,13 @@ tri-plane mode ``ray_march_triplane`` and its backward against
 lengths, the three backgrounds, alpha 1, empty rays, strided inputs, a
 render chunk's 884 samples), the threshold mask the same bit for bit in
 both directions, its refusals, and the dense and grouped renders
-compositing in one launch each way with no ``cumprod``.
+compositing in one launch each way with no ``cumprod``; K5's tri-plane
+shard mode (``ray_march_triplane_totals``, ``ray_march_triplane_shard`` and
+``ray_march_triplane_shard_backward``) against its plain versions at the
+sample-parallel path's shapes (884 samples over 2 and 4 shards), with t0
+random in (0, 1] and t0 = 0 behind opaque runs, the split identity (two
+chained shard launches against one whole-ray launch, to 1e-6, the mask
+equal) and ``composite_shard``'s three launches through autograd.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports neither JAX nor `ngf_tpu`, so it runs on a GPU machine
@@ -1379,3 +1385,157 @@ def test_uv_train_steps_launch_k5_and_match_the_cpu(cuda):
     for k, w in want.items():
         for step, rtol in ((0, 1e-4), (1, 1e-3)):
             assert abs(got[k][step] - w[step]) <= rtol * max(abs(w[step]), 1e-6), (k, step)
+
+
+def _shard_inputs(cuda, n, s, seed=0, t0="random"):
+    """A shard of the sample-parallel path: sigma over five decades with
+    runs of sigma dist = 20 on every other ray, the path's one length, rgb,
+    z, and t0 random in (0, 1], 0 (behind opaque shards) on a quarter of
+    the rays, or all 1."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    dist = 0.25
+    sigma = 24.0 * torch.rand((n, s), generator=g, device=cuda) * (
+        torch.rand((n, s), generator=g, device=cuda) < 0.6)
+    sigma = sigma * torch.logspace(-5, 0, n, device=cuda)[:, None]
+    for i in range(0, n, 2):
+        sigma[i, 3:3 + (i * 7) % 61] = 80.0
+    rgb = torch.rand((n, s, 3), generator=g, device=cuda)
+    z = torch.sort(2.0 + 4.0 * torch.rand((n, s), generator=g, device=cuda), dim=-1).values
+    t0v = 1.0 - torch.rand((n,), generator=g, device=cuda)
+    if t0 == "zero":
+        t0v[: n // 4] = 0.0
+    elif t0 == "one":
+        t0v = torch.ones_like(t0v)
+    return sigma, dist, rgb, z, t0v
+
+
+@pytest.mark.parametrize("shape,t0", [((4096, 442), "random"), ((4096, 221), "random"),
+                                      ((2048, 442), "zero")])
+def test_ray_march_triplane_shard_matches_plain(cuda, shape, t0):
+    """K5's shard mode against ``composite_shard_totals_plain``,
+    ``composite_shard_plain`` and ``composite_shard_backward_plain``: t_end,
+    the partial sums, the local sums and w to F32_TOL of their scale (y
+    against the plain sums under the kernel's own mask), the gradients of
+    sigma, rgb and t0 likewise on the rays whose mask agrees; no NaN where
+    t0 = 0 or alpha rounds to 1."""
+    from ngf_tpu_torch.ops import compositing as tcomp
+
+    sigma, dist, rgb, z, t0v = _shard_inputs(cuda, *shape, t0=t0)
+    names = ("ray_march_triplane_totals", "ray_march_triplane_shard",
+             "ray_march_triplane_shard_backward")
+    before = [cuda_kernels.KERNELS[k].launches for k in names]
+    t_end = cuda_kernels.ray_march_triplane_totals(sigma, dist)
+    y, acc, depth, local, w = cuda_kernels.ray_march_triplane_shard(sigma, dist, rgb, z, t0v,
+                                                                    THRES, True)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    g_y, g_acc, g_tend = (torch.randn(s_, generator=g, device=cuda)
+                          for s_ in ((shape[0], 3), (shape[0],), (shape[0],)))
+    got = cuda_kernels.ray_march_triplane_shard_backward(sigma, dist, rgb, t0v, THRES, g_y, g_acc,
+                                                         g_tend)
+    torch.cuda.synchronize()
+    assert [cuda_kernels.KERNELS[k].launches - b for k, b in zip(names, before)] == [1, 1, 1]
+    _close(t_end, tcomp.composite_shard_totals_plain(sigma, dist), "t_end")
+    p_y, p_acc, p_depth, p_local, p_w = tcomp.composite_shard_plain(sigma, dist, rgb, z, t0v, THRES)
+    for a, b, what in ((acc, p_acc, "acc"), (depth, p_depth, "depth"), (w, p_w, "w"),
+                       (local[:, 3], p_local[:, 3], "acc_loc")):
+        _close(a, b, what)
+    flips = (w > THRES) != (p_w > THRES)
+    assert bool(((p_w[flips] - THRES).abs() <= 1e-5 * THRES).all()), "a mask bit far from thres"
+    mine = (w > THRES).to(w.dtype)
+    _close(y, ((p_w * mine)[..., None] * rgb).sum(-2), "y")
+    wl = p_w / torch.where(t0v > 0, t0v, 1.0)[:, None]
+    ok = ~flips.any(-1) & (t0v > 0)
+    _close(local[ok, :3], ((wl * mine)[..., None] * rgb).sum(-2)[ok], "y_loc")
+    want = tcomp.composite_shard_backward_plain(sigma, dist, rgb, t0v, THRES, g_y, g_acc, g_tend)
+    ok = ~flips.any(-1)
+    assert ok.float().mean().item() > 0.99
+    for a, b, what in zip(got, want, ("d sigma", "d rgb", "d t0")):
+        assert bool(torch.isfinite(a).all()), what
+        _close(a[ok], b[ok], what)
+    for t in (t_end, y, acc, depth, local, w):
+        assert bool(torch.isfinite(t).all())
+    if t0 == "zero":
+        assert bool((y[: shape[0] // 4] == 0).all() and (acc[: shape[0] // 4] == 0).all())
+
+
+@pytest.mark.parametrize("split", [442, 221, 100])
+def test_ray_march_triplane_shard_split_identity(cuda, split):
+    """Two chained shard launches (the first from t0 = 1, the second from
+    the first's t_end) against one whole-ray tri-plane launch of the 884
+    samples: w, acc, depth and rgb_map to 1e-6 of their scale (the same
+    float32 scan with the products associated at the split), the shading
+    mask equal."""
+    sigma, dist, rgb, z, _ = _shard_inputs(cuda, 4096, 884, seed=5)
+    ray_last = torch.zeros((4096,), device=cuda)
+    rgb_map, _, acc, depth, w = cuda_kernels.ray_march_triplane(sigma, dist, rgb, z, ray_last, 1.0,
+                                                                THRES, True)
+    a = (sigma[:, :split], dist, rgb[:, :split], z[:, :split])
+    b = (sigma[:, split:], dist, rgb[:, split:], z[:, split:])
+    t_a = cuda_kernels.ray_march_triplane_totals(a[0], dist)
+    ya, acc_a, d_a, _, w_a = cuda_kernels.ray_march_triplane_shard(*a, torch.ones_like(t_a), THRES,
+                                                                   True)
+    yb, acc_b, d_b, _, w_b = cuda_kernels.ray_march_triplane_shard(*b, t_a, THRES, True)
+    acc2 = acc_a + acc_b
+    map2 = (ya + yb + (1.0 - acc2[:, None])).clamp(0.0, 1.0)
+    w2 = torch.cat([w_a, w_b], 1)
+    for got, want, what in ((w2, w, "w"), (acc2, acc, "acc"), (d_a + d_b, depth, "depth"),
+                            (map2, rgb_map, "rgb_map")):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-6 * max(want.abs().max().item(), 1.0), (what, err)
+    assert torch.equal(w2 > THRES, w > THRES)
+
+
+def test_composite_shard_three_launches_through_autograd(cuda):
+    """``composite_shard`` on the card: one totals launch, one composite
+    launch and one backward launch, and the outputs and gradients of sigma
+    and rgb of two chained shards against the same on the CPU (the plain
+    versions) to F32_TOL of their scale."""
+    from ngf_tpu_torch.ops import compositing as tcomp
+
+    sigma, dist, rgb, z, _ = _shard_inputs(cuda, 512, 120, seed=7)
+    names = ("ray_march_triplane_totals", "ray_march_triplane_shard",
+             "ray_march_triplane_shard_backward")
+    g = torch.Generator(device=cuda).manual_seed(3)
+    g_y, g_acc = torch.randn((512, 3), generator=g, device=cuda), torch.randn((512,), generator=g,
+                                                                              device=cuda)
+
+    def run(device):
+        s_ = sigma.detach().to(device, copy=True).requires_grad_(True)
+        c_ = rgb.detach().to(device, copy=True).requires_grad_(True)
+        held = {}
+
+        def first(t_end):
+            held["t"] = t_end
+            return torch.ones_like(t_end) + 0.0 * t_end
+
+        ya, acc_a, _ = tcomp.composite_shard(s_[:, :60], dist, c_[:, :60], z[:, :60].to(device),
+                                             THRES, first)
+        yb, acc_b, _ = tcomp.composite_shard(s_[:, 60:], dist, c_[:, 60:], z[:, 60:].to(device),
+                                             THRES, lambda t_end: held["t"] + 0.0 * t_end)
+        y, acc = ya + yb, acc_a + acc_b
+        ((y * g_y.to(device)).sum() + (acc * g_acc.to(device)).sum()).backward()
+        return y.detach().cpu(), acc.detach().cpu(), s_.grad.cpu(), c_.grad.cpu()
+
+    before = [cuda_kernels.KERNELS[k].launches for k in names]
+    got = run(cuda)
+    assert [cuda_kernels.KERNELS[k].launches - b for k, b in zip(names, before)] == [2, 2, 2]
+    for a, b, what in zip(got, run("cpu"), ("y", "acc", "d sigma", "d rgb")):
+        _close(a, b, what)
+
+
+def test_ray_march_triplane_shard_refuses_what_the_kernel_does_not_take(cuda):
+    sigma, dist, rgb, z, t0v = _shard_inputs(cuda, 64, 40)
+    with pytest.raises(ValueError):
+        cuda_kernels.ray_march_triplane_totals(sigma.cpu(), dist)
+    with pytest.raises(ValueError):
+        cuda_kernels.ray_march_triplane_shard(sigma, dist, rgb, z, t0v[:-1], THRES)
+    with pytest.raises(ValueError):
+        cuda_kernels.ray_march_triplane_shard(sigma, dist, rgb, z, t0v.double(), THRES)
+    with pytest.raises(ValueError):
+        cuda_kernels.ray_march_triplane_shard(sigma, dist, rgb, z[:, 1:], t0v, THRES)
+    with pytest.raises(ValueError):
+        cuda_kernels.ray_march_triplane_shard_backward(sigma, dist, rgb, t0v, THRES,
+                                                       torch.ones((64, 2), device=cuda), None, None)
+    fp = cuda_kernels.ray_march_footprint(442)
+    for k in ("shard_forward", "shard_backward", "shard_totals"):
+        assert fp[k]["blocks_per_sm"] >= 1 and fp[k]["local_bytes"] == 0, (k, fp[k])

@@ -194,8 +194,10 @@ def test_render_only_cli_matches_main(tmp_path):
 
 def test_cli_train_mode_not_ported():
     """Training mode raises, naming ROADMAP.md, for what the port does not
-    carry yet: data-parallel meshes (``mesh_shape``) and top-K shading
-    (``rgb_cap != 0``). Each raises before any data is built.
+    carry yet: top-K shading (``rgb_cap != 0``); and a ``--mesh_shape``
+    whose ranks are not the run's (here 8 against one process) raises
+    ValueError. Each raises before any data is built. (Meshes train now:
+    `tests/test_torch_parallel.py`.)
     (Events inside ``n_iters`` and ``group_size > 0`` train now:
     `test_cli_staged_train_writes_mask_jax_reads`; so do the learned gauge:
     `tests/test_torch_gauge.py::test_cli_gauge_train_writes_checkpoint_jax_reads`,
@@ -205,13 +207,14 @@ def test_cli_train_mode_not_ported():
     base = ["--dataset_name", "synthetic", "--datadir", "synthetic:views=1,wh=8",
             "--device", "cpu", "--n_iters", "100", "--update_AlphaMask_list", "50"]
     cases = {
-        "mesh_shape": ["--mesh_shape", "2x4"],
         "rgb_cap": ["--rgb_cap", "-2"],
     }
     for what, extra in cases.items():
         with pytest.raises(NotImplementedError, match="ROADMAP") as info:
             main_torch.main(base + extra)
         assert "not ported" in str(info.value), what
+    with pytest.raises(ValueError, match="needs 8 ranks; this run has 1"):
+        main_torch.main(base + ["--mesh_shape", "2x4"])
 
 
 def test_cli_staged_train_writes_mask_jax_reads(tmp_path):
@@ -321,6 +324,8 @@ def test_port_imports_neither_jax_nor_ngf_tpu():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ngf_tpu'))\n"
         "assert len(mods) >= 37, mods\n"
         "assert {'ngf_tpu_torch.train.loop', 'ngf_tpu_torch.train.state',\n"
+        "        'ngf_tpu_torch.parallel.mesh', 'ngf_tpu_torch.parallel.sample_parallel',\n"
+        "        'ngf_tpu_torch.parallel.collectives',\n"
         "        'ngf_tpu_torch.ops.gather', 'ngf_tpu_torch.data.sampler',\n"
         "        'ngf_tpu_torch.data.dtu',\n"
         "        'ngf_tpu_torch.fields.neutex', 'ngf_tpu_torch.train.uv_loop',\n"
