@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`ngf_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases kernel,rows,backward,occupancy,uv,render,train,staged,gauge,bf16,lego]
-                          [--uv_steps 3000] [--uv_bf16_steps 500]
+    python3 chip_smoke.py [--phases kernel,rows,backward,occupancy,uv,render,train,staged,gauge,
+                                    bf16,topk,llff,lego,parallel]
+                          [--uv_steps 3000] [--uv_bf16_steps 500] [--uv_sphere_steps 500]
+                          [--uv_sphere_dtype float32]
 
 1. Device: requires CUDA, prints the card and its power limit, builds every
    kernel of the port from the sources in this checkout.
@@ -156,6 +158,25 @@
    step's loss to 1e-5), and the full-width checkpoint's cost: the seconds a
    synchronous and a background save block the loop, the background write,
    the file's size and ``from_checkpoint``'s seconds.
+13. Top-K phase (``topk_phase``, before the lego phase): the JAX package's
+   smoke recipe ``configs/synthetic_smoke.txt`` as it is (``rgb_cap 64``:
+   the top 8 of 64 groups a ray shaded, the appearance fetched again at
+   them, ``microbatch 4``), the staged recipe with ``--rgb_cap 64`` (the
+   fused fetch's features gathered, ``scatter_rows`` in the backward) and
+   with ``--rgb_cap -2`` against the staged phase's dense run (the PSNR
+   within 0.3 dB, the picked capacity printed); exact launch totals with
+   the top-K steps, a masked step against the plain sampler, K5's top-K
+   mode and the group gather and scatter against their plain versions on a
+   masked step's own inputs, the step profiled (no ``cumprod``), and the
+   masked model rendered densely with ``mask_stride`` 1 and 4.
+14. LLFF phase: a forward-facing scene written from the analytic scene
+   (``poses_bounds.npy``, ``images_4/``), trained 400 steps in NDC through
+   ``main_torch.main --dataset_name llff`` (exact launch totals, falling
+   loss), four views of its spiral path rendered through
+   ``evaluation_path``.
+15. Parallel phase (last; ``parallel_phase``): K5's shard mode, then two
+   ranks sharing the card over gloo, a data mesh (2x1, 700 grouped steps
+   across the mask event) and a sample mesh (1x2, 150 dense steps).
 
 Each K5 tri-plane row (``k5_triplane_rows``) holds the kernel against its
 plain pair beside its bound and the composite as the renderers ran it
@@ -241,9 +262,11 @@ GROUP, N_GROUPS = 8, 111
 # Index and weight arithmetic of one occupancy lookup (normalise, three
 # axes, eight tap weights): about 60 float32 operations.
 K3_OPS_PER_POINT = 60
-# K5's shard mode runs only on the sample-parallel path.
-NO_SHARD_LAUNCHES = {"ray_march_triplane_totals": 0, "ray_march_triplane_shard": 0,
-                     "ray_march_triplane_shard_backward": 0}
+# K5's shard mode runs only on the sample-parallel path, its top-K mode and
+# the row scatter only with top-K shading.
+NO_MODE_LAUNCHES = {"ray_march_triplane_totals": 0, "ray_march_triplane_shard": 0,
+                    "ray_march_triplane_shard_backward": 0, "ray_march_triplane_topk": 0,
+                    "ray_march_triplane_topk_backward": 0, "scatter_rows": 0}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -537,8 +560,9 @@ def two_call_gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         lib = cuda_kernels._lib("gather_rows")
     with torch.cuda.device(tab.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.ngf_gather_rows(tab.data_ptr(), R, D, tab.stride(0), idx.data_ptr(),
-                                   idx.element_size(), idx.shape[0], out.data_ptr(), stream)
+        code = lib.ngf_gather_rows(tab.data_ptr(), R, D, tab.stride(0), tab.element_size(),
+                                   idx.data_ptr(), idx.element_size(), idx.shape[0], 0, 0,
+                                   out.data_ptr(), stream)
     check(code == 0, f"gather_rows launch: CUDA error {code}")
     return out
 
@@ -570,8 +594,8 @@ def launch_host_us(tab: torch.Tensor, idx: torch.Tensor) -> dict:
     out = tab.new_empty((idx.shape[0], tab.shape[1]))
     raw_stream = torch._C._cuda_getCurrentRawStream
     stream = raw_stream(dev)
-    args = (tab.data_ptr(), tab.shape[0], tab.shape[1], tab.stride(0), idx.data_ptr(),
-            idx.element_size(), idx.shape[0], out.data_ptr(), stream)
+    args = (tab.data_ptr(), tab.shape[0], tab.shape[1], tab.stride(0), tab.element_size(),
+            idx.data_ptr(), idx.element_size(), idx.shape[0], 0, 0, out.data_ptr(), stream)
     lock, libs = threading.Lock(), {"gather_rows": lib}
 
     def locked_lookup():
@@ -1190,7 +1214,7 @@ def train_phase(
                     "bilinear_gather_planes_backward_coords": 0, "gather_rows": iters,
                     "occupancy_lookup": 0, "group_sample_compact": 0, "ray_march": 0,
                     "ray_march_backward": 0, "ray_march_triplane": steps + eval_chunks,
-                    "ray_march_triplane_backward": steps, **NO_SHARD_LAUNCHES}
+                    "ray_march_triplane_backward": steps, **NO_MODE_LAUNCHES}
             check(launches == want, f"launches {launches}, expected {want}")
             result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
             result["loop"] = loop_profile(prof)
@@ -1920,7 +1944,10 @@ def staged_phase(
     checked; then one masked step with the kernels against the plain
     sampler. ``full`` adds the two stages' ms/step by CUDA events, the
     masked step's profile and the checkpoint through the render-only CLI.
-    ``extra`` also shrinks the run for the CPU test."""
+    With top-K shading (``rgb_cap``), K5's top-K rows and the group
+    gather's (:func:`topk_step_rows`) on the masked step, profiled.
+    ``extra`` also shrinks the run for the CPU test. The result holds the
+    checkpoint's parameters and mask under ``model``."""
     import main_torch
     from ngf_tpu_torch.config import config_parser
     from ngf_tpu_torch.convert import named_leaves
@@ -1978,7 +2005,7 @@ def staged_phase(
         for f in ("model.npz", "imgs_test_all/000.png"):
             check(os.path.isfile(os.path.join(run, f)), f"training wrote no {f}")
         ckpt = os.path.join(run, "model.npz")
-        params, _, vol, vaabb = load_checkpoint(ckpt, device)
+        params, meta, vol, vaabb = load_checkpoint(ckpt, device)
         r = args.alpha_grid_res
         check(vol is not None and tuple(vol.shape) == (r, r, r)
               and int(vol.sum().item()) == events[-1]["voxels"], "model.npz without the mask")
@@ -1988,6 +2015,7 @@ def staged_phase(
                     for st in stats["stages"]}
         ev = events[0]
         result = {"main_s": main_s, "launches": launches, "mses": mses, "event": ev,
+                  "model": (params, meta, vol, vaabb), "args": args,
                   "events": events, "stages": stats["stages"], "stage_ms": stage_ms,
                   "test_psnr": psnr[0], "loop_s": stats["wall_time_s"],
                   "compute_dtype": args.compute_dtype,
@@ -2034,8 +2062,12 @@ def staged_phase(
     trainer._event_update_alpha_mask(first=True)  # this view's rays and the L1 weight
     trainer.alpha = AlphaGrid.from_volume(vol, vaabb)
     trainer._auto_cap = events[-1]["sample_cap"]
+    trainer._auto_rgb_cap = next((e["auto_rgb_cap"] for e in reversed(events)
+                                  if "auto_rgb_cap" in e), 0)
     rays, rgbs = trainer.next_batch()
     result["compare"] = compare_step(trainer, rays, rgbs, case="masked step")
+    if cuda and grouped_topk(args, events, args.n_iters):
+        result["topk"] = topk_step_rows(trainer, f"{tag} masked step")
     if cuda and full:
         torch.cuda.reset_peak_memory_stats(device)
         result["masked_step_ms"] = cuda_ms(step, reps=10, warmup=2)
@@ -2061,6 +2093,32 @@ def check_stages_fall(mses: list[float], bounds: list[int], start: int = 0) -> N
         check(last < first, f"stage {lo}-{hi}: mse of the last {k} steps {last} >= first {first}")
 
 
+def grouped_topk(args, events: list[dict], it: int) -> bool:
+    """Whether a grouped render at iteration ``it`` (step ``it``, or an
+    evaluation after it, before that iteration's events) shades top-K: the
+    capacity ``rgb_cap`` resolves to (`TriPlaneTrainer._resolve_rgb_cap`;
+    -2 the last pick of the events before ``it``, 0 before any) is under the
+    groups the render keeps."""
+    G = args.group_size
+    fired = [e for e in events if e["kind"] == "mask" and e["iteration"] < it]
+    if fired:
+        cap, capg = fired[-1]["sample_cap"], fired[-1]["capg"]
+    else:
+        cap = args.sample_cap if args.sample_cap != -1 else args.open_sample_cap
+    if args.rgb_cap == -2:
+        rgb = next((e["auto_rgb_cap"] for e in reversed(fired) if "auto_rgb_cap" in e), 0)
+    elif args.rgb_cap == -1:
+        rgb = max(32, cap // 4) if cap else 0
+    else:
+        rgb = max(0, args.rgb_cap)
+    if rgb <= 0:
+        return False
+    if not fired:
+        ng = -(-events[0]["n_samples"] // G)
+        capg = min(ng, -(-(cap or events[0]["n_samples"]) // G))
+    return min(capg, max(1, rgb // G)) < capg
+
+
 def staged_launches(args, events: list[dict], wh: int, start: int = 0) -> dict:
     """The launches a staged run must make: per step (microbatch chunks)
     one K1, six K2 and one K4 (the grouped front end, the occupancy test
@@ -2072,7 +2130,13 @@ def staged_launches(args, events: list[dict], wh: int, start: int = 0) -> dict:
     and one K4; one K5 tri-plane composite per step (and its backward) and
     per evaluation chunk. A run resumed at ``start`` makes the steps and
     evaluations after it, and one ``gather_rows`` more: the kept rays'
-    table rebuilt at the checkpoint's ids."""
+    table rebuilt at the checkpoint's ids. A step or evaluation chunk with
+    top-K shading (:func:`grouped_topk`) composites with K5's weight launch
+    (counted as the tri-plane composite) and top-K colour pass, gathers its
+    picks with one ``gather_rows`` and, without ``fused_fetch``, fetches
+    their appearance with a second K1; a step also launches the colour
+    pass's backward and, with ``fused_fetch`` (the gathered features take a
+    gradient), one ``scatter_rows``. The final evaluation shades densely."""
     micro = max(1, args.microbatch)
     iters = args.n_iters - start
     r = args.alpha_grid_res
@@ -2087,20 +2151,434 @@ def staged_launches(args, events: list[dict], wh: int, start: int = 0) -> dict:
     vis = [v for v in range(args.vis_every, args.n_iters + 1, args.vis_every) if v > start] if (
         args.N_vis != 0 and args.vis_every > 0) else []
     evals = len(vis) + 1  # and the final one
+    topk = micro * sum(grouped_topk(args, events, i) for i in range(start + 1, args.n_iters + 1))
+    topk_evals = chunks * sum(grouped_topk(args, events, v) for v in vis)
+    second_fetch = 0 if args.fused_fetch else topk + topk_evals
     return {
-        "bilinear_gather_planes": micro * iters + len(events) * grid_chunks + evals * chunks,
+        "bilinear_gather_planes": (micro * iters + len(events) * grid_chunks + evals * chunks
+                                   + second_fetch),
         "bilinear_gather_2d": 0,
         "bilinear_gather_2d_backward": 6 * micro * iters,
         "bilinear_gather_planes_backward_coords": 0,
-        "gather_rows": iters + rows,
+        "gather_rows": iters + rows + topk + topk_evals,
         "occupancy_lookup": k3,
         "group_sample_compact": micro * iters + evals * chunks,
         "ray_march": 0,
         "ray_march_backward": 0,
         "ray_march_triplane": micro * iters + evals * chunks,
         "ray_march_triplane_backward": micro * iters,
-        **NO_SHARD_LAUNCHES,
+        **NO_MODE_LAUNCHES,
+        "ray_march_triplane_topk": topk + topk_evals,
+        "ray_march_triplane_topk_backward": topk,
+        "scatter_rows": topk if args.fused_fetch else 0,
     }
+
+
+# ------------------------------------------------- K5's top-K mode, row scatter
+
+TOPK_SMOKE_CONFIG = "configs/synthetic_smoke.txt"
+# The -2 run against the staged phase's dense run of the same seed: -2 is
+# dense shading wherever the capacity covers the shaded groups, so the two
+# differ by run noise (same-seed reruns differ 0.02-0.07 dB on an H100
+# through K2's atomics; LEGO_PSNR_GAP_DB holds a resumed run to the same)
+# and by the rays whose shaded groups pass the capacity.
+TOPK_PSNR_GAP_DB = 0.3
+
+
+@contextlib.contextmanager
+def topk_inputs():
+    """Records the inputs of the first top-K composite inside the block (the
+    colour pass ``render.volume.composite_topk``: w, acc, the picks, the
+    group, the picked samples' colours, the background, the threshold) and,
+    when a backward follows, the cotangent of its rgb_map; and the first
+    group gather (``render.volume.gather_group_rows``: the payload, the
+    picks, the group, whether the payload takes a gradient)."""
+    from ngf_tpu_torch.render import volume
+
+    seen: dict = {}
+    real_topk, real_gather = volume.composite_topk, volume.gather_group_rows
+
+    def spy(w, acc, idx, group, rgb_k, background, thres):
+        out = real_topk(w, acc, idx, group, rgb_k, background, thres)
+        if "w" not in seen:
+            seen.update(w=w.detach(), acc=acc.detach(), idx=idx, group=group,
+                        rgb_k=rgb_k.detach(), background=background, thres=thres)
+            if out.requires_grad:
+                out.register_hook(lambda g: seen.setdefault("g_rgb", g.detach()))
+        return out
+
+    def spy_gather(x, idx, group):
+        if "payload" not in seen:
+            seen.update(payload=x.detach(), payload_idx=idx, payload_group=group,
+                        payload_grad=x.requires_grad)
+        return real_gather(x, idx, group)
+
+    volume.composite_topk, volume.gather_group_rows = spy, spy_gather
+    try:
+        yield seen
+    finally:
+        volume.composite_topk, volume.gather_group_rows = real_topk, real_gather
+
+
+def k5_topk_bound_ms(n: int, s: int, k: int, kg: int, backward: bool) -> tuple[float, str]:
+    """Least time of one launch of K5's top-K colour pass: each input read
+    once and each output written once over HBM. Forward, a ray: w at the K
+    picked samples (4 bytes each), the K / G group ids (8), rgb_k (12 a
+    slot) and acc (4) read, rgb_map and y (12 each) written; ~8 operations a
+    slot. Backward, a ray: the same w, ids and rgb_k, y and the cotangent
+    (12 each) read; the whole g_w row (4 a sample), d acc (4) and d rgb_k
+    (12 a slot) written; ~12 operations a slot."""
+    if backward:
+        nbytes = n * (k * 16 + kg * 8 + 24 + s * 4 + 4 + k * 12)
+        ops = 12 * n * k
+    else:
+        nbytes = n * (k * 16 + kg * 8 + 4 + 24)
+        ops = 8 * n * k
+    return bytes_bound_ms(nbytes, ops)
+
+
+def k5_topk_rows(case: str, c: dict) -> list[dict]:
+    """K5's top-K colour pass and its backward on a step's own inputs
+    (:func:`topk_inputs`) against ``composite_topk_plain`` and
+    ``composite_topk_backward_plain`` (to F32_TOL of each output's scale:
+    both read the same w, so the mask is the same), timed by CUDA events
+    and in a CUDA graph beside the bound and the plain versions. No single
+    PyTorch call computes it: ``library_ms`` is null."""
+    from ngf_tpu_torch.ops import compositing, cuda_kernels
+
+    w, acc, idx, G, rgb_k = c["w"], c["acc"], c["idx"], c["group"], c["rgb_k"]
+    bg, thres, g_rgb = c["background"], c["thres"], c["g_rgb"]
+    n, s = w.shape
+    k = rgb_k.shape[1]
+
+    def fwd():
+        return cuda_kernels.ray_march_triplane_topk(w, acc, idx, G, rgb_k, bg, thres)
+
+    def plain():
+        return compositing.composite_topk_plain(w, acc, idx, G, rgb_k, bg, thres)
+
+    rgb_map, y = fwd()
+    p_map, p_y = plain()
+
+    def bwd():
+        return cuda_kernels.ray_march_triplane_topk_backward(w, idx, G, rgb_k, bg, thres, y, g_rgb)
+
+    def plain_bwd():
+        return compositing.composite_topk_backward_plain(w, idx, G, rgb_k, bg, thres, p_y, g_rgb)
+
+    rows = []
+    for direction, got, want, fn, pfn in (("forward", (rgb_map, y), (p_map, p_y), fwd, plain),
+                                          ("backward", bwd(), plain_bwd(), bwd, plain_bwd)):
+        errs = {}
+        for what, a, b in zip(("rgb_map", "y") if direction == "forward" else (
+                "g_w", "d acc", "d rgb_k"), got, want):
+            errs[what] = (a - b).abs().max().item()
+            scale = b.abs().max().item()
+            check(errs[what] <= F32_TOL * max(scale, 1e-30),
+                  f"K5 top-K {direction} {case} {what}: {errs[what]} against {scale}")
+        bound, by = k5_topk_bound_ms(n, s, k, idx.shape[1], direction == "backward")
+        rows.append({"case": case, "N": n, "S": s, "K": k, "G": G, "direction": direction,
+                     "ms": cuda_ms(fn, 20), "graph_ms": graph_ms(fn), "bound_ms": bound,
+                     "bound_by": by, "plain_ms": cuda_ms(pfn, 5), "library_ms": None,
+                     "max_abs_err": max(errs.values()), "errs": errs,
+                     "shaded_share": (torch.gather(
+                         w, 1, compositing._topk_samples(idx, G)) > thres).float().mean().item()})
+    for r in rows:
+        print(f"[topk] K5 top-K {r['direction']} {case} (N={n}, S={s}, K={k}, G={G}): "
+              f"{r['ms']:.5f} ms, in a CUDA graph {r['graph_ms']:.5f}, bound {r['bound_ms']:.5f} "
+              f"({r['bound_by']}, {r['bound_ms'] / r['graph_ms']:.1%} of the graph's), plain "
+              f"{r['plain_ms']:.4f} ms, max abs err {r['max_abs_err']:.3g}")
+    return rows
+
+
+def group_gather_rows(case: str, x: torch.Tensor, idx: torch.Tensor, group: int) -> list[dict]:
+    """The group gather of a step's own payload and picks as one
+    ``gather_rows`` launch (rows ``ray * ng + id`` of the (n * ng, G * D)
+    table) and its backward ``scatter_rows`` (a random cotangent: the cost
+    does not depend on its values), each against its plain version byte for
+    byte, timed beside its bound and the library calls: ``index_select`` for
+    the gather, ``index_copy_`` into zeros for the scatter."""
+    from ngf_tpu_torch.ops import cuda_kernels
+    from ngf_tpu_torch.ops.gather import gather_rows_plain, scatter_rows_plain
+
+    n, s, d = x.shape
+    ng, k = s // group, idx.shape[1]
+    tab = x.reshape(n * ng, group * d)
+    flat = idx.reshape(-1)
+    rows = flat + torch.arange(flat.shape[0], device=flat.device) // k * ng
+    R, D = tab.shape
+    B = flat.shape[0]
+    e = tab.element_size()
+    got = cuda_kernels.gather_rows(tab, flat, k, ng)
+    check(torch.equal(got, gather_rows_plain(tab, flat, k, ng)), f"{case}: group gather")
+    g = torch.randn((B, D), device=x.device,
+                    generator=torch.Generator(device=x.device).manual_seed(SEED)).to(x.dtype)
+    back = cuda_kernels.scatter_rows(g, flat, R, k, ng)
+    check(torch.equal(back, scatter_rows_plain(g, flat, R, k, ng)), f"{case}: group scatter")
+    out = []
+    for name, fn, pfn, lib, nbytes in (
+            ("gather_rows", lambda: cuda_kernels.gather_rows(tab, flat, k, ng),
+             lambda: gather_rows_plain(tab, flat, k, ng),
+             lambda: torch.index_select(tab, 0, rows), B * (2 * D * e + 8)),
+            ("scatter_rows", lambda: cuda_kernels.scatter_rows(g, flat, R, k, ng),
+             lambda: scatter_rows_plain(g, flat, R, k, ng),
+             lambda: tab.new_zeros((R, D)).index_copy_(0, rows, g), R * D * e + B * (2 * D * e + 8))):
+        bound, by = bytes_bound_ms(nbytes, 0.0)
+        row = {"kernel": name, "case": case, "table": [R, D], "B": B, "dtype": str(x.dtype),
+               "ms": cuda_ms(fn, 50, 5), "graph_ms": graph_ms(fn), "bound_ms": bound,
+               "bound_by": by, "plain_ms": cuda_ms(pfn, 20), "library_ms": cuda_ms(lib, 50, 5),
+               "max_abs_err": 0.0}
+        print(f"[topk] {name} {case}: table ({R}, {D}) {x.dtype}, {B} rows: {row['ms']:.5f} ms, "
+              f"in a CUDA graph {row['graph_ms']:.5f}, bound {bound:.5f} ({by}), plain "
+              f"{row['plain_ms']:.5f}, library {row['library_ms']:.5f}")
+        out.append(row)
+    return out
+
+
+def topk_step_rows(trainer, case: str) -> dict:
+    """A masked top-K step of ``trainer``: K5's top-K rows on its own
+    inputs and cotangent (:func:`k5_topk_rows`), the group gather and
+    scatter on its own payload and picks (:func:`group_gather_rows`: the
+    fused fetch's features, or without ``fused_fetch`` the coordinates,
+    whose gather takes no gradient on the InfoInv path, so that its scatter
+    is timed there but not launched), and the step profiled: no
+    ``cumprod``, its launches and idle share."""
+    with topk_inputs() as seen:
+        trainer.compute_grads(*trainer.next_batch(), trainer.gen)
+    trainer.optimizer.zero_grad()
+    check("w" in seen and "g_rgb" in seen and "payload" in seen,
+          f"{case}: no top-K composite ran")
+    out = {"k5": k5_topk_rows(case, seen), "payload_grad": seen["payload_grad"]}
+    out["rows"] = group_gather_rows(case, seen["payload"], seen["payload_idx"],
+                                    seen["payload_group"])
+    step = lambda: trainer.train_step(*trainer.next_batch(), trainer.gen)  # noqa: E731
+    out["step_ms"] = cuda_ms(step, reps=10, warmup=2)
+    out["profile"] = profile_chunk(step, reps=2, unit="top-K masked step")
+    out["profile"]["topk_kernels"] = {k: v for k, v in out["profile"]["k5_kernels"].items()
+                                      if k.startswith("topk")}
+    return out
+
+
+def stride_render(model, args, device: torch.device, wh: int, strides=(1, 4)) -> dict:
+    """The masked model of a checkpoint rendered on the dense path
+    (``group_size 0``, its full sample count) with each ``mask_stride``:
+    one K3 launch a chunk (at 1/K of the samples with stride K) beside one
+    K1 and one K5, the test view's PSNR and ms a chunk."""
+    from ngf_tpu_torch.data import load_dataset
+    from ngf_tpu_torch.fields.triplane import TriPlaneConfig
+    from ngf_tpu_torch.ops import cuda_kernels
+    from ngf_tpu_torch.render.volume import RenderConfig, render_rays
+    from ngf_tpu_torch.utils.grid import grid_n_samples
+
+    params, meta, vol, vaabb = model
+    model_cfg = TriPlaneConfig(**meta["model_cfg"])
+    test = load_dataset("synthetic", f"synthetic:wh={wh},test_views=1", split="test", is_stack=True)
+    rays = torch.from_numpy(np.asarray(test.all_rays[0]).reshape(-1, 6)).to(device)
+    gt = torch.from_numpy(np.asarray(test.all_rgbs[0]).reshape(-1, 3)).to(device)
+    occ = (vol > 0).to(torch.uint8)
+    chunk = args.eval_chunk
+    chunks = -(-rays.shape[0] // chunk)
+    out = {}
+    for k in strides:
+        rcfg = RenderConfig(aabb=tuple(map(tuple, meta["aabb"])), near=meta["near_far"][0],
+                            far=meta["near_far"][1],
+                            n_samples=grid_n_samples(meta["aabb"], meta["step_size"]),
+                            step_size=meta["step_size"], distance_scale=args.distance_scale,
+                            ray_march_weight_thres=args.rm_weight_mask_thre, white_bg=True,
+                            group_size=0, mask_stride=k)
+
+        @torch.inference_mode()
+        def render():
+            return torch.cat([render_rays(params, model_cfg, rcfg, rays[i:i + chunk],
+                                          iteration=args.n_iters + 1, alpha_volume=occ,
+                                          alpha_aabb=vaabb)["rgb_map"]
+                              for i in range(0, rays.shape[0], chunk)])
+
+        cuda_kernels.reset_launch_counts()
+        rgb = render()
+        launches = _counts()
+        psnr = -10.0 * math.log10(((rgb - gt) ** 2).mean().item())
+        out[f"stride {k}"] = {"psnr": psnr, "n_samples": rcfg.n_samples}
+        if device.type == "cuda":
+            want = {**{n_: 0 for n_ in launches}, "occupancy_lookup": chunks,
+                    "bilinear_gather_planes": chunks, "ray_march_triplane": chunks}
+            check(launches == want, f"mask_stride {k}: launches {launches}, expected {want}")
+            out[f"stride {k}"]["ms_per_chunk"] = cuda_ms(render, 2, 0) / chunks
+    print(f"[topk] dense render of the masked model by mask_stride: {json.dumps(out)}")
+    return out
+
+
+def topk_phase(device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRAIN_WH,
+               staged: dict | None = None, extra: tuple[str, ...] = (),
+               smoke_extra: tuple[str, ...] = ()) -> dict:
+    """Top-K shading on the card, each run through :func:`staged_phase`
+    (exact launch totals with the top-K steps, falling losses, a masked step
+    against the plain sampler, and where it shades top-K, K5's top-K rows
+    and the group gather's on its own inputs and the step profiled with no
+    ``cumprod``):
+    - `configs/synthetic_smoke.txt` as it is (grouped, ``rgb_cap 64``: 8 of
+      its 64 groups shaded, ``fused_fetch 0``: the appearance fetched again
+      at the picks, ``microbatch 4``, the mask event at 600);
+    - ``configs/synthetic_infoinv_tpu.txt --rgb_cap 64`` (8 of the 28 masked
+      groups; ``fused_fetch 1``: the fused fetch's features gathered, so
+      ``scatter_rows`` runs in its backward);
+    - ``configs/synthetic_infoinv_tpu.txt --rgb_cap -2`` (the capacity
+      measured at the event) against the staged phase's dense run of the
+      same seed (``staged``; run here without it). Its one event picks from
+      the open stage's diffuse weights (p99.9 of 48 shaded groups), above
+      the masked stage's 28: -2 then shades densely, the JAX package's
+      finding too (`ngf_tpu/train/loop.py:354-361`).
+    Then the -2 run's masked model rendered densely with ``mask_stride`` 1
+    and 4. ``extra`` and ``smoke_extra`` shrink the runs for the CPU test."""
+    smoke = staged_phase(device, views, wh, extra=smoke_extra, config=TOPK_SMOKE_CONFIG,
+                         tag="topk_smoke", full=False)
+    fused = staged_phase(device, views, wh, extra=("--rgb_cap", "64", *extra), tag="topk_fused",
+                         full=False)
+    if staged is None:
+        staged = staged_phase(device, views, wh, extra=extra, full=False)
+    auto = staged_phase(device, views, wh, extra=("--rgb_cap", "-2", *extra), tag="topk_auto",
+                        full=False)
+    check(smoke["args"].rgb_cap == 64 and not smoke["args"].fused_fetch
+          and smoke["args"].microbatch == 4 and fused["args"].fused_fetch,
+          f"smoke args {smoke['args']}, fused args {fused['args']}")
+    picks = [e.get("auto_rgb_cap") for e in auto["events"]]
+    check(all(p is not None and p > 0 and p % auto["args"].group_size == 0 for p in picks),
+          f"auto rgb_cap picks {picks}")
+    gap = abs(auto["test_psnr"] - staged["test_psnr"])
+    masked = lambda r: next(v for k, v in r["stage_ms"].items()  # noqa: E731
+                            if not k.startswith("0-"))
+    out = {"smoke": smoke, "fused": fused, "auto": auto, "auto_rgb_caps": picks,
+           "psnr_gap_db": gap, "dense_psnr": staged["test_psnr"], "auto_psnr": auto["test_psnr"],
+           "smoke_psnr": smoke["test_psnr"], "fused_psnr": fused["test_psnr"],
+           "masked_step_host_ms": {"-2": masked(auto), "dense": masked(staged),
+                                   "64 fused": masked(fused), "smoke": masked(smoke)},
+           "launches": {"topk smoke": smoke["launches"], "topk fused": fused["launches"],
+                        "topk auto": auto["launches"]}}
+    print(f"[topk] -2: picked {picks}, test psnr {auto['test_psnr']:.3f} dB against the dense "
+          f"run's {staged['test_psnr']:.3f} (gap {gap:.3f}, limit {TOPK_PSNR_GAP_DB}); masked "
+          f"step on the host clock {out['masked_step_host_ms']['-2']:.3f} ms against dense "
+          f"{out['masked_step_host_ms']['dense']:.3f}; rgb_cap 64 on the staged recipe: test "
+          f"psnr {fused['test_psnr']:.3f} dB, masked step {out['masked_step_host_ms']['64 fused']:.3f} "
+          f"ms; smoke recipe test psnr {smoke['test_psnr']:.3f} dB, masked step "
+          f"{out['masked_step_host_ms']['smoke']:.3f} ms (microbatch 4)")
+    check(gap <= TOPK_PSNR_GAP_DB, f"-2 against dense: psnr gap {gap}")
+    out["stride"] = stride_render(auto["model"], auto["args"], device, wh)
+    return out
+
+
+# ------------------------------------------------------------- LLFF (NDC)
+
+LLFF_VIEWS, LLFF_WH, LLFF_ITERS = 24, 96, 400
+LLFF_PATH_VIEWS = 4
+
+
+def write_llff_scene(root: str, views: int, wh: int) -> dict:
+    """A forward-facing scene in the LLFF layout (``poses_bounds.npy`` and
+    ``images_4/``) from the analytic scene (``data/synthetic.py:_view_gt``):
+    cameras on an arc at z ~ 4 looking at the origin, the headers at 4x the
+    written frames (the loader's ``--downsample 4``), depth bounds [2.5, 5.5].
+    Returns the host seconds it took."""
+    from ngf_tpu_torch.data.geometry import get_ray_directions_blender
+    from ngf_tpu_torch.data.synthetic import _view_gt
+    from ngf_tpu_torch.utils.image import write_png
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(root, "images_4"), exist_ok=True)
+    focal = 0.5 * wh / np.tan(0.5 * 0.6911112070083618)
+    dirs = get_ray_directions_blender(wh, wh, [focal, focal])
+    dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    rows = []
+    for i in range(views):
+        az = (i / max(1, views - 1) - 0.5) * 1.0
+        eye = np.array([1.4 * np.sin(az), 0.35 * np.sin(2.1 * az), 4.0], np.float32)
+        back = eye / np.linalg.norm(eye)
+        right = np.cross(np.array([0.0, 1.0, 0.0], np.float32), back)
+        right /= np.linalg.norm(right)
+        up = np.cross(back, right)
+        c2w = np.stack([right, up, back, eye], axis=1)
+        rd = (dirs.reshape(-1, 3) @ c2w[:3, :3].T).astype(np.float32)
+        ro = np.ascontiguousarray(np.broadcast_to(eye, rd.shape), np.float32)
+        rgb = _view_gt(ro, rd, c2w, (wh, wh)).reshape(wh, wh, 3)
+        write_png(os.path.join(root, "images_4", f"image{i:03d}.png"),
+                  np.clip(rgb * 255.0 + 0.5, 0, 255).astype(np.uint8))
+        raw = np.concatenate([np.stack([-up, right, back, eye], axis=1),
+                              np.array([[4.0 * wh], [4.0 * wh], [4.0 * focal]], np.float32)], 1)
+        rows.append(np.concatenate([raw.reshape(-1), [2.5, 5.5]]))
+    np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows).astype(np.float64))
+    return {"write_s": time.perf_counter() - t0}
+
+
+def llff_phase(device: torch.device, views: int = LLFF_VIEWS, wh: int = LLFF_WH,
+               iters: int = LLFF_ITERS, path_views: int = LLFF_PATH_VIEWS,
+               extra: tuple[str, ...] = ()) -> dict:
+    """A forward-facing scene in NDC: the LLFF layout written from the
+    analytic scene (:func:`write_llff_scene`), read back through
+    ``load_dataset("llff", ..., downsample=4)``, trained ``iters`` steps of
+    the staged InfoInv recipe's open stage through ``main_torch.main
+    --dataset_name llff`` (its mask event at 600 lies past the run: an
+    event at 200 of 400 steps finds no occupied voxel yet on this scene and
+    culls every sample; exact launch totals; falling losses; the held-out
+    views rendered), then ``path_views`` views of the spiral path rendered through
+    ``evaluation_path`` (NDC rays, frames written). ``extra`` may add events
+    for the CPU test."""
+    import main_torch
+    from ngf_tpu_torch.config import config_parser
+    from ngf_tpu_torch.data import load_dataset
+    from ngf_tpu_torch.ops import cuda_kernels
+    from ngf_tpu_torch.render.evaluation import evaluation_path
+    from ngf_tpu_torch.train.loop import TriPlaneTrainer
+
+    cuda = device.type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = os.path.join(tmp, "scene")
+        out = write_llff_scene(scene, views, wh)
+        test = load_dataset("llff", scene, split="test", downsample=4.0, is_stack=True)
+        check(test.img_wh == (wh, wh) and test.ndc_params[:2] == (wh, wh)
+              and test.n_images == -(-views // 8), f"llff test split {test.img_wh} {test.n_images}")
+        here = os.path.dirname(os.path.abspath(__file__))
+        argv = ["--config", os.path.join(here, TRAIN_CONFIG), "--dataset_name", "llff",
+                "--datadir", scene, "--downsample_train", "4", "--downsample_test", "4",
+                "--n_iters", str(iters), "--vis_every", "0", "--save_every", "0", "--ndc_ray", "1", "--render_test", "1",
+                "--basedir", tmp,
+                "--expname", "llff", "--device", device.type, "--progress_refresh_rate", "100",
+                *extra]
+        args = config_parser(argv)
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = main_torch.main(argv)
+        out["main_s"] = time.perf_counter() - t0
+        launches = _counts()
+        mses, events = stats["train_mses"], stats["events"]
+        print(f"[llff] main_torch.main: {out['main_s']:.3f} s ({stats['wall_time_s']:.3f} s in "
+              f"the loop), {iters} steps, test psnr {stats['test_psnrs']}, events "
+              f"{json.dumps(events)}, launches {launches}")
+        check(len(mses) == iters and all(math.isfinite(m) for m in mses), f"llff losses {mses}")
+        check_stages_fall(mses, [0, iters])  # one stage: half the batches' background is random
+        check(len(stats["test_psnrs"]) == test.n_images
+              and all(math.isfinite(p) for p in stats["test_psnrs"]), f"{stats['test_psnrs']}")
+        if cuda:
+            want = staged_launches(args, events, wh)
+            chunks = -(-wh * wh // args.eval_chunk)
+            for k in ("bilinear_gather_planes", "group_sample_compact", "ray_march_triplane"):
+                want[k] += (test.n_images - 1) * chunks  # the final evaluation's views
+            check(launches == want, f"llff launches {launches}, expected {want}")
+        # The spiral path in NDC through the trained model.
+        trainer = TriPlaneTrainer.from_checkpoint(os.path.join(tmp, "llff", "model.npz"), args,
+                                                  load_dataset("llff", scene, split="train",
+                                                               downsample=4.0, is_stack=False),
+                                                  device=device)
+        path = test.render_path[:: max(1, len(test.render_path) // path_views)][:path_views]
+        t0 = time.perf_counter()
+        evaluation_path(test, trainer.make_eval_render_fn(full=True), path,
+                        os.path.join(tmp, "path"), chunk=args.eval_chunk)
+        out["path_s"] = time.perf_counter() - t0
+        frames = sorted(f for f in os.listdir(os.path.join(tmp, "path")) if f.endswith(".png"))
+        check(frames == [f"{i:03d}.png" for i in range(path_views)], f"path frames {frames}")
+        out.update(launches=launches, mses=[mses[0], mses[-1]], test_psnrs=stats["test_psnrs"],
+                   events=events, stages=stats["stages"], frames=len(frames))
+        print(f"[llff] loss {mses[0]:.5f} -> {mses[-1]:.5f}, {len(frames)} spiral views in "
+              f"{out['path_s']:.3f} s, scene written in {out['write_s']:.3f} s")
+    return out
 
 
 GAUGE_CONFIG = "configs/synthetic_triplane_tpu.txt"
@@ -2404,7 +2882,7 @@ def gauge_launches(args, events: list[dict], wh: int) -> dict:
         "ray_march_backward": 0,
         "ray_march_triplane": steps + evals * chunks,
         "ray_march_triplane_backward": steps,
-        **NO_SHARD_LAUNCHES,
+        **NO_MODE_LAUNCHES,
     }
 
 
@@ -3002,7 +3480,7 @@ def uv_phase(device: torch.device, views: int = UV_VIEWS, wh: int = UV_WH,
              rays_side: int = UV_RAYS_SIDE, samples: int = UV_SAMPLES, points: int = UV_POINTS,
              steps: int = UV_STEPS, sigterm_at: int = UV_SIGTERM_AT,
              sphere_steps: int = UV_SPHERE_STEPS, bf16_steps: int = UV_BF16_STEPS,
-             texture_res: int = 512, large_rays: int = UV_LARGE_RAYS, steps_per_call: int = 20,
+             sphere_dtype: str = "float32", texture_res: int = 512, large_rays: int = UV_LARGE_RAYS, steps_per_call: int = 20,
              print_freq: int = 100, sampling_blocks: int = 8) -> dict:
     """The UV-Mapping path: K5 against its plain version; the square recipe
     in float32 through ``uv_train_torch.py`` in a subprocess, SIGTERMed once
@@ -3134,15 +3612,15 @@ def uv_phase(device: torch.device, views: int = UV_VIEWS, wh: int = UV_WH,
                                              sampling_blocks))
         out["runs"]["square float32"] = run
 
-        # 2. sphere float32, its exports and an edited cube render
+        # 2. the sphere (float32 unless asked), its exports and an edited cube render
+        sphere = f"sphere {sphere_dtype}"
         cuda_kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        uv_train_torch.main(argv("uv_sphere", "sphere", sphere_steps))
+        uv_train_torch.main(argv("uv_sphere", "sphere", sphere_steps, sphere_dtype))
         train_s = time.perf_counter() - t0
         launches["uv sphere"] = _counts()
-        expect_k5(launches["uv sphere"], steps_and_renders(0, sphere_steps), sphere_steps,
-                  "sphere float32")
-        trainer, run = finish("sphere float32", "uv_sphere", "sphere", "float32", sphere_steps)
+        expect_k5(launches["uv sphere"], steps_and_renders(0, sphere_steps), sphere_steps, sphere)
+        trainer, run = finish(sphere, "uv_sphere", "sphere", sphere_dtype, sphere_steps)
         faces = export_texture(trainer.params, trainer.cfg, texture_res).cpu().numpy()
         eq = export_sphere_equirect(trainer.params, trainer.cfg, texture_res).cpu().numpy()
         check(faces.shape == (6, texture_res, texture_res, 3) and np.isfinite(faces).all()
@@ -3153,14 +3631,22 @@ def uv_phase(device: torch.device, views: int = UV_VIEWS, wh: int = UV_WH,
                   uv_train_torch.to_png(cross))
         cube = np.stack([np.stack([x, 1 - x, 0.5 + 0 * x], -1)] * 6).astype(np.float32)
         test = uv_train_torch.make_dataset(uv_train_torch.parse_args(
-            argv("uv_sphere", "sphere", sphere_steps)), True)
+            argv("uv_sphere", "sphere", sphere_steps, sphere_dtype)), True)
         i = test.indexes[0]
         rgb, _ = trainer.render_view(test.campos[i], test.height, test.width, test.focal[i],
                                      test.extrinsics[i, :3, :3], test.princpt[i],
                                      chunk=rays_side ** 2, edit_texture=cube)
         check(rgb.shape == (wh, wh, 3) and np.isfinite(rgb).all(), "edited sphere render")
         run.update(train_s=train_s, cross_shape=list(cross.shape))
-        out["runs"]["sphere float32"] = run
+        if sphere in JAX_UV_CERT:
+            # A novel IoU more than 0.02 below the JAX package's
+            # certificate (12000 steps) is a fault to record.
+            run["iou_gap_to_jax"] = JAX_UV_CERT[sphere][0] - run["novel_iou"]
+            print(f"[uv] {sphere}: {sphere_steps} steps, novel IoU {run['novel_iou']:.4f} "
+                  f"against the JAX package's {JAX_UV_CERT[sphere][0]} (gap "
+                  f"{run['iou_gap_to_jax']:.4f}; more than 0.02 is a fault), PSNR "
+                  f"{run['novel_psnr_db']:.3f} dB against {JAX_UV_CERT[sphere][1]}")
+        out["runs"][sphere] = run
 
         # 3. square bfloat16
         cuda_kernels.reset_launch_counts()
@@ -3181,7 +3667,10 @@ def uv_phase(device: torch.device, views: int = UV_VIEWS, wh: int = UV_WH,
 
 # The parallel phase: two ranks share the one card over gloo.
 PARALLEL_ITERS = 700  # run (a): across the recipe's mask event at 600
-PARALLEL_SP_ITERS = TRAIN_ITERS  # run (b), as long as the train phase's run
+# Run (b): half the train phase's run, so that the whole script keeps to
+# its time limit with the topk and llff phases; held to a one-rank run of
+# the same length.
+PARALLEL_SP_ITERS = TRAIN_ITERS // 2
 PARALLEL_PSNR_GAP_DB = 0.3
 # Run (a) against the one-rank run: two runs on the card never train the
 # same weights (K2's float atomics add in another order each run, so
@@ -3515,8 +4004,9 @@ def parallel_phase(device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRA
         a one-rank run of the same dense function (``--sample_cap 0``) in
         this process: the last 50 steps' mean loss within
         PARALLEL_SP_LOSS_RTOL, the PSNR within PARALLEL_PSNR_GAP_DB; against
-        the train phase's dense run (``train``, when it ran) the loss within
-        PARALLEL_SP_TRAIN_LOSS_RTOL and the PSNR reported; K5's shard
+        the train phase's dense run (``train``, when it ran and is as long)
+        the loss within PARALLEL_SP_TRAIN_LOSS_RTOL and the PSNR reported;
+        K5's shard
         launches exact (a totals, a composite and a backward launch a step
         on each rank) and the two ranks' digests equal.
 
@@ -3597,6 +4087,8 @@ def parallel_phase(device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRA
         b["loss_rel_gap"] = abs(b["loss_last50"] - b["one_rank_loss_last50"]) / b[
             "one_rank_loss_last50"]
         b["psnr_gap_db"] = abs(b_ranks[0]["test_psnrs"][0] - b["one_rank_test_psnr"])
+        if train is not None and len(train["mses"]) != sp_iters:
+            train = None  # another length: another function to hold (b) to
         if train is not None:
             b["train_loss_last50"], b["train_test_psnr"] = last(train["mses"]), train["test_psnr"]
             b["train_loss_rel_gap"] = abs(b["loss_last50"] - b["train_loss_last50"]) / b[
@@ -3663,7 +4155,7 @@ def parallel_phase(device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRA
 
 
 PHASES = ("kernel", "rows", "backward", "occupancy", "uv", "render", "train", "staged", "gauge",
-          "bf16", "lego", "parallel")
+          "bf16", "topk", "llff", "lego", "parallel")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -3676,6 +4168,10 @@ def main(argv: list[str] | None = None) -> int:
                              f"{UV_SIGTERM_AT}, resumed to the end)")
     parser.add_argument("--uv_bf16_steps", type=int, default=UV_BF16_STEPS,
                         help="steps of the uv phase's square bfloat16 run")
+    parser.add_argument("--uv_sphere_steps", type=int, default=UV_SPHERE_STEPS,
+                        help="steps of the uv phase's sphere run")
+    parser.add_argument("--uv_sphere_dtype", default="float32", choices=("float32", "bfloat16"),
+                        help="compute dtype of the uv phase's sphere run")
     parser.add_argument("--parallel_rank", default=None, help=argparse.SUPPRESS)
     parsed = parser.parse_args(argv)
     if parsed.parallel_rank:  # one rank of the parallel phase (run_ranks)
@@ -3710,7 +4206,11 @@ def main(argv: list[str] | None = None) -> int:
         "staged": lambda: staged_phase(device),
         "gauge": lambda: gauge_phase(device),
         "bf16": lambda: bf16_phase(device),
-        "uv": lambda: uv_phase(device, steps=parsed.uv_steps, bf16_steps=parsed.uv_bf16_steps),
+        "uv": lambda: uv_phase(device, steps=parsed.uv_steps, bf16_steps=parsed.uv_bf16_steps,
+                               sphere_steps=parsed.uv_sphere_steps,
+                               sphere_dtype=parsed.uv_sphere_dtype),
+        "topk": lambda: topk_phase(device, staged=out.get("staged")),
+        "llff": lambda: llff_phase(device),
         "lego": lambda: lego_phase(device),
         "parallel": lambda: parallel_phase(device, train=out.get("train")),
     }
@@ -3737,6 +4237,7 @@ def main(argv: list[str] | None = None) -> int:
              "gauge": gauge["launches"], "gauge render-only": gauge["render"]["launches"],
              "bf16 infoinv": bf16["infoinv"]["launches"], "bf16 gauge": bf16["gauge"]["launches"],
              "lego": out["lego"]["launches"], "lego resumed": out["lego"]["resumed"]["launches"],
+             **out["topk"]["launches"], "llff": out["llff"]["launches"],
              **out["uv"]["launches"], **out["parallel"]["launches"]}
     # The bfloat16 InfoInv paths, whose K2 launches are its bfloat16 variant.
     bf16_infoinv = ("bf16 infoinv", "lego", "lego resumed")
@@ -3882,6 +4383,39 @@ def main(argv: list[str] | None = None) -> int:
                                for r in rows_d]
         kernels[-1]["footprint"] = k5_fp[f"shard_{direction}"]
     kernels[-1]["split_identity"] = shard["split"]
+    topk = out["topk"]
+    topk_paths = tuple(topk["launches"])
+    topk_runs = [k for k in ("smoke", "fused", "auto") if "topk" in topk[k]]
+    for direction, name in (("forward", "ray_march_triplane_topk"),
+                            ("backward", "ray_march_triplane_topk_backward")):
+        rows_d = [r for k in topk_runs for r in topk[k]["topk"]["k5"]
+                  if r["direction"] == direction]
+        kernels.append(entry(
+            name, "ngf_tpu_torch/ops/kernels/ray_march.cu", "ngf_tpu/render/volume.py:315",
+            rows_d[0], max(r["max_abs_err"] for r in rows_d),
+            f"K5 top-K mode, configs/synthetic_smoke.txt's masked step: a microbatch chunk of "
+            f"{rows_d[0]['N']} rays x {rows_d[0]['S']} samples, the top {rows_d[0]['K'] // 8} "
+            "groups of 8 shaded, float32, its own inputs"
+            + ("; its own cotangent" if direction == "backward" else ""),
+            skip=tuple(p for p in paths if p not in topk_paths)))
+        kernels[-1]["rows"] = [{k: r[k] for k in ("case", "N", "S", "K", "G", "ms", "graph_ms",
+                                                  "bound_ms", "bound_by", "plain_ms",
+                                                  "library_ms", "max_abs_err", "shaded_share")}
+                               for r in rows_d]
+        kernels[-1]["footprint"] = k5_fp[f"topk_{direction}"]
+    kernels[-1]["profiles"] = {k: {f: topk[k]["topk"]["profile"][f] for f in (
+        "host_ms", "device_ms", "launches", "idle_share", "k5_ms", "cumprod_calls")}
+        for k in topk_runs}
+    group_rows = [r for k in topk_runs for r in topk[k]["topk"]["rows"]]
+    scatter = [r for r in group_rows if r["kernel"] == "scatter_rows"]
+    kernels.append(entry(
+        "scatter_rows", "ngf_tpu_torch/ops/kernels/gather_rows.cu", "ngf_tpu/ops/compaction.py:50",
+        next(r for r in scatter if r["case"].startswith("topk_fused")), 0.0,
+        "the group gather's backward on the staged recipe's masked step at rgb_cap 64: the "
+        "fused fetch's features of the kept groups as one table, the picked groups' rows "
+        "written, byte for byte", skip=tuple(p for p in paths if p not in topk_paths)))
+    kernels[-1]["rows"] = scatter
+    kernels[2]["group_gather_rows"] = [r for r in group_rows if r["kernel"] == "gather_rows"]
     kernels[0]["rows"] = [
         {k: r[k] for k in ("case", "dtype", "ms", "bound_ms", "plain_ms", "library_ms",
                            "taps_per_point")} for r in fused]

@@ -18,9 +18,13 @@ after its current step with a resumable ``model.npz`` and exit code 0.
 ``transforms_{train,test}.json``). ``--compute_dtype bfloat16`` trains the
 JAX package's bfloat16 recipe (float32 parameters and Adam, bfloat16 plane
 values and decoders with float32 sums; ``model.npz`` keeps the float32
-parameters). ``steps_per_call`` is read and has no effect: PyTorch runs one
-step at a time. ``rgb_cap != 0``, which the port does not carry yet, raises,
-naming ROADMAP.md.
+parameters). ``--rgb_cap`` K > 0, -1 or -2 trains with top-K shading (-2:
+the capacity measured at each mask and upsample event), and ``--group_size
+0 --mask_stride K`` queries the occupancy once a window of K samples, as in
+`main.py`. ``--dataset_name`` takes every loader of `main.py`: ``synthetic``,
+``blender``, ``llff`` (forward-facing, NDC rays, a spiral render path),
+``nsvf``, ``tankstemple`` and ``own_data``. ``steps_per_call`` is read and
+has no effect: PyTorch runs one step at a time.
 
 Several ranks (one process each) train one model when the environment opts
 in (`ngf_tpu_torch/parallel/mesh.py:maybe_initialize_distributed`): torchrun

@@ -9,6 +9,14 @@
   acc, depth) as one ``autograd.Function``: K5's tri-plane mode forward and
   backward on a CUDA tensor, on a CPU tensor :func:`composite_plain` and
   :func:`composite_backward_plain`, the same reverse scan as the kernel's.
+- :func:`composite_weights` and :func:`composite_topk`: what the renderers
+  run with top-K shading, K5's top-K mode: the weights, acc and depth with
+  no colour (the tri-plane forward without rgb) before the K shaded samples
+  are picked and decoded, then their colour pass; backward the colour
+  pass's backward hands the weights' cotangent to the tri-plane backward.
+  On a CPU tensor :func:`composite_plain`'s weights,
+  :func:`composite_topk_plain`, :func:`composite_topk_backward_plain` and
+  :func:`composite_backward_plain`.
 - :func:`composite_shard`: what the sample-parallel renderer runs, one
   shard's share of the composite from a starting transmittance that an
   exchange between the shards provides: K5's shard mode (a totals launch
@@ -217,15 +225,17 @@ def composite_plain(sigma, dist, rgb, z, ray_last, background, thres: float):
     return rgb_map, y, acc, depth, w
 
 
-def composite_backward_plain(sigma, dist, rgb, background, thres: float, rgb_lin, g_rgb, g_acc):
+def composite_backward_plain(sigma, dist, rgb, background, thres: float, rgb_lin, g_rgb, g_acc,
+                             g_w=None):
     """K5's tri-plane backward in plain PyTorch, the kernel's reverse scan
     (as :func:`ray_march_backward_plain`): from the cotangents of rgb_map
-    (N, 3) and acc (N,) (each may be None) and the forward's y
-    (``rgb_lin``), the gradients of sigma (N, S) and rgb (N, S, 3). With
-    gw_k = m_k gy . rgb_k + g_acc - b sum(gy), gy the colour's cotangent
-    through the clip (half at a bound), R runs R_{S-1} = 0, R_{k-1} =
-    gw_k alpha_k + f_k R_k and dL/dalpha_k = T_k (gw_k - R_k): no division
-    by f_k. w and its mask are the forward's, bit for bit."""
+    (N, 3), acc (N,) and w (N, S) (each may be None) and the forward's y
+    (``rgb_lin``), the gradients of sigma (N, S) and rgb (N, S, 3; None
+    without rgb, the top-K mode's weight backward). With gw_k = g_acc -
+    b sum(gy) + g_w_k + m_k gy . rgb_k, gy the colour's cotangent through
+    the clip (half at a bound), R runs R_{S-1} = 0, R_{k-1} = gw_k alpha_k +
+    f_k R_k and dL/dalpha_k = T_k (gw_k - R_k): no division by f_k. w and its
+    mask are the forward's, bit for bit."""
     N, S = sigma.shape
     e = torch.exp(-sigma * dist)
     alpha = 1.0 - e
@@ -237,8 +247,13 @@ def composite_backward_plain(sigma, dist, rgb, background, thres: float, rgb_lin
     ga = sigma.new_zeros((N,)) if g_acc is None else g_acc
     if background is not None:
         ga = ga - background * gy.sum(dim=-1)
-    gw = ga[:, None] + shaded * (gy[:, None, :] * rgb).sum(dim=-1)
-    d_rgb = gy[:, None, :] * (w * shaded)[..., None]
+    gw = ga[:, None].expand(N, S)
+    if g_w is not None:
+        gw = gw + g_w
+    d_rgb = None
+    if rgb is not None:
+        gw = gw + shaded * (gy[:, None, :] * rgb).sum(dim=-1)
+        d_rgb = gy[:, None, :] * (w * shaded)[..., None]
     if not isinstance(dist, torch.Tensor):
         dist = torch.full_like(sigma, dist)
     r_behind = torch.empty_like(w)
@@ -307,6 +322,154 @@ def composite(
         dist = dist.detach()
     return _Composite.apply(sigma, rgb, dist, z.detach(), ray_last.detach(), background,
                             float(thres), weights)
+
+
+def _topk_samples(idx: torch.Tensor, group: int) -> torch.Tensor:
+    """(N, K / G) group ids -> (N, K) sample ids: slot k's sample is
+    idx[n, k // G] * G + k % G."""
+    if group == 1:
+        return idx
+    n = idx.shape[0]
+    return (idx[..., None] * group + torch.arange(group, device=idx.device)).reshape(n, -1)
+
+
+def composite_topk_plain(w, acc, idx, group: int, rgb_k, background, thres: float):
+    """K5's top-K colour pass in plain PyTorch: the top-K shading of
+    `ngf_tpu/render/volume.py:315-353` (grouped, G the group) and `:473-501`
+    (dense, G 1) after the weights are known. With slot k's sample s_k =
+    idx[n, k // G] * G + k % G and m_k = (w_{s_k} > thres),
+    y = sum_k m_k w_{s_k} rgb_k + b (1 - acc).
+
+    Args:
+      w: (N, S) blend weights; acc: (N,) their sum.
+      idx: (N, K / G) int64 group (or sample) ids, distinct a ray.
+      rgb_k: (N, K, 3) the colours of the selected samples.
+      background: b as in :func:`composite_plain`; thres the threshold.
+
+    Returns:
+      (rgb_map = clip(y, 0, 1) (N, 3), y (N, 3)); differentiable through
+      autograd in w, acc and rgb_k, the clip as ``jnp.clip``.
+    """
+    w_k = torch.gather(w, 1, _topk_samples(idx, group))
+    mask = (w_k > thres).to(w_k.dtype)
+    y = ((w_k * mask)[..., None] * rgb_k).sum(dim=-2)
+    if background is not None:
+        y = y + background * (1.0 - acc[..., None])
+    return torch.minimum(torch.maximum(y, y.new_zeros(())), y.new_ones(())), y
+
+
+def composite_topk_backward_plain(w, idx, group: int, rgb_k, background, thres: float, rgb_lin,
+                                  g_rgb):
+    """The backward of :func:`composite_topk_plain` as K5's top-K backward
+    computes it: with gy the cotangent of rgb_map through the clip (half at
+    a bound), the cotangent of w (N, S): m_k gy . rgb_k at the selected
+    samples and 0 elsewhere; of acc (N,): -b sum(gy); of rgb_k (N, K, 3):
+    gy m_k w_{s_k}. Returns (g_w, d_acc, d_rgb_k)."""
+    s = _topk_samples(idx, group)
+    w_k = torch.gather(w, 1, s)
+    mask = (w_k > thres).to(w_k.dtype)
+    gy = g_rgb * _clip_grad(rgb_lin)
+    g_w = torch.zeros_like(w).scatter_(1, s, mask * (gy[:, None, :] * rgb_k).sum(dim=-1))
+    d_acc = -(0.0 if background is None else background) * gy.sum(dim=-1)
+    return g_w, d_acc, gy[:, None, :] * (w_k * mask)[..., None]
+
+
+class _CompositeWeights(torch.autograd.Function):
+    """K5's tri-plane mode without colour as one autograd node: sigma ->
+    (w, acc, depth); backward the tri-plane reverse scan from the cotangents
+    of w and acc."""
+
+    @staticmethod
+    def forward(ctx, sigma, dist, z, ray_last):
+        ctx.set_materialize_grads(False)
+        if sigma.is_cuda:
+            _, _, acc, depth, w = cuda_kernels.ray_march_triplane(
+                sigma, dist, None, z, ray_last, None, 0.0, weights=True)
+        else:
+            _, w, _ = raw2alpha(sigma, dist)
+            acc = w.sum(dim=-1)
+            depth = ((w * z).sum(dim=-1) + (1.0 - acc) * ray_last).detach()
+        dist_t = dist if isinstance(dist, torch.Tensor) else None
+        ctx.save_for_backward(sigma, dist_t)
+        ctx.dist = None if dist_t is not None else dist
+        ctx.mark_non_differentiable(depth)
+        return w, acc, depth
+
+    @staticmethod
+    def backward(ctx, g_w, g_acc, g_depth):
+        sigma, dist_t = ctx.saved_tensors
+        if g_w is None and g_acc is None:
+            return None, None, None, None
+        dist = ctx.dist if dist_t is None else dist_t
+        args = (sigma, dist, None, None, 0.0, None, None, g_acc, g_w)
+        if sigma.is_cuda:
+            d_sigma, _ = cuda_kernels.ray_march_triplane_backward(*args)
+        else:
+            d_sigma, _ = composite_backward_plain(*args)
+        return d_sigma, None, None, None
+
+
+class _CompositeTopK(torch.autograd.Function):
+    """K5's top-K colour pass as one autograd node: (w, acc, rgb_k) ->
+    rgb_map."""
+
+    @staticmethod
+    def forward(ctx, w, acc, rgb_k, idx, group, background, thres):
+        ctx.set_materialize_grads(False)
+        if w.is_cuda:
+            rgb_map, y = cuda_kernels.ray_march_triplane_topk(
+                w, acc, idx, group, rgb_k, background, thres)
+        else:
+            rgb_map, y = composite_topk_plain(w, acc, idx, group, rgb_k, background, thres)
+        bg_t = background if isinstance(background, torch.Tensor) else None
+        ctx.save_for_backward(w, rgb_k, idx, y, bg_t)
+        ctx.background = None if bg_t is not None else background
+        ctx.group, ctx.thres = group, thres
+        return rgb_map
+
+    @staticmethod
+    def backward(ctx, g_rgb):
+        w, rgb_k, idx, y, bg_t = ctx.saved_tensors
+        if g_rgb is None:
+            return (None,) * 7
+        background = ctx.background if bg_t is None else bg_t
+        args = (w, idx, ctx.group, rgb_k, background, ctx.thres, y, g_rgb)
+        if w.is_cuda:
+            g_w, d_acc, d_rgb = cuda_kernels.ray_march_triplane_topk_backward(*args)
+        else:
+            g_w, d_acc, d_rgb = composite_topk_backward_plain(*args)
+        return g_w, d_acc, d_rgb, None, None, None, None
+
+
+def composite_weights(
+    sigma: torch.Tensor, dist: torch.Tensor | float, z: torch.Tensor, ray_last: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The first half of the top-K composite: blend weights w (N, S), acc
+    (N,) and depth (N,, no gradient; filled with ``ray_last`` as
+    :func:`composite` fills it) of sigma (N, S), differentiable in sigma
+    through w and acc. On the card one K5 tri-plane launch without rgb each
+    way (its backward takes the cotangent of w), on the CPU the plain pair."""
+    if isinstance(dist, torch.Tensor):
+        dist = dist.detach()
+    return _CompositeWeights.apply(sigma, dist, z.detach(), ray_last.detach())
+
+
+def composite_topk(
+    w: torch.Tensor,
+    acc: torch.Tensor,
+    idx: torch.Tensor,
+    group: int,
+    rgb_k: torch.Tensor,
+    background: torch.Tensor | float | None,
+    thres: float,
+) -> torch.Tensor:
+    """The second half of the top-K composite: rgb_map (N, 3) from the K
+    shaded samples' colours rgb_k (N, K, 3) at the (N, K / G) group ids
+    ``idx`` (sample ids with ``group`` 1), with :func:`composite_weights`'
+    w and acc, as :func:`composite_topk_plain` defines it. Differentiable in
+    w, acc and rgb_k. On the card one K5 top-K launch each way, on the CPU
+    the plain pair."""
+    return _CompositeTopK.apply(w, acc, rgb_k, idx, int(group), background, float(thres))
 
 
 def composite_shard_totals_plain(sigma: torch.Tensor, dist) -> torch.Tensor:

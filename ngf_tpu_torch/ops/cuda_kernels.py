@@ -24,7 +24,8 @@ the plane and the coordinate gradients of a fetch of up to three planes in
 one launch, for the learned gauge's deformed coordinates), each in float32
 and in bfloat16 (values and cotangents; the gradients stay float32),
 ``gather_rows``
-(the trainer's batch assembly),
+(the trainer's batch assembly, and the top-K renderers' group gather) with
+its backward ``scatter_rows``,
 ``occupancy_lookup`` (K3, the alpha-mask test of point clouds) and
 ``group_sample_compact`` (K4, the grouped renderer's whole front end:
 sampling, occupancy test and per-ray compaction in one launch), and
@@ -35,7 +36,11 @@ tri-plane renderers' composite: weights, shading mask, colour with its
 background and clip, acc and depth) and its shard mode
 ``ray_march_triplane_totals`` / ``ray_march_triplane_shard`` /
 ``ray_march_triplane_shard_backward`` (the sample-parallel renderer's
-composite of one shard of a ray's samples, from a starting transmittance).
+composite of one shard of a ray's samples, from a starting transmittance)
+and its top-K mode ``ray_march_triplane_topk`` /
+``ray_march_triplane_topk_backward`` (the colour of the K shaded samples a
+ray, after ``ray_march_triplane`` without rgb has written the weights; its
+backward hands the weights' cotangent to ``ray_march_triplane_backward``).
 """
 
 from __future__ import annotations
@@ -142,8 +147,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         ]
         lib.ngf_bilinear_gather_planes_backward_coords_footprint.restype = i32
     elif name == "gather_rows":
-        lib.ngf_gather_rows.argtypes = [vp, i64, i32, i64, vp, i32, i64, vp, vp]
+        lib.ngf_gather_rows.argtypes = [vp, i64, i32, i64, i32, vp, i32, i64, i64, i64, vp, vp]
         lib.ngf_gather_rows.restype = i32
+        lib.ngf_scatter_rows.argtypes = [vp, i64, i32, i32, vp, i32, i64, i64, i64, vp, vp]
+        lib.ngf_scatter_rows.restype = i32
     elif name == "occupancy_lookup":
         lib.ngf_occupancy_lookup.argtypes = [
             vp, i64, i64, i64, i64, i64, i32, vp, vp, i32, i32, i32, vp, vp,
@@ -168,8 +175,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             vp, i64, i64, vp, i64, vp, f32, f32, vp, vp, vp, vp, vp, vp,
         ]
         lib.ngf_ray_march_triplane_forward.restype = i32
-        lib.ngf_ray_march_triplane_backward.argtypes = tri + [vp, f32, f32, vp, vp, vp, vp, vp, vp]
+        lib.ngf_ray_march_triplane_backward.argtypes = tri + [
+            vp, f32, f32, vp, vp, vp, vp, vp, vp, vp,
+        ]
         lib.ngf_ray_march_triplane_backward.restype = i32
+        topk = [i64, i32, i32, i32, vp, vp, i64, i64, vp, i64, i64, i64]
+        lib.ngf_ray_march_topk_forward.argtypes = topk + [vp, vp, f32, f32, vp, vp, vp]
+        lib.ngf_ray_march_topk_forward.restype = i32
+        lib.ngf_ray_march_topk_backward.argtypes = topk + [vp, f32, f32, vp, vp, vp, vp, vp, vp]
+        lib.ngf_ray_march_topk_backward.restype = i32
         lib.ngf_ray_march_triplane_totals.argtypes = tri[:9] + [vp, vp]
         lib.ngf_ray_march_triplane_totals.restype = i32
         lib.ngf_ray_march_triplane_shard_forward.argtypes = tri + [
@@ -613,51 +627,101 @@ def backward_coords_footprint(vec: int = 4, dtype: torch.dtype = torch.float32) 
 
 
 _INDEX_BYTES = {torch.int64: 8, torch.int32: 4}
+_ROW_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 
-def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """CUDA kernel for the row gather ``tab[idx]`` (``kernels/gather_rows.cu``).
+def _row_args(idx: torch.Tensor, device: int, what: str, per: int):
+    """Check a row-kernel's ids and return (ids contiguous, index bytes)."""
+    if not idx.is_cuda or idx.get_device() != device:
+        raise ValueError(f"{what} needs its ids on the table's CUDA device, got {idx.device}")
+    idx_bytes = _INDEX_BYTES.get(idx.dtype)
+    if idx_bytes is None or idx.dim() != 1:
+        raise ValueError(f"idx must be (B,) int64 or int32, got {tuple(idx.shape)} {idx.dtype}")
+    if per < 0:
+        raise ValueError(f"per must be >= 0, got {per}")
+    return (idx if idx.stride(0) == 1 else idx.contiguous()), idx_bytes
+
+
+def gather_rows(tab: torch.Tensor, idx: torch.Tensor, per: int = 0, seg: int = 0) -> torch.Tensor:
+    """CUDA kernel for the row gather ``tab[rows]`` (``kernels/gather_rows.cu``).
 
     Args:
-      tab: (R, D) float32 CUDA tensor with contiguous rows.
-      idx: (B,) int64 or int32 CUDA tensor of row ids in [0, R); a row whose
-        id lies outside comes back as NaN.
+      tab: (R, D) float32 or bfloat16 CUDA tensor with contiguous rows.
+      idx: (B,) int64 or int32 CUDA tensor of row ids; a row outside [0, R)
+        comes back as NaN.
+      per, seg: with ``per`` > 0 the ids are relative to segments of ``seg``
+        rows, one segment per ``per`` ids: row b is ``idx[b] + (b // per) *
+        seg`` (the top groups of each ray of an (n * ng, G * C) table).
 
     Returns:
-      (B, D) float32.
+      (B, D) of tab's dtype.
     """
     # Every check reads as few tensor attributes as it can: this kernel's
     # call costs more host time than device time.
     device = tab.get_device()
-    if not (tab.is_cuda and idx.is_cuda) or idx.get_device() != device:
+    if not tab.is_cuda:
+        raise ValueError(f"gather_rows needs tab on a CUDA device, got {tab.device}")
+    elem = _ROW_BYTES.get(tab.dtype)
+    if elem is None or tab.dim() != 2 or tab.stride(1) != 1:
         raise ValueError(
-            f"gather_rows needs tab and idx on one CUDA device, got {tab.device} and {idx.device}"
+            f"tab must be (R, D) float32 or bfloat16 with contiguous rows, got "
+            f"{tuple(tab.shape)} {tab.dtype} strides {tab.stride()}"
         )
-    if tab.dtype is not torch.float32 or tab.dim() != 2 or tab.stride(1) != 1:
-        raise ValueError(
-            f"tab must be (R, D) float32 with contiguous rows, got {tuple(tab.shape)} "
-            f"{tab.dtype} strides {tab.stride()}"
-        )
-    idx_bytes = _INDEX_BYTES.get(idx.dtype)
-    if idx_bytes is None or idx.dim() != 1:
-        raise ValueError(f"idx must be (B,) int64 or int32, got {tuple(idx.shape)} {idx.dtype}")
+    idx, idx_bytes = _row_args(idx, device, "gather_rows", per)
     R, D = tab.shape
     B = idx.shape[0]
-    if idx.stride(0) != 1:
-        idx = idx.contiguous()
     out = tab.new_empty((B, D))
     if B == 0 or D == 0:
         return out
     lib = _lib("gather_rows")
     _launch(
         lib, lib.ngf_gather_rows, device, "gather_rows",
-        tab.data_ptr(), R, D, tab.stride(0), idx.data_ptr(), idx_bytes, B, out.data_ptr(),
+        tab.data_ptr(), R, D, tab.stride(0), elem, idx.data_ptr(), idx_bytes, B, per, seg,
+        out.data_ptr(),
     )
     gather_rows.launches += 1
     return out
 
 
 gather_rows.launches = 0
+
+
+def scatter_rows(src: torch.Tensor, idx: torch.Tensor, rows: int, per: int = 0,
+                 seg: int = 0) -> torch.Tensor:
+    """CUDA kernel for the backward of :func:`gather_rows`
+    (``kernels/gather_rows.cu``): an (rows, D) tensor of zeros with ``src``
+    (B, D) written at the rows of ``idx`` (ids as :func:`gather_rows` reads
+    them, which must name distinct rows; a row outside [0, rows) is
+    dropped). One launch: a fill, then the writes, no atomics.
+
+    Args:
+      src: (B, D) float32 or bfloat16 CUDA tensor.
+      idx: (B,) int64 or int32 on its device; per, seg as :func:`gather_rows`.
+
+    Returns:
+      (rows, D) of src's dtype, contiguous.
+    """
+    device = src.get_device()
+    elem = _ROW_BYTES.get(src.dtype)
+    if not src.is_cuda or elem is None or src.dim() != 2:
+        raise ValueError(f"src must be (B, D) float32 or bfloat16 on a CUDA device, got "
+                         f"{tuple(src.shape)} {src.dtype} {src.device}")
+    idx, idx_bytes = _row_args(idx, device, "scatter_rows", per)
+    B, D = src.shape
+    if idx.shape[0] != B:
+        raise ValueError(f"{idx.shape[0]} ids for {B} rows of src")
+    src = src.contiguous()
+    out = src.new_empty((rows, D))
+    if rows == 0 or D == 0:
+        return out
+    lib = _lib("gather_rows")
+    _launch(lib, lib.ngf_scatter_rows, device, "scatter_rows", src.data_ptr(), rows, D, elem,
+            idx.data_ptr(), idx_bytes, B, per, seg, out.data_ptr())
+    scatter_rows.launches += 1
+    return out
+
+
+scatter_rows.launches = 0
 
 
 def occupancy_lookup(
@@ -958,6 +1022,15 @@ def ray_march_backward(
 ray_march_backward.launches = 0
 
 
+def _background_args(background) -> list:
+    """The tri-plane modes' background b as the kernels take it: a pointer
+    to one float32 value on the card (the training draw), or none and a
+    constant (0 for None)."""
+    if isinstance(background, torch.Tensor):
+        return [background.data_ptr(), 0.0]
+    return [None, 0.0 if background is None else float(background)]
+
+
 def _triplane_inputs(sigma, dist, rgb, background, thres, what: str) -> list:
     """Check the tri-plane mode's inputs and return the leading arguments of
     its entry points: N, S, sigma's pointer and strides, dist's (or none
@@ -981,13 +1054,11 @@ def _triplane_inputs(sigma, dist, rgb, background, thres, what: str) -> list:
         d_args = [dist.data_ptr(), *dist.stride(), 0.0]
     else:
         d_args = [None, 0, 0, float(dist)]
-    if isinstance(background, torch.Tensor):
-        if background.dtype != torch.float32 or background.numel() != 1:
-            raise ValueError(f"background must be one float32 value, got "
-                             f"{tuple(background.shape)} {background.dtype}")
-        b_args = [background.data_ptr(), 0.0]
-    else:
-        b_args = [None, 0.0 if background is None else float(background)]
+    if isinstance(background, torch.Tensor) and (
+            background.dtype != torch.float32 or background.numel() != 1):
+        raise ValueError(f"background must be one float32 value, got "
+                         f"{tuple(background.shape)} {background.dtype}")
+    b_args = _background_args(background)
     r_args = [None, 0, 0, 0] if rgb is None else [rgb.data_ptr(), *rgb.stride()]
     return [N, S, sigma.data_ptr(), *sigma.stride(), *d_args, *r_args, *b_args, float(thres)]
 
@@ -995,7 +1066,7 @@ def _triplane_inputs(sigma, dist, rgb, background, thres, what: str) -> list:
 def ray_march_triplane(
     sigma: torch.Tensor,
     dist: torch.Tensor | float,
-    rgb: torch.Tensor,
+    rgb: torch.Tensor | None,
     z: torch.Tensor,
     ray_last: torch.Tensor,
     background: torch.Tensor | float | None,
@@ -1010,7 +1081,8 @@ def ray_march_triplane(
         any strides.
       dist: (N, S) float32 segment lengths, any strides, or one number for
         every sample (the grouped path's).
-      rgb: (N, S, 3) float32 radiance, any strides.
+      rgb: (N, S, 3) float32 radiance, any strides, or None: the top-K
+        mode's weight launch, no colour (rgb_map and y come back None).
       z: (N, S) float32 sample depths, any strides.
       ray_last: (N,) float32, any stride: each ray's last component.
       background: b of ``y = sum w m rgb + b (1 - acc)``: one float32
@@ -1028,7 +1100,9 @@ def ray_march_triplane(
         if t.dtype != torch.float32 or tuple(t.shape) != shape or not _on_one_device(sigma, t):
             raise ValueError(f"{what} must be {shape} float32 on sigma's device, got "
                              f"{tuple(t.shape)} {t.dtype} {t.device}")
-    rgb_map, rgb_lin = sigma.new_empty((N, 3)), sigma.new_empty((N, 3))
+    rgb_map = rgb_lin = None
+    if rgb is not None:
+        rgb_map, rgb_lin = sigma.new_empty((N, 3)), sigma.new_empty((N, 3))
     acc, depth = sigma.new_empty((N,)), sigma.new_empty((N,))
     w = sigma.new_empty((N, S)) if weights else None
     if N == 0:
@@ -1037,8 +1111,8 @@ def ray_march_triplane(
     _launch(
         lib, lib.ngf_ray_march_triplane_forward, sigma.get_device(), "ray_march_triplane",
         *args[:13], z.data_ptr(), *z.stride(), ray_last.data_ptr(), ray_last.stride(0),
-        *args[13:], rgb_map.data_ptr(), rgb_lin.data_ptr(), acc.data_ptr(), depth.data_ptr(),
-        None if w is None else w.data_ptr(),
+        *args[13:], *(None if t is None else t.data_ptr() for t in (rgb_map, rgb_lin)),
+        acc.data_ptr(), depth.data_ptr(), None if w is None else w.data_ptr(),
     )
     ray_march_triplane.launches += 1
     return rgb_map, rgb_lin, acc, depth, w
@@ -1050,46 +1124,165 @@ ray_march_triplane.launches = 0
 def ray_march_triplane_backward(
     sigma: torch.Tensor,
     dist: torch.Tensor | float,
-    rgb: torch.Tensor,
+    rgb: torch.Tensor | None,
     background: torch.Tensor | float | None,
     thres: float,
-    rgb_lin: torch.Tensor,
+    rgb_lin: torch.Tensor | None,
     g_rgb: torch.Tensor | None,
     g_acc: torch.Tensor | None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    g_weight: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
     """CUDA kernel K5 (``kernels/ray_march.cu``), tri-plane mode, backward:
-    from the cotangents of :func:`ray_march_triplane`'s rgb_map (N, 3) and
-    acc (N,), each float32 or None, and its y (``rgb_lin``), the gradients
-    of sigma (N, S) and rgb (N, S, 3), by a reverse scan with no division.
-    The clip passes half the gradient where y lies on 0 or 1, as
-    ``jnp.clip``. The other inputs are the forward's."""
+    from the cotangents of :func:`ray_march_triplane`'s rgb_map (N, 3), acc
+    (N,) and w (N, S) (``g_weight``), each float32 or None, and its y
+    (``rgb_lin``, needed with ``g_rgb``), the gradients of sigma (N, S) and
+    rgb (N, S, 3; None without rgb: the top-K mode's weight backward), by a
+    reverse scan with no division. The clip passes half the gradient where y
+    lies on 0 or 1, as ``jnp.clip``. The other inputs are the forward's."""
     args = _triplane_inputs(sigma, dist, rgb, background, thres, "ray_march_triplane_backward")
     N, S = sigma.shape
     cots = []
     for g, shape, what in ((rgb_lin, (N, 3), "rgb_lin"), (g_rgb, (N, 3), "g_rgb"),
-                           (g_acc, (N,), "g_acc")):
+                           (g_acc, (N,), "g_acc"), (g_weight, (N, S), "g_weight")):
         if g is not None:
             if g.dtype != torch.float32 or tuple(g.shape) != shape or not _on_one_device(sigma, g):
                 raise ValueError(f"{what} must be {shape} float32 on sigma's device, got "
                                  f"{tuple(g.shape)} {g.dtype} {g.device}")
             g = g.contiguous()
         cots.append(g)
-    if cots[0] is None:
-        raise ValueError("ray_march_triplane_backward needs the forward's rgb_lin")
-    d_sigma, d_rgb = sigma.new_empty((N, S)), sigma.new_empty((N, S, 3))
+    if cots[1] is not None and (cots[0] is None or rgb is None):
+        raise ValueError("ray_march_triplane_backward: g_rgb needs rgb and the forward's rgb_lin")
+    d_sigma = sigma.new_empty((N, S))
+    d_rgb = None if rgb is None else sigma.new_empty((N, S, 3))
     if N == 0:
         return d_sigma, d_rgb
     lib = _lib("ray_march")
     _launch(
         lib, lib.ngf_ray_march_triplane_backward, sigma.get_device(),
         "ray_march_triplane_backward", *args, *(None if g is None else g.data_ptr() for g in cots),
-        d_sigma.data_ptr(), d_rgb.data_ptr(),
+        d_sigma.data_ptr(), None if d_rgb is None else d_rgb.data_ptr(),
     )
     ray_march_triplane_backward.launches += 1
     return d_sigma, d_rgb
 
 
 ray_march_triplane_backward.launches = 0
+
+
+def _topk_inputs(w, idx, group, rgb_k, background, thres, what: str) -> list:
+    """Check the top-K colour pass's inputs and return its leading
+    arguments: N, S, K, G, w's pointer, the ids' pointer and strides, rgb_k's
+    pointer and strides."""
+    if not isinstance(w, torch.Tensor) or w.dtype != torch.float32 or w.dim() != 2:
+        raise ValueError(f"w must be (N, S) float32, got {getattr(w, 'shape', w)}")
+    N, S = w.shape
+    tensors = [t for t in (w, idx, rgb_k, background) if isinstance(t, torch.Tensor)]
+    if not _on_one_device(*tensors):
+        raise ValueError(f"{what} needs its inputs on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if not w.is_contiguous():
+        raise ValueError(f"{what}: w must be contiguous (the weight launch writes it so)")
+    if idx.dtype != torch.int64 or idx.dim() != 2 or idx.shape[0] != N or group < 1:
+        raise ValueError(f"idx must be (N, K / G) int64 with G >= 1, got {tuple(idx.shape)} "
+                         f"{idx.dtype}, G {group}")
+    K = idx.shape[1] * group
+    if not 0 < K <= S or S % group:
+        raise ValueError(f"{what}: {K} slots of groups of {group} in rays of {S} samples")
+    if rgb_k.dtype != torch.float32 or tuple(rgb_k.shape) != (N, K, 3):
+        raise ValueError(f"rgb_k must be ({N}, {K}, 3) float32, got {tuple(rgb_k.shape)} "
+                         f"{rgb_k.dtype}")
+    if isinstance(background, torch.Tensor) and (
+            background.dtype != torch.float32 or background.numel() != 1):
+        raise ValueError(f"background must be one float32 value, got "
+                         f"{tuple(background.shape)} {background.dtype}")
+    return [N, S, K, group, w.data_ptr(), idx.data_ptr(), *idx.stride(), rgb_k.data_ptr(),
+            *rgb_k.stride()]
+
+
+def ray_march_triplane_topk(
+    w: torch.Tensor,
+    acc: torch.Tensor,
+    idx: torch.Tensor,
+    group: int,
+    rgb_k: torch.Tensor,
+    background: torch.Tensor | float | None,
+    thres: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA kernel K5 (``kernels/ray_march.cu``), tri-plane top-K mode, the
+    colour pass: with slot k's sample s_k = idx[n, k // G] * G + k % G and
+    m_k = w[n, s_k] > thres, y = sum_k m_k w[n, s_k] rgb_k + b (1 - acc)
+    (`ngf_tpu/render/volume.py:315-353,473-501`).
+
+    Args:
+      w: (N, S) float32 contiguous, the weight launch's
+        (:func:`ray_march_triplane` without rgb); acc (N,) float32, its acc.
+      idx: (N, K / G) int64 group ids, distinct a ray (sample ids with G 1),
+        any strides; group: G.
+      rgb_k: (N, K, 3) float32 colours of the selected samples, any strides.
+      background, thres: as :func:`ray_march_triplane`'s.
+
+    Returns:
+      (rgb_map = clip(y, 0, 1) (N, 3), y (N, 3)), contiguous.
+    """
+    args = _topk_inputs(w, idx, group, rgb_k, background, thres, "ray_march_triplane_topk")
+    N = w.shape[0]
+    if acc.dtype != torch.float32 or tuple(acc.shape) != (N,) or not _on_one_device(w, acc):
+        raise ValueError(f"acc must be ({N},) float32 on w's device, got {tuple(acc.shape)}")
+    acc = acc.contiguous()
+    rgb_map, rgb_lin = w.new_empty((N, 3)), w.new_empty((N, 3))
+    if N == 0:
+        return rgb_map, rgb_lin
+    lib = _lib("ray_march")
+    _launch(lib, lib.ngf_ray_march_topk_forward, w.get_device(), "ray_march_triplane_topk",
+            *args, acc.data_ptr(), *_background_args(background), float(thres),
+            rgb_map.data_ptr(), rgb_lin.data_ptr())
+    ray_march_triplane_topk.launches += 1
+    return rgb_map, rgb_lin
+
+
+ray_march_triplane_topk.launches = 0
+
+
+def ray_march_triplane_topk_backward(
+    w: torch.Tensor,
+    idx: torch.Tensor,
+    group: int,
+    rgb_k: torch.Tensor,
+    background: torch.Tensor | float | None,
+    thres: float,
+    rgb_lin: torch.Tensor,
+    g_rgb: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """CUDA kernel K5 (``kernels/ray_march.cu``), tri-plane top-K mode, the
+    colour pass's backward: from the cotangent of rgb_map (N, 3) and the
+    forward's y (``rgb_lin``), with gy = g_rgb times the clip's derivative
+    (half at a bound), the cotangent of w (N, S) (m_k gy . rgb_k at the
+    selected samples, 0 elsewhere; every element written), of acc (N,)
+    (-b sum gy) and of rgb_k (N, K, 3) (gy m_k w_{s_k}). The other inputs are
+    :func:`ray_march_triplane_topk`'s."""
+    args = _topk_inputs(w, idx, group, rgb_k, background, thres,
+                        "ray_march_triplane_topk_backward")
+    N, S = w.shape
+    K = rgb_k.shape[1]
+    cots = []
+    for g, what in ((rgb_lin, "rgb_lin"), (g_rgb, "g_rgb")):
+        if g is None or g.dtype != torch.float32 or tuple(g.shape) != (N, 3) or not _on_one_device(w, g):
+            raise ValueError(f"{what} must be ({N}, 3) float32 on w's device, got "
+                             f"{None if g is None else (tuple(g.shape), g.dtype)}")
+        cots.append(g.contiguous())
+    g_w, d_acc, d_rgb = w.new_empty((N, S)), w.new_empty((N,)), w.new_empty((N, K, 3))
+    if N == 0:
+        return g_w, d_acc, d_rgb
+    lib = _lib("ray_march")
+    _launch(lib, lib.ngf_ray_march_topk_backward, w.get_device(),
+            "ray_march_triplane_topk_backward", *args, *_background_args(background),
+            float(thres), cots[0].data_ptr(), cots[1].data_ptr(), g_w.data_ptr(),
+            d_acc.data_ptr(), d_rgb.data_ptr())
+    ray_march_triplane_topk_backward.launches += 1
+    return g_w, d_acc, d_rgb
+
+
+ray_march_triplane_topk_backward.launches = 0
 
 
 def _check_rays(t: torch.Tensor | None, shape, sigma: torch.Tensor, what: str) -> torch.Tensor | None:
@@ -1211,14 +1404,14 @@ ray_march_triplane_shard_backward.launches = 0
 
 def ray_march_footprint(S: int) -> dict:
     """K5's footprint on the current card at rays of S samples, by kernel
-    (NeuTex, tri-plane and its shard mode, forward and backward, and the
-    shard mode's totals): the blocks of eight warps an SM holds at once,
+    (NeuTex, tri-plane and its shard and top-K modes, forward and backward,
+    and the shard mode's totals): the blocks of eight warps an SM holds at once,
     registers a thread and local (spilled) bytes a thread."""
     lib = _lib("ray_march")
     out = {}
     for which, name in enumerate(("neutex_forward", "neutex_backward", "triplane_forward",
                                   "triplane_backward", "shard_forward", "shard_backward",
-                                  "shard_totals")):
+                                  "shard_totals", "topk_forward", "topk_backward")):
         got = (ctypes.c_int * 3)()
         code = lib.ngf_ray_march_footprint(which, S, got)
         if code:
@@ -1235,6 +1428,7 @@ KERNELS = {
     "bilinear_gather_2d_backward": bilinear_gather_2d_backward,
     "bilinear_gather_planes_backward_coords": bilinear_gather_planes_backward_coords,
     "gather_rows": gather_rows,
+    "scatter_rows": scatter_rows,
     "occupancy_lookup": occupancy_lookup,
     "group_sample_compact": group_sample_compact,
     "ray_march": ray_march,
@@ -1244,6 +1438,8 @@ KERNELS = {
     "ray_march_triplane_totals": ray_march_triplane_totals,
     "ray_march_triplane_shard": ray_march_triplane_shard,
     "ray_march_triplane_shard_backward": ray_march_triplane_shard_backward,
+    "ray_march_triplane_topk": ray_march_triplane_topk,
+    "ray_march_triplane_topk_backward": ray_march_triplane_topk_backward,
 }
 
 

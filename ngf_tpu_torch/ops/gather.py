@@ -1,12 +1,16 @@
-"""Row gather ``out = tab[idx]``: the trainer's batch assembly.
+"""Row gather ``out = tab[idx]`` and its backward, the row scatter: the
+trainer's batch assembly and the top-K renderers' group gather.
 
 The counterpart of the three Mosaic gather probes of `tools/probe_pallas.py`
 (``take``, ``take_along``, ``scalar_ds``), which all compute this function,
-and of ``self.all_rays[ids]`` / ``self.all_rgbs[ids]`` in
-`ngf_tpu/train/loop.py:1438-1451`. On a CUDA tensor :func:`gather_rows`
-launches the hand-written kernel ``gather_rows``
-(`ngf_tpu_torch/ops/cuda_kernels.py`); on a CPU tensor it runs the plain
-version. There is no fallback between the two.
+of ``self.all_rays[ids]`` / ``self.all_rgbs[ids]`` in
+`ngf_tpu/train/loop.py:1438-1451`, and of the top-K shading gathers of
+`ngf_tpu/render/volume.py` (``gather_groups`` of the top groups, `:320-332`;
+the dense path's ``take_along_axis`` of the top samples, `:480-483`). On a
+CUDA tensor :func:`gather_rows` launches the hand-written kernel
+``gather_rows`` and its gradient the kernel ``scatter_rows``
+(`ngf_tpu_torch/ops/cuda_kernels.py`); on a CPU tensor they run the plain
+versions. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -16,19 +20,84 @@ import torch
 from . import cuda_kernels
 
 
-def gather_rows_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the ``gather_rows`` kernel: ``tab[idx]``."""
-    return tab[idx]
+def _rows(idx: torch.Tensor, per: int, seg: int) -> torch.Tensor:
+    """The absolute rows of ids relative to segments (``per`` > 0)."""
+    if per <= 0:
+        return idx
+    offset = torch.arange(idx.shape[0], device=idx.device, dtype=idx.dtype) // per * seg
+    return idx + offset
 
 
-def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``idx`` (B,) of the (R, D) table ``tab``, as a (B, D) tensor.
-    The trainer assembles each batch with one call on its (N, 9) table of
-    rays and colours."""
-    if tab.is_cuda:  # the kernel's wrapper checks that idx is on tab's device
-        return cuda_kernels.gather_rows(tab, idx)
+def gather_rows_plain(tab: torch.Tensor, idx: torch.Tensor, per: int = 0, seg: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the ``gather_rows`` kernel: ``tab[rows]``."""
+    return tab[_rows(idx, per, seg)]
+
+
+def scatter_rows_plain(src: torch.Tensor, idx: torch.Tensor, rows: int, per: int = 0,
+                       seg: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the ``scatter_rows`` kernel: zeros of
+    (rows, D) with ``src`` at the (distinct) rows of ``idx``."""
+    out = src.new_zeros((rows, src.shape[1]))
+    out[_rows(idx, per, seg)] = src
+    return out
+
+
+def _check_cpu(tab: torch.Tensor, idx: torch.Tensor) -> None:
     if tab.device != idx.device:
         raise ValueError(f"tab on {tab.device} but idx on {idx.device}")
     if tab.device.type != "cpu":
         raise ValueError(f"gather_rows runs on cuda or cpu, not {tab.device}")
-    return gather_rows_plain(tab, idx)
+
+
+def _gather(tab, idx, per, seg):
+    if tab.is_cuda:  # the kernel's wrapper checks that idx is on tab's device
+        return cuda_kernels.gather_rows(tab, idx, per, seg)
+    _check_cpu(tab, idx)
+    return gather_rows_plain(tab, idx, per, seg)
+
+
+class _GatherRows(torch.autograd.Function):
+    """The row gather as one autograd node; its backward is the scatter."""
+
+    @staticmethod
+    def forward(ctx, tab, idx, per, seg):
+        ctx.save_for_backward(idx)
+        ctx.layout = (tab.shape[0], per, seg)
+        return _gather(tab, idx, per, seg)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        rows, per, seg = ctx.layout
+        if g.is_cuda:
+            return cuda_kernels.scatter_rows(g, idx, rows, per, seg), None, None, None
+        return scatter_rows_plain(g, idx, rows, per, seg), None, None, None
+
+
+def gather_rows(tab: torch.Tensor, idx: torch.Tensor, per: int = 0, seg: int = 0) -> torch.Tensor:
+    """Rows ``idx`` (B,) of the (R, D) table ``tab``, as a (B, D) tensor;
+    with ``per`` > 0 the ids are relative to segments of ``seg`` rows, one
+    segment per ``per`` ids (row b is ``idx[b] + (b // per) * seg``).
+    Differentiable in ``tab`` (the rows must then be distinct): the
+    gradient is the scatter. The trainer assembles each batch with one call
+    on its (N, 9) table of rays and colours."""
+    if tab.requires_grad and torch.is_grad_enabled():
+        return _GatherRows.apply(tab, idx, per, seg)
+    return _gather(tab, idx, per, seg)
+
+
+def gather_group_rows(x: torch.Tensor, idx: torch.Tensor, group: int) -> torch.Tensor:
+    """Whole groups of ``group`` consecutive samples of an (n, s, D) payload
+    at (n, k) group indices -> (n, k * group, D): `ngf_tpu/ops/compaction.py:50`
+    ``gather_groups`` with a gradient, as one :func:`gather_rows` of the
+    (n * s / group, group * D) table at rows ``ray * s / group + id`` (one
+    ``gather_rows`` launch on the card, one ``scatter_rows`` backward).
+    ``group`` 1 is ``take_along_axis`` of samples. The ids of a ray must be
+    distinct when ``x`` takes a gradient."""
+    n, s, d = x.shape
+    if s % group:
+        raise ValueError(f"{s} samples are not a multiple of group {group}")
+    k = idx.shape[1]
+    tab = x.reshape(n * (s // group), group * d)
+    out = gather_rows(tab, idx.reshape(-1), k, s // group)
+    return out.view(n, k * group, d)

@@ -25,6 +25,24 @@
 // y (N, 3; the backward's clip derivative reads it), acc, depth (N) and, when
 // asked, w (N, S).
 //
+// Tri-plane top-K mode replaces the top-K shading branches of the same
+// renderers (ngf_tpu/render/volume.py:315-338 grouped, :473-487 dense): only
+// K selected samples of a ray are shaded, and their colour is known only
+// after the weights have chosen them. So it runs as two launches each way:
+//   forward:  the tri-plane forward with no rgb writes w, acc and depth; the
+//             caller picks the samples by w (torch.topk), fetches and decodes
+//             them, then the colour pass computes, with slot k's sample
+//             s_k = idx[n, k / G] * G + k % G (G the group, 1 on the dense
+//             path) and m_k = (w_{s_k} > thres),
+//               y = sum_k m_k w_{s_k} rgb_k + b (1 - acc),  rgb_map = clip(y, 0, 1);
+//   backward: the colour pass's backward writes the dense cotangent of w
+//             (N, S): m_k gy . rgb_k at the selected samples, 0 elsewhere;
+//             d rgb_k = gy m_k w_{s_k}, and d acc = -b sum(gy); then the
+//             tri-plane backward with no rgb takes that g_w beside g_acc
+//             into its reverse scan.
+// (The JAX package also multiplies m_k by the valid mask; an invalid sample
+// has sigma 0, so w 0, which does not clear the threshold.)
+//
 // Tri-plane shard mode replaces the per-shard composite of the
 // sample-parallel renderer (ngf_tpu/parallel/sample_parallel.py:99-130): a
 // ray's samples are split over shards, and a shard starts its scan at t0, the
@@ -75,7 +93,11 @@
 // Bound on an H100: memory. Tri-plane forward per sample: sigma, dist, z (4
 // bytes each; a constant dist 0) and rgb (12) read, w (4) written when asked;
 // backward: sigma, dist, rgb read, d sigma (4) and d rgb (12) written. NeuTex
-// adds valid (1) and, backward, the cotangent of w (4).
+// adds valid (1) and, backward, the cotangent of w (4); so does the top-K
+// mode's weight backward. The colour pass reads w at the selected samples
+// (4 a slot), the group ids (8 a group) and rgb_k (12 a slot); its backward
+// writes the whole g_w row (4 a sample) and d rgb_k (12 a slot).
+// The colour pass runs a warp a ray too, a lane a slot, tiles of 32 slots.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -277,7 +299,8 @@ __global__ void __launch_bounds__(THREADS) ray_march_triplane_forward_kernel(
     const long long n = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     if (n >= a.N) return;
-    const Sums s = sweep<true, SHARD>(a, n, lane, true, true, weight, nullptr);
+    const bool colour = a.rgb != nullptr;  // no colour: top-K mode's weight launch
+    const Sums s = sweep<true, SHARD>(a, n, lane, colour, true, weight, nullptr);
     if (SHARD) {
         if (lane < 3) {
             rgb_lin[n * 3 + lane] = lane == 0 ? s.c[0] : (lane == 1 ? s.c[1] : s.c[2]);
@@ -291,6 +314,7 @@ __global__ void __launch_bounds__(THREADS) ray_march_triplane_forward_kernel(
     }
     const float miss = __fsub_rn(1.0f, s.acc);
     if (lane < 3) {
+        if (!colour) return;
         const float c = lane == 0 ? s.c[0] : (lane == 1 ? s.c[1] : s.c[2]);
         const float y = __fadd_rn(c, __fmul_rn(background(a), miss));
         rgb_lin[n * 3 + lane] = y;
@@ -410,10 +434,12 @@ __global__ void __launch_bounds__(THREADS) ray_march_neutex_backward_kernel(
 
 // SHARD: g_rgb is the cotangent of the partial y itself (no clip, no
 // background), g_tend that of t_end (or null), and d_t0 is written.
+// g_weight: the cotangent of w (N, S) (top-K mode, rgb null), or null.
 template <bool SHARD>
 __global__ void __launch_bounds__(THREADS) ray_march_triplane_backward_kernel(
     Args a, const float* __restrict__ rgb_lin, const float* __restrict__ g_rgb,
     const float* __restrict__ g_acc, const float* __restrict__ g_tend,
+    const float* __restrict__ g_weight,
     float* __restrict__ d_sigma, float* __restrict__ d_rgb, float* __restrict__ d_t0) {
     extern __shared__ float tstarts[];
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -435,7 +461,83 @@ __global__ void __launch_bounds__(THREADS) ray_march_triplane_backward_kernel(
         // y = C + b (1 - acc): every w takes -b sum(gc) through acc.
         ga -= background(a) * (gc[0] + gc[1] + gc[2]);
     }
-    reverse_pass<true, SHARD>(a, n, lane, tstart, gc, ga, nullptr, R, d_sigma, d_rgb, d_t0);
+    reverse_pass<true, SHARD>(a, n, lane, tstart, gc, ga, g_weight, R, d_sigma, d_rgb, d_t0);
+}
+
+// ------------------------------------------------------- top-K colour pass
+
+struct TopK {
+    long long N;
+    int S, K, G;                                     // K slots = (ids a ray) * G
+    const float* w;                                  // (N, S) contiguous
+    const long long* idx; long long i_rs, i_cs;      // (N, K / G) group ids
+    const float* rgb; long long c_rs, c_ss, c_cs;    // (N, K, 3)
+    const float* acc;                                // (N) contiguous
+    const float* bg_ptr; float bg_const;
+    float thres;
+};
+
+// The selected sample of slot k of ray n (k < K).
+__device__ __forceinline__ long long topk_sample(const TopK& t, long long n, int k) {
+    return t.idx[n * t.i_rs + (k / t.G) * t.i_cs] * t.G + k % t.G;
+}
+
+__device__ __forceinline__ float topk_background(const TopK& t) {
+    return t.bg_ptr != nullptr ? *t.bg_ptr : t.bg_const;
+}
+
+__global__ void __launch_bounds__(THREADS) ray_march_topk_forward_kernel(
+    TopK t, float* __restrict__ rgb_map, float* __restrict__ rgb_lin) {
+    const long long n = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (n >= t.N) return;
+    float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+    for (int k = lane; k < t.K; k += 32) {
+        const float w = t.w[n * t.S + topk_sample(t, n, k)];
+        if (w > t.thres) {
+            const float* c = t.rgb + n * t.c_rs + k * t.c_ss;
+            c0 = __fmaf_rn(w, c[0], c0);
+            c1 = __fmaf_rn(w, c[t.c_cs], c1);
+            c2 = __fmaf_rn(w, c[2 * t.c_cs], c2);
+        }
+    }
+    c0 = warp_sum(c0);
+    c1 = warp_sum(c1);
+    c2 = warp_sum(c2);
+    if (lane < 3) {
+        const float c = lane == 0 ? c0 : (lane == 1 ? c1 : c2);
+        const float y = __fadd_rn(c, __fmul_rn(topk_background(t), __fsub_rn(1.0f, t.acc[n])));
+        rgb_lin[n * 3 + lane] = y;
+        rgb_map[n * 3 + lane] = clip01(y);
+    }
+}
+
+// g_w (N, S): the whole row written (zeros, then the selected samples, which
+// are distinct); d_acc (N); d_rgb (N, K, 3) contiguous.
+__global__ void __launch_bounds__(THREADS) ray_march_topk_backward_kernel(
+    TopK t, const float* __restrict__ rgb_lin, const float* __restrict__ g_rgb,
+    float* __restrict__ g_w, float* __restrict__ d_acc, float* __restrict__ d_rgb) {
+    const long long n = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    if (n >= t.N) return;
+    float gc[3];
+    for (int ch = 0; ch < 3; ++ch) gc[ch] = g_rgb[n * 3 + ch] * clip_grad(rgb_lin[n * 3 + ch]);
+    if (lane == 0) d_acc[n] = -topk_background(t) * (gc[0] + gc[1] + gc[2]);
+    float* row = g_w + n * t.S;
+    for (int k = lane; k < t.S; k += 32) row[k] = 0.0f;
+    __syncwarp();  // orders the zeros before the selected samples' writes
+    for (int k = lane; k < t.K; k += 32) {
+        const long long s = topk_sample(t, n, k);
+        const float w = t.w[n * t.S + s];
+        const float* c = t.rgb + n * t.c_rs + k * t.c_ss;
+        const bool shaded = w > t.thres;
+        row[s] = shaded ? gc[0] * c[0] + gc[1] * c[t.c_cs] + gc[2] * c[2 * t.c_cs] : 0.0f;
+        const float ws = shaded ? w : 0.0f;
+        float* dr = d_rgb + (n * t.K + k) * 3;
+        dr[0] = gc[0] * ws;
+        dr[1] = gc[1] * ws;
+        dr[2] = gc[2] * ws;
+    }
 }
 
 unsigned blocks_for(long long N) { return (unsigned)((N + WARPS - 1) / WARPS); }
@@ -467,6 +569,18 @@ Args triplane_args(long long N, int S, const float* sigma, long long s_rs, long 
     a.rgb = rgb; a.c_rs = c_rs; a.c_ss = c_ss; a.c_cs = c_cs;
     a.bg_ptr = bg; a.bg_const = bg_const; a.thres = thres;
     return a;
+}
+
+TopK topk_args(long long N, int S, int K, int G, const float* w,
+               const long long* idx, long long i_rs, long long i_cs,
+               const float* rgb, long long c_rs, long long c_ss, long long c_cs,
+               const float* acc, const float* bg, float bg_const, float thres) {
+    TopK t{};
+    t.N = N; t.S = S; t.K = K; t.G = G; t.w = w;
+    t.idx = idx; t.i_rs = i_rs; t.i_cs = i_cs;
+    t.rgb = rgb; t.c_rs = c_rs; t.c_ss = c_ss; t.c_cs = c_cs;
+    t.acc = acc; t.bg_ptr = bg; t.bg_const = bg_const; t.thres = thres;
+    return t;
 }
 
 }  // namespace
@@ -513,7 +627,8 @@ int ngf_ray_march_backward(long long N, int S,
 
 // Tri-plane. dist null: every sample's length is dist_const. bg null: the
 // background is bg_const. ray_last: rays[:, -1] with ray stride r_rs.
-// weight null: w is not written.
+// weight null: w is not written. rgb null (top-K mode's weight launch): no
+// colour; rgb_map and rgb_lin are not written and may be null.
 int ngf_ray_march_triplane_forward(long long N, int S,
                                    const float* sigma, long long s_rs, long long s_ss,
                                    const float* dist, long long t_rs, long long t_ss,
@@ -533,7 +648,8 @@ int ngf_ray_march_triplane_forward(long long N, int S,
     return (int)cudaGetLastError();
 }
 
-// rgb_lin: the forward's y (N, 3). g_rgb (N, 3), g_acc (N): contiguous or null.
+// rgb_lin: the forward's y (N, 3). g_rgb (N, 3), g_acc (N), g_weight (N, S):
+// contiguous or null. rgb null (top-K mode's weight backward): d_rgb null.
 int ngf_ray_march_triplane_backward(long long N, int S,
                                     const float* sigma, long long s_rs, long long s_ss,
                                     const float* dist, long long t_rs, long long t_ss,
@@ -541,12 +657,43 @@ int ngf_ray_march_triplane_backward(long long N, int S,
                                     const float* rgb, long long c_rs, long long c_ss, long long c_cs,
                                     const float* bg, float bg_const, float thres,
                                     const float* rgb_lin, const float* g_rgb, const float* g_acc,
-                                    float* d_sigma, float* d_rgb, void* stream) {
+                                    const float* g_weight, float* d_sigma, float* d_rgb,
+                                    void* stream) {
     const Args a = triplane_args(N, S, sigma, s_rs, s_ss, dist, t_rs, t_ss, dist_const,
                                  rgb, c_rs, c_ss, c_cs, bg, bg_const, thres);
     ray_march_triplane_backward_kernel<false><<<blocks_for(N), THREADS, tstart_bytes(S),
                                                 (cudaStream_t)stream>>>(
-        a, rgb_lin, g_rgb, g_acc, nullptr, d_sigma, d_rgb, nullptr);
+        a, rgb_lin, g_rgb, g_acc, nullptr, g_weight, d_sigma, d_rgb, nullptr);
+    return (int)cudaGetLastError();
+}
+
+// Top-K colour pass. w (N, S), acc (N) contiguous; idx (N, K / G) int64 group
+// ids (sample ids when G = 1); rgb (N, K, 3) any strides; bg null: the
+// background is bg_const. Writes rgb_map and rgb_lin (N, 3).
+int ngf_ray_march_topk_forward(long long N, int S, int K, int G, const float* w,
+                               const long long* idx, long long i_rs, long long i_cs,
+                               const float* rgb, long long c_rs, long long c_ss, long long c_cs,
+                               const float* acc, const float* bg, float bg_const, float thres,
+                               float* rgb_map, float* rgb_lin, void* stream) {
+    const TopK t = topk_args(N, S, K, G, w, idx, i_rs, i_cs, rgb, c_rs, c_ss, c_cs, acc, bg,
+                             bg_const, thres);
+    ray_march_topk_forward_kernel<<<blocks_for(N), THREADS, 0, (cudaStream_t)stream>>>(
+        t, rgb_map, rgb_lin);
+    return (int)cudaGetLastError();
+}
+
+// Its backward: rgb_lin (the forward's y) and g_rgb (N, 3) contiguous; writes
+// g_w (N, S), d_acc (N) and d_rgb (N, K, 3), contiguous. acc is not read.
+int ngf_ray_march_topk_backward(long long N, int S, int K, int G, const float* w,
+                                const long long* idx, long long i_rs, long long i_cs,
+                                const float* rgb, long long c_rs, long long c_ss, long long c_cs,
+                                const float* bg, float bg_const, float thres,
+                                const float* rgb_lin, const float* g_rgb,
+                                float* g_w, float* d_acc, float* d_rgb, void* stream) {
+    const TopK t = topk_args(N, S, K, G, w, idx, i_rs, i_cs, rgb, c_rs, c_ss, c_cs, nullptr, bg,
+                             bg_const, thres);
+    ray_march_topk_backward_kernel<<<blocks_for(N), THREADS, 0, (cudaStream_t)stream>>>(
+        t, rgb_lin, g_rgb, g_w, d_acc, d_rgb);
     return (int)cudaGetLastError();
 }
 
@@ -602,25 +749,28 @@ int ngf_ray_march_triplane_shard_backward(long long N, int S,
     a.t0 = t0;
     ray_march_triplane_backward_kernel<true><<<blocks_for(N), THREADS, tstart_bytes(S),
                                                (cudaStream_t)stream>>>(
-        a, nullptr, g_y, g_acc, g_tend, d_sigma, d_rgb, d_t0);
+        a, nullptr, g_y, g_acc, g_tend, nullptr, d_sigma, d_rgb, d_t0);
     return (int)cudaGetLastError();
 }
 
 // The footprint of K5's kernel `which` (0 NeuTex forward, 1 NeuTex backward,
 // 2 tri-plane forward, 3 tri-plane backward, 4 shard forward, 5 shard
-// backward, 6 shard totals) on this card at rays of S samples: out[0] the blocks of eight warps an SM holds at once, out[1] its
-// registers a thread, out[2] its local memory a thread in bytes (spills; 0
-// without). Returns the cudaError_t of the queries.
+// backward, 6 shard totals, 7 top-K colour forward, 8 its backward) on this
+// card at rays of S samples: out[0] the blocks of eight warps an SM holds at
+// once, out[1] its registers a thread, out[2] its local memory a thread in
+// bytes (spills; 0 without). Returns the cudaError_t of the queries.
 int ngf_ray_march_footprint(int which, int S, int* out) {
-    const void* fns[7] = {
+    const void* fns[9] = {
         reinterpret_cast<const void*>(ray_march_neutex_forward_kernel),
         reinterpret_cast<const void*>(ray_march_neutex_backward_kernel),
         reinterpret_cast<const void*>(ray_march_triplane_forward_kernel<false>),
         reinterpret_cast<const void*>(ray_march_triplane_backward_kernel<false>),
         reinterpret_cast<const void*>(ray_march_triplane_forward_kernel<true>),
         reinterpret_cast<const void*>(ray_march_triplane_backward_kernel<true>),
-        reinterpret_cast<const void*>(ray_march_triplane_totals_kernel)};
-    if (which < 0 || which > 6) return (int)cudaErrorInvalidValue;
+        reinterpret_cast<const void*>(ray_march_triplane_totals_kernel),
+        reinterpret_cast<const void*>(ray_march_topk_forward_kernel),
+        reinterpret_cast<const void*>(ray_march_topk_backward_kernel)};
+    if (which < 0 || which > 8) return (int)cudaErrorInvalidValue;
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
     if (err != cudaSuccess) return (int)err;

@@ -1,9 +1,10 @@
-"""Ray-AABB clipping and fixed-step sampling along rays.
+"""Ray-AABB clipping, fixed-step sampling along rays, and the NDC helpers
+of forward-facing scenes.
 
-Port of `ngf_tpu/ops/rays.py:19-147` (references
-`InfoInv/models/FieldBase.py:118-137`, `UV-Mapping/model/renderer.py:79-141`).
-Randomness is injected: the caller passes the jitter tensor, and evaluation
-passes none.
+Port of `ngf_tpu/ops/rays.py:19-147,274-333` (references
+`InfoInv/models/FieldBase.py:118-137`, `UV-Mapping/model/renderer.py:79-141`,
+`InfoInv/dataLoader/ray_utils.py:9-21,90-107,269-275`). Randomness is
+injected: the caller passes the jitter tensor, and evaluation passes none.
 """
 
 from __future__ import annotations
@@ -118,3 +119,51 @@ def cube_ray_generation(
     raypos = campos[:, None, None, :] + raydir[:, :, None, :] * mid_ts[..., None]
     valid = ((raypos > -domain_size) & (raypos < domain_size)).all(dim=-1)
     return raypos, segment_length, valid, mid_ts
+
+
+def depth2dist(z_vals: torch.Tensor, cos_angle: torch.Tensor) -> torch.Tensor:
+    """Depth samples -> segment lengths scaled by the ray angle, the last
+    1e10 (`ngf_tpu/ops/rays.py:274-281`)."""
+    dists = z_vals[..., 1:] - z_vals[..., :-1]
+    dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], dim=-1)
+    return dists * cos_angle[..., None]
+
+
+def ndc2dist(ndc_pts: torch.Tensor, cos_angle: torch.Tensor) -> torch.Tensor:
+    """Segment lengths in NDC space (`ngf_tpu/ops/rays.py:284-287`)."""
+    dists = torch.linalg.norm(ndc_pts[:, 1:] - ndc_pts[:, :-1], dim=-1)
+    return torch.cat([dists, 1e10 * cos_angle[..., None]], dim=-1)
+
+
+def ndc_bbox(all_rays: torch.Tensor) -> torch.Tensor:
+    """Bounding box (2, 3) of NDC rays' near and far endpoints
+    (`ngf_tpu/ops/rays.py:290-297`)."""
+    near = all_rays[..., :3].reshape(-1, 3)
+    far = (all_rays[..., :3] + all_rays[..., 3:6]).reshape(-1, 3)
+    lo = torch.minimum(near.amin(0), far.amin(0))
+    hi = torch.maximum(near.amax(0), far.amax(0))
+    return torch.stack([lo, hi])
+
+
+def ndc_rays_blender(
+    h: int, w: int, focal: float, near: float, rays_o: torch.Tensor, rays_d: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The NDC transform of forward-facing (LLFF) scenes
+    (`ngf_tpu/ops/rays.py:312-333`): origins shifted to the near plane, then
+    projected."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    o0 = -1.0 / (w / (2.0 * focal)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = -1.0 / (h / (2.0 * focal)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+
+    d0 = -1.0 / (w / (2.0 * focal)) * (
+        rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2]
+    )
+    d1 = -1.0 / (h / (2.0 * focal)) * (
+        rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2]
+    )
+    d2 = -2.0 * near / rays_o[..., 2]
+
+    return torch.stack([o0, o1, o2], -1), torch.stack([d0, d1, d2], -1)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..data.dataset import RayDataset
-from ..data.geometry import get_rays
+from ..data.geometry import get_rays, ndc_rays_blender
 from ..utils.image import visualize_depth, write_png
 from ..utils.metrics import mse2psnr, rgb_lpips, rgb_ssim
 
@@ -115,13 +115,17 @@ def evaluation_path(
     chunk: int = 8192,
 ) -> None:
     """Render a novel camera path, no ground truth
-    (`ngf_tpu/render/evaluation.py:147-198`). The port's datasets have no
-    NDC projection, so the rays are cast as they are."""
+    (`ngf_tpu/render/evaluation.py:147-198`). A dataset that trains in NDC
+    space (LLFF) gives its projection as ``ndc_params`` = (h, w, focal,
+    near), and the path's rays are projected the same way."""
     if save_path is not None:
         os.makedirs(os.path.join(save_path, "rgbd"), exist_ok=True)
     w, h = test_dataset.img_wh
+    ndc = getattr(test_dataset, "ndc_params", None)
     for idx, c2w in enumerate(c2ws):
         rays_o, rays_d = get_rays(test_dataset.directions, np.asarray(c2w, np.float32))
+        if ndc is not None:
+            rays_o, rays_d = ndc_rays_blender(*ndc, rays_o, rays_d)
         rgb, depth = render_image(render_fn, np.concatenate([rays_o, rays_d], 1), chunk)
         rgb = np.clip(rgb, 0, 1).reshape(h, w, 3)
         depth_vis, _ = visualize_depth(depth.reshape(h, w), test_dataset.near_far)

@@ -15,11 +15,25 @@ Two paths, as in the JAX package:
   (K4) samples, queries the occupancy mask once or twice per group and
   compacts per ray in one launch, and the planes are fetched by K1.
 The dense path and :func:`compute_alpha_grid_chunk` test an occupancy volume
-with :func:`occupancy_lookup` (K3). Both paths composite with K5's
-tri-plane mode (:func:`~ngf_tpu_torch.ops.compositing.composite`): one
-launch forward and, in training, one backward.
-Not ported: ``rgb_cap`` (top-K shading) and ``mask_stride > 1`` on the dense
-path; both raise.
+with :func:`occupancy_lookup` (K3); with ``mask_stride`` K > 1 the dense path
+queries it at the centre of each window of K samples. Both paths composite
+with K5's tri-plane mode (:func:`~ngf_tpu_torch.ops.compositing.composite`):
+one launch forward and, in training, one backward.
+
+Top-K shading (``rgb_cap`` K > 0, the JAX package's fixed shading capacity):
+only the K samples a ray of largest blend weight (the dense path) or the
+``rgb_cap // G`` groups of largest best weight (the grouped path) are
+shaded. The weights come first (K5's tri-plane mode without colour,
+:func:`~ngf_tpu_torch.ops.compositing.composite_weights`), then
+``torch.topk`` picks the samples, whose coordinates (then their appearance
+is fetched, one K1 launch of the appearance channels) or prefetched
+features (the grouped path's ``fused_fetch``) are gathered with a gradient
+(``gather_group_rows``: the ``gather_rows`` kernel, backward
+``scatter_rows``) and decoded, and K5's top-K colour pass
+(:func:`~ngf_tpu_torch.ops.compositing.composite_topk`) adds them up.
+``torch.topk`` does not promise the JAX package's order among equal
+weights; equal weights that differ in the pick are 0 (a ray with fewer
+than K nonzero weights), which shade nothing and take no gradient.
 """
 
 from __future__ import annotations
@@ -41,7 +55,8 @@ from ..fields.triplane import (
     triplane_rgb_from_feats,
 )
 from ..ops.compaction import group_sample_compact
-from ..ops.compositing import composite
+from ..ops.compositing import composite, composite_topk, composite_weights
+from ..ops.gather import gather_group_rows
 from ..ops.grid_sample import normalize_coord, occupancy_lookup
 from ..ops.rays import stratified_sample
 
@@ -49,13 +64,15 @@ from ..ops.rays import stratified_sample
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static rendering configuration (`ngf_tpu/render/volume.py:57-110`).
-    ``rgb_cap`` and ``mask_stride`` are carried for the trainer's
-    configuration; only their defaults (0, 1) are ported. ``run_len``,
-    ``tile_q``, ``pair_gather`` and ``duo_bwd`` choose TPU gather
-    formulations of the same values: every one of them fetches through K1
-    here, and only their preconditions are kept. (``fused_fetch`` is not a
-    field: both of its values give the same values through the one fused
-    fetch.)"""
+    ``run_len``, ``tile_q``, ``pair_gather`` and ``duo_bwd`` choose TPU
+    gather formulations of the same values: every one of them fetches
+    through K1 here, and only their preconditions are kept. ``fused_fetch``
+    matters only to grouped top-K shading (with ``rgb_cap`` 0 both of its
+    values give the same values through the one fused fetch): 1 gathers the
+    shaded groups' prefetched appearance features, 0 fetches their
+    appearance again at the gathered coordinates, as the JAX package's two
+    branches do (with a ``sample_fn``, whose fetches take the density and
+    the appearance channels apart, always the latter: the same values)."""
 
     aabb: tuple[tuple[float, float, float], tuple[float, float, float]]
     near: float = 2.0
@@ -66,11 +83,12 @@ class RenderConfig:
     ray_march_weight_thres: float = 1e-4
     white_bg: bool = True
     sample_cap: int = 0  # 0 = dense (no compaction)
-    rgb_cap: int = 0  # top-K shading: not ported yet
-    mask_stride: int = 1  # strided occupancy lookup: not ported yet
+    rgb_cap: int = 0  # top-K shading: the K samples of largest weight; 0 = all
+    mask_stride: int = 1  # dense path: occupancy queried once a window of K samples
     group_size: int = 0  # 0 = dense path, G > 0 = grouped path
     run_len: int = 4
     tile_q: int = 2
+    fused_fetch: bool = False
     pair_gather: bool = False
     duo_bwd: bool = False
 
@@ -173,20 +191,13 @@ def render_rays(
       'acc_map' (N,); a grouped training render adds 'shaded_groups' (N,)
       int32.
     """
-    if rcfg.rgb_cap != 0:
-        raise NotImplementedError(
-            f"rgb_cap={rcfg.rgb_cap}: only dense shading (0) is ported; see ROADMAP.md "
-            "queue 1, 'rgb_cap and mask_stride'"
-        )
+    if rcfg.rgb_cap < 0:
+        raise ValueError(f"rgb_cap {rcfg.rgb_cap}: the renderer takes a resolved capacity "
+                         "(the trainer resolves -1 and -2)")
     if rcfg.group_size > 0:
         return _render_rays_grouped(
             params, model_cfg, rcfg, rays, iteration=iteration, alpha_volume=alpha_volume,
             alpha_aabb=alpha_aabb, sample_fn=sample_fn, generator=generator, rows=rows,
-        )
-    if rcfg.mask_stride > 1:
-        raise NotImplementedError(
-            f"mask_stride={rcfg.mask_stride}: only per-sample occupancy (1) is ported on the "
-            "dense path; see ROADMAP.md queue 1, 'rgb_cap and mask_stride'"
         )
     aabb = rcfg.aabb_tensor(rays.device)
     rays_o, viewdirs = rays[:, 0:3], rays[:, 3:6]
@@ -199,9 +210,9 @@ def render_rays(
     dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1)
 
     if alpha_volume is not None:
-        # Occupancy lookup (`ngf_tpu/render/volume.py:42-54,449-452`): K3.
+        # Occupancy lookup (`ngf_tpu/render/volume.py:42-54,429-452`): K3.
         a_aabb = aabb if alpha_aabb is None else alpha_aabb
-        valid = valid & occupancy_lookup(_occupancy_bytes(alpha_volume), pts, a_aabb)
+        valid = valid & _occupied(_occupancy_bytes(alpha_volume), pts, a_aabb, rcfg.mask_stride)
 
     if rcfg.sample_cap and rcfg.sample_cap < rcfg.n_samples:
         order_key = (~valid).to(torch.int32)
@@ -212,6 +223,17 @@ def render_rays(
 
     xy, yz, xz = triplane_project(normalize_coord(pts, aabb))
     xy, yz, xz = triplane_gauge(params, model_cfg, xy, yz, xz, iteration, sample_fn)
+    background = _background(rcfg.white_bg, generator, rays.device)
+    if 0 < rcfg.rgb_cap < s:
+        # Top-K shading (`ngf_tpu/render/volume.py:473-487`): density at
+        # every sample, appearance at the K samples of largest weight.
+        sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn) * vmask
+        w, acc_map, depth_map = composite_weights(sigma, dists * rcfg.distance_scale, z_vals,
+                                                  rays[:, -1])
+        top = torch.topk(w.detach(), rcfg.rgb_cap, dim=-1).indices
+        rgb_map = _shade_topk(params, model_cfg, rcfg, (xy, yz, xz), None, top, 1, viewdirs,
+                              w, acc_map, background, sample_fn)
+        return {"rgb_map": rgb_map, "depth_map": depth_map, "acc_map": acc_map}
 
     # Appearance is decoded at every sample whose density is fetched, so
     # without a sampler of the caller's both come from one fetch of all
@@ -233,9 +255,44 @@ def render_rays(
     # has it, the last ray component (the z of the direction) fills the
     # missed transmittance of the depth.
     rgb_map, acc_map, depth_map, _ = composite(
-        sigma, dists * rcfg.distance_scale, rgb, z_vals, rays[:, -1],
-        _background(rcfg.white_bg, generator, rays.device), rcfg.ray_march_weight_thres)
+        sigma, dists * rcfg.distance_scale, rgb, z_vals, rays[:, -1], background,
+        rcfg.ray_march_weight_thres)
     return {"rgb_map": rgb_map, "depth_map": depth_map, "acc_map": acc_map}
+
+
+def _occupied(volume: torch.Tensor, pts: torch.Tensor, aabb: torch.Tensor, stride: int):
+    """The (n, S) occupancy test of the dense path's samples (K3). With
+    ``stride`` K > 1 (`ngf_tpu/render/volume.py:429-447`) one query a window
+    of K samples, at its centre sample, broadcast over the window; the tail
+    window whose centre lies past the last sample takes the last centre's."""
+    if stride <= 1:
+        return occupancy_lookup(volume, pts, aabb)
+    n, S = pts.shape[:2]
+    occ = occupancy_lookup(volume, pts[:, stride // 2 :: stride], aabb)
+    occ = occ.repeat_interleave(stride, dim=1)
+    if occ.shape[1] < S:
+        occ = torch.cat([occ, occ[:, -1:].expand(n, S - occ.shape[1])], dim=1)
+    return occ[:, :S]
+
+
+def _shade_topk(params, model_cfg, rcfg, coords, rgb_feat, idx, group, viewdirs, w, acc,
+                background, sample_fn):
+    """rgb_map of the top-K shaded samples: the (n, K / G) group ids
+    ``idx`` (sample ids with ``group`` 1) pick the samples' prefetched
+    appearance features ``rgb_feat`` (n, S, D) when given, else their
+    coordinates (the three projections), whose appearance is fetched and
+    decoded; one gather with a gradient, then K5's top-K colour pass."""
+    n = idx.shape[0]
+    k = idx.shape[1] * group
+    views = viewdirs[:, None, :].expand(n, k, 3)
+    if rgb_feat is not None:
+        rgb_k = triplane_rgb_from_feats(params, model_cfg,
+                                        gather_group_rows(rgb_feat, idx, group), views)
+    else:
+        sel = gather_group_rows(torch.cat(coords, dim=-1), idx, group)
+        rgb_k = triplane_rgb(params, model_cfg, sel[..., 0:2], sel[..., 2:4], sel[..., 4:6],
+                             views, sample_fn)
+    return composite_topk(w, acc, idx, group, rgb_k, background, rcfg.ray_march_weight_thres)
 
 
 def _check_grouped_knobs(rcfg: RenderConfig) -> None:
@@ -296,29 +353,48 @@ def _render_rays_grouped(
     )
     xy, yz, xz = triplane_project(xyz_n)
     xy, yz, xz = triplane_gauge(params, model_cfg, xy, yz, xz, iteration, sample_fn)
-    if sample_fn is None:
-        sigma, rgb_feat = triplane_density_and_rgbfeat(params, model_cfg, xy, yz, xz)
-    else:
-        sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn)
-    sigma = sigma * vmask
-    views = viewdirs[:, None, :].expand(n, capg * G, 3)
-    if sample_fn is None:
-        rgb = triplane_rgb_from_feats(params, model_cfg, rgb_feat, views)
-    else:
-        rgb = triplane_rgb(params, model_cfg, xy, yz, xz, views, sample_fn)
-    # The composite (K5) at one float32 step length for every sample
-    # (`volume.py:311`). The shading mask's ``* vmask`` is implied: a culled
-    # sample has sigma 0, so w 0, which does not clear the threshold.
+    dist = float(np.float32(rcfg.step_size * rcfg.distance_scale))
+    background = _background(rcfg.white_bg, generator, rays.device)
     train = generator is not None
-    rgb_map, acc_map, depth_map, weight = composite(
-        sigma, float(np.float32(rcfg.step_size * rcfg.distance_scale)), rgb, z_c, rays[:, -1],
-        _background(rcfg.white_bg, generator, rays.device), rcfg.ray_march_weight_thres,
-        weights=train)
+    kg = min(capg, max(1, rcfg.rgb_cap // G)) if rcfg.rgb_cap else capg
+    if kg < capg:
+        # Top-K shading (`volume.py:315-338`): the kg groups of largest best
+        # weight; their prefetched features (``fused_fetch``), or density at
+        # every sample and appearance at theirs. A ``sample_fn`` sees the
+        # density and appearance fetches apart, as on the other paths.
+        rgb_feat = None
+        if rcfg.fused_fetch and sample_fn is None:
+            sigma, rgb_feat = triplane_density_and_rgbfeat(params, model_cfg, xy, yz, xz)
+        else:
+            sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn)
+        weight, acc_map, depth_map = composite_weights(sigma * vmask, dist, z_c, rays[:, -1])
+        top_g = torch.topk(weight.detach().reshape(n, capg, G).amax(-1), kg, dim=-1).indices
+        rgb_map = _shade_topk(params, model_cfg, rcfg, (xy, yz, xz), rgb_feat, top_g, G, viewdirs,
+                              weight, acc_map, background, sample_fn)
+    else:
+        if sample_fn is None:
+            sigma, rgb_feat = triplane_density_and_rgbfeat(params, model_cfg, xy, yz, xz)
+        else:
+            sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn)
+        sigma = sigma * vmask
+        views = viewdirs[:, None, :].expand(n, capg * G, 3)
+        if sample_fn is None:
+            rgb = triplane_rgb_from_feats(params, model_cfg, rgb_feat, views)
+        else:
+            rgb = triplane_rgb(params, model_cfg, xy, yz, xz, views, sample_fn)
+        # The composite (K5) at one float32 step length for every sample
+        # (`volume.py:311`). The shading mask's ``* vmask`` is implied: a
+        # culled sample has sigma 0, so w 0, which does not clear the
+        # threshold.
+        rgb_map, acc_map, depth_map, weight = composite(
+            sigma, dist, rgb, z_c, rays[:, -1], background, rcfg.ray_march_weight_thres,
+            weights=train)
     out = {"rgb_map": rgb_map, "depth_map": depth_map, "acc_map": acc_map}
     if train:
         # Per ray, the groups whose best blend weight clears the shading
-        # threshold (`volume.py:359-371`): the statistic behind rgb_cap -2.
-        best = weight.reshape(n, capg, G).amax(-1)
+        # threshold (`volume.py:359-371`), over every kept group: the
+        # statistic behind rgb_cap -2.
+        best = weight.detach().reshape(n, capg, G).amax(-1)
         out["shaded_groups"] = (best > rcfg.ray_march_weight_thres).sum(-1, dtype=torch.int32)
     return out
 

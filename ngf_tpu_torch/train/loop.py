@@ -59,8 +59,13 @@ Differences from the JAX trainer:
   sample axis of one rank is the data mode (the JAX trainer takes the
   sample-parallel renderer for every 2-D mesh). L1 and TV count once: only
   the ranks of sample index 0 add them.
-- Not ported yet, and refused with a pointer to ROADMAP.md: ``rgb_cap !=
-  0``.
+- ``rgb_cap`` (top-K shading) resolves as the JAX trainer's: K > 0 shades K
+  samples a ray (``rgb_cap // G`` groups on the grouped path), -1 shades
+  ``max(32, sample_cap // 4)``, -2 shades densely until the first mask
+  event, then ``(ceil(1.25 stat) + 1) G`` at each mask and upsample event,
+  ``stat`` the running ~p99.9 of the shaded groups a ray since the last
+  pick (``rgb_stat``, kept on the device and read only at those events).
+  The final evaluation and the sample-parallel mode shade densely.
 """
 
 from __future__ import annotations
@@ -129,12 +134,8 @@ def model_config_from_args(args: TrainArgs) -> TriPlaneConfig:
     )
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to ngf_tpu_torch yet: see ROADMAP.md {item}")
-
-
 def check_ported(args: TrainArgs) -> None:
-    """Raise for every training option this slice does not carry."""
+    """Raise for the training options that have no meaning."""
     if args.Ortho_weight > 0:
         # As `ngf_tpu/train/loop.py:102-110`: dead code in the reference.
         raise NotImplementedError(
@@ -143,12 +144,6 @@ def check_ported(args: TrainArgs) -> None:
         )
     if args.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype {args.compute_dtype!r}: float32 or bfloat16")
-    if args.rgb_cap != 0:
-        raise _not_ported(f"rgb_cap {args.rgb_cap} (top-K shading) in training",
-                          "queue 1, 'rgb_cap and mask_stride'")
-    if args.group_size == 0 and args.mask_stride > 1:
-        raise _not_ported(f"mask_stride {args.mask_stride} on the dense path",
-                          "queue 1, 'rgb_cap and mask_stride'")
     if args.batch_size % max(1, args.microbatch):
         raise ValueError(f"batch_size {args.batch_size} is not a multiple of microbatch {args.microbatch}")
 
@@ -202,8 +197,11 @@ class TriPlaneTrainer:
         self.alpha: AlphaGrid | None = None
         self._auto_cap: int | None = None
         # Running max over the steps of the per-batch ~p99.9 of
-        # ``shaded_groups`` (`ngf_tpu/train/loop.py:459-465`), on the device.
+        # ``shaded_groups`` (`ngf_tpu/train/loop.py:459-465`), on the device;
+        # reset at each pick of the measured shading capacity
+        # (``rgb_cap`` -2), which is 0 (dense) until the first.
         self.rgb_stat = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._auto_rgb_cap = 0
         # One record per event (mask, upsample): what it produced and its
         # phases' seconds.
         self.events: list[dict] = []
@@ -317,6 +315,36 @@ class TriPlaneTrainer:
             return self.args.masked_sample_cap
         return self._auto_cap or 0
 
+    def _resolve_rgb_cap(self) -> int:
+        """The shading capacity of ``rgb_cap`` (`ngf_tpu/train/loop.py:328-343`):
+        0 dense; K > 0 as it is; -1 ``max(32, cap // 4)`` of the effective
+        sample capacity (dense without one); -2 the measured capacity, 0
+        (dense) until the first measurement."""
+        a = self.args.rgb_cap
+        cap = self._effective_sample_cap()
+        if a == -1 and cap:
+            return max(32, cap // 4)
+        if a == -2:
+            return self._auto_rgb_cap
+        return max(0, a)
+
+    def _update_auto_rgb_cap(self, rec: dict) -> None:
+        """With ``rgb_cap`` -2, pick the shading capacity from the shaded
+        groups measured since the last pick, at a mask or upsample event
+        (`ngf_tpu/train/loop.py:345-366`): ``(ceil(1.25 stat) + 1) G``, then
+        reset the statistic's window. Records it in the event's ``rec``."""
+        if self.args.rgb_cap != -2:
+            return
+        stat = int(self.rgb_stat.item())
+        if stat <= 0:
+            return
+        kg = int(np.ceil(stat * 1.25)) + 1
+        self._auto_rgb_cap = kg * max(1, self.args.group_size)
+        self.rgb_stat = torch.zeros((), dtype=torch.int32, device=self.device)
+        rec["rgb_stat"], rec["auto_rgb_cap"] = stat, self._auto_rgb_cap
+        print(f"[trainer] auto rgb_cap -> {self._auto_rgb_cap} "
+              f"(~p99.9 shaded groups + margin, per-stage window)")
+
     def _render_cfg(self, sample_cap: int | None = None) -> RenderConfig:
         """(`ngf_tpu/train/loop.py:368-387`)."""
         return RenderConfig(
@@ -329,11 +357,12 @@ class TriPlaneTrainer:
             ray_march_weight_thres=self.args.rm_weight_mask_thre,
             white_bg=self.train_dataset.white_bg,
             sample_cap=self._effective_sample_cap() if sample_cap is None else sample_cap,
-            rgb_cap=self.args.rgb_cap,  # 0: check_ported refuses the rest
+            rgb_cap=self._resolve_rgb_cap(),
             mask_stride=self.args.mask_stride,
             group_size=self.args.group_size,
             run_len=self.args.run_len,
             tile_q=self.args.tile_q,
+            fused_fetch=bool(self.args.fused_fetch),
             pair_gather=bool(self.args.pair_gather),
             duo_bwd=bool(self.args.duo_bwd),
         )
@@ -529,6 +558,7 @@ class TriPlaneTrainer:
         t["filter"] = time.time()
         self._measure_sample_cap(rec, "p99.9 occupied samples/ray")
         t["counts"] = time.time()
+        self._update_auto_rgb_cap(rec)
         rec["phases_s"] = self._event_phase_report("mask", t)
         self.events.append(rec)
         return rec
@@ -595,6 +625,7 @@ class TriPlaneTrainer:
         if self.alpha is not None:
             self._measure_sample_cap(rec, "re-measured at upsampled step size")
         t["counts"] = time.time()
+        self._update_auto_rgb_cap(rec)
         rec["phases_s"] = self._event_phase_report("upsample", t)
         self.events.append(rec)
         return rec
@@ -813,7 +844,7 @@ class TriPlaneTrainer:
                 "l1_weight": float(self.l1_weight),
                 "auto_cap": None if self._auto_cap is None else int(self._auto_cap),
                 "rgb_stat": int(self.rgb_stat.item()),
-                "auto_rgb_cap": 0,  # rgb_cap != 0 is refused (check_ported)
+                "auto_rgb_cap": int(self._auto_rgb_cap),
                 "n_voxel_list": list(self.n_voxel_list),
                 "sampler_birth": self._sampler_birth,
                 "generator_device": self.device.type,
@@ -871,9 +902,6 @@ class TriPlaneTrainer:
         """Set the training state a checkpoint carries
         (`ngf_tpu/train/loop.py:147-225`) over a freshly built trainer."""
         a, r = self.args, meta["resume"]
-        if int(r["auto_rgb_cap"]) != 0:
-            raise _not_ported(f"a checkpoint with auto_rgb_cap {r['auto_rgb_cap']} (top-K shading)",
-                              "queue 1, 'rgb_cap and mask_stride'")
         self.iteration = int(meta["iteration"])
         self.aabb = np.asarray(meta["aabb"], np.float32)
         self.grid_size = [int(v) for v in meta["grid_size"]]
@@ -883,6 +911,7 @@ class TriPlaneTrainer:
         self.l1_weight = float(r["l1_weight"])
         self._auto_cap = None if r.get("auto_cap") is None else int(r["auto_cap"])
         self.rgb_stat = torch.tensor(int(r["rgb_stat"]), dtype=torch.int32, device=self.device)
+        self._auto_rgb_cap = int(r["auto_rgb_cap"])
         self.n_voxel_list = [int(v) for v in r["n_voxel_list"]]
         self._sampler_birth = int(r["sampler_birth"])
         if alpha_volume is not None:

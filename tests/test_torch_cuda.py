@@ -30,7 +30,16 @@ shard mode (``ray_march_triplane_totals``, ``ray_march_triplane_shard`` and
 sample-parallel path's shapes (884 samples over 2 and 4 shards), with t0
 random in (0, 1] and t0 = 0 behind opaque runs, the split identity (two
 chained shard launches against one whole-ray launch, to 1e-6, the mask
-equal) and ``composite_shard``'s three launches through autograd.
+equal) and ``composite_shard``'s three launches through autograd; K5's
+top-K mode (the weight launch without colour, ``ray_march_triplane_topk``
+and its backward, and the weight backward with the cotangent of w) against
+``composite_topk_plain``, ``composite_topk_backward_plain`` and
+``composite_backward_plain`` (dense and grouped picks, the backgrounds,
+alpha 1, empty rays, strided colours), its refusals and footprint, and the
+dense and grouped top-K training renders (their launches, no ``cumprod``,
+against the CPU); ``gather_rows`` on bfloat16 rows and with ids relative
+to segments, and its backward ``scatter_rows``, byte for byte, and the
+group gather through autograd.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports neither JAX nor `ngf_tpu`, so it runs on a GPU machine
@@ -1539,3 +1548,186 @@ def test_ray_march_triplane_shard_refuses_what_the_kernel_does_not_take(cuda):
     fp = cuda_kernels.ray_march_footprint(442)
     for k in ("shard_forward", "shard_backward", "shard_totals"):
         assert fp[k]["blocks_per_sm"] >= 1 and fp[k]["local_bytes"] == 0, (k, fp[k])
+
+
+# ------------------------------------------------ K5 top-K mode, row scatter
+
+
+def _topk_case(cuda, case, n=2048, s=304, seed=0):
+    """A top-K case on the tri-plane inputs of ``case``: the weight launch's
+    w and acc (no colour), the picks as the renderers make them (the top
+    ``k`` samples, or the top groups of 8 by their best weight), the
+    selected samples' colours (N, K, 3) and the background."""
+    sigma, dist, rgb, z, ray_last, bg, _ = _triplane_inputs(cuda, case, n=n, s=s, seed=seed)
+    _, _, acc, depth, w = cuda_kernels.ray_march_triplane(sigma, dist, None, z, ray_last, bg,
+                                                          THRES, True)
+    group = 1 if case.startswith("dense") or case == "strided" else 8
+    best = w if group == 1 else w.view(n, s // group, group).amax(-1)
+    idx = torch.topk(best, 48 if group == 1 else 6, dim=-1).indices
+    g = torch.Generator(device=cuda).manual_seed(seed + 9)
+    rgb_k = torch.rand((n, idx.shape[1] * group, 4), generator=g, device=cuda)[..., :3]
+    return sigma, dist, z, ray_last, bg, w, acc, depth, idx, group, rgb_k
+
+
+@pytest.mark.parametrize("case", ["dense_train", "grouped_draw0", "grouped_draw1", "opaque",
+                                  "empty", "strided"])
+def test_ray_march_triplane_topk_matches_plain(cuda, case):
+    """K5's top-K mode against its plain versions: the weight launch (the
+    tri-plane forward without rgb: w, acc and depth against
+    ``composite_plain``'s), the colour pass against ``composite_topk_plain``
+    (y against the plain sums under the kernel's own mask), its backward
+    against ``composite_topk_backward_plain`` (g_w, d acc, d rgb_k), and the
+    weight backward with that g_w against ``composite_backward_plain``'s
+    ``g_w`` input; one launch each."""
+    from ngf_tpu_torch.ops import compositing as tcomp
+
+    names = ("ray_march_triplane", "ray_march_triplane_topk", "ray_march_triplane_topk_backward",
+             "ray_march_triplane_backward")
+    before = [cuda_kernels.KERNELS[k].launches for k in names]
+    sigma, dist, z, ray_last, bg, w, acc, depth, idx, group, rgb_k = _topk_case(cuda, case)
+    p_w = tcomp.raw2alpha(sigma, dist)[1]
+    _close(w, p_w, "w")
+    _close(acc, p_w.sum(-1), "acc")
+    _close(depth, (p_w * z).sum(-1) + (1.0 - p_w.sum(-1)) * ray_last, "depth")
+    rgb_map, y = cuda_kernels.ray_march_triplane_topk(w, acc, idx, group, rgb_k, bg, THRES)
+    p_map, p_y = tcomp.composite_topk_plain(w, acc, idx, group, rgb_k, bg, THRES)
+    _close(y, p_y, "y")  # the plain version on the kernel's own w: the same mask
+    _close(rgb_map, p_map, "rgb_map")
+    g = torch.Generator(device=cuda).manual_seed(1)
+    g_rgb = torch.randn((w.shape[0], 3), generator=g, device=cuda)
+    g_acc = torch.randn((w.shape[0],), generator=g, device=cuda)
+    g_w, d_acc, d_rgb = cuda_kernels.ray_march_triplane_topk_backward(w, idx, group, rgb_k, bg,
+                                                                      THRES, y, g_rgb)
+    want = tcomp.composite_topk_backward_plain(w, idx, group, rgb_k, bg, THRES, p_y, g_rgb)
+    for a, b, what in zip((g_w, d_acc, d_rgb), want, ("g_w", "d acc", "d rgb_k")):
+        _close(a, b, what)
+    assert int((g_w != 0).sum(-1).max()) <= idx.shape[1] * group
+    d_sigma, d_rgb_none = cuda_kernels.ray_march_triplane_backward(
+        sigma, dist, None, None, 0.0, None, None, g_acc + d_acc, g_w)
+    p_sigma, _ = tcomp.composite_backward_plain(sigma, dist, None, None, 0.0, None, None,
+                                                g_acc + d_acc, g_w)
+    torch.cuda.synchronize()
+    assert d_rgb_none is None and bool(torch.isfinite(d_sigma).all())
+    _close(d_sigma, p_sigma, "d sigma")
+    assert [cuda_kernels.KERNELS[k].launches - b for k, b in zip(names, before)] == [1, 1, 1, 1]
+    if case == "empty":
+        assert bool((rgb_map[: w.shape[0] // 2] == 1.0).all())
+
+
+@pytest.mark.parametrize("path", ["dense", "grouped", "grouped_fused"])
+def test_topk_train_render_launches_and_matches_the_cpu(cuda, path, monkeypatch):
+    """A training render with top-K shading on the card: the weight launch
+    and the colour pass forward, their two backward launches, one
+    ``gather_rows`` of the picks and, where what it gathers takes a gradient
+    (the fused fetch's features), one ``scatter_rows``; no
+    ``aten::cumprod``; rgb, acc, depth and the plane gradient against the
+    same render on the CPU (plain versions) with the same jitter."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, params, rays = _scene(cuda, seed=6)
+    rcfg = tv.RenderConfig(aabb=((-1.5,) * 3, (1.5,) * 3), n_samples=64, step_size=0.09,
+                           group_size=0 if path == "dense" else 8, tile_q=0, rgb_cap=16,
+                           fused_fetch=path == "grouped_fused")
+    jitter = torch.rand((rays.shape[0], 1), generator=torch.Generator(device=cuda).manual_seed(4),
+                        device=cuda)
+    monkeypatch.setattr(tv, "_ray_jitter", lambda g, n, device: jitter.to(device))
+    names = ("ray_march_triplane", "ray_march_triplane_topk", "ray_march_triplane_backward",
+             "ray_march_triplane_topk_backward", "gather_rows", "scatter_rows",
+             "bilinear_gather_planes")
+
+    def run(device):
+        p = _tree_map(params, lambda t: t.detach().to(device, copy=True))
+        leaf = p["plane_xy"].requires_grad_(True)
+        out = tv.render_rays(p, cfg, rcfg, rays.to(device),
+                             generator=torch.Generator(device=device).manual_seed(3))
+        (out["rgb_map"].sum() + out["acc_map"].sum()).backward()
+        return out, leaf.grad
+
+    before = [cuda_kernels.KERNELS[k].launches for k in names]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out, grad = run(cuda)
+    counts = dict(zip(names, (cuda_kernels.KERNELS[k].launches - b for k, b in zip(names, before))))
+    assert not [e for e in prof.key_averages() if "cumprod" in e.key]
+    assert counts == {"ray_march_triplane": 1, "ray_march_triplane_topk": 1,
+                      "ray_march_triplane_backward": 1, "ray_march_triplane_topk_backward": 1,
+                      "gather_rows": 1, "scatter_rows": int(path == "grouped_fused"),
+                      "bilinear_gather_planes": 1 if path == "grouped_fused" else 2}, counts
+    want, want_grad = run(torch.device("cpu"))
+    for k in ("rgb_map", "acc_map", "depth_map"):
+        assert (out[k].detach().cpu() - want[k].detach()).abs().max().item() <= RENDER_TOL, k
+    # A plane's gradient sums thousands of terms of both signs whose
+    # float32 roundings differ between the card and the CPU (chip_smoke.py's
+    # STEP_GRAD_REL_TOL, for a train step against the plain sampler).
+    scale = want_grad.abs().max().item()
+    assert scale > 0 and (grad.cpu() - want_grad).abs().max().item() <= 1e-3 * scale
+
+
+def _tree_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def test_ray_march_triplane_topk_refuses_what_the_kernel_does_not_take(cuda):
+    sigma, dist, z, ray_last, bg, w, acc, depth, idx, group, rgb_k = _topk_case(
+        cuda, "grouped_draw1", n=64, s=80)
+    tk = cuda_kernels.ray_march_triplane_topk
+    with pytest.raises(ValueError):
+        tk(w.cpu(), acc, idx, group, rgb_k, bg, THRES)
+    with pytest.raises(ValueError):
+        tk(w.t().contiguous().t(), acc, idx, group, rgb_k, bg, THRES)  # w not contiguous
+    with pytest.raises(ValueError):
+        tk(w, acc, idx.int(), group, rgb_k, bg, THRES)
+    with pytest.raises(ValueError):
+        tk(w, acc, idx, group, rgb_k[:, 1:], bg, THRES)
+    with pytest.raises(ValueError):
+        tk(w, acc[1:], idx, group, rgb_k, bg, THRES)
+    with pytest.raises(ValueError):
+        tk(w, acc, idx, 3, rgb_k, bg, THRES)  # groups of 3 do not tile 80 samples
+    with pytest.raises(ValueError):
+        cuda_kernels.ray_march_triplane_topk_backward(w, idx, group, rgb_k, bg, THRES, None,
+                                                      torch.ones((64, 3), device=cuda))
+    fp = cuda_kernels.ray_march_footprint(512)
+    for k in ("topk_forward", "topk_backward"):
+        assert fp[k]["blocks_per_sm"] >= 1 and fp[k]["local_bytes"] == 0, (k, fp[k])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
+def test_gather_and_scatter_rows_match_plain(cuda, dtype, index_dtype):
+    """``gather_rows`` on float32 and bfloat16 rows, with ids relative to
+    segments (the renderers' group gather), and its backward ``scatter_rows``
+    (zeros, then the rows at distinct ids; an id outside dropped) against
+    their plain versions, byte for byte; one launch each, and the group
+    gather through autograd."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    n, ng, k, d = 300, 14, 5, 48
+    tab = torch.randn((n * ng, d), generator=g, device=cuda).to(dtype)
+    idx = torch.stack([torch.randperm(ng, generator=g, device=cuda)[:k] for _ in range(n)])
+    flat = idx.reshape(-1).to(index_dtype)
+    before = (cuda_kernels.gather_rows.launches, cuda_kernels.scatter_rows.launches)
+    got = cuda_kernels.gather_rows(tab, flat, k, ng)
+    assert got.dtype == dtype and torch.equal(got, gather.gather_rows_plain(tab, flat, k, ng))
+    back = cuda_kernels.scatter_rows(got, flat, n * ng, k, ng)
+    assert torch.equal(back, gather.scatter_rows_plain(got, flat, n * ng, k, ng))
+    bad = torch.tensor([0, n * ng, -1], device=cuda).to(index_dtype)
+    out = cuda_kernels.scatter_rows(torch.ones((3, d), device=cuda, dtype=dtype), bad, n * ng)
+    assert int((out != 0).sum()) == d and bool((out[0] == 1).all())
+    assert (cuda_kernels.gather_rows.launches - before[0],
+            cuda_kernels.scatter_rows.launches - before[1]) == (1, 2)
+    x = torch.randn((n, ng * 8, 6), generator=g, device=cuda).to(dtype).requires_grad_(True)
+    sel = gather.gather_group_rows(x, idx, 8)
+    cot = torch.randn(sel.shape, generator=g, device=cuda).to(dtype)
+    sel.backward(cot)
+    xc = x.detach().cpu().requires_grad_(True)
+    want = gather.gather_group_rows(xc, idx.cpu(), 8)
+    want.backward(cot.cpu())
+    assert torch.equal(sel.detach().cpu(), want.detach()) and torch.equal(x.grad.cpu(), xc.grad)
+    with pytest.raises(ValueError):
+        cuda_kernels.scatter_rows(got.double(), flat, n * ng)
+    with pytest.raises(ValueError):
+        cuda_kernels.scatter_rows(got, flat[1:], n * ng)
+    with pytest.raises(ValueError):
+        cuda_kernels.gather_rows(tab, flat, -1, ng)

@@ -100,8 +100,9 @@ def test_group_compaction_matches_jax(capg):
 
 
 def _configs(G, sample_cap, fused_fetch=True):
-    """The JAX and port render configurations; the port has no
-    ``fused_fetch`` field, since both values fetch through one K1 launch."""
+    """The JAX and port render configurations; the port's ``fused_fetch``
+    matters only to top-K shading (`tests/test_torch_topk.py`): without it
+    both values fetch through one K1 launch."""
     kw = dict(aabb=AABB, n_samples=52, step_size=STEP, group_size=G, sample_cap=sample_cap,
               tile_q=0)
     return jv.RenderConfig(**kw, fused_fetch=fused_fetch), tv.RenderConfig(**kw)

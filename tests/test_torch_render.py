@@ -193,26 +193,19 @@ def test_render_only_cli_matches_main(tmp_path):
 
 
 def test_cli_train_mode_not_ported():
-    """Training mode raises, naming ROADMAP.md, for what the port does not
-    carry yet: top-K shading (``rgb_cap != 0``); and a ``--mesh_shape``
-    whose ranks are not the run's (here 8 against one process) raises
-    ValueError. Each raises before any data is built. (Meshes train now:
-    `tests/test_torch_parallel.py`.)
-    (Events inside ``n_iters`` and ``group_size > 0`` train now:
-    `test_cli_staged_train_writes_mask_jax_reads`; so do the learned gauge:
-    `tests/test_torch_gauge.py::test_cli_gauge_train_writes_checkpoint_jax_reads`,
-    and bfloat16: `tests/test_torch_bf16.py::test_cli_bf16_configs_train_and_jax_reads`.)"""
+    """A ``--mesh_shape`` whose ranks are not the run's (here 8 against one
+    process) raises ValueError before any data is built. Nothing of the
+    training options is refused any more: meshes train
+    (`tests/test_torch_parallel.py`), and so do top-K shading and the dense
+    ``mask_stride`` (`tests/test_torch_topk.py`); events inside ``n_iters``
+    and ``group_size > 0`` (`test_cli_staged_train_writes_mask_jax_reads`),
+    the learned gauge
+    (`tests/test_torch_gauge.py::test_cli_gauge_train_writes_checkpoint_jax_reads`)
+    and bfloat16 (`tests/test_torch_bf16.py::test_cli_bf16_configs_train_and_jax_reads`)."""
     import main_torch
 
     base = ["--dataset_name", "synthetic", "--datadir", "synthetic:views=1,wh=8",
             "--device", "cpu", "--n_iters", "100", "--update_AlphaMask_list", "50"]
-    cases = {
-        "rgb_cap": ["--rgb_cap", "-2"],
-    }
-    for what, extra in cases.items():
-        with pytest.raises(NotImplementedError, match="ROADMAP") as info:
-            main_torch.main(base + extra)
-        assert "not ported" in str(info.value), what
     with pytest.raises(ValueError, match="needs 8 ranks; this run has 1"):
         main_torch.main(base + ["--mesh_shape", "2x4"])
 
@@ -252,8 +245,13 @@ def test_cuda_requested_without_card_raises():
 
 
 def test_unported_dataset_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_dataset("llff", "./data/nerf_llff_data/fern", split="test")
+    """Every loader of `ngf_tpu` is ported (`tests/test_torch_loaders.py`):
+    an LLFF directory without its files fails reading them, and only a
+    name no package knows raises, as in `ngf_tpu`'s registry."""
+    with pytest.raises(FileNotFoundError, match="poses_bounds.npy"):
+        load_dataset("llff", "./data/nerf_llff_data/no_such_scene", split="test")
+    with pytest.raises(ValueError, match="unknown dataset"):
+        load_dataset("colmap", "./data/nerf_llff_data/fern", split="test")
 
 
 @pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(REPO, "configs", "*.txt"))),
