@@ -2,12 +2,15 @@
 """Smoke test of the PyTorch/CUDA port (`ngf_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases kernel,rows,backward,occupancy,uv,render,train,staged,gauge,
-                                    bf16,topk,llff,lego,parallel]
+                                    bf16,topk,llff,lego,tail,parallel]
                           [--uv_steps 3000] [--uv_bf16_steps 500] [--uv_sphere_steps 500]
                           [--uv_sphere_dtype float32]
 
 1. Device: requires CUDA, prints the card and its power limit, builds every
-   kernel of the port from the sources in this checkout.
+   kernel of the port from the sources in this checkout, and writes random
+   LPIPS alex and vgg weights (the tests' generators) into a temporary
+   ``NGF_LPIPS_WEIGHTS_DIR``, so that every evaluation that asks for LPIPS
+   computes it on the card.
 2. Kernel phase: K1's one-plane call ``bilinear_gather_2d`` at the render
    path's shapes (a 256 x 256 x 96 plane, N = 4096 rays x 884 random
    points, the density channels 0:24 and the appearance channels 24:96,
@@ -83,9 +86,15 @@
    128 x 128 views, one test view). The event must run once (its voxels,
    kept rays, measured capacity); the launches of K1, K2, ``gather_rows``,
    K3 (the event's chunks only) and K4 (one per step and evaluation chunk)
-   over the run must equal the counts worked out from the steps, the event
-   and the evaluation chunks; the losses must fall in both stages; the
-   checkpoint must carry its mask. Then one masked step with the kernels
+   over the run must equal the counts worked out from the steps, the event,
+   the evaluation chunks and the mesh export (``--export_mesh 1``: 32 K1
+   launches over a 256^3 lattice); the losses must fall in both stages; the
+   checkpoint must carry its mask; ``mesh.ply`` must parse with every vertex
+   inside the box (the export's seconds printed: grid, marching cubes,
+   write); the evaluation (``--compute_extra_metrics 1``) writes
+   ``video.mp4`` and ``depthvideo.mp4`` (frames counted back through
+   OpenCV) and a ``mean.txt`` of four finite values, LPIPS included.
+   Then one masked step with the kernels
    against the plain sampler, the open and masked stages' ms/step, the
    masked step's profile with its launches per step, K5's tri-plane rows on
    an open and a masked step's own inputs (grouped, one constant length),
@@ -173,10 +182,22 @@
    (``poses_bounds.npy``, ``images_4/``), trained 400 steps in NDC through
    ``main_torch.main --dataset_name llff`` (exact launch totals, falling
    loss), four views of its spiral path rendered through
-   ``evaluation_path``.
-15. Parallel phase (last; ``parallel_phase``): K5's shard mode, then two
+   ``evaluation_path`` (its 4-frame videos counted back).
+15. Tail phase (``tail_phase``, before the parallel phase): the UV ray
+   functions (``cube_ray_generation_with_end``, ``sample_pdf``,
+   ``refine_cube_ray_generation``) on the card against the CPU at a UV
+   step's shape; LPIPS alex and vgg timed on an 800 x 800 view and held
+   against the CPU forward on a 256 x 256 crop (rtol 1e-4); K1 at the mesh
+   export's chunk (524,288 lattice points, the density channels of the
+   staged phase's trained planes) against its plain version, timed beside
+   its bound and ``F.grid_sample``; ``utils.profiling.trace`` around three
+   train steps, whose Chrome trace must name K1's kernel symbol.
+16. Parallel phase (last; ``parallel_phase``): K5's shard mode, then two
    ranks sharing the card over gloo, a data mesh (2x1, 700 grouped steps
-   across the mask event) and a sample mesh (1x2, 150 dense steps).
+   across the mask event), a sample mesh (1x2, 100 dense steps) and the UV
+   trainer on a data mesh (200 steps at the `dtu_train.sh` shape, the ranks
+   bit-equal, the first step's losses and gradients within 1e-4 of one
+   rank's, the last 50 steps' colour loss within 5%).
 
 Each K5 tri-plane row (``k5_triplane_rows``) holds the kernel against its
 plain pair beside its bound and the composite as the renderers ran it
@@ -1956,6 +1977,7 @@ def staged_phase(
     from ngf_tpu_torch.train.loop import TriPlaneTrainer
     from ngf_tpu_torch.train.occupancy import AlphaGrid
     from ngf_tpu_torch.utils.checkpoint import load_checkpoint
+    from ngf_tpu_torch.utils.lpips import lpips_available
 
     cuda = device.type == "cuda"
     with tempfile.TemporaryDirectory() as tmp:
@@ -2004,6 +2026,15 @@ def staged_phase(
         run = os.path.join(tmp, tag)
         for f in ("model.npz", "imgs_test_all/000.png"):
             check(os.path.isfile(os.path.join(run, f)), f"training wrote no {f}")
+        videos = check_videos(os.path.join(run, "imgs_test_all"), 1)
+        # [PSNR] or [PSNR, SSIM, LPIPS-alex, LPIPS-vgg]; LPIPS NaN only
+        # without weights.
+        stats_txt = np.loadtxt(os.path.join(run, "imgs_test_all", "mean.txt"), ndmin=1)
+        lpips_on = all(lpips_available(net) for net in ("alex", "vgg"))
+        check(stats_txt.shape == ((4,) if args.compute_extra_metrics else (1,))
+              and np.isfinite(stats_txt[:2]).all()
+              and (np.isfinite(stats_txt[2:]).all() if lpips_on else np.isnan(stats_txt[2:]).all()),
+              f"mean.txt {stats_txt}")
         ckpt = os.path.join(run, "model.npz")
         params, meta, vol, vaabb = load_checkpoint(ckpt, device)
         r = args.alpha_grid_res
@@ -2014,7 +2045,17 @@ def staged_phase(
         stage_ms = {f"{st['from']}-{st['to']}": 1e3 * st["s"] / (st["to"] - st["from"])
                     for st in stats["stages"]}
         ev = events[0]
+        if args.export_mesh:
+            # The mesh of the trained field: parsed, every vertex inside the
+            # box (the trainer's last, which the checkpoint holds).
+            verts = read_ply_vertices(os.path.join(run, "mesh.ply"))
+            box = np.asarray(meta["aabb"])
+            check(len(verts) > 0 and len(verts) == stats["export"]["vertices"]
+                  and (verts >= box[0] - 1e-4).all() and (verts <= box[1] + 1e-4).all(),
+                  f"mesh.ply: {len(verts)} vertices, {stats['export']}, box {box.tolist()}")
+            print(f"[{tag}] mesh export: {json.dumps(stats['export'])}")
         result = {"main_s": main_s, "launches": launches, "mses": mses, "event": ev,
+                  "videos": videos, "mean_txt": stats_txt.tolist(), "export": stats.get("export"),
                   "model": (params, meta, vol, vaabb), "args": args,
                   "events": events, "stages": stats["stages"], "stage_ms": stage_ms,
                   "test_psnr": psnr[0], "loop_s": stats["wall_time_s"],
@@ -2130,7 +2171,8 @@ def staged_launches(args, events: list[dict], wh: int, start: int = 0) -> dict:
     and one K4; one K5 tri-plane composite per step (and its backward) and
     per evaluation chunk. A run resumed at ``start`` makes the steps and
     evaluations after it, and one ``gather_rows`` more: the kept rays'
-    table rebuilt at the checkpoint's ids. A step or evaluation chunk with
+    table rebuilt at the checkpoint's ids. ``--export_mesh`` adds the mesh
+    export's K1 launches (EXPORT_LAUNCHES). A step or evaluation chunk with
     top-K shading (:func:`grouped_topk`) composites with K5's weight launch
     (counted as the tri-plane composite) and top-K colour pass, gathers its
     picks with one ``gather_rows`` and, without ``fused_fetch``, fetches
@@ -2154,9 +2196,10 @@ def staged_launches(args, events: list[dict], wh: int, start: int = 0) -> dict:
     topk = micro * sum(grouped_topk(args, events, i) for i in range(start + 1, args.n_iters + 1))
     topk_evals = chunks * sum(grouped_topk(args, events, v) for v in vis)
     second_fetch = 0 if args.fused_fetch else topk + topk_evals
+    export = EXPORT_LAUNCHES if args.export_mesh else 0
     return {
         "bilinear_gather_planes": (micro * iters + len(events) * grid_chunks + evals * chunks
-                                   + second_fetch),
+                                   + second_fetch + export),
         "bilinear_gather_2d": 0,
         "bilinear_gather_2d_backward": 6 * micro * iters,
         "bilinear_gather_planes_backward_coords": 0,
@@ -2574,6 +2617,7 @@ def llff_phase(device: torch.device, views: int = LLFF_VIEWS, wh: int = LLFF_WH,
         out["path_s"] = time.perf_counter() - t0
         frames = sorted(f for f in os.listdir(os.path.join(tmp, "path")) if f.endswith(".png"))
         check(frames == [f"{i:03d}.png" for i in range(path_views)], f"path frames {frames}")
+        out["videos"] = check_videos(os.path.join(tmp, "path"), path_views)
         out.update(launches=launches, mses=[mses[0], mses[-1]], test_psnrs=stats["test_psnrs"],
                    events=events, stages=stats["stages"], frames=len(frames))
         print(f"[llff] loss {mses[0]:.5f} -> {mses[-1]:.5f}, {len(frames)} spiral views in "
@@ -2614,6 +2658,7 @@ def gauge_phase(
     from ngf_tpu_torch.train.loop import TriPlaneTrainer
     from ngf_tpu_torch.train.occupancy import AlphaGrid
     from ngf_tpu_torch.utils.checkpoint import load_checkpoint
+    from ngf_tpu_torch.utils.lpips import lpips_available
 
     cuda = device.type == "cuda"
     with tempfile.TemporaryDirectory() as tmp:
@@ -2664,6 +2709,7 @@ def gauge_phase(
         run = os.path.join(tmp, tag)
         for f in ("model.npz", "imgs_test_all/000.png"):
             check(os.path.isfile(os.path.join(run, f)), f"training wrote no {f}")
+        check_videos(os.path.join(run, "imgs_test_all"), 1)
         ckpt = os.path.join(run, "model.npz")
         params, meta, vol, vaabb = load_checkpoint(ckpt, device)
         shapes = [list(params[n].shape) for n in PLANE_NAMES]
@@ -3666,11 +3712,31 @@ def uv_phase(device: torch.device, views: int = UV_VIEWS, wh: int = UV_WH,
 
 
 # The parallel phase: two ranks share the one card over gloo.
+# The I/O tail.
+# The mesh export of `TriPlaneTrainer.export_mesh` (`ngf_tpu/train/loop.py:1647-1675`):
+# a 256^3 lattice in chunks of 256 * 256 * 8 points, one K1 launch each.
+EXPORT_GRID, EXPORT_CHUNK = 256, 256 * 256 * 8
+EXPORT_LAUNCHES = -(-EXPORT_GRID ** 3 // EXPORT_CHUNK)
+# LPIPS timed on an 800 x 800 view, held against its CPU forward on a crop.
+LPIPS_WH, LPIPS_CROP, LPIPS_RTOL = 800, 256, 1e-4
+# Run (c) of the parallel phase: the UV trainer on a data mesh of two ranks
+# at the `dtu_train.sh` shape (the uv phase's), against one rank.
+UV_MESH_STEPS, UV_MESH_BLOCK = 200, 20
+UV_MESH_SIZES = dict(views=24, wh=64, rays_side=24, samples=64, points=2500)
+# The first step of two ranks against one rank: every loss term, and each
+# gradient leaf after the all-reduce to this share of the leaf's largest
+# entry. Only the order of float32 sums differs there (each rank's half of
+# the rays, the gloo sum). Later steps drift apart further: Adam scales
+# each update by its gradient's own size, so a gradient entry that is
+# rounding noise moves its weight as far as a real one.
+UV_MESH_FIRST_RTOL = 1e-4
+UV_RAY_TOL = 1e-6
+
 PARALLEL_ITERS = 700  # run (a): across the recipe's mask event at 600
-# Run (b): half the train phase's run, so that the whole script keeps to
-# its time limit with the topk and llff phases; held to a one-rank run of
-# the same length.
-PARALLEL_SP_ITERS = TRAIN_ITERS // 2
+# Run (b): a third of the train phase's run, so that the whole script keeps
+# to its time limit with the topk, llff and tail phases; held to a one-rank
+# run of the same length.
+PARALLEL_SP_ITERS = TRAIN_ITERS // 3
 PARALLEL_PSNR_GAP_DB = 0.3
 # Run (a) against the one-rank run: two runs on the card never train the
 # same weights (K2's float atomics add in another order each run, so
@@ -3892,6 +3958,8 @@ def parallel_rank(spec_path: str) -> int:
 
     with open(spec_path) as f:
         spec = json.load(f)
+    if "uv" in spec:
+        return uv_rank(spec, spec_path)
     held = {}
     run = loop.TriPlaneTrainer.run
 
@@ -3900,22 +3968,7 @@ def parallel_rank(spec_path: str) -> int:
         return run(self, *a, **kw)
 
     loop.TriPlaneTrainer.run = keep
-    reduce_ms = []
-    all_reduce = dist.all_reduce
-
-    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
-
-    def timed(tensor, *a, **kw):
-        if tensor.numel() < 1 << 20:
-            return all_reduce(tensor, *a, **kw)
-        sync()
-        t0 = time.perf_counter()
-        out = all_reduce(tensor, *a, **kw)
-        sync()
-        reduce_ms.append(1e3 * (time.perf_counter() - t0))
-        return out
-
-    dist.all_reduce = timed
+    reduce_ms = time_all_reduces()
     cuda_kernels.reset_launch_counts()
     t0 = time.perf_counter()
     stats = main_torch.main(spec["argv"])
@@ -3941,15 +3994,64 @@ def parallel_rank(spec_path: str) -> int:
     return 0
 
 
-def run_ranks(tmp: str, tag: str, argv: list[str], device: str, n: int = 2) -> list[dict]:
-    """``n`` ranks of ``main_torch.main(argv)`` as processes sharing one
-    device over gloo (``--device cuda:0``, or ``cpu`` in a rehearsal;
-    NGF_DIST_BACKEND=gloo), each through :func:`parallel_rank`. A rank that
-    fails, or a run that outlasts PARALLEL_TIMEOUT_S, fails the phase;
-    every rank is stopped."""
+def time_all_reduces(min_numel: int = 1 << 20) -> list[float]:
+    """Wrap ``torch.distributed.all_reduce`` so that each call on a buffer of
+    ``min_numel`` values or more (the gradients') is timed on the host clock
+    between two synchronisations; returns the list the milliseconds go
+    into."""
+    import torch.distributed as dist
+
+    reduce_ms: list[float] = []
+    all_reduce = dist.all_reduce
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+
+    def timed(tensor, *a, **kw):
+        if tensor.numel() < min_numel:
+            return all_reduce(tensor, *a, **kw)
+        sync()
+        t0 = time.perf_counter()
+        out = all_reduce(tensor, *a, **kw)
+        sync()
+        reduce_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    dist.all_reduce = timed
+    return reduce_ms
+
+
+def uv_rank(spec: dict, spec_path: str) -> int:
+    """One rank of the parallel phase's run (c): :func:`uv_mesh_run` on a
+    data mesh of every rank, its record and the all-reduce's milliseconds
+    written to ``<spec>.rank<i>.json``, its first step's gradients to
+    ``<spec>.rank<i>.grads.npz``."""
+    import torch.distributed as dist
+    from ngf_tpu_torch.parallel import make_mesh, maybe_initialize_distributed
+
+    device = torch.device(spec["device"])
+    maybe_initialize_distributed(device_type=device.type)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    reduce_ms = time_all_reduces(0)  # the trainer's one all-reduce a step
+    out = uv_mesh_run(device, spec["uv"]["steps"], spec["uv"]["sizes"], make_mesh())
+    out["reduce_ms"] = reduce_ms
+    np.savez(f"{spec_path}.rank{dist.get_rank()}.grads.npz", *out.pop("first_grads"))
+    with open(f"{spec_path}.rank{dist.get_rank()}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def run_ranks(tmp: str, tag: str, argv: list[str], device: str, n: int = 2,
+              uv: dict | None = None) -> list[dict]:
+    """``n`` ranks of ``main_torch.main(argv)`` (or, with ``uv``, of
+    :func:`uv_mesh_run` at ``uv["steps"]`` and ``uv["sizes"]``) as processes
+    sharing one device over gloo (``--device cuda:0``, or ``cpu`` in a
+    rehearsal; NGF_DIST_BACKEND=gloo), each through :func:`parallel_rank`.
+    A rank that fails, or a run that outlasts PARALLEL_TIMEOUT_S, fails the
+    phase; every rank is stopped."""
     spec = os.path.join(tmp, f"{tag}.json")
     with open(spec, "w") as f:
-        json.dump({"argv": argv + ["--device", device]}, f)
+        json.dump({"uv": uv, "device": device} if uv else {"argv": argv + ["--device", device]},
+                  f)
     port = _free_port()
     procs = []
     logs = []
@@ -3988,7 +4090,8 @@ def run_ranks(tmp: str, tag: str, argv: list[str], device: str, n: int = 2) -> l
 
 def parallel_phase(device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRAIN_WH,
                    train: dict | None = None, iters: int = PARALLEL_ITERS,
-                   sp_iters: int = PARALLEL_SP_ITERS, extra: tuple[str, ...] = ()) -> dict:
+                   sp_iters: int = PARALLEL_SP_ITERS, extra: tuple[str, ...] = (),
+                   uv_steps: int = UV_MESH_STEPS, uv_sizes: dict = UV_MESH_SIZES) -> dict:
     """The parallel modes on the card: K5's shard mode (:func:`k5_shard_rows`),
     the NCCL check, then two ranks sharing the card over gloo at full width
     (planes 256^2 x 96, 4096-ray global batches), on a Blender-format scene
@@ -4008,7 +4111,14 @@ def parallel_phase(device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRA
         the loss within PARALLEL_SP_TRAIN_LOSS_RTOL and the PSNR reported;
         K5's shard
         launches exact (a totals, a composite and a backward launch a step
-        on each rank) and the two ranks' digests equal.
+        on each rank) and the two ranks' digests equal;
+    (c) ``UVTrainer(mesh=make_mesh())`` (:func:`uv_mesh_run`), ``uv_steps``
+        steps at the `dtu_train.sh` shape (``uv_sizes``), each rank half of
+        every step's rays, against one rank in this process: the two ranks'
+        digests equal, the first step's loss terms and gradients within
+        UV_MESH_FIRST_RTOL, the last 50 steps' mean colour loss within
+        PARALLEL_SP_LOSS_RTOL, K5's NeuTex launches exact (one forward and
+        one backward a step on each rank).
 
     Prints each run's ms a step on the host clock and the gradient
     all-reduce's ms a step: two ranks on one card over gloo, no multi-GPU
@@ -4108,6 +4218,10 @@ def parallel_phase(device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRA
                  f"{b['train_psnr_gap_db']:+.3f} dB); " if train is not None else "")
               + f"rank digests {[r['params_sha1'][:12] for r in b_ranks]}")
         out["b"] = b
+        # (c) The UV trainer on a data mesh.
+        c = uv_mesh_compare(tmp, device, rank_device, uv_steps, uv_sizes)
+        c_ranks, one = c["ranks"], c["one_rank"]
+        out["c"] = c
 
     # The checks, after every number is printed.
     check(all(r["iterations"] == iters for r in ranks), "(a) ranks' iterations")
@@ -4147,15 +4261,428 @@ def parallel_phase(device: torch.device, views: int = TRAIN_VIEWS, wh: int = TRA
                  "ray_march_triplane_shard": sp_iters,
                  "ray_march_triplane_shard_backward": sp_iters}
             check(r["launches"] == w, f"(b) rank {rank} launches {r['launches']}, expected {w}")
+    check(all(len(r["mses"]) == uv_steps and all(math.isfinite(m) for m in r["mses"])
+              for r in c_ranks), "(c) ranks' losses")
+    check(c_ranks[0]["params_sha1"] == c_ranks[1]["params_sha1"], "(c) ranks' parameters differ")
+    check(all(over <= 1.0 for over in c["first_step_over"].values()),
+          f"(c) the first step against one rank: {c['first_step_over']}")
+    check(c["loss_rel_gap"] <= PARALLEL_SP_LOSS_RTOL, f"(c) loss gap {c['loss_rel_gap']}")
+    if cuda:
+        w = {**{k: 0 for k in cuda_kernels.KERNELS}, "ray_march": uv_steps,
+             "ray_march_backward": uv_steps}
+        for r in c_ranks + [one]:
+            check(r["launches"] == w, f"(c) rank {r['rank']} launches {r['launches']}, "
+                                      f"expected {w}")
     out["launches"] = {f"parallel 2x1 rank {i}": r["launches"] for i, r in enumerate(ranks)}
     out["launches"].update({f"parallel 1x2 rank {i}": r["launches"] for i, r in enumerate(b_ranks)})
     out["launches"]["parallel one rank"] = ref_launches
     out["launches"]["parallel one rank dense"] = sp_ref_launches
+    out["launches"].update({f"parallel uv rank {i}": r["launches"] for i, r in enumerate(c_ranks)})
+    out["launches"]["parallel uv one rank"] = one["launches"]
     return out
 
 
+# ---------------------------------------------------------------- the I/O tail
+
+
+
+def write_lpips_weights(root: str) -> float:
+    """Random LPIPS alex and vgg weights (`utils/lpips.py:random_weights`,
+    the tests' generators, seeds 0 and 1) written as ``root/lpips_{net}.npz``,
+    the stand-in for the pretrained files, which are not in the repository:
+    the metric then runs, on the card, wherever an evaluation asks for it.
+    Returns the seconds it took."""
+    from ngf_tpu_torch.utils.lpips import random_weights
+
+    t0 = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    for seed, net in enumerate(("alex", "vgg")):
+        np.savez(os.path.join(root, f"lpips_{net}.npz"),
+                 **random_weights(net, np.random.default_rng(seed)))
+    return time.perf_counter() - t0
+
+
+def video_frames(path: str) -> int:
+    """The frames of a video, read back through OpenCV."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def check_videos(folder: str, frames: int, prtx: str = "") -> dict:
+    """``{prtx}video.mp4`` and ``{prtx}depthvideo.mp4`` in ``folder``, each of
+    ``frames`` frames."""
+    got = {name: video_frames(os.path.join(folder, f"{prtx}{name}"))
+           for name in ("video.mp4", "depthvideo.mp4")}
+    check(all(n == frames for n in got.values()), f"{folder}: video frames {got}, want {frames}")
+    return got
+
+
+def read_ply_vertices(path: str) -> np.ndarray:
+    """The (V, 3) vertices of an ASCII PLY, its header and face count checked."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    end = lines.index("end_header")
+    nv = int(next(ln for ln in lines if ln.startswith("element vertex")).split()[-1])
+    nf = int(next(ln for ln in lines if ln.startswith("element face")).split()[-1])
+    check(len(lines) == end + 1 + nv + nf, f"{path}: {len(lines)} lines for {nv} vertices, "
+                                           f"{nf} faces")
+    verts = np.array([ln.split() for ln in lines[end + 1:end + 1 + nv]], np.float64)
+    return verts.reshape(-1, 3)
+
+
+def export_k1_row(device: torch.device, model=None) -> dict:
+    """K1 at the mesh export's shape: one chunk of the 256^3 lattice (524,288
+    points over the box) projected on the three planes, the density channels
+    0:24 of the planes (the staged phase's trained model, else random planes
+    of its width), as ``compute_alpha_grid_chunk`` fetches them; against
+    ``grid_sample_planes_plain`` (1e-5) and one batched ``F.grid_sample`` of
+    the three planes' density channels, timed beside its bound."""
+    from ngf_tpu_torch.fields.triplane import triplane_project
+    from ngf_tpu_torch.ops.cuda_kernels import bilinear_gather_planes
+    from ngf_tpu_torch.ops.grid_sample import grid_sample_planes_plain, normalize_coord
+    from ngf_tpu_torch.train.occupancy import dense_grid_points
+
+    if model is not None:
+        params, meta = model[0], model[1]
+        planes, aabb = [params[n] for n in PLANE_NAMES], meta["aabb"]
+        which = "the staged phase's trained planes"
+    else:
+        gen = torch.Generator(device=device).manual_seed(SEED + 5)
+        planes = [0.1 * torch.randn((256, 256, 96), generator=gen, device=device)
+                  for _ in range(3)]
+        aabb, which = AABB, "random planes"
+    dens = slice(0, 24)
+    aabb_t = torch.as_tensor(np.asarray(aabb, np.float32), device=device)
+    pts = dense_grid_points(aabb, (EXPORT_GRID,) * 3, device).reshape(-1, 3)[:EXPORT_CHUNK]
+    coords = triplane_project(normalize_coord(pts, aabb_t))
+    n = pts.shape[0]
+    got, _ = bilinear_gather_planes(planes, coords, dens)
+    ref, _ = grid_sample_planes_plain(planes, coords, dens)
+    err = (got - ref).abs().max().item()
+    check(err <= F32_TOL, f"K1 at the export chunk: err {err}")
+    lib_planes = torch.stack([p[..., dens].permute(2, 0, 1) for p in planes]).contiguous()
+    lib_grid = torch.stack([c.reshape(n, 2) for c in coords]).view(3, n, 1, 2)
+    ms = cuda_ms(lambda: bilinear_gather_planes(planes, coords, dens), reps=20)
+    plain_ms = cuda_ms(lambda: grid_sample_planes_plain(planes, coords, dens), reps=3)
+    library_ms = cuda_ms(lambda: F.grid_sample(lib_planes, lib_grid, mode="bilinear",
+                                               padding_mode="zeros", align_corners=True), reps=10)
+    # The output written once, the points read once (the projections are
+    # views of one xyz), the three planes' density channels read once.
+    bound_ms, bound_by = bytes_bound_ms(n * 3 * 24 * 4 + 12 * n + 3 * 256 * 256 * 24 * 4,
+                                        7 * n * 3 * 24 + 30 * n * 3)
+    row = {"case": "mesh export chunk", "N": n, "C": 24, "planes": which, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_share": bound_ms / ms,
+           "launches_per_export": EXPORT_LAUNCHES}
+    print("[tail] K1 " + json.dumps(row))
+    return row
+
+
+def pdf_draw_bound(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """How far a draw of ``sample_pdf`` may move between two devices. Each
+    float32 CDF value is a sum of B terms, which another order of summation
+    may round up to delta = B * eps32 apart; that moves a draw by up to
+    3 * delta * (bin width / CDF step) in its bin (the step taken as 1e-5 at
+    least), and a draw within delta of a bin's edge may fall into the next
+    bin, whose slope then counts too."""
+    nb = weights.shape[-1]
+    delta = nb * torch.finfo(torch.float32).eps
+    w = weights.double() + 1e-5
+    cdf = torch.cumsum(w / w.sum(-1, keepdim=True), -1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
+    slope = bins.double().diff(dim=-1).abs() / cdf.diff(dim=-1).clamp_min(1e-5)
+    u = u.double().contiguous()
+    i = (torch.searchsorted(cdf, u, right=True) - 1).clamp(0, nb - 1)
+    k = slope.gather(-1, i)
+    k = torch.where(u - cdf.gather(-1, i) < delta,
+                    torch.maximum(k, slope.gather(-1, (i - 1).clamp_min(0))), k)
+    k = torch.where(cdf.gather(-1, i + 1) - u < delta,
+                    torch.maximum(k, slope.gather(-1, (i + 1).clamp_max(nb - 1))), k)
+    return 3.0 * delta * k
+
+
+def uv_ray_bounds(want: tuple, draws: tuple | None = None, refined: bool = False,
+                  domain: float = 1.0) -> list:
+    """For each output of a UV ray function, how far the card may be from
+    the CPU's ``want``: UV_RAY_TOL of each value, plus the move of the
+    inverse-CDF ``draws`` (bins, weights, u) behind it. Sorting moves no
+    value further than its ray's largest move; a segment length has two
+    ends; directions are unit. For a mask, the entries that must agree: all,
+    but samples of a refined ray within their bound of the cube's face."""
+    move = 0.0 if draws is None else pdf_draw_bound(*draws).float()
+    if refined:
+        move = move.amax(-1, keepdim=True)
+        raypos, seg, valid, mid = want
+        pos_tol = UV_RAY_TOL * (1 + raypos.abs()) + move[..., None]
+        near_face = ((raypos.abs() - domain).abs() <= pos_tol).any(-1)
+        return [pos_tol, UV_RAY_TOL * (1 + seg.abs()) + 2 * move, ~near_face,
+                UV_RAY_TOL * (1 + mid.abs()) + move]
+    return [torch.ones_like(w) if w.dtype == torch.bool else UV_RAY_TOL * (1 + w.abs()) + move
+            for w in want]
+
+
+def uv_ray_rows(device: torch.device, rays_side: int = UV_RAYS_SIDE,
+                samples: int = UV_SAMPLES, views: int = UV_VIEWS, wh: int = UV_WH) -> dict:
+    """The UV ray functions that nothing in the trainer calls yet
+    (``cube_ray_generation_with_end``, ``sample_pdf``,
+    ``refine_cube_ray_generation``) on the card at the UV step's shape (one
+    view's rays x samples, a synthetic DTU batch), each against the same
+    call on CPU copies within ``uv_ray_bounds`` (1e-6 of each value, plus
+    what float32 CDF rounding moves a draw), timed by CUDA events."""
+    from ngf_tpu_torch.data.dtu import SyntheticDtuDataset
+    from ngf_tpu_torch.ops import rays
+
+    ds = SyntheticDtuDataset(n_views=views, wh=(wh, wh), random_sample="balanced",
+                             random_sample_size=rays_side, seed=SEED)
+    item = ds.sample()
+    g = torch.Generator(device=device).manual_seed(SEED + 6)
+    campos = torch.as_tensor(item["campos"], device=device)
+    d = torch.as_tensor(item["raydir"], device=device)
+    r, s = d.shape[1], samples
+    end = campos[:, None] + d * (campos.norm() * (0.6 + 0.6 * torch.rand(
+        (1, r, 1), generator=g, device=device)))
+    prev_ts = torch.sort(campos.norm() - 1.0 + 2.0 * torch.rand(
+        (1, r, s), generator=g, device=device)).values
+    inputs = {"campos": campos, "d": d, "end": end, "prev_ts": prev_ts,
+              "prev_w": torch.rand((1, r, s), generator=g, device=device),
+              "u": torch.rand((1, r, s), generator=g, device=device),
+              "u2": torch.rand((1, r, s + 1), generator=g, device=device)}
+    inputs["bins"] = 0.5 * (prev_ts[..., 1:] + prev_ts[..., :-1])
+    calls = {
+        "cube_ray_generation_with_end": lambda t: rays.cube_ray_generation_with_end(
+            t["campos"], t["d"], t["end"], s, 1.0, 0.5, t["u"]),
+        "sample_pdf": lambda t: (rays.sample_pdf(t["bins"], t["prev_w"][..., 1:-1], s + 1,
+                                                 u=t["u2"]),),
+        "refine_cube_ray_generation": lambda t: rays.refine_cube_ray_generation(
+            t["campos"], t["d"], s, t["prev_ts"], t["prev_w"], 1.0, False, u=t["u2"]),
+    }
+    cpu = {k: v.cpu() for k, v in inputs.items()}
+    draws = (cpu["bins"], cpu["prev_w"][..., 1:-1], cpu["u2"])
+    out = {}
+    for name, fn in calls.items():
+        got = fn(inputs)
+        want = fn(cpu)
+        bounds = uv_ray_bounds(want, None if name == "cube_ray_generation_with_end" else draws,
+                               refined=name == "refine_cube_ray_generation")
+        err, excused = 0.0, 0
+        for a, w, bound in zip(got, want, bounds):
+            check(a.device == d.device, f"{name}: output on {a.device}")
+            a = a.cpu()
+            if w.dtype == torch.bool:
+                check(torch.equal(a[bound], w[bound]), f"{name}: mask differs from the CPU's")
+                excused += int((a != w).sum())
+            else:
+                over = ((a - w).abs() / bound).max().item()
+                check(over <= 1.0, f"{name}: {over} times its bound from the CPU's")
+                err = max(err, (a - w).abs().max().item())
+        out[name] = {"rays": r, "samples": s, "max_abs_err": err,
+                     "mask_flips_at_the_face": excused,
+                     "ms": host_or_cuda_ms(lambda: fn(inputs), device, reps=20)}
+    print("[tail] UV ray functions on the card: " + json.dumps(out))
+    return out
+
+
+def lpips_rows(device: torch.device, wh: int = LPIPS_WH, crop: int = LPIPS_CROP) -> dict:
+    """LPIPS alex and vgg (the random weights of ``NGF_LPIPS_WEIGHTS_DIR``)
+    on the card: ms per ``wh`` x ``wh`` view as ``evaluation`` pays it (the
+    two images' upload, the forward, one read of the five taps), and the
+    card's value against the CPU forward on a ``crop`` x ``crop`` crop (rtol
+    LPIPS_RTOL)."""
+    from ngf_tpu_torch.utils import lpips
+
+    rng = np.random.default_rng(SEED)
+    a = rng.uniform(0, 1, (wh, wh, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    out = {}
+    for net in ("alex", "vgg"):
+        check(lpips.lpips_available(net), f"no LPIPS-{net} weights at {lpips.weights_path(net)}")
+        value = lpips.rgb_lpips(a, b, net, device)
+        ms = host_or_cuda_ms(lambda: lpips.rgb_lpips(a, b, net, device), device, reps=5)
+        ca, cb = a[:crop, :crop], b[:crop, :crop]
+        card, cpu = lpips.rgb_lpips(ca, cb, net, device), lpips.rgb_lpips(ca, cb, net, "cpu")
+        check(math.isfinite(value) and abs(card - cpu) <= LPIPS_RTOL * abs(cpu),
+              f"LPIPS-{net} on the card {card} against the CPU's {cpu}")
+        out[net] = {"wh": wh, "value": value, "ms": ms, "crop": crop, "card": card, "cpu": cpu,
+                    "rel_err": abs(card - cpu) / abs(cpu)}
+    print("[tail] LPIPS " + json.dumps(out))
+    return out
+
+
+def trace_steps(device: torch.device, steps: int = 3, wh: int = TRAIN_WH,
+                extra: tuple[str, ...] = ()) -> dict:
+    """``utils.profiling.trace`` around ``steps`` dense train steps of
+    ``configs/synthetic_infoinv_tpu.txt --group_size 0`` (one view): the
+    Chrome trace it writes must name K1's kernel symbol (on the card) and
+    the ``annotate`` region around the steps, and hold as many K1 events as
+    K1's launch count over those steps."""
+    from ngf_tpu_torch.config import config_parser
+    from ngf_tpu_torch.ops import cuda_kernels
+    from ngf_tpu_torch.data import load_dataset
+    from ngf_tpu_torch.train.loop import TriPlaneTrainer
+    from ngf_tpu_torch.utils.profiling import annotate, trace
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    args = config_parser(["--config", os.path.join(here, TRAIN_CONFIG), "--group_size", "0",
+                          "--device", device.type, *extra])
+    ds = load_dataset("synthetic", f"synthetic:views=1,wh={wh}", split="train", is_stack=False)
+    trainer = TriPlaneTrainer(args, ds, device=device)
+    step = lambda: trainer.train_step(*trainer.next_batch(), trainer.gen)  # noqa: E731
+    step()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with trace(tmp):
+            with annotate("chip_smoke_train_steps"):
+                for _ in range(steps):
+                    step()
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+        traced_s = time.perf_counter() - t0
+        launched = cuda_kernels.KERNELS["bilinear_gather_planes"].launches
+        files = os.listdir(tmp)
+        check(len(files) == 1 and files[0].endswith(".pt.trace.json"), f"trace files {files}")
+        with open(os.path.join(tmp, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(os.path.join(tmp, files[0]))
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k1 = [k for k in kernels if "bilinear_gather_planes_kernel" in k]
+    out = {"steps": steps, "events": len(events), "kernels": len(kernels), "k1": len(k1),
+           "k1_launches": launched, "k1_symbol": k1[0] if k1 else None, "bytes": size,
+           "traced_s": traced_s}
+    print("[tail] trace " + json.dumps(out))
+    check(any(e.get("name") == "chip_smoke_train_steps" for e in events), "trace: no region")
+    check(device.type != "cuda" or launched >= steps, f"trace: K1 launched {launched} times "
+                                                      f"in {steps} steps")
+    check(len(k1) == launched, f"trace: K1 {len(k1)} times in {len(kernels)} kernels, "
+                               f"launched {launched} times")
+    return out
+
+
+def trace_in_subprocess() -> dict:
+    """:func:`trace_steps` in a fresh process (``--trace_steps``): late in a
+    whole run, after the earlier phases' profiles, this process's profiler
+    keeps fewer kernel events than were launched (K1's counter 3 over the
+    traced steps, its trace 2)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace_steps", path],
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"the trace subprocess exited {proc.returncode}:\n"
+                                    f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(path) as f:
+            out = json.load(f)
+    print("[tail] trace " + json.dumps(out))
+    return out
+
+
+def tail_phase(device: torch.device, staged: dict | None = None) -> dict:
+    """The I/O tail on the card: the UV ray functions against the CPU, LPIPS
+    timed and held against its CPU forward, K1 at the mesh export's chunk,
+    and ``trace()`` around three train steps (in a fresh process)."""
+    return {"uv_rays": uv_ray_rows(device), "lpips": lpips_rows(device),
+            "export_k1": export_k1_row(device, None if staged is None else staged["model"]),
+            "trace": trace_in_subprocess()}
+
+
+def uv_mesh_compare(tmp: str, device: torch.device, rank_device: str, uv_steps: int,
+                    uv_sizes: dict) -> dict:
+    """The parallel phase's run (c): :func:`uv_mesh_run` on two ranks
+    (:func:`run_ranks` into ``tmp``) and on one rank in this process, and
+    the numbers that it is held to; prints them."""
+    c_ranks = run_ranks(tmp, "c", [], rank_device, uv={"steps": uv_steps, "sizes": uv_sizes})
+    one = uv_mesh_run(device, uv_steps, uv_sizes)
+    c = {"ranks": c_ranks, "one_rank": one,
+         "loss_last50": float(np.mean(c_ranks[0]["mses"][-50:])),
+         "one_rank_loss_last50": float(np.mean(one["mses"][-50:])),
+         "ms_per_step": c_ranks[0]["ms_per_step"],
+         "reduce_ms": float(np.mean(c_ranks[0]["reduce_ms"])) if c_ranks[0]["reduce_ms"]
+         else None, "reduce_numel": c_ranks[0]["reduce_numel"]}
+    c["loss_rel_gap"] = abs(c["loss_last50"] - c["one_rank_loss_last50"]) / c[
+        "one_rank_loss_last50"]
+    # The first step against one rank, in units of its limit: each loss
+    # term (allclose's rule, atol 1e-8) and each gradient leaf (the
+    # largest difference over the leaf's largest entry); then the colour
+    # loss's gap as the steps go on.
+    with np.load(os.path.join(tmp, "c.json.rank0.grads.npz")) as f:
+        two_grads = [f[f"arr_{i}"] for i in range(len(f.files))]
+    c["first_step_over"] = {
+        k: abs(c_ranks[0]["first_losses"][k] - b) / (1e-8 + UV_MESH_FIRST_RTOL * abs(b))
+        for k, b in one["first_losses"].items()}
+    c["first_step_over"]["gradients"] = max(
+        float(np.abs(a - b).max() / (UV_MESH_FIRST_RTOL * max(np.abs(b).max(), 1e-30)))
+        for a, b in zip(two_grads, one.pop("first_grads")))
+    c["first_losses"] = one["first_losses"]
+    c["color_gap_at_step"] = {
+        t: abs(c_ranks[0]["mses"][t - 1] - one["mses"][t - 1]) / one["mses"][t - 1]
+        for t in (1, 2, 5, 10, 20, 50, 100, uv_steps) if t <= uv_steps}
+    print(f"[parallel] (c) UVTrainer(mesh=make_mesh()), {uv_steps} steps of "
+          f"{uv_sizes['rays_side'] ** 2} rays x {uv_sizes['samples']} samples, half the rays "
+          f"on each of two ranks on one card over gloo: {c['ms_per_step']:.3f} ms/step on the "
+          f"host clock (one rank alone {one['ms_per_step']:.3f}), the gradient all-reduce "
+          f"{c['reduce_ms']} ms/step ({c['reduce_numel']} floats); last-50 mean colour loss "
+          f"{c['loss_last50']:.6f} against one rank's {c['one_rank_loss_last50']:.6f} (gap "
+          f"{c['loss_rel_gap']:.3%}); the first step against one rank's in units of its "
+          f"limit (rtol {UV_MESH_FIRST_RTOL}): {json.dumps(c['first_step_over'])} (its "
+          f"losses {json.dumps(c['first_losses'])}); the colour loss's gap at step "
+          f"{json.dumps(c['color_gap_at_step'])}; rank digests "
+          f"{[r['params_sha1'][:12] for r in c_ranks]}")
+    return c
+
+
+def uv_mesh_run(device: torch.device, steps: int, sizes: dict, mesh=None) -> dict:
+    """The UV trainer at ``sizes`` (the `dtu_train.sh` shape by default), seed
+    0, ``steps`` steps in blocks of UV_MESH_BLOCK sampled as the CLI samples
+    them, on ``mesh`` (or one rank): the colour losses, every loss term and
+    the gradients (after the all-reduce) of the first step, ms a step on
+    the host clock (after the first block), the launches, a digest of the
+    parameters."""
+    import hashlib
+
+    from ngf_tpu_torch.convert import sorted_named_leaves
+    from ngf_tpu_torch.data.dtu import SyntheticDtuDataset
+    from ngf_tpu_torch.fields.neutex import NeuTexConfig
+    from ngf_tpu_torch.ops import cuda_kernels
+    from ngf_tpu_torch.train.uv_loop import UVTrainer
+
+    ds = SyntheticDtuDataset(n_views=sizes["views"], wh=(sizes["wh"], sizes["wh"]),
+                             random_sample="balanced", random_sample_size=sizes["rays_side"],
+                             seed=0)
+    cfg = NeuTexConfig(primitive_type="square", sample_num=sizes["samples"],
+                       points_per_primitive=sizes["points"], **sizes.get("widths", {}))
+    trainer = UVTrainer(cfg, ds, niter=steps, seed=0, device=device, mesh=mesh)
+    cuda_kernels.reset_launch_counts()
+    mses, t0 = [], None
+    # The first step alone, for its losses and gradients; then blocks.
+    ends = sorted({1, *range(UV_MESH_BLOCK, steps, UV_MESH_BLOCK), steps})
+    for start, end in zip([0, *ends], ends):
+        losses = trainer.train_block([ds.sample() for _ in range(end - start)])
+        mses += losses["color"].tolist()
+        if start == 0:
+            first = {k: float(v[0]) for k, v in losses.items()}
+            grads = [t.grad.cpu().numpy() for t in trainer.trainable]
+        if end == min(UV_MESH_BLOCK, steps):
+            t0 = time.perf_counter()
+    digest = hashlib.sha1()
+    for _, leaf in sorted_named_leaves(trainer.params):
+        digest.update(leaf.detach().cpu().numpy().tobytes())
+    timed = steps - min(UV_MESH_BLOCK, steps)
+    return {"mses": mses, "first_losses": first, "first_grads": grads,
+            "ms_per_step": 1e3 * (time.perf_counter() - t0) / max(timed, 1),
+            "launches": {k: fn.launches for k, fn in cuda_kernels.KERNELS.items()},
+            "params_sha1": digest.hexdigest(), "rank": 0 if mesh is None else mesh.rank,
+            "reduce_numel": sum(t.numel() for t in trainer.trainable)}
+
+
 PHASES = ("kernel", "rows", "backward", "occupancy", "uv", "render", "train", "staged", "gauge",
-          "bf16", "topk", "llff", "lego", "parallel")
+          "bf16", "topk", "llff", "lego", "tail", "parallel")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -4173,9 +4700,15 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--uv_sphere_dtype", default="float32", choices=("float32", "bfloat16"),
                         help="compute dtype of the uv phase's sphere run")
     parser.add_argument("--parallel_rank", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--trace_steps", default=None, help=argparse.SUPPRESS)
     parsed = parser.parse_args(argv)
     if parsed.parallel_rank:  # one rank of the parallel phase (run_ranks)
         return parallel_rank(parsed.parallel_rank)
+    if parsed.trace_steps:  # the tail phase's trace (trace_in_subprocess)
+        out = trace_steps(torch.device("cuda" if torch.cuda.is_available() else "cpu"))
+        with open(parsed.trace_steps, "w") as f:
+            json.dump(out, f)
+        return 0
     phases = parsed.phases.split(",")
     unknown = set(phases) - set(PHASES)
     if unknown:
@@ -4195,6 +4728,12 @@ def main(argv: list[str] | None = None) -> int:
     print("[device] K2c float4 footprint: " + json.dumps(k2c_fp))
     k2c_bf16_fp = cuda_kernels.backward_coords_footprint(4, torch.bfloat16)
     print("[device] K2c bfloat16 4-channel footprint: " + json.dumps(k2c_bf16_fp))
+    # LPIPS weights for every evaluation that asks for the metric (the staged
+    # phase's CLI run, the gauge and lego recipes' final evaluations).
+    lpips_dir = tempfile.TemporaryDirectory()
+    os.environ["NGF_LPIPS_WEIGHTS_DIR"] = lpips_dir.name
+    print(f"[device] random LPIPS weights written in {write_lpips_weights(lpips_dir.name):.3f} s "
+          "(set-up)")
 
     run = {
         "kernel": lambda: kernel_phase(device, RAYS_PER_CHUNK * 884),
@@ -4203,7 +4742,8 @@ def main(argv: list[str] | None = None) -> int:
         "render": lambda: render_phase(device),
         "train": lambda: train_phase(device),
         "occupancy": lambda: occupancy_phase(device),
-        "staged": lambda: staged_phase(device),
+        "staged": lambda: staged_phase(device, extra=("--export_mesh", "1",
+                                                      "--compute_extra_metrics", "1")),
         "gauge": lambda: gauge_phase(device),
         "bf16": lambda: bf16_phase(device),
         "uv": lambda: uv_phase(device, steps=parsed.uv_steps, bf16_steps=parsed.uv_bf16_steps,
@@ -4212,6 +4752,7 @@ def main(argv: list[str] | None = None) -> int:
         "topk": lambda: topk_phase(device, staged=out.get("staged")),
         "llff": lambda: llff_phase(device),
         "lego": lambda: lego_phase(device),
+        "tail": lambda: tail_phase(device, staged=out.get("staged")),
         "parallel": lambda: parallel_phase(device, train=out.get("train")),
     }
     out = {}
@@ -4220,6 +4761,7 @@ def main(argv: list[str] | None = None) -> int:
             t0 = time.perf_counter()
             out[phase] = run[phase]()
             print(f"[device] {phase} phase: {time.perf_counter() - t0:.3f} s")
+    lpips_dir.cleanup()
     if set(phases) != set(PHASES):
         print(card)
         return 0
@@ -4241,7 +4783,8 @@ def main(argv: list[str] | None = None) -> int:
              **out["uv"]["launches"], **out["parallel"]["launches"]}
     # The bfloat16 InfoInv paths, whose K2 launches are its bfloat16 variant.
     bf16_infoinv = ("bf16 infoinv", "lego", "lego resumed")
-    uv_paths = tuple(out["uv"]["launches"])
+    uv_paths = tuple(out["uv"]["launches"]) + tuple(
+        p for p in out["parallel"]["launches"] if p.startswith("parallel uv"))
 
     def entry(name, source, replaces, row, max_abs_err, at, counters=None, skip=()):
         """A kernel's line; its launches over the main paths but ``skip``
@@ -4421,6 +4964,9 @@ def main(argv: list[str] | None = None) -> int:
                            "taps_per_point")} for r in fused]
     kernels[0]["rows"].append({k: gauge["k1_three_shapes"][k] for k in (
         "case", "shapes", "N", "ms", "bound_ms", "plain_ms", "library_ms")})
+    kernels[0]["rows"].append({k: out["tail"]["export_k1"][k] for k in (
+        "case", "N", "C", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+        "launches_per_export")})
     kernels[0]["probe_row"] = {k: probe[k] for k in (
         "case", "N", "ms", "bound_ms", "plain_ms", "library_ms")}
     kernels[5]["rows"] = [{k: r.get(k) for k in ("case", "P", "shapes", "N", "ms", "bound_ms",

@@ -23,8 +23,10 @@ the capacity measured at each mask and upsample event), and ``--group_size
 0 --mask_stride K`` queries the occupancy once a window of K samples, as in
 `main.py`. ``--dataset_name`` takes every loader of `main.py`: ``synthetic``,
 ``blender``, ``llff`` (forward-facing, NDC rays, a spiral render path),
-``nsvf``, ``tankstemple`` and ``own_data``. ``steps_per_call`` is read and
-has no effect: PyTorch runs one step at a time.
+``nsvf``, ``tankstemple`` and ``own_data``. ``--export_mesh 1`` writes
+``mesh.ply`` (marching cubes at alpha 0.005 over a 256^3 grid of the
+trained field) after training. ``steps_per_call`` is read and has no
+effect: PyTorch runs one step at a time.
 
 Several ranks (one process each) train one model when the environment opts
 in (`ngf_tpu_torch/parallel/mesh.py:maybe_initialize_distributed`): torchrun
@@ -46,6 +48,7 @@ checkpoints and evaluations.
 from __future__ import annotations
 
 import datetime
+import json
 import os
 import sys
 
@@ -113,8 +116,10 @@ def make_training_mesh(mesh_shape: str):
 def run_train(args):
     """Train (InfoInv or the learned gauge), or resume the run that wrote
     ``--ckpt``, save ``model.npz``, then the final evaluations
-    (`main.py:45-117`). Returns the trainer's statistics with the test PSNRs
-    under ``test_psnrs`` (empty when no test views were rendered). A run
+    (`main.py:45-117`). With ``--export_mesh 1`` the trained field's
+    ``mesh.ply`` is written before the evaluations (rank 0 alone), its
+    record under ``export``. Returns the trainer's statistics with the test
+    PSNRs under ``test_psnrs`` (empty when no test views were rendered). A run
     stopped by SIGTERM saves ``model.npz`` and returns before the final
     evaluations. Under a mesh only rank 0 runs the final evaluations; the
     other ranks return after training with no test PSNRs."""
@@ -122,10 +127,6 @@ def run_train(args):
     from ngf_tpu_torch.render.evaluation import evaluation, evaluation_path
     from ngf_tpu_torch.train.loop import TriPlaneTrainer, check_ported
 
-    if args.export_mesh:
-        raise NotImplementedError(
-            "export_mesh is not ported to ngf_tpu_torch yet: see ROADMAP.md, items still missing"
-        )
     check_ported(args)
     device = _rank_device(args.device)
     mesh = make_training_mesh(args.mesh_shape)
@@ -155,6 +156,12 @@ def run_train(args):
         # Stopped by SIGTERM: the checkpoint is written; the evaluations
         # wait for the resumed run.
         return {**stats, "test_psnrs": []}
+
+    if args.export_mesh:
+        # The mesh of the trained field (`main.py:87-89`), rank 0 alone.
+        path = os.path.join(logfolder, "mesh.ply")
+        stats["export"] = trainer.export_mesh(path)
+        print(f"mesh exported to {path}: {json.dumps(stats['export'])}", flush=True)
 
     # The final evaluations march the full geometry-derived sample count
     # with no compaction (`main.py:92-95`).

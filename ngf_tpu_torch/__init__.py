@@ -11,5 +11,9 @@ And the UV-Mapping (NeuTex) subsystem (`fields/neutex.py`,
 `train/uv_loop.py`, `data/dtu.py`; CLIs `uv_train_torch.py` and
 `uv_test_torch.py`), with the compositing scan K5 `ops/kernels/ray_march.cu`.
 Then tri-plane training resume (`--ckpt` in training mode, SIGTERM saving,
-background periodic saves) and the Blender loader (`data/blender.py`).
+background periodic saves) and the Blender loader (`data/blender.py`), the
+parallel modes (`parallel/`), top-K shading and the other loaders. And the
+I/O tail: the mesh export (`utils/marching_cubes.py`, `utils/viz.py`),
+LPIPS (`utils/lpips.py`), evaluation videos, PFM files and profiling, the
+UV ray functions (`ops/rays.py`) and the UV trainer's data mesh.
 """

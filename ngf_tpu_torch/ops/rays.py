@@ -1,10 +1,13 @@
-"""Ray-AABB clipping, fixed-step sampling along rays, and the NDC helpers
-of forward-facing scenes.
+"""Ray-AABB clipping, fixed-step sampling along rays, NeuTex cube ray
+generation (plain, bounded by end points, and importance-refined),
+inverse-CDF sampling, and the NDC helpers of forward-facing scenes.
 
-Port of `ngf_tpu/ops/rays.py:19-147,274-333` (references
-`InfoInv/models/FieldBase.py:118-137`, `UV-Mapping/model/renderer.py:79-141`,
-`InfoInv/dataLoader/ray_utils.py:9-21,90-107,269-275`). Randomness is
-injected: the caller passes the jitter tensor, and evaluation passes none.
+Port of `ngf_tpu/ops/rays.py` (references
+`InfoInv/models/FieldBase.py:118-137`, `UV-Mapping/model/renderer.py:13-173,271-345`,
+`InfoInv/dataLoader/ray_utils.py:9-21,90-107,129-171,269-275`). Randomness is
+injected: the caller passes the uniform draws where the JAX functions take
+a key (``sample_pdf`` draws from the global generator when given none),
+and evaluation passes none.
 """
 
 from __future__ import annotations
@@ -121,6 +124,126 @@ def cube_ray_generation(
     return raypos, segment_length, valid, mid_ts
 
 
+def cube_ray_generation_with_end(
+    campos: torch.Tensor,
+    raydir: torch.Tensor,
+    end: torch.Tensor,
+    point_count: int,
+    domain_size: float = 1.0,
+    jitter: float = 0.0,
+    u: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`cube_ray_generation` bounded by per-ray end points
+    (`ngf_tpu/ops/rays.py:150-179`, reference `renderer.py:271-345`): a
+    sample whose midpoint lies past the ray's end is invalid (depth-supervised
+    rendering). A direction component under 1e-12 in size sets no bound (the
+    reference's plain division would give NaN and void the whole ray).
+
+    Args:
+      end: (B, R, 3) end positions per ray; the rest as
+        :func:`cube_ray_generation`.
+    """
+    raypos, segment_length, valid, mid_ts = cube_ray_generation(
+        campos, raydir, point_count, domain_size, jitter, u
+    )
+    ratio = torch.where(
+        raydir.abs() < 1e-12,
+        torch.full_like(raydir, float("inf")),
+        (end - campos[:, None, :]) / torch.where(raydir == 0, torch.ones_like(raydir), raydir),
+    )
+    t_end = ratio.amin(dim=-1)  # (B, R)
+    valid = valid & (mid_ts < t_end[:, :, None])
+    return raypos, segment_length, valid, mid_ts
+
+
+def refine_cube_ray_generation(
+    campos: torch.Tensor,
+    raydir: torch.Tensor,
+    point_count: int,
+    prev_ts: torch.Tensor,
+    prev_weights: torch.Tensor,
+    domain_size: float = 1.0,
+    det: bool = True,
+    u: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Importance-refined cube sampling (`ngf_tpu/ops/rays.py:182-216`,
+    reference `renderer.py:144-173` with its numpy ``sample_pdf``): new
+    segment ends drawn from the inverse CDF of the previous blend weights,
+    sorted with the previous positions (which take no gradient), the first
+    ``point_count + 1`` kept, and the segments' midpoints sampled.
+
+    Args:
+      prev_ts: (B, R, S0) previous sample positions.
+      prev_weights: (B, R, S0) their blend weights.
+      det: evenly spaced draws; else ``u`` (B, R, point_count + 1) uniform
+        draws, or drawn from the global generator.
+
+    Returns:
+      raypos (B, R, S, 3), segment_length (B, R, S), valid (B, R, S), mid_ts.
+    """
+    # The reference's bins are the midpoints of prev_ts (S0 - 1) and its
+    # weights the interior ones (S0 - 2) (`renderer.py:33-45`).
+    bins = 0.5 * (prev_ts[..., 1:] + prev_ts[..., :-1])
+    weights = prev_weights[..., 1:-1]
+    new_ts = sample_pdf(bins, weights, point_count + 1, det=det, u=u)
+    end_ts = torch.sort(torch.cat([new_ts, prev_ts.detach()], dim=-1), dim=-1).values[
+        ..., : point_count + 1]
+    segment_length = end_ts[..., 1:] - end_ts[..., :-1]
+    mid_ts = 0.5 * (end_ts[..., :-1] + end_ts[..., 1:])
+    raypos = campos[:, None, None, :] + raydir[:, :, None, :] * mid_ts[..., None]
+    valid = ((raypos > -domain_size) & (raypos < domain_size)).all(dim=-1)
+    return raypos, segment_length, valid, mid_ts
+
+
+def sample_pdf(
+    bins: torch.Tensor,
+    weights: torch.Tensor,
+    n_samples: int,
+    det: bool = False,
+    u: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Inverse-CDF sampling along rays (`ngf_tpu/ops/rays.py:219-271`,
+    reference `InfoInv/dataLoader/ray_utils.py:129-171`): a CDF over
+    ``bins`` from ``weights`` (+1e-5 each), ``n_samples`` drawn by inverse
+    transform.
+
+    Args:
+      bins: (..., B + 1) bin positions.
+      weights: (..., B) unnormalised weights.
+      det: evenly spaced draws in [0, 1]; else ``u`` (..., n_samples)
+        uniform draws, or drawn from the global generator.
+
+    Returns:
+      (..., n_samples) sample positions.
+    """
+    if bins.shape[-1] != weights.shape[-1] + 1:
+        raise ValueError(
+            f"bins must have one more entry than weights: {bins.shape[-1]} vs {weights.shape[-1]}"
+        )
+    weights = weights + 1e-5
+    cdf = torch.cumsum(weights / weights.sum(dim=-1, keepdim=True), dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)  # (..., B + 1)
+    shape = (*cdf.shape[:-1], n_samples)
+    if det:
+        u = torch.linspace(0.0, 1.0, n_samples, dtype=bins.dtype, device=bins.device).expand(shape)
+    elif u is None:
+        u = torch.rand(shape, dtype=bins.dtype, device=bins.device)
+    u = u.contiguous()
+
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = (inds - 1).clamp_min(0)
+    above = inds.clamp_max(cdf.shape[-1] - 1)
+    cdf_below = torch.gather(cdf, -1, below)
+    cdf_above = torch.gather(cdf, -1, above)
+    bins_below = torch.gather(bins, -1, below)
+    bins_above = torch.gather(bins, -1, above)
+
+    denom = cdf_above - cdf_below
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_below) / denom
+    return bins_below + t * (bins_above - bins_below)
+
+
 def depth2dist(z_vals: torch.Tensor, cos_angle: torch.Tensor) -> torch.Tensor:
     """Depth samples -> segment lengths scaled by the ray angle, the last
     1e10 (`ngf_tpu/ops/rays.py:274-281`)."""
@@ -143,6 +266,21 @@ def ndc_bbox(all_rays: torch.Tensor) -> torch.Tensor:
     lo = torch.minimum(near.amin(0), far.amin(0))
     hi = torch.maximum(near.amax(0), far.amax(0))
     return torch.stack([lo, hi])
+
+
+def find_ray_generation_method(name: str):
+    """Ray generation by name (`ngf_tpu/ops/rays.py:300-304`, reference
+    `renderer.py:13-24`)."""
+    if name == "cube":
+        return cube_ray_generation
+    raise RuntimeError(f"No such ray generation method: {name}")
+
+
+def find_refined_ray_generation_method(name: str):
+    """Refined ray generation by name (`ngf_tpu/ops/rays.py:307-311`)."""
+    if name == "cube":
+        return refine_cube_ray_generation
+    raise RuntimeError(f"No such refined ray generation method: {name}")
 
 
 def ndc_rays_blender(

@@ -14,7 +14,8 @@ computes the same loss from the same sums):
   filled (gloo reduces CUDA tensors); backward the sum of the stack's
   cotangents over the group, this rank's row.
 
-And the trainer's host-side agreement :func:`any_rank` (a MAX all-reduce
+And the trainers' :func:`broadcast_from_rank0` (every rank starts from rank
+0's parameters) and host-side agreement :func:`any_rank` (a MAX all-reduce
 of a flag).
 """
 
@@ -78,3 +79,14 @@ def any_rank(flag: bool) -> bool:
     t = torch.tensor([int(flag)], dtype=torch.int32, device=_flag_device())
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return bool(t.item())
+
+
+def broadcast_from_rank0(tensors) -> None:
+    """Every rank's ``tensors`` take rank 0's values, in place: one broadcast
+    of a flat buffer (the same tensors, in the same order, on every rank)."""
+    tensors = list(tensors)
+    with torch.no_grad():
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.broadcast(flat, src=0)
+        for t, v in zip(tensors, flat.split([t.numel() for t in tensors])):
+            t.copy_(v.view_as(t))

@@ -10,7 +10,8 @@ upsample events with their optimizer resets, the run loop with its logs,
 ``scalars.jsonl``, evaluations, periodic checkpoints written off the loop
 and a SIGTERM drain, training resume from either package's checkpoint
 (:meth:`TriPlaneTrainer.from_checkpoint`), the final evaluation renderer,
-and the two parallel modes over ``torch.distributed`` (``mesh``).
+the mesh export (:meth:`TriPlaneTrainer.export_mesh`), and the two parallel
+modes over ``torch.distributed`` (``mesh``).
 
 Differences from the JAX trainer:
 - The training rays and colours live on the device as one (N, 9) table,
@@ -94,7 +95,7 @@ from ..parallel import collectives
 from ..parallel.mesh import Mesh, shard_batch
 from ..parallel.sample_parallel import render_rays_sp
 from ..render.evaluation import evaluation
-from ..render.volume import RenderConfig, render_rays
+from ..render.volume import RenderConfig, compute_alpha_grid_chunk, render_rays
 from ..utils.checkpoint import (
     AsyncCheckpointWriter,
     load_checkpoint,
@@ -103,12 +104,14 @@ from ..utils.checkpoint import (
     write_arrays_atomic,
 )
 from ..utils.grid import cal_n_samples, grid_n_samples, grid_step_size, n_to_reso
+from ..utils.marching_cubes import convert_density_to_ply
 from ..utils.metrics import mse2psnr, tv_loss_2d
 from ..utils.precision import float32_accumulation
 from ..utils.scalars import ScalarWriter
 from .occupancy import (
     AlphaGrid,
     auto_sample_cap,
+    dense_grid_points,
     filter_rays_alpha,
     filter_rays_bbox,
     occupied_samples_per_ray,
@@ -240,14 +243,8 @@ class TriPlaneTrainer:
     def _broadcast_params(self) -> None:
         """Every rank takes rank 0's parameters (one broadcast of a flat
         buffer)."""
-        if self.mesh is None:
-            return
-        leaves = [p for _, p in named_leaves(self.params)]
-        with torch.no_grad():
-            flat = torch.cat([p.reshape(-1) for p in leaves])
-            torch.distributed.broadcast(flat, src=0)
-            for p, v in zip(leaves, flat.split([p.numel() for p in leaves])):
-                p.copy_(v.view_as(p))
+        if self.mesh is not None:
+            collectives.broadcast_from_rank0(p for _, p in named_leaves(self.params))
 
     def _dataset_table(self) -> np.ndarray:
         """The training set's (N, 9) rows in the dataset's order: rays in
@@ -744,6 +741,7 @@ class TriPlaneTrainer:
                             self.test_dataset, self.make_eval_render_fn(iteration=it),
                             os.path.join(self.logfolder, "imgs_vis"), n_vis=args.N_vis,
                             prtx=f"{it:06d}_", chunk=args.eval_chunk, compute_extra_metrics=False,
+                            write_video=False,
                         ) or [0.0]
                         with open(log_path, "a") as f:
                             f.write(f"Iteration {it:05d}: test/psnr = "
@@ -818,6 +816,29 @@ class TriPlaneTrainer:
             return out["rgb_map"], out["depth_map"]
 
         return render
+
+    @torch.no_grad()
+    @float32_accumulation()
+    def export_mesh(self, path: str, grid_size: int = 256, level: float = 0.005) -> dict:
+        """Alpha grid -> marching-cubes PLY at ``path``
+        (`ngf_tpu/train/loop.py:1647-1675`; the reference's ``--export_mesh``
+        calls an undefined ``mesh()``): the ``grid_size``^3 lattice over the
+        current box built on the device, alpha with the gauge at iteration
+        -1 and no earlier grid, in chunks of 256 * 256 * 8 points (one K1
+        launch each: 32 at 256^3), then ``convert_density_to_ply`` at
+        ``level`` on the host. Returns the mesh's vertex and face counts and
+        the seconds of the grid, the marching cubes and the write."""
+        t0 = time.perf_counter()
+        chunk = 256 * 256 * 8
+        pts = dense_grid_points(self.aabb, (grid_size,) * 3, self.device).reshape(-1, 3)
+        aabb = torch.as_tensor(self.aabb, device=self.device)
+        alpha = torch.cat([
+            compute_alpha_grid_chunk(self.params, self.model_cfg, pts[i:i + chunk], aabb,
+                                     self.step_size)
+            for i in range(0, pts.shape[0], chunk)
+        ]).reshape((grid_size,) * 3).cpu().numpy()
+        grid_s = time.perf_counter() - t0
+        return {"grid_s": grid_s, **convert_density_to_ply(alpha, path, self.aabb, level=level)}
 
     def save(self, path: str, background: bool = False) -> float:
         """Write a resumable ``.npz`` checkpoint that `main_torch.py` and

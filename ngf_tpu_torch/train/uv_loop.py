@@ -30,6 +30,20 @@ Differences from the JAX trainer:
   it nor the template (XLA drops that dead work in the JAX trainer).
 - Products sum in float32 (no TF32, no bfloat16 reduction) while the steps
   and renders run (``utils.precision.float32_accumulation``).
+- Under a ``mesh`` (`ngf_tpu_torch/parallel/mesh.py`, a 'data' axis; the
+  JAX trainer's GSPMD sharding of the ray axis with the parameters
+  replicated, `ngf_tpu/train/uv_loop.py:173-190`) every rank is a process
+  on one device with the whole parameters, started from rank 0's. Every
+  rank holds the same global batch and draws the same jitter and template
+  points (the same seed), and keeps its slice of the ray axis of the
+  batch, the jitter and the transmittance target. Its losses are its part
+  of the world's: the ray means (colour, background, inverse mapping) over
+  its rays times its share of the rays, and the origin term, a sum over
+  the template points every rank holds, times 1 / D, so that it counts
+  once. One all-reduce a step sums the gradients and the losses; every
+  rank applies the same update, so the parameters stay equal bit for bit,
+  and the result is one device's on the global batch. Rank 0 writes the
+  checkpoints; the others meet it at a barrier.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..convert import adam_from_optax_leaves, adam_to_optax_leaves, sorted_named_leaves
 from ..data.dtu import get_rays_dir
@@ -49,6 +64,8 @@ from ..fields.neutex import (
     neutex_losses,
     template_random_points,
 )
+from ..parallel.collectives import broadcast_from_rank0
+from ..parallel.mesh import Mesh
 from ..utils.checkpoint import load_checkpoint, load_extra_arrays, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.precision import float32_accumulation
@@ -91,11 +108,16 @@ class UVTrainer:
         lr_policy: str = "lambda",
         lr_decay_iters: int = 50,
         device: torch.device | str = "cuda",
+        mesh: Mesh | None = None,
     ):
         """``device`` 'cuda' (the default) raises without a card; 'cpu'
-        runs K5's plain version."""
+        runs K5's plain version. ``mesh``: a 1-D data mesh whose ranks
+        split each step's rays (module docstring)."""
         if lr_policy not in LR_POLICIES:
             raise NotImplementedError(f"lr policy {lr_policy!r}")
+        if mesh is not None and mesh.n_sample != 1:
+            raise ValueError(f"the UV trainer splits rays over a 'data' mesh; got {mesh.shape}")
+        self.mesh = mesh
         self.cfg = cfg
         self.dataset = dataset
         self.save_dir = save_dir
@@ -122,6 +144,16 @@ class UVTrainer:
             t.requires_grad_(True)
         self.adam = torch.optim.Adam(self.trainable, lr=lr, betas=(0.9, 0.999), eps=1e-8)
         self.schedule_count = 0
+        self._broadcast_params()
+
+    def _broadcast_params(self) -> None:
+        """Under a mesh every rank takes rank 0's parameters."""
+        if self.mesh is not None:
+            broadcast_from_rank0(t for _, t in sorted_named_leaves(self.params))
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            dist.barrier()
 
     # ---------------------------------------------------------------- steps
 
@@ -150,15 +182,46 @@ class UVTrainer:
         tmpl = template_random_points(self.cfg, self.cfg.points_per_primitive, self.gen)
         return {"u": u, "template": tmpl}
 
-    def _step(self, campos, raydir, gt, bg, trans, u, template) -> list[torch.Tensor]:
+    def _step(self, campos, raydir, gt, bg, trans, u, template) -> dict[str, torch.Tensor]:
         weights = self.loss_weights
+        mesh = self.mesh
+        if mesh is not None:
+            # This rank's rays of the global batch, its jitter and targets.
+            r, d = raydir.shape[1], mesh.n_data
+            if r % d:
+                raise ValueError(f"{r} rays a step do not split over {d} data ranks")
+            rows = slice(mesh.data_index * (r // d), (mesh.data_index + 1) * (r // d))
+            raydir, gt, u = raydir[:, rows], gt[:, rows], u[:, rows]
+            trans = None if trans is None else trans[:, rows]
         out = neutex_forward(self.params, self.cfg, campos, raydir, bg, u=u, template=template,
                              inverse=weights.get("inverse_mapping", 0) > 0)
         total, losses = neutex_losses(out, gt, trans, weights)
+        if mesh is not None:
+            # Every term times 1 / D: each ray mean by this rank's share of
+            # the rays, and origin, which every rank computes whole, once
+            # over the world.
+            total = total / mesh.n_data
+            losses = {k: v / mesh.n_data for k, v in losses.items()}
         self.adam.zero_grad(set_to_none=True)
         total.backward()
+        if mesh is not None:
+            losses = self._reduce_step(losses)
         self._apply_update()
         return losses
+
+    def _reduce_step(self, losses: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """The step's one all-reduce under a mesh: the gradients and the
+        losses in one flat buffer, summed over the data ranks. Returns the
+        world's losses."""
+        leaves = [t for t in self.trainable if t.grad is not None]
+        names = list(losses)
+        flat = torch.cat([t.grad.reshape(-1) for t in leaves]
+                         + [torch.stack([losses[k].detach().float() for k in names])])
+        dist.all_reduce(flat, group=self.mesh.data_group)
+        sizes = [t.numel() for t in leaves]
+        for t, g in zip(leaves, flat[:sum(sizes)].split(sizes)):
+            t.grad.copy_(g.view_as(t.grad))
+        return dict(zip(names, flat[sum(sizes):]))
 
     def _apply_update(self) -> None:
         """One Adam update from the gradients in ``.grad``, at ``lr`` times
@@ -239,9 +302,13 @@ class UVTrainer:
     def save_networks(self, epoch: str | int, other_states: dict | None = None) -> None:
         """``{epoch}_net_NeuTex.npz`` (the parameters, the meta and the
         optimizer's optax leaves) and one ``{epoch}_subnet_<name>.npz`` a
-        subnetwork (`ngf_tpu/train/uv_loop.py:326-357`)."""
+        subnetwork (`ngf_tpu/train/uv_loop.py:326-357`); under a mesh rank
+        0 writes and every rank meets at a barrier."""
         if self.save_dir is None:
             raise ValueError("save_networks needs a save_dir")
+        if self.mesh is not None and self.mesh.rank != 0:
+            self._barrier()
+            return
         os.makedirs(self.save_dir, exist_ok=True)
         cfg = dataclasses.asdict(self.cfg)
         meta = {"cfg": cfg, "step": self.step_count, "plateau": self._plateau,
@@ -254,6 +321,7 @@ class UVTrainer:
         for friendly, name in SUBNETWORKS.items():
             save_checkpoint(os.path.join(self.save_dir, f"{epoch}_subnet_{friendly}.npz"),
                             self.params[name], {"cfg": cfg})
+        self._barrier()
 
     def load_params(self, tree) -> None:
         """Set the parameters from a tree of arrays or tensors with the same

@@ -9,7 +9,8 @@ written by either package load in the other. A save is a host snapshot
 (:func:`pack_checkpoint`) and a write to a temporary file renamed over the
 old one (:func:`write_arrays_atomic`), so a kill mid-write leaves the old
 file whole; :class:`AsyncCheckpointWriter` runs the write on a thread. The
-JAX package's Orbax directory form is not read here.
+JAX package's Orbax directory form is not read here: it needs orbax and
+tensorstore, JAX-ecosystem code; the refusal names the way across.
 """
 
 from __future__ import annotations
@@ -149,7 +150,10 @@ def load_checkpoint(path: str, device: torch.device | str):
     tensors on ``device`` (`ngf_tpu/utils/checkpoint.py:189-215`)."""
     if os.path.isdir(path):
         raise NotImplementedError(
-            f"{path} is an Orbax checkpoint directory; the port reads .npz checkpoints only"
+            f"{path} is an Orbax checkpoint directory; the port reads .npz checkpoints only "
+            "(Orbax needs tensorstore, JAX-ecosystem code). To carry it across, load it with "
+            "ngf_tpu.utils.checkpoint.load_checkpoint and write it again with that package's "
+            'save_checkpoint(..., backend="npz").'
         )
     with np.load(path) as z:
         arrays = {k: z[k] for k in z.files}

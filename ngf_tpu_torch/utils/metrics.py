@@ -1,12 +1,9 @@
 """Evaluation metrics: port of `ngf_tpu/utils/metrics.py` (reference
 `InfoInv/utils.py:10,85-175`). SSIM is the mipnerf separable-Gaussian
-formulation on the host with scipy. LPIPS needs pretrained backbones that
-the port does not carry yet: it returns NaN, as the JAX package does when it
-has no weights."""
+formulation on the host with scipy. LPIPS is `utils/lpips.py`'s: the
+forward on the evaluation's device from a weights file, NaN without one."""
 
 from __future__ import annotations
-
-import warnings
 
 import numpy as np
 import scipy.signal
@@ -64,21 +61,13 @@ def rgb_ssim(
     return float(np.mean(numer / denom))
 
 
-_warned: set[str] = set()
+def rgb_lpips(np_gt: np.ndarray, np_im: np.ndarray, net_name: str = "alex",
+              device: torch.device | str = "cuda") -> float:
+    """LPIPS distance on ``device`` (`utils/lpips.py:rgb_lpips`, as
+    `ngf_tpu/utils/metrics.py` delegates to `ngf_tpu/utils/lpips.py`)."""
+    from .lpips import rgb_lpips as lpips
 
-
-def rgb_lpips(np_gt: np.ndarray, np_im: np.ndarray, net_name: str = "alex") -> float:
-    """LPIPS distance: NaN with a one-time ``lpips_unavailable`` warning, as
-    `ngf_tpu/utils/lpips.py:rgb_lpips` returns without weights."""
-    del np_gt, np_im
-    if net_name not in _warned:
-        _warned.add(net_name)
-        warnings.warn(
-            f"lpips_unavailable: the port has no LPIPS-{net_name} weights yet "
-            "(ROADMAP.md, items still missing). Recording NaN.",
-            stacklevel=2,
-        )
-    return float("nan")
+    return lpips(np_gt, np_im, net_name, device)
 
 
 def tv_loss_2d(x: torch.Tensor, weight: float = 1.0) -> torch.Tensor:

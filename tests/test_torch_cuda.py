@@ -39,7 +39,10 @@ alpha 1, empty rays, strided colours), its refusals and footprint, and the
 dense and grouped top-K training renders (their launches, no ``cumprod``,
 against the CPU); ``gather_rows`` on bfloat16 rows and with ids relative
 to segments, and its backward ``scatter_rows``, byte for byte, and the
-group gather through autograd.
+group gather through autograd; LPIPS on the card against its CPU forward,
+the mesh export's alpha chunk (one K1 launch, against the CPU; 32 launches
+an export at 256^3) and the UV ray functions on CUDA tensors against CPU
+ones.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports neither JAX nor `ngf_tpu`, so it runs on a GPU machine
@@ -1731,3 +1734,108 @@ def test_gather_and_scatter_rows_match_plain(cuda, dtype, index_dtype):
         cuda_kernels.scatter_rows(got, flat[1:], n * ng)
     with pytest.raises(ValueError):
         cuda_kernels.gather_rows(tab, flat, -1, ng)
+
+
+def test_lpips_on_the_card_matches_its_cpu_forward(cuda, tmp_path, monkeypatch):
+    """LPIPS alex and vgg (random weights, `utils/lpips.py:random_weights`)
+    on the card against the same forward on the CPU, rtol 1e-4 (cuDNN's
+    float32 convolutions sum in another order; TF32 is off)."""
+    import numpy as np
+
+    from ngf_tpu_torch.utils import lpips
+
+    for seed, net in enumerate(("alex", "vgg")):
+        np.savez(tmp_path / f"lpips_{net}.npz",
+                 **lpips.random_weights(net, np.random.default_rng(seed)))
+    monkeypatch.setenv("NGF_LPIPS_WEIGHTS_DIR", str(tmp_path))
+    rng = np.random.default_rng(2)
+    a = rng.uniform(0, 1, (96, 112, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    for net in ("alex", "vgg"):
+        got = lpips.rgb_lpips(a, b, net, device=cuda)
+        want = lpips.rgb_lpips(a, b, net, device="cpu")
+        assert got > 0 and abs(got - want) <= 1e-4 * abs(want), (net, got, want)
+    assert torch.backends.cudnn.allow_tf32  # restored after the forward
+    lpips._models.clear()
+
+
+def test_export_mesh_chunk_launches_k1_and_matches_the_cpu(cuda, tmp_path):
+    """The export's alpha chunk (``compute_alpha_grid_chunk``: 524,288
+    lattice points, the density channels) is one K1 launch and equals the
+    plain sampler's on the CPU; ``export_mesh`` at 256^3 makes 32 K1
+    launches and no other."""
+    from ngf_tpu_torch import convert
+    from ngf_tpu_torch.config import TrainArgs
+    from ngf_tpu_torch.data import load_dataset
+    from ngf_tpu_torch.train.loop import TriPlaneTrainer
+    from ngf_tpu_torch.train.occupancy import dense_grid_points
+
+    datadir = "synthetic:views=2,wh=16,test_views=1"
+    args = TrainArgs(dataset_name="synthetic", datadir=datadir, plane_res=64, nSamples=48,
+                     batch_size=96, n_iters=2, device="cuda")
+    trainer = TriPlaneTrainer(args, load_dataset("synthetic", datadir, split="train",
+                                                 is_stack=False), device=cuda)
+    with torch.no_grad():  # denser planes: part of the lattice above the level
+        for n in ("plane_xy", "plane_yz", "plane_xz"):
+            trainer.params[n].mul_(3000.0)
+        [t for _, t in convert.named_leaves(trainer.params["density_decoder"])][-1].fill_(0.0)
+    pts = dense_grid_points(trainer.aabb, (256, 256, 8), cuda).reshape(-1, 3)
+    aabb = torch.as_tensor(trainer.aabb, device=cuda)
+    before = cuda_kernels.bilinear_gather_planes.launches
+    with torch.no_grad():
+        got = tv.compute_alpha_grid_chunk(trainer.params, trainer.model_cfg, pts, aabb,
+                                          trainer.step_size)
+        cpu = convert.params_from_numpy(convert.params_to_numpy(trainer.params), "cpu")
+        want = tv.compute_alpha_grid_chunk(cpu, trainer.model_cfg, pts.cpu(), aabb.cpu(),
+                                           trainer.step_size)
+    assert cuda_kernels.bilinear_gather_planes.launches == before + 1
+    assert 0 < (want > 0.005).float().mean().item() < 1
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+    cuda_kernels.reset_launch_counts()
+    rec = trainer.export_mesh(str(tmp_path / "mesh.ply"))
+    launched = {k: fn.launches for k, fn in cuda_kernels.KERNELS.items() if fn.launches}
+    assert launched == {"bilinear_gather_planes": 32}, launched
+    assert rec["faces"] > 0 and (tmp_path / "mesh.ply").is_file()
+
+
+def test_uv_ray_functions_on_the_card_match_the_cpu(cuda):
+    """``cube_ray_generation_with_end``, ``sample_pdf`` and
+    ``refine_cube_ray_generation`` on CUDA tensors against the same calls
+    on CPU copies, within ``chip_smoke.uv_ray_bounds``: 1e-6 of each value,
+    plus the move that float32 CDF rounding gives a draw; the masks equal
+    but at the cube's face."""
+    import chip_smoke
+    from ngf_tpu_torch.ops import rays
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, r, s = 1, 576, 64
+    campos = torch.tensor([[0.3, -0.2, 2.6]], device=cuda)
+    target = torch.rand((b, r, 3), generator=g, device=cuda) - 0.5
+    d = torch.nn.functional.normalize(target - campos[:, None], dim=-1)
+    end = campos[:, None] + d * (1.5 + 2.0 * torch.rand((b, r, 1), generator=g, device=cuda))
+    u = torch.rand((b, r, s), generator=g, device=cuda)
+    prev_ts = torch.sort(1.0 + 3.0 * torch.rand((b, r, s), generator=g, device=cuda)).values
+    prev_w = torch.rand((b, r, s), generator=g, device=cuda)
+    u2 = torch.rand((b, r, s + 1), generator=g, device=cuda)
+    calls = {
+        "with_end": lambda t: rays.cube_ray_generation_with_end(
+            t["campos"], t["d"], t["end"], s, 1.0, 0.5, t["u"]),
+        "sample_pdf": lambda t: (rays.sample_pdf(t["bins"], t["w"], s + 1, u=t["u2"]),),
+        "refine": lambda t: rays.refine_cube_ray_generation(
+            t["campos"], t["d"], s, t["prev_ts"], t["prev_w"], 1.0, False, u=t["u2"]),
+    }
+    inputs = {"campos": campos, "d": d, "end": end, "u": u, "prev_ts": prev_ts, "prev_w": prev_w,
+              "u2": u2, "bins": 0.5 * (prev_ts[..., 1:] + prev_ts[..., :-1]),
+              "w": prev_w[..., 1:-1]}
+    cpu = {k: v.cpu() for k, v in inputs.items()}
+    for name, fn in calls.items():
+        got = fn(inputs)
+        want = fn(cpu)
+        draws = None if name == "with_end" else (cpu["bins"], cpu["w"], cpu["u2"])
+        bounds = chip_smoke.uv_ray_bounds(want, draws, refined=name == "refine")
+        for a, w, bound in zip(got, want, bounds):
+            assert a.device.type == "cuda", name
+            if w.dtype == torch.bool:
+                assert torch.equal(a.cpu()[bound], w[bound]), name
+            else:
+                assert ((a.cpu() - w).abs() <= bound).all(), name

@@ -320,8 +320,11 @@ def test_port_imports_neither_jax_nor_ngf_tpu():
         "for m in mods + ['main_torch', 'chip_smoke', 'uv_train_torch', 'uv_test_torch']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ngf_tpu'))\n"
-        "assert len(mods) >= 37, mods\n"
+        "assert len(mods) >= 42, mods\n"
         "assert {'ngf_tpu_torch.train.loop', 'ngf_tpu_torch.train.state',\n"
+        "        'ngf_tpu_torch.utils.viz', 'ngf_tpu_torch.utils.marching_cubes',\n"
+        "        'ngf_tpu_torch.utils.lpips', 'ngf_tpu_torch.utils.pfm',\n"
+        "        'ngf_tpu_torch.utils.profiling',\n"
         "        'ngf_tpu_torch.parallel.mesh', 'ngf_tpu_torch.parallel.sample_parallel',\n"
         "        'ngf_tpu_torch.parallel.collectives',\n"
         "        'ngf_tpu_torch.ops.gather', 'ngf_tpu_torch.data.sampler',\n"
