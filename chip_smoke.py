@@ -176,8 +176,11 @@
    within 0.3 dB, the picked capacity printed); exact launch totals with
    the top-K steps, a masked step against the plain sampler, K5's top-K
    mode and the group gather and scatter against their plain versions on a
-   masked step's own inputs, the step profiled (no ``cumprod``), and the
-   masked model rendered densely with ``mask_stride`` 1 and 4.
+   masked step's own inputs (the fused features also in bfloat16, and the
+   dense path's group-1 gather of 6-float coordinates beside them; each
+   row with its word and the scatter's route), the step profiled (no
+   ``cumprod``), and the masked model rendered densely with ``mask_stride``
+   1 and 4.
 14. LLFF phase: a forward-facing scene written from the analytic scene
    (``poses_bounds.npy``, ``images_4/``), trained 400 steps in NDC through
    ``main_torch.main --dataset_name llff`` (exact launch totals, falling
@@ -2340,7 +2343,8 @@ def group_gather_rows(case: str, x: torch.Tensor, idx: torch.Tensor, group: int)
     table) and its backward ``scatter_rows`` (a random cotangent: the cost
     does not depend on its values), each against its plain version byte for
     byte, timed beside its bound and the library calls: ``index_select`` for
-    the gather, ``index_copy_`` into zeros for the scatter."""
+    the gather, ``index_copy_`` into zeros for the scatter. Each row names
+    the word its kernel moved (``lane_bytes``) and the scatter its route."""
     from ngf_tpu_torch.ops import cuda_kernels
     from ngf_tpu_torch.ops.gather import gather_rows_plain, scatter_rows_plain
 
@@ -2351,7 +2355,7 @@ def group_gather_rows(case: str, x: torch.Tensor, idx: torch.Tensor, group: int)
     rows = flat + torch.arange(flat.shape[0], device=flat.device) // k * ng
     R, D = tab.shape
     B = flat.shape[0]
-    e = tab.element_size()
+    e, i = tab.element_size(), flat.element_size()
     got = cuda_kernels.gather_rows(tab, flat, k, ng)
     check(torch.equal(got, gather_rows_plain(tab, flat, k, ng)), f"{case}: group gather")
     g = torch.randn((B, D), device=x.device,
@@ -2359,23 +2363,41 @@ def group_gather_rows(case: str, x: torch.Tensor, idx: torch.Tensor, group: int)
     back = cuda_kernels.scatter_rows(g, flat, R, k, ng)
     check(torch.equal(back, scatter_rows_plain(g, flat, R, k, ng)), f"{case}: group scatter")
     out = []
-    for name, fn, pfn, lib, nbytes in (
+    # Bytes once: the gather reads the picked rows and the ids and writes
+    # the rows; the scatter reads the rows and the ids and writes the whole
+    # gradient once.
+    for name, fn, pfn, lib, nbytes, lane in (
             ("gather_rows", lambda: cuda_kernels.gather_rows(tab, flat, k, ng),
              lambda: gather_rows_plain(tab, flat, k, ng),
-             lambda: torch.index_select(tab, 0, rows), B * (2 * D * e + 8)),
+             lambda: torch.index_select(tab, 0, rows), B * (2 * D * e + i),
+             cuda_kernels.rows_lane_bytes(tab, got)),
             ("scatter_rows", lambda: cuda_kernels.scatter_rows(g, flat, R, k, ng),
              lambda: scatter_rows_plain(g, flat, R, k, ng),
-             lambda: tab.new_zeros((R, D)).index_copy_(0, rows, g), R * D * e + B * (2 * D * e + 8))):
+             lambda: tab.new_zeros((R, D)).index_copy_(0, rows, g), R * D * e + B * (D * e + i),
+             cuda_kernels.rows_lane_bytes(g, back))):
         bound, by = bytes_bound_ms(nbytes, 0.0)
         row = {"kernel": name, "case": case, "table": [R, D], "B": B, "dtype": str(x.dtype),
-               "ms": cuda_ms(fn, 50, 5), "graph_ms": graph_ms(fn), "bound_ms": bound,
-               "bound_by": by, "plain_ms": cuda_ms(pfn, 20), "library_ms": cuda_ms(lib, 50, 5),
-               "max_abs_err": 0.0}
-        print(f"[topk] {name} {case}: table ({R}, {D}) {x.dtype}, {B} rows: {row['ms']:.5f} ms, "
-              f"in a CUDA graph {row['graph_ms']:.5f}, bound {bound:.5f} ({by}), plain "
+               "lane_bytes": lane, "ms": cuda_ms(fn, 50, 5), "graph_ms": graph_ms(fn),
+               "bound_ms": bound, "bound_by": by, "plain_ms": cuda_ms(pfn, 20),
+               "library_ms": cuda_ms(lib, 50, 5), "max_abs_err": 0.0}
+        if name == "scatter_rows":
+            row["route"] = cuda_kernels.scatter_rows_route(k, ng)
+        print(f"[topk] {name} {case}: table ({R}, {D}) {x.dtype}, {B} rows, {lane}-byte words"
+              f"{', route ' + row['route'] if 'route' in row else ''}: {row['ms']:.5f} ms, in a "
+              f"CUDA graph {row['graph_ms']:.5f}, bound {bound:.5f} ({by}), plain "
               f"{row['plain_ms']:.5f}, library {row['library_ms']:.5f}")
         out.append(row)
     return out
+
+
+def dense_topk_payload(device: torch.device, k: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dense path's top-K gather at ``rgb_cap`` k (group 1): a dense
+    train step's (TRAIN_RAYS, TRAIN_CAP, 6) coordinates (three projections
+    in [-1, 1]) and the k samples of largest random weight a ray."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    coords = torch.rand((TRAIN_RAYS, TRAIN_CAP, 6), generator=gen, device=device) * 2 - 1
+    w = torch.rand((TRAIN_RAYS, TRAIN_CAP), generator=gen, device=device)
+    return coords, torch.topk(w, k, dim=1).indices
 
 
 def topk_step_rows(trainer, case: str) -> dict:
@@ -2385,7 +2407,10 @@ def topk_step_rows(trainer, case: str) -> dict:
     fused fetch's features, or without ``fused_fetch`` the coordinates,
     whose gather takes no gradient on the InfoInv path, so that its scatter
     is timed there but not launched), and the step profiled: no
-    ``cumprod``, its launches and idle share."""
+    ``cumprod``, its launches and idle share. Where the payload takes a
+    gradient (the fused features) also the same payload and picks in
+    bfloat16, and the dense path's group-1 gather of 6-float coordinates
+    (:func:`dense_topk_payload`)."""
     with topk_inputs() as seen:
         trainer.compute_grads(*trainer.next_batch(), trainer.gen)
     trainer.optimizer.zero_grad()
@@ -2394,6 +2419,13 @@ def topk_step_rows(trainer, case: str) -> dict:
     out = {"k5": k5_topk_rows(case, seen), "payload_grad": seen["payload_grad"]}
     out["rows"] = group_gather_rows(case, seen["payload"], seen["payload_idx"],
                                     seen["payload_group"])
+    if seen["payload_grad"]:
+        out["rows"] += group_gather_rows(f"{case}, bfloat16",
+                                         seen["payload"].to(torch.bfloat16),
+                                         seen["payload_idx"], seen["payload_group"])
+        coords, picks = dense_topk_payload(seen["payload"].device)
+        out["rows"] += group_gather_rows(f"dense top-K coordinates, {TRAIN_RAYS} x {TRAIN_CAP}",
+                                         coords, picks, 1)
     step = lambda: trainer.train_step(*trainer.next_batch(), trainer.gen)  # noqa: E731
     out["step_ms"] = cuda_ms(step, reps=10, warmup=2)
     out["profile"] = profile_chunk(step, reps=2, unit="top-K masked step")
@@ -4728,6 +4760,9 @@ def main(argv: list[str] | None = None) -> int:
     print("[device] K2c float4 footprint: " + json.dumps(k2c_fp))
     k2c_bf16_fp = cuda_kernels.backward_coords_footprint(4, torch.bfloat16)
     print("[device] K2c bfloat16 4-channel footprint: " + json.dumps(k2c_bf16_fp))
+    rows_fp = cuda_kernels.rows_footprint()
+    print("[device] row kernels' footprint (int64 ids): " + json.dumps(rows_fp))
+    check(all(f["local_bytes"] == 0 for f in rows_fp.values()), f"row kernels spill: {rows_fp}")
     # LPIPS weights for every evaluation that asks for the metric (the staged
     # phase's CLI run, the gauge and lego recipes' final evaluations).
     lpips_dir = tempfile.TemporaryDirectory()
@@ -4958,7 +4993,9 @@ def main(argv: list[str] | None = None) -> int:
         "fused fetch's features of the kept groups as one table, the picked groups' rows "
         "written, byte for byte", skip=tuple(p for p in paths if p not in topk_paths)))
     kernels[-1]["rows"] = scatter
+    kernels[-1]["footprint"] = {k: v for k, v in rows_fp.items() if k.startswith("scatter")}
     kernels[2]["group_gather_rows"] = [r for r in group_rows if r["kernel"] == "gather_rows"]
+    kernels[2]["footprint"] = {k: v for k, v in rows_fp.items() if k.startswith("gather")}
     kernels[0]["rows"] = [
         {k: r[k] for k in ("case", "dtype", "ms", "bound_ms", "plain_ms", "library_ms",
                            "taps_per_point")} for r in fused]

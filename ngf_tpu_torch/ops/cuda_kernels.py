@@ -151,6 +151,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.ngf_gather_rows.restype = i32
         lib.ngf_scatter_rows.argtypes = [vp, i64, i32, i32, vp, i32, i64, i64, i64, vp, vp]
         lib.ngf_scatter_rows.restype = i32
+        lib.ngf_rows_lane_bytes.argtypes = [vp, vp, i64, i64, i32]
+        lib.ngf_rows_lane_bytes.restype = i32
+        lib.ngf_scatter_rows_route.argtypes = [i64, i64]
+        lib.ngf_scatter_rows_route.restype = i32
+        lib.ngf_rows_footprint.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+        lib.ngf_rows_footprint.restype = i32
     elif name == "occupancy_lookup":
         lib.ngf_occupancy_lookup.argtypes = [
             vp, i64, i64, i64, i64, i64, i32, vp, vp, i32, i32, i32, vp, vp,
@@ -630,28 +636,35 @@ _INDEX_BYTES = {torch.int64: 8, torch.int32: 4}
 _ROW_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 
-def _row_args(idx: torch.Tensor, device: int, what: str, per: int):
+def _row_args(idx: torch.Tensor, device: int, what: str, per: int, seg: int):
     """Check a row-kernel's ids and return (ids contiguous, index bytes)."""
     if not idx.is_cuda or idx.get_device() != device:
         raise ValueError(f"{what} needs its ids on the table's CUDA device, got {idx.device}")
     idx_bytes = _INDEX_BYTES.get(idx.dtype)
     if idx_bytes is None or idx.dim() != 1:
         raise ValueError(f"idx must be (B,) int64 or int32, got {tuple(idx.shape)} {idx.dtype}")
-    if per < 0:
-        raise ValueError(f"per must be >= 0, got {per}")
+    if per < 0 or (per > 0 and seg <= 0):
+        raise ValueError(f"per must be >= 0 and seg > 0 where per > 0, got per {per}, seg {seg}")
     return (idx if idx.stride(0) == 1 else idx.contiguous()), idx_bytes
 
 
 def gather_rows(tab: torch.Tensor, idx: torch.Tensor, per: int = 0, seg: int = 0) -> torch.Tensor:
-    """CUDA kernel for the row gather ``tab[rows]`` (``kernels/gather_rows.cu``).
+    """CUDA kernel for the row gather ``tab[rows]`` (``kernels/gather_rows.cu``):
+    a group of lanes a row, each moving words of 16 bytes where the row's
+    bytes, the row stride's bytes and the pointers of ``tab`` and the output
+    allow it (the launcher reads them from ``data_ptr()`` and ``stride(0)``;
+    :func:`rows_lane_bytes`), else of 8, 4 or 2.
 
     Args:
       tab: (R, D) float32 or bfloat16 CUDA tensor with contiguous rows.
       idx: (B,) int64 or int32 CUDA tensor of row ids; a row outside [0, R)
         comes back as NaN.
       per, seg: with ``per`` > 0 the ids are relative to segments of ``seg``
-        rows, one segment per ``per`` ids: row b is ``idx[b] + (b // per) *
-        seg`` (the top groups of each ray of an (n * ng, G * C) table).
+        rows, one segment per ``per`` ids, as ``take_along_axis`` reads them:
+        row b is ``idx[b] + (b // per) * seg`` for an id in [0, seg), an id
+        in [-seg, 0) counts from the segment's end, and an id outside
+        [-seg, seg) comes back as NaN (the top groups of each ray of an
+        (n * ng, G * C) table).
 
     Returns:
       (B, D) of tab's dtype.
@@ -667,7 +680,7 @@ def gather_rows(tab: torch.Tensor, idx: torch.Tensor, per: int = 0, seg: int = 0
             f"tab must be (R, D) float32 or bfloat16 with contiguous rows, got "
             f"{tuple(tab.shape)} {tab.dtype} strides {tab.stride()}"
         )
-    idx, idx_bytes = _row_args(idx, device, "gather_rows", per)
+    idx, idx_bytes = _row_args(idx, device, "gather_rows", per, seg)
     R, D = tab.shape
     B = idx.shape[0]
     out = tab.new_empty((B, D))
@@ -690,9 +703,14 @@ def scatter_rows(src: torch.Tensor, idx: torch.Tensor, rows: int, per: int = 0,
                  seg: int = 0) -> torch.Tensor:
     """CUDA kernel for the backward of :func:`gather_rows`
     (``kernels/gather_rows.cu``): an (rows, D) tensor of zeros with ``src``
-    (B, D) written at the rows of ``idx`` (ids as :func:`gather_rows` reads
-    them, which must name distinct rows; a row outside [0, rows) is
-    dropped). One launch: a fill, then the writes, no atomics.
+    (B, D) written at the rows of ``idx``, read as :func:`gather_rows` reads
+    them; an id that names no row of [0, rows) is dropped. The ids must name
+    distinct rows: with a repeated row one of its sources is written, not
+    their sum. No atomics. One launch: with ``per`` > 0 one block a
+    segment writes each element of its ``seg`` rows once, the source row or
+    zeros, through the segment's inverse map in shared memory; with ``per``
+    0, or segments longer than the map holds (:func:`scatter_rows_route`),
+    a fill, then the rows.
 
     Args:
       src: (B, D) float32 or bfloat16 CUDA tensor.
@@ -706,7 +724,7 @@ def scatter_rows(src: torch.Tensor, idx: torch.Tensor, rows: int, per: int = 0,
     if not src.is_cuda or elem is None or src.dim() != 2:
         raise ValueError(f"src must be (B, D) float32 or bfloat16 on a CUDA device, got "
                          f"{tuple(src.shape)} {src.dtype} {src.device}")
-    idx, idx_bytes = _row_args(idx, device, "scatter_rows", per)
+    idx, idx_bytes = _row_args(idx, device, "scatter_rows", per, seg)
     B, D = src.shape
     if idx.shape[0] != B:
         raise ValueError(f"{idx.shape[0]} ids for {B} rows of src")
@@ -722,6 +740,42 @@ def scatter_rows(src: torch.Tensor, idx: torch.Tensor, rows: int, per: int = 0,
 
 
 scatter_rows.launches = 0
+
+
+def rows_lane_bytes(a: torch.Tensor, out: torch.Tensor) -> int:
+    """The word, in bytes, that ``gather_rows`` (``a`` the table) or
+    ``scatter_rows`` (``a`` the contiguous source) moves into ``out``: 16,
+    8, 4 or 2, the widest that divides the row's bytes, ``a``'s row stride
+    in bytes and both pointers."""
+    e = a.element_size()
+    return _lib("gather_rows").ngf_rows_lane_bytes(a.data_ptr(), out.data_ptr(), a.stride(0) * e,
+                                                   a.shape[1] * e, e)
+
+
+def scatter_rows_route(per: int, seg: int) -> str:
+    """The route ``scatter_rows`` takes for these segments: ``"segments"``
+    (one block a segment, each element written once) or ``"fill"`` (a fill,
+    then the rows)."""
+    return "segments" if _lib("gather_rows").ngf_scatter_rows_route(per, seg) else "fill"
+
+
+def rows_footprint() -> dict:
+    """The row kernels' footprint on the current card, by kernel and word
+    (int64 ids): the 256-thread blocks an SM holds at once, registers a
+    thread and local (spilled) bytes a thread."""
+    lib = _lib("gather_rows")
+    out = {}
+    for which, name in enumerate(("gather_rows_kernel", "scatter_segments_kernel",
+                                  "scatter_rows_kernel")):
+        for word in (16, 8, 4, 2):
+            got = (ctypes.c_int * 3)()
+            code = lib.ngf_rows_footprint(which, word, 8, got)
+            if code:
+                raise RuntimeError(f"row kernels' footprint: CUDA error {code} "
+                                   f"({lib.ngf_cuda_error_string(code).decode()})")
+            out[f"{name} {word}B"] = {"blocks_per_sm": got[0], "registers": got[1],
+                                      "local_bytes": got[2]}
+    return out
 
 
 def occupancy_lookup(

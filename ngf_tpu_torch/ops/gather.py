@@ -21,24 +21,33 @@ from . import cuda_kernels
 
 
 def _rows(idx: torch.Tensor, per: int, seg: int) -> torch.Tensor:
-    """The absolute rows of ids relative to segments (``per`` > 0)."""
+    """The absolute rows of ids relative to segments (``per`` > 0), as
+    ``take_along_axis`` reads an id of a segment of ``seg`` rows: one in
+    [-seg, seg) wrapped into [0, seg), one outside it -1 (no row)."""
     if per <= 0:
         return idx
     offset = torch.arange(idx.shape[0], device=idx.device, dtype=idx.dtype) // per * seg
-    return idx + offset
+    inside = (idx >= -seg) & (idx < seg)
+    return torch.where(inside, torch.where(idx < 0, idx + seg, idx) + offset, -1)
 
 
 def gather_rows_plain(tab: torch.Tensor, idx: torch.Tensor, per: int = 0, seg: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of the ``gather_rows`` kernel: ``tab[rows]``."""
-    return tab[_rows(idx, per, seg)]
+    """Plain PyTorch version of the ``gather_rows`` kernel: ``tab[rows]``,
+    a row of NaN where an id names no row of [0, R)."""
+    rows = _rows(idx, per, seg)
+    ok = (rows >= 0) & (rows < tab.shape[0])
+    return tab[torch.where(ok, rows, 0)].masked_fill(~ok[:, None], float("nan"))
 
 
 def scatter_rows_plain(src: torch.Tensor, idx: torch.Tensor, rows: int, per: int = 0,
                        seg: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the ``scatter_rows`` kernel: zeros of
-    (rows, D) with ``src`` at the (distinct) rows of ``idx``."""
+    (rows, D) with ``src`` at the (distinct) rows of ``idx``; an id that
+    names no row of [0, rows) is dropped."""
     out = src.new_zeros((rows, src.shape[1]))
-    out[_rows(idx, per, seg)] = src
+    at = _rows(idx, per, seg)
+    ok = (at >= 0) & (at < rows)
+    out[at[ok]] = src[ok]
     return out
 
 
@@ -77,9 +86,11 @@ class _GatherRows(torch.autograd.Function):
 def gather_rows(tab: torch.Tensor, idx: torch.Tensor, per: int = 0, seg: int = 0) -> torch.Tensor:
     """Rows ``idx`` (B,) of the (R, D) table ``tab``, as a (B, D) tensor;
     with ``per`` > 0 the ids are relative to segments of ``seg`` rows, one
-    segment per ``per`` ids (row b is ``idx[b] + (b // per) * seg``).
-    Differentiable in ``tab`` (the rows must then be distinct): the
-    gradient is the scatter. The trainer assembles each batch with one call
+    segment per ``per`` ids, as ``take_along_axis`` reads them (row b is
+    ``idx[b] + (b // per) * seg``, an id in [-seg, 0) counting from the
+    segment's end). A row outside [0, R), or an id outside [-seg, seg), gives
+    a row of NaN. Differentiable in ``tab`` (the rows must then be
+    distinct): the gradient is the scatter, which drops those rows. The trainer assembles each batch with one call
     on its (N, 9) table of rays and colours."""
     if tab.requires_grad and torch.is_grad_enabled():
         return _GatherRows.apply(tab, idx, per, seg)
@@ -92,8 +103,10 @@ def gather_group_rows(x: torch.Tensor, idx: torch.Tensor, group: int) -> torch.T
     ``gather_groups`` with a gradient, as one :func:`gather_rows` of the
     (n * s / group, group * D) table at rows ``ray * s / group + id`` (one
     ``gather_rows`` launch on the card, one ``scatter_rows`` backward).
-    ``group`` 1 is ``take_along_axis`` of samples. The ids of a ray must be
-    distinct when ``x`` takes a gradient."""
+    ``group`` 1 is ``take_along_axis`` of samples. As there, an id in
+    [-s / group, 0) counts from the ray's last group, and one outside
+    [-s / group, s / group) gives NaN and takes no gradient. The ids of a ray
+    must be distinct when ``x`` takes a gradient."""
     n, s, d = x.shape
     if s % group:
         raise ValueError(f"{s} samples are not a multiple of group {group}")

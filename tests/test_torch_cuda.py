@@ -38,8 +38,10 @@ and its backward, and the weight backward with the cotangent of w) against
 alpha 1, empty rays, strided colours), its refusals and footprint, and the
 dense and grouped top-K training renders (their launches, no ``cumprod``,
 against the CPU); ``gather_rows`` on bfloat16 rows and with ids relative
-to segments, and its backward ``scatter_rows``, byte for byte, and the
-group gather through autograd; LPIPS on the card against its CPU forward,
+to segments, in and out of their segment, and its backward
+``scatter_rows``, byte for byte, on 16-byte and narrow words, aligned and
+unaligned tables, both scatter routes, and the group gather through
+autograd, with the row kernels' footprint; LPIPS on the card against its CPU forward,
 the mesh export's alpha chunk (one K1 launch, against the CPU; 32 launches
 an export at 256^3) and the UV ray functions on CUDA tensors against CPU
 ones.
@@ -1697,29 +1699,84 @@ def test_ray_march_triplane_topk_refuses_what_the_kernel_does_not_take(cuda):
         assert fp[k]["blocks_per_sm"] >= 1 and fp[k]["local_bytes"] == 0, (k, fp[k])
 
 
+def _same_row_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Byte for byte: the kernels' NaN rows are the plain versions' NaN."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    bits = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.contiguous().view(bits), b.contiguous().view(bits))
+
+
+def _segment_ids(g, n: int, ng: int, k: int, outside: bool, cuda) -> torch.Tensor:
+    """(n, k) distinct ids of each ray's ng groups; ``outside``: k = 5 ids
+    -1, -ng, ng, -ng - 1 and 2 in each ray's own order (two wrap, two name
+    no row)."""
+    if not outside:
+        return torch.stack([torch.randperm(ng, generator=g, device=cuda)[:k] for _ in range(n)])
+    ids = torch.tensor([-1, -ng, ng, -ng - 1, 2], device=cuda)
+    return torch.stack([ids[torch.randperm(5, generator=g, device=cuda)] for _ in range(n)])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
 def test_gather_and_scatter_rows_match_plain(cuda, dtype, index_dtype):
-    """``gather_rows`` on float32 and bfloat16 rows, with ids relative to
-    segments (the renderers' group gather), and its backward ``scatter_rows``
-    (zeros, then the rows at distinct ids; an id outside dropped) against
-    their plain versions, byte for byte; one launch each, and the group
-    gather through autograd."""
+    """``gather_rows`` and its backward ``scatter_rows`` against their plain
+    versions, byte for byte, one launch a call: rows of 1728 and 48 values
+    (16-byte words), 6 and 3 (narrow words), each from a contiguous table, a
+    column-offset view and a table at a storage offset of one element (neither
+    16-byte aligned: the element's word); ids of the batch form (per 0, with
+    rows outside the table), relative to segments, and outside their
+    segment (take_along_axis: wrapped or NaN, and dropped by the scatter);
+    segments of 12288 rows (the scatter's one kernel a segment) and 12289
+    (its fill and row writes). Then the group gather through autograd, the
+    refusals and the footprints (no spills)."""
     g = torch.Generator(device=cuda).manual_seed(11)
-    n, ng, k, d = 300, 14, 5, 48
-    tab = torch.randn((n * ng, d), generator=g, device=cuda).to(dtype)
-    idx = torch.stack([torch.randperm(ng, generator=g, device=cuda)[:k] for _ in range(n)])
-    flat = idx.reshape(-1).to(index_dtype)
-    before = (cuda_kernels.gather_rows.launches, cuda_kernels.scatter_rows.launches)
-    got = cuda_kernels.gather_rows(tab, flat, k, ng)
-    assert got.dtype == dtype and torch.equal(got, gather.gather_rows_plain(tab, flat, k, ng))
-    back = cuda_kernels.scatter_rows(got, flat, n * ng, k, ng)
-    assert torch.equal(back, gather.scatter_rows_plain(got, flat, n * ng, k, ng))
-    bad = torch.tensor([0, n * ng, -1], device=cuda).to(index_dtype)
-    out = cuda_kernels.scatter_rows(torch.ones((3, d), device=cuda, dtype=dtype), bad, n * ng)
-    assert int((out != 0).sum()) == d and bool((out[0] == 1).all())
-    assert (cuda_kernels.gather_rows.launches - before[0],
-            cuda_kernels.scatter_rows.launches - before[1]) == (1, 2)
+    e = torch.tensor([], dtype=dtype).element_size()
+    n, ng, k = 64, 14, 5
+    R = n * ng
+    for d in (1728, 48, 6, 3):
+        base = torch.randn((R + 1, d + 1), generator=g, device=cuda).to(dtype)
+        tables = {"contiguous": base[:R, :d].contiguous(), "column offset": base[:R, 1:],
+                  "storage offset": base.reshape(-1)[1:1 + R * d].view(R, d)}
+        for layout, tab in tables.items():
+            want_lane = next(v for v in (16, 8, 4, 2, e) if (d * e) % v == 0 and v >= e)
+            if layout != "contiguous":
+                want_lane = e
+            out = torch.empty((1, d), device=cuda, dtype=dtype)
+            assert cuda_kernels.rows_lane_bytes(tab, out) == want_lane, (d, layout)
+            batch = torch.randperm(R, generator=g, device=cuda)[:300]
+            cases = [(batch, 0), (torch.cat([batch, torch.tensor([R, -1, R + 5], device=cuda)]), 0)]
+            cases += [(_segment_ids(g, n, ng, k if not out_ else 5, out_, cuda).reshape(-1),
+                       k if not out_ else 5) for out_ in (False, True)]
+            for ids, per in cases:
+                ids = ids.to(index_dtype)
+                before = (cuda_kernels.gather_rows.launches, cuda_kernels.scatter_rows.launches)
+                got = cuda_kernels.gather_rows(tab, ids, per, ng)
+                assert _same_row_bits(got, gather.gather_rows_plain(tab, ids, per, ng)), (d, layout, per)
+                src = torch.randn(got.shape, generator=g, device=cuda).to(dtype)
+                back = cuda_kernels.scatter_rows(src, ids, R, per, ng)
+                assert _same_row_bits(back, gather.scatter_rows_plain(src, ids, R, per, ng)), (
+                    d, layout, per)
+                assert (cuda_kernels.gather_rows.launches - before[0],
+                        cuda_kernels.scatter_rows.launches - before[1]) == (1, 1)
+    # Segments at and past the scatter's shared-memory map.
+    for seg, route in ((12288, "segments"), (12289, "fill")):
+        assert cuda_kernels.scatter_rows_route(7, seg) == route
+        for d in (6, 48):
+            tab = torch.randn((2 * seg, d), generator=g, device=cuda).to(dtype)
+            ids = torch.stack([torch.randperm(seg - 1, generator=g, device=cuda)[:7]
+                               for _ in range(2)])  # -1 below is the only seg - 1
+            ids[0, 0], ids[1, 1] = -1, seg
+            ids = ids.reshape(-1).to(index_dtype)
+            got = cuda_kernels.gather_rows(tab, ids, 7, seg)
+            assert _same_row_bits(got, gather.gather_rows_plain(tab, ids, 7, seg)), (seg, d)
+            back = cuda_kernels.scatter_rows(got.nan_to_num(), ids, 2 * seg, 7, seg)
+            assert _same_row_bits(back, gather.scatter_rows_plain(got.nan_to_num(), ids, 2 * seg, 7,
+                                                              seg)), (seg, d)
+    bad = torch.tensor([0, R, -1], device=cuda).to(index_dtype)
+    out = cuda_kernels.scatter_rows(torch.ones((3, 48), device=cuda, dtype=dtype), bad, R)
+    assert int((out != 0).sum()) == 48 and bool((out[0] == 1).all())
+    idx = _segment_ids(g, n, ng, k, False, cuda)
     x = torch.randn((n, ng * 8, 6), generator=g, device=cuda).to(dtype).requires_grad_(True)
     sel = gather.gather_group_rows(x, idx, 8)
     cot = torch.randn(sel.shape, generator=g, device=cuda).to(dtype)
@@ -1728,12 +1785,18 @@ def test_gather_and_scatter_rows_match_plain(cuda, dtype, index_dtype):
     want = gather.gather_group_rows(xc, idx.cpu(), 8)
     want.backward(cot.cpu())
     assert torch.equal(sel.detach().cpu(), want.detach()) and torch.equal(x.grad.cpu(), xc.grad)
+    tab = torch.zeros((R, 48), device=cuda, dtype=dtype)
+    flat = idx.reshape(-1).to(index_dtype)
     with pytest.raises(ValueError):
-        cuda_kernels.scatter_rows(got.double(), flat, n * ng)
+        cuda_kernels.scatter_rows(tab[: n * k].double(), flat, R)
     with pytest.raises(ValueError):
-        cuda_kernels.scatter_rows(got, flat[1:], n * ng)
+        cuda_kernels.scatter_rows(tab[: n * k], flat[1:], R)
     with pytest.raises(ValueError):
         cuda_kernels.gather_rows(tab, flat, -1, ng)
+    with pytest.raises(ValueError):
+        cuda_kernels.gather_rows(tab, flat, k, 0)
+    for name, fp in cuda_kernels.rows_footprint().items():
+        assert fp["blocks_per_sm"] >= 1 and fp["local_bytes"] == 0, (name, fp)
 
 
 def test_lpips_on_the_card_matches_its_cpu_forward(cuda, tmp_path, monkeypatch):

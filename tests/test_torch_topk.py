@@ -193,13 +193,23 @@ def test_topk_composite_matches_jax_and_its_vjp(case, k, group):
         assert set(top[i]) == set(np.asarray(j_top)[i]), i
 
 
+@pytest.mark.parametrize("ids", ["in range", "outside"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("group", [1, 8])
-def test_gather_group_rows_matches_gather_groups_and_its_vjp(dtype, group):
+def test_gather_group_rows_matches_gather_groups_and_its_vjp(dtype, group, ids):
+    """``ids`` "outside": each ray's ids are -1, -ng, ng, -ng - 1 and 2 in
+    some order. ``take_along_axis`` wraps the first two into the ray's
+    groups and fills the last ray's NaN for the next two (their cotangent
+    dropped); the port must neither read nor write a neighbouring ray."""
     rng = np.random.default_rng(group)
-    n, ng, d, k = 6, 5, 7, 3
+    n, ng, d = 6, 5, 7
+    if ids == "in range":
+        k = 3
+        idx = np.stack([rng.permutation(ng)[:k] for _ in range(n)]).astype(np.int64)
+    else:
+        k = 5
+        idx = np.stack([rng.permutation([-1, -ng, ng, -ng - 1, 2]) for _ in range(n)])
     x = rng.normal(size=(n, ng * group, d)).astype(np.float32)
-    idx = np.stack([rng.permutation(ng)[:k] for _ in range(n)]).astype(np.int64)
     g = rng.normal(size=(n, k * group, d)).astype(np.float32)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
@@ -210,15 +220,25 @@ def test_gather_group_rows_matches_gather_groups_and_its_vjp(dtype, group):
     got = t_gather.gather_group_rows(xt, torch.from_numpy(idx), group)
     got.backward(torch.from_numpy(g).to(tdt))
     assert got.dtype == xt.grad.dtype == tdt
+    # assert_array_equal holds a NaN equal to a NaN.
     np.testing.assert_array_equal(got.detach().float().numpy(), np.asarray(want, np.float32))
     np.testing.assert_array_equal(xt.grad.float().numpy(), np.asarray(want_g, np.float32))
-    # The segments' absolute rows, and the scatter's zeros elsewhere.
+    assert np.isnan(np.asarray(want, np.float32)).any() == (ids == "outside")
+    # The segments' absolute rows, each inside its own ray's segment, NaN
+    # where an id names none; the scatter writes those rows and zeros
+    # everywhere else, its own ray's rows only.
     tab = torch.from_numpy(x).reshape(n * ng, group * d)
     flat = torch.from_numpy(idx).reshape(-1)
-    rows = flat + torch.arange(n * k) // k * ng
-    assert torch.equal(t_gather.gather_rows_plain(tab, flat, k, ng), tab[rows])
-    back = t_gather.scatter_rows_plain(tab[rows], flat, n * ng, k, ng)
-    assert torch.equal(back[rows], tab[rows]) and int((back.abs().sum(-1) > 0).sum()) == n * k
+    ray = torch.arange(n * k) // k
+    inside = (flat >= -ng) & (flat < ng)
+    rows = torch.where(flat < 0, flat + ng, flat) + ray * ng
+    assert bool((rows[inside] // ng == ray[inside]).all())
+    picked = t_gather.gather_rows_plain(tab, flat, k, ng)
+    assert torch.equal(picked[inside], tab[rows[inside]]) and bool(picked[~inside].isnan().all())
+    back = t_gather.scatter_rows_plain(torch.ones((n * k, group * d)), flat, n * ng, k, ng)
+    written = torch.zeros(n * ng, dtype=torch.bool)
+    written[rows[inside]] = True
+    assert torch.equal(back.abs().sum(-1) > 0, written) and bool((back[written] == 1).all())
 
 
 # ---------------------------------------------------------------- render
