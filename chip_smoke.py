@@ -4550,9 +4550,9 @@ def trace_steps(device: torch.device, steps: int = 3, wh: int = TRAIN_WH,
                 extra: tuple[str, ...] = ()) -> dict:
     """``utils.profiling.trace`` around ``steps`` dense train steps of
     ``configs/synthetic_infoinv_tpu.txt --group_size 0`` (one view): the
-    Chrome trace it writes must name K1's kernel symbol (on the card) and
-    the ``annotate`` region around the steps, and hold as many K1 events as
-    K1's launch count over those steps."""
+    Chrome trace it writes beside ``ngf_spans.json`` must name K1's kernel
+    symbol (on the card) and the ``annotate`` region around the steps, and
+    hold as many K1 events as K1's launch count over those steps."""
     from ngf_tpu_torch.config import config_parser
     from ngf_tpu_torch.ops import cuda_kernels
     from ngf_tpu_torch.data import load_dataset
@@ -4580,10 +4580,12 @@ def trace_steps(device: torch.device, steps: int = 3, wh: int = TRAIN_WH,
         traced_s = time.perf_counter() - t0
         launched = cuda_kernels.KERNELS["bilinear_gather_planes"].launches
         files = os.listdir(tmp)
-        check(len(files) == 1 and files[0].endswith(".pt.trace.json"), f"trace files {files}")
-        with open(os.path.join(tmp, files[0])) as f:
+        chrome = [f for f in files if f.endswith(".pt.trace.json")]
+        check(len(files) == 2 and "ngf_spans.json" in files and len(chrome) == 1,
+              f"trace files {files}")
+        with open(os.path.join(tmp, chrome[0])) as f:
             events = json.load(f)["traceEvents"]
-        size = os.path.getsize(os.path.join(tmp, files[0]))
+        size = os.path.getsize(os.path.join(tmp, chrome[0]))
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     k1 = [k for k in kernels if "bilinear_gather_planes_kernel" in k]
     out = {"steps": steps, "events": len(events), "kernels": len(kernels), "k1": len(k1),

@@ -34,6 +34,15 @@ features (the grouped path's ``fused_fetch``) are gathered with a gradient
 ``torch.topk`` does not promise the JAX package's order among equal
 weights; equal weights that differ in the pick are 0 (a ray with fewer
 than K nonzero weights), which shade nothing and take no gradient.
+
+Tracing (`ngf_tpu_torch/utils/profiling.py`): a call is an ``ngf.render``
+span of three parts, ``ngf.render.frontend`` (the jitter and K4, or the
+dense sampling, K3 and compaction), ``ngf.field`` (projection, gauge, the
+K1 fetch and both decoders) and ``ngf.render.composite`` (K5 and the top-K
+shading). While tracing is on a call counts its ``rays``, the sample
+``slots`` the field decodes, the ``kept`` samples (in the box and the
+mask: the valid mask's sums, two kernels) and, in training, the ``shaded``
+ones (blend weight over the threshold, three kernels).
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ from ..ops.compositing import composite, composite_topk, composite_weights
 from ..ops.gather import gather_group_rows
 from ..ops.grid_sample import normalize_coord, occupancy_lookup
 from ..ops.rays import stratified_sample
+from ..utils.profiling import annotate, count, enabled
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,69 +204,116 @@ def render_rays(
     if rcfg.rgb_cap < 0:
         raise ValueError(f"rgb_cap {rcfg.rgb_cap}: the renderer takes a resolved capacity "
                          "(the trainer resolves -1 and -2)")
-    if rcfg.group_size > 0:
-        return _render_rays_grouped(
-            params, model_cfg, rcfg, rays, iteration=iteration, alpha_volume=alpha_volume,
-            alpha_aabb=alpha_aabb, sample_fn=sample_fn, generator=generator, rows=rows,
-        )
+    path = _render_rays_grouped if rcfg.group_size > 0 else _render_rays_dense
+    with annotate("ngf.render"):
+        return path(params, model_cfg, rcfg, rays, iteration=iteration, alpha_volume=alpha_volume,
+                    alpha_aabb=alpha_aabb, sample_fn=sample_fn, generator=generator, rows=rows)
+
+
+def _count_samples(n: int, slots: int, vmask: torch.Tensor) -> None:
+    """The front end's counters while tracing: the rays, the sample slots
+    the field decodes, and the samples in the box and the mask (two
+    kernels: a sum a ray, and its add)."""
+    if enabled():
+        count("rays", n)
+        count("slots", slots)
+        count("kept", vmask.sum(-1))
+
+
+def _count_shaded(weight: torch.Tensor, thres: float) -> None:
+    """The samples whose blend weight clears the shading threshold, in a
+    training render while tracing (three kernels: the test into a float
+    buffer, a sum a ray, its add)."""
+    if enabled():
+        count("shaded", torch.gt(weight, thres, out=torch.empty_like(weight)).sum(-1))
+
+
+def _render_rays_dense(
+    params: Any,
+    model_cfg: TriPlaneConfig,
+    rcfg: RenderConfig,
+    rays: torch.Tensor,
+    *,
+    iteration: int,
+    alpha_volume: torch.Tensor | None,
+    alpha_aabb: torch.Tensor | None,
+    sample_fn,
+    generator: torch.Generator | None,
+    rows: tuple[int, int] | None,
+) -> dict[str, torch.Tensor]:
+    """The dense path (`ngf_tpu/render/volume.py:375-508`)."""
     aabb = rcfg.aabb_tensor(rays.device)
     rays_o, viewdirs = rays[:, 0:3], rays[:, 3:6]
+    train = generator is not None
 
-    jitter = None if generator is None else _jitter_rows(generator, rays.shape[0], rays.device, rows)
-    pts, z_vals, valid = stratified_sample(
-        rays_o, viewdirs, aabb, rcfg.near, rcfg.far, rcfg.n_samples, rcfg.step_size, jitter
-    )
-    # Forward differences with a trailing zero (`FieldBase.py:235`).
-    dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1)
+    with annotate("ngf.render.frontend"):
+        jitter = None if not train else _jitter_rows(generator, rays.shape[0], rays.device, rows)
+        pts, z_vals, valid = stratified_sample(
+            rays_o, viewdirs, aabb, rcfg.near, rcfg.far, rcfg.n_samples, rcfg.step_size, jitter
+        )
+        # Forward differences with a trailing zero (`FieldBase.py:235`).
+        dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1)
 
-    if alpha_volume is not None:
-        # Occupancy lookup (`ngf_tpu/render/volume.py:42-54,429-452`): K3.
-        a_aabb = aabb if alpha_aabb is None else alpha_aabb
-        valid = valid & _occupied(_occupancy_bytes(alpha_volume), pts, a_aabb, rcfg.mask_stride)
+        if alpha_volume is not None:
+            # Occupancy lookup (`ngf_tpu/render/volume.py:42-54,429-452`): K3.
+            a_aabb = aabb if alpha_aabb is None else alpha_aabb
+            valid = valid & _occupied(_occupancy_bytes(alpha_volume), pts, a_aabb, rcfg.mask_stride)
 
-    if rcfg.sample_cap and rcfg.sample_cap < rcfg.n_samples:
-        order_key = (~valid).to(torch.int32)
-        pts, z_vals, dists, valid = _compact(order_key, rcfg.sample_cap, pts, z_vals, dists, valid)
+        if rcfg.sample_cap and rcfg.sample_cap < rcfg.n_samples:
+            order_key = (~valid).to(torch.int32)
+            pts, z_vals, dists, valid = _compact(order_key, rcfg.sample_cap, pts, z_vals, dists,
+                                                 valid)
 
-    n, s = z_vals.shape
-    vmask = valid.to(pts.dtype)
+        n, s = z_vals.shape
+        vmask = valid.to(pts.dtype)
+        _count_samples(n, n * s, vmask)
 
-    xy, yz, xz = triplane_project(normalize_coord(pts, aabb))
-    xy, yz, xz = triplane_gauge(params, model_cfg, xy, yz, xz, iteration, sample_fn)
-    background = _background(rcfg.white_bg, generator, rays.device)
-    if 0 < rcfg.rgb_cap < s:
-        # Top-K shading (`ngf_tpu/render/volume.py:473-487`): density at
-        # every sample, appearance at the K samples of largest weight.
-        sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn) * vmask
-        w, acc_map, depth_map = composite_weights(sigma, dists * rcfg.distance_scale, z_vals,
-                                                  rays[:, -1])
-        top = torch.topk(w.detach(), rcfg.rgb_cap, dim=-1).indices
-        rgb_map = _shade_topk(params, model_cfg, rcfg, (xy, yz, xz), None, top, 1, viewdirs,
-                              w, acc_map, background, sample_fn)
-        return {"rgb_map": rgb_map, "depth_map": depth_map, "acc_map": acc_map}
+    topk = 0 < rcfg.rgb_cap < s
+    with annotate("ngf.field"):
+        xy, yz, xz = triplane_project(normalize_coord(pts, aabb))
+        xy, yz, xz = triplane_gauge(params, model_cfg, xy, yz, xz, iteration, sample_fn)
+        if topk:
+            # Top-K shading (`ngf_tpu/render/volume.py:473-487`): density at
+            # every sample, appearance at the K samples of largest weight.
+            sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn) * vmask
+        else:
+            # Appearance is decoded at every sample whose density is fetched,
+            # so without a sampler of the caller's both come from one fetch of
+            # all channels (the same values as two fetches); a ``sample_fn``
+            # sees the density and appearance fetches of each plane apart, as
+            # the JAX package's dense path makes them.
+            if sample_fn is None:
+                sigma, rgb_feat = triplane_density_and_rgbfeat(params, model_cfg, xy, yz, xz)
+            else:
+                sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn)
+            sigma = sigma * vmask
+            views = viewdirs[:, None, :].expand(n, s, 3)
+            if sample_fn is None:
+                rgb = triplane_rgb_from_feats(params, model_cfg, rgb_feat, views)
+            else:
+                rgb = triplane_rgb(params, model_cfg, xy, yz, xz, views, sample_fn)
 
-    # Appearance is decoded at every sample whose density is fetched, so
-    # without a sampler of the caller's both come from one fetch of all
-    # channels (the same values as two fetches); a ``sample_fn`` sees the
-    # density and appearance fetches of each plane apart, as the JAX
-    # package's dense path makes them.
-    if sample_fn is None:
-        sigma, rgb_feat = triplane_density_and_rgbfeat(params, model_cfg, xy, yz, xz)
-    else:
-        sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn)
-    sigma = sigma * vmask
-    views = viewdirs[:, None, :].expand(n, s, 3)
-    if sample_fn is None:
-        rgb = triplane_rgb_from_feats(params, model_cfg, rgb_feat, views)
-    else:
-        rgb = triplane_rgb(params, model_cfg, xy, yz, xz, views, sample_fn)
-    # The composite (K5): rgb only where the blend weight clears the
-    # threshold (`FieldBase.py:261-265`); as `ngf_tpu/render/volume.py:503-506`
-    # has it, the last ray component (the z of the direction) fills the
-    # missed transmittance of the depth.
-    rgb_map, acc_map, depth_map, _ = composite(
-        sigma, dists * rcfg.distance_scale, rgb, z_vals, rays[:, -1], background,
-        rcfg.ray_march_weight_thres)
+    with annotate("ngf.render.composite"):
+        # Decided once: K5 keeps its weights only when they are counted.
+        counted = train and enabled()
+        background = _background(rcfg.white_bg, generator, rays.device)
+        if topk:
+            w, acc_map, depth_map = composite_weights(sigma, dists * rcfg.distance_scale, z_vals,
+                                                      rays[:, -1])
+            top = torch.topk(w.detach(), rcfg.rgb_cap, dim=-1).indices
+            rgb_map = _shade_topk(params, model_cfg, rcfg, (xy, yz, xz), None, top, 1, viewdirs,
+                                  w, acc_map, background, sample_fn)
+        else:
+            # The composite (K5): rgb only where the blend weight clears the
+            # threshold (`FieldBase.py:261-265`); as
+            # `ngf_tpu/render/volume.py:503-506` has it, the last ray component
+            # (the z of the direction) fills the missed transmittance of the
+            # depth. The weights are kept only to count them.
+            rgb_map, acc_map, depth_map, w = composite(
+                sigma, dists * rcfg.distance_scale, rgb, z_vals, rays[:, -1], background,
+                rcfg.ray_march_weight_thres, weights=counted)
+        if counted:
+            _count_shaded(w, rcfg.ray_march_weight_thres)
     return {"rgb_map": rgb_map, "depth_map": depth_map, "acc_map": acc_map}
 
 
@@ -343,52 +400,64 @@ def _render_rays_grouped(
     n = rays.shape[0]
     S, G = rcfg.n_samples, rcfg.group_size
     ng = -(-S // G)
-
-    jitter = None if generator is None else _jitter_rows(generator, n, rays.device, rows)
     cap = rcfg.sample_cap if rcfg.sample_cap else S
     capg = min(ng, -(-cap // G))
-    volume = None if alpha_volume is None else _occupancy_bytes(alpha_volume)
-    _, _, z_c, vmask, xyz_n = group_sample_compact(
-        rays, jitter, aabb, rcfg.near, rcfg.far, S, rcfg.step_size, G, capg, volume, alpha_aabb
-    )
-    xy, yz, xz = triplane_project(xyz_n)
-    xy, yz, xz = triplane_gauge(params, model_cfg, xy, yz, xz, iteration, sample_fn)
-    dist = float(np.float32(rcfg.step_size * rcfg.distance_scale))
-    background = _background(rcfg.white_bg, generator, rays.device)
     train = generator is not None
+
+    with annotate("ngf.render.frontend"):
+        jitter = None if not train else _jitter_rows(generator, n, rays.device, rows)
+        volume = None if alpha_volume is None else _occupancy_bytes(alpha_volume)
+        _, _, z_c, vmask, xyz_n = group_sample_compact(
+            rays, jitter, aabb, rcfg.near, rcfg.far, S, rcfg.step_size, G, capg, volume, alpha_aabb
+        )
+        _count_samples(n, n * capg * G, vmask)
+
+    dist = float(np.float32(rcfg.step_size * rcfg.distance_scale))
     kg = min(capg, max(1, rcfg.rgb_cap // G)) if rcfg.rgb_cap else capg
-    if kg < capg:
-        # Top-K shading (`volume.py:315-338`): the kg groups of largest best
-        # weight; their prefetched features (``fused_fetch``), or density at
-        # every sample and appearance at theirs. A ``sample_fn`` sees the
-        # density and appearance fetches apart, as on the other paths.
+    topk = kg < capg
+    with annotate("ngf.field"):
+        xy, yz, xz = triplane_project(xyz_n)
+        xy, yz, xz = triplane_gauge(params, model_cfg, xy, yz, xz, iteration, sample_fn)
         rgb_feat = None
-        if rcfg.fused_fetch and sample_fn is None:
-            sigma, rgb_feat = triplane_density_and_rgbfeat(params, model_cfg, xy, yz, xz)
+        if topk:
+            # Top-K shading (`volume.py:315-338`): the kg groups of largest
+            # best weight; their prefetched features (``fused_fetch``), or
+            # density at every sample and appearance at theirs. A
+            # ``sample_fn`` sees the density and appearance fetches apart, as
+            # on the other paths.
+            if rcfg.fused_fetch and sample_fn is None:
+                sigma, rgb_feat = triplane_density_and_rgbfeat(params, model_cfg, xy, yz, xz)
+            else:
+                sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn)
         else:
-            sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn)
-        weight, acc_map, depth_map = composite_weights(sigma * vmask, dist, z_c, rays[:, -1])
-        top_g = torch.topk(weight.detach().reshape(n, capg, G).amax(-1), kg, dim=-1).indices
-        rgb_map = _shade_topk(params, model_cfg, rcfg, (xy, yz, xz), rgb_feat, top_g, G, viewdirs,
-                              weight, acc_map, background, sample_fn)
-    else:
-        if sample_fn is None:
-            sigma, rgb_feat = triplane_density_and_rgbfeat(params, model_cfg, xy, yz, xz)
+            if sample_fn is None:
+                sigma, rgb_feat = triplane_density_and_rgbfeat(params, model_cfg, xy, yz, xz)
+            else:
+                sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn)
+            sigma = sigma * vmask
+            views = viewdirs[:, None, :].expand(n, capg * G, 3)
+            if sample_fn is None:
+                rgb = triplane_rgb_from_feats(params, model_cfg, rgb_feat, views)
+            else:
+                rgb = triplane_rgb(params, model_cfg, xy, yz, xz, views, sample_fn)
+
+    with annotate("ngf.render.composite"):
+        background = _background(rcfg.white_bg, generator, rays.device)
+        if topk:
+            weight, acc_map, depth_map = composite_weights(sigma * vmask, dist, z_c, rays[:, -1])
+            top_g = torch.topk(weight.detach().reshape(n, capg, G).amax(-1), kg, dim=-1).indices
+            rgb_map = _shade_topk(params, model_cfg, rcfg, (xy, yz, xz), rgb_feat, top_g, G,
+                                  viewdirs, weight, acc_map, background, sample_fn)
         else:
-            sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn)
-        sigma = sigma * vmask
-        views = viewdirs[:, None, :].expand(n, capg * G, 3)
-        if sample_fn is None:
-            rgb = triplane_rgb_from_feats(params, model_cfg, rgb_feat, views)
-        else:
-            rgb = triplane_rgb(params, model_cfg, xy, yz, xz, views, sample_fn)
-        # The composite (K5) at one float32 step length for every sample
-        # (`volume.py:311`). The shading mask's ``* vmask`` is implied: a
-        # culled sample has sigma 0, so w 0, which does not clear the
-        # threshold.
-        rgb_map, acc_map, depth_map, weight = composite(
-            sigma, dist, rgb, z_c, rays[:, -1], background, rcfg.ray_march_weight_thres,
-            weights=train)
+            # The composite (K5) at one float32 step length for every sample
+            # (`volume.py:311`). The shading mask's ``* vmask`` is implied: a
+            # culled sample has sigma 0, so w 0, which does not clear the
+            # threshold.
+            rgb_map, acc_map, depth_map, weight = composite(
+                sigma, dist, rgb, z_c, rays[:, -1], background, rcfg.ray_march_weight_thres,
+                weights=train)
+        if train:
+            _count_shaded(weight, rcfg.ray_march_weight_thres)
     out = {"rgb_map": rgb_map, "depth_map": depth_map, "acc_map": acc_map}
     if train:
         # Per ray, the groups whose best blend weight clears the shading

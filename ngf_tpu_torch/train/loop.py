@@ -107,6 +107,7 @@ from ..utils.grid import cal_n_samples, grid_n_samples, grid_step_size, n_to_res
 from ..utils.marching_cubes import convert_density_to_ply
 from ..utils.metrics import mse2psnr, tv_loss_2d
 from ..utils.precision import float32_accumulation
+from ..utils.profiling import annotate
 from ..utils.scalars import ScalarWriter
 from .occupancy import (
     AlphaGrid,
@@ -434,11 +435,14 @@ class TriPlaneTrainer:
         chunk's forward (`ngf_tpu/train/loop.py:486-519`). Returns the MSE
         (a device scalar)."""
         micro = max(1, self.args.microbatch)
-        self.optimizer.zero_grad()
+        with annotate("ngf.optimizer"):
+            self.optimizer.zero_grad()
         mse_sum = torch.zeros((), device=rays.device)
         for r, g in zip(rays.chunk(micro), rgbs.chunk(micro)):
-            loss, mse = self.loss_fn(r, g, generator, sample_fn)
-            loss.backward()
+            with annotate("ngf.forward"):
+                loss, mse = self.loss_fn(r, g, generator, sample_fn)
+            with annotate("ngf.backward"):
+                loss.backward()
             mse_sum = mse_sum + mse.detach()
         if micro > 1:
             for _, p in named_leaves(self.params):
@@ -453,7 +457,8 @@ class TriPlaneTrainer:
         mse = self.compute_grads(rays, rgbs, generator, sample_fn)
         if self.mesh is not None:
             mse = self._reduce_step(mse)
-        self.optimizer.step()
+        with annotate("ngf.optimizer"):
+            self.optimizer.step()
         self.iteration += 1
         return mse
 
@@ -707,66 +712,66 @@ class TriPlaneTrainer:
             except ValueError:  # not the main thread: no drain
                 pass
         try:
-            # A profiler span around the steps (`chip_smoke.py` counts the
-            # host-to-device copies inside it).
-            with torch.profiler.record_function("train_loop"):
+            # A span around the steps (`chip_smoke.py` counts the
+            # host-to-device copies inside it), and one a step.
+            with annotate("train_loop"):
                 while self.iteration < args.n_iters and not self._stop_requested:
-                    pending.append(self.train_step(*self.next_batch(), self.gen))
-                    it = self.iteration
-                    self._agree_stop(it % args.progress_refresh_rate == 0 or it in masks or it in ups)
-                    boundary = it == args.n_iters or it in masks or it in ups or self._stop_requested
-                    if boundary:
-                        self._sync()
-                        stages.append({"from": stage_it, "to": it, "s": time.time() - stage_t})
-                    log_now = log_path is not None and it % args.progress_refresh_rate == 0
-                    vis_now = (
-                        args.N_vis != 0 and args.vis_every > 0 and it % args.vis_every == 0
-                        and self.test_dataset is not None and self._shared_io
-                    )
-                    if log_now or (vis_now and self.logfolder):
-                        mses += torch.stack(pending).tolist()
-                        pending = []
-                    if log_now:
-                        train_psnr = np.mean([mse2psnr(m) for m in mses[-50:]])
-                        with open(log_path, "a") as f:
-                            f.write(
-                                f"Iteration {it:05d}: train_psnr = {train_psnr:.2f}"
-                                f" test_psnr = {float(np.mean(psnrs_test)):.2f} mse = {mses[-1]:.6f}\n"
-                            )
-                        scalars.write(it, {"train/psnr": train_psnr, "train/mse": mses[-1],
-                                           "train/l1_weight": self.l1_weight,
-                                           "train/shaded_groups_p999": int(self.rgb_stat.item())})
-                    if vis_now and self.logfolder:
-                        psnrs_test = evaluation(
-                            self.test_dataset, self.make_eval_render_fn(iteration=it),
-                            os.path.join(self.logfolder, "imgs_vis"), n_vis=args.N_vis,
-                            prtx=f"{it:06d}_", chunk=args.eval_chunk, compute_extra_metrics=False,
-                            write_video=False,
-                        ) or [0.0]
-                        with open(log_path, "a") as f:
-                            f.write(f"Iteration {it:05d}: test/psnr = "
-                                    f"{float(np.mean(psnrs_test)):.2f}\n")
-                        scalars.write(it, {"test/psnr": float(np.mean(psnrs_test))})
-                    if vis_now:
-                        self._barrier()
-                    if it in masks:
-                        # The first event is the first without a grid (`loop.py:1517-1521`).
-                        self._event_update_alpha_mask(first=self.alpha is None)
-                    if it in ups:
-                        self._event_upsample()
-                    save_now = args.save_every > 0 and it % args.save_every == 0
-                    if save_now and it < args.n_iters and self._shared_io:
-                        # The final save below covers n_iters.
-                        if self.logfolder:
-                            blocked = self.save(os.path.join(self.logfolder, "model.npz"),
-                                                background=True)
-                            scalars.write(it, {"ckpt/blocked_s": round(blocked, 3)})
-                        self._barrier()
-                    if boundary:
-                        self._sync()
-                        stage_t, stage_it = time.time(), it
-                    if progress_cb is not None:
-                        progress_cb(it, mses[-1] if mses else None)
+                    with annotate("ngf.step", self.iteration + 1):
+                        with annotate("ngf.batch"):
+                            batch = self.next_batch()
+                        pending.append(self.train_step(*batch, self.gen))
+                        it = self.iteration
+                        event = it in masks or it in ups
+                        self._agree_stop(it % args.progress_refresh_rate == 0 or event)
+                        boundary = it == args.n_iters or event or self._stop_requested
+                        if boundary:
+                            self._sync()
+                            stages.append({"from": stage_it, "to": it, "s": time.time() - stage_t})
+                        log_now = log_path is not None and it % args.progress_refresh_rate == 0
+                        vis_now = (
+                            args.N_vis != 0 and args.vis_every > 0 and it % args.vis_every == 0
+                            and self.test_dataset is not None and self._shared_io
+                        )
+                        if log_now or (vis_now and self.logfolder):
+                            with annotate("ngf.log"):
+                                mses += torch.stack(pending).tolist()
+                                pending = []
+                                if log_now:
+                                    self._write_log(log_path, it, mses, psnrs_test)
+                        if vis_now and self.logfolder:
+                            psnrs_test = evaluation(
+                                self.test_dataset, self.make_eval_render_fn(iteration=it),
+                                os.path.join(self.logfolder, "imgs_vis"), n_vis=args.N_vis,
+                                prtx=f"{it:06d}_", chunk=args.eval_chunk,
+                                compute_extra_metrics=False, write_video=False,
+                            ) or [0.0]
+                            with open(log_path, "a") as f:
+                                f.write(f"Iteration {it:05d}: test/psnr = "
+                                        f"{float(np.mean(psnrs_test)):.2f}\n")
+                            scalars.write(it, {"test/psnr": float(np.mean(psnrs_test))})
+                        if vis_now:
+                            self._barrier()
+                        if it in masks:
+                            # The first event is the first without a grid (`loop.py:1517-1521`).
+                            with annotate("ngf.event"):
+                                self._event_update_alpha_mask(first=self.alpha is None)
+                        if it in ups:
+                            with annotate("ngf.event"):
+                                self._event_upsample()
+                        save_now = args.save_every > 0 and it % args.save_every == 0
+                        if save_now and it < args.n_iters and self._shared_io:
+                            # The final save below covers n_iters.
+                            if self.logfolder:
+                                with annotate("ngf.save"):
+                                    blocked = self.save(os.path.join(self.logfolder, "model.npz"),
+                                                        background=True)
+                                scalars.write(it, {"ckpt/blocked_s": round(blocked, 3)})
+                            self._barrier()
+                        if boundary:
+                            self._sync()
+                            stage_t, stage_it = time.time(), it
+                        if progress_cb is not None:
+                            progress_cb(it, mses[-1] if mses else None)
         finally:
             if prev_term is not None:
                 signal.signal(signal.SIGTERM, prev_term)
@@ -775,7 +780,8 @@ class TriPlaneTrainer:
         wall = time.time() - t0
         if self.logfolder:
             path = os.path.join(self.logfolder, "model.npz")
-            self.save(path)
+            with annotate("ngf.save"):
+                self.save(path)
             if self._stop_requested:
                 print(f"[trainer] preempted at iteration {self.iteration}; resumable checkpoint "
                       f"written to {path}", flush=True)
@@ -793,6 +799,20 @@ class TriPlaneTrainer:
             "shaded_groups_p999": int(self.rgb_stat.item()),
             "preempted": self._stop_requested,
         }
+
+    def _write_log(self, log_path: str, it: int, mses: list[float],
+                   psnrs_test: list[float]) -> None:
+        """The log step's line in ``log.txt`` and its ``scalars.jsonl`` entry
+        (the running ``rgb_stat`` read back)."""
+        train_psnr = np.mean([mse2psnr(m) for m in mses[-50:]])
+        with open(log_path, "a") as f:
+            f.write(
+                f"Iteration {it:05d}: train_psnr = {train_psnr:.2f}"
+                f" test_psnr = {float(np.mean(psnrs_test)):.2f} mse = {mses[-1]:.6f}\n"
+            )
+        self._scalars.write(it, {"train/psnr": train_psnr, "train/mse": mses[-1],
+                                 "train/l1_weight": self.l1_weight,
+                                 "train/shaded_groups_p999": int(self.rgb_stat.item())})
 
     def make_eval_render_fn(self, iteration: int | None = None, full: bool = False):
         """Chunk renderer ``rays -> (rgb, depth)`` of the current weights and

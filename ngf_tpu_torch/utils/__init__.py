@@ -25,7 +25,6 @@ _EXPORTS = {
     "save_obj": "viz",
     "save_pointcloud_pcd": "viz",
     "depth_to_pointcloud": "viz",
-    "StepTimer": "profiling",
     "trace": "profiling",
     "annotate": "profiling",
 }
