@@ -286,8 +286,8 @@ GROUP, N_GROUPS = 8, 111
 # Index and weight arithmetic of one occupancy lookup (normalise, three
 # axes, eight tap weights): about 60 float32 operations.
 K3_OPS_PER_POINT = 60
-# K5's shard mode runs only on the sample-parallel path, its top-K mode and
-# the row scatter only with top-K shading.
+# K5's shard mode runs only on the sample-parallel path, its top-K mode only
+# with top-K shading, the row scatter only with top-K shading or packing.
 NO_MODE_LAUNCHES = {"ray_march_triplane_totals": 0, "ray_march_triplane_shard": 0,
                     "ray_march_triplane_shard_backward": 0, "ray_march_triplane_topk": 0,
                     "ray_march_triplane_topk_backward": 0, "scatter_rows": 0}
@@ -2112,6 +2112,8 @@ def staged_phase(
     result["compare"] = compare_step(trainer, rays, rgbs, case="masked step")
     if cuda and grouped_topk(args, events, args.n_iters):
         result["topk"] = topk_step_rows(trainer, f"{tag} masked step")
+    elif cuda and full:
+        result["packed"] = packed_step_rows(trainer, f"{tag} masked step")
     if cuda and full:
         torch.cuda.reset_peak_memory_stats(device)
         result["masked_step_ms"] = cuda_ms(step, reps=10, warmup=2)
@@ -2181,7 +2183,11 @@ def staged_launches(args, events: list[dict], wh: int, start: int = 0) -> dict:
     picks with one ``gather_rows`` and, without ``fused_fetch``, fetches
     their appearance with a second K1; a step also launches the colour
     pass's backward and, with ``fused_fetch`` (the gathered features take a
-    gradient), one ``scatter_rows``. The final evaluation shades densely."""
+    gradient), one ``scatter_rows``. Every other step chunk is packed: two
+    ``gather_rows`` (its kept groups' coordinates and view directions) and
+    two ``scatter_rows`` (sigma and colour back into the slot layout)
+    forward, and the scatters' backward, two ``gather_rows``. The final
+    evaluation shades densely."""
     micro = max(1, args.microbatch)
     iters = args.n_iters - start
     r = args.alpha_grid_res
@@ -2199,6 +2205,7 @@ def staged_launches(args, events: list[dict], wh: int, start: int = 0) -> dict:
     topk = micro * sum(grouped_topk(args, events, i) for i in range(start + 1, args.n_iters + 1))
     topk_evals = chunks * sum(grouped_topk(args, events, v) for v in vis)
     second_fetch = 0 if args.fused_fetch else topk + topk_evals
+    packed = micro * iters - topk
     export = EXPORT_LAUNCHES if args.export_mesh else 0
     return {
         "bilinear_gather_planes": (micro * iters + len(events) * grid_chunks + evals * chunks
@@ -2206,7 +2213,7 @@ def staged_launches(args, events: list[dict], wh: int, start: int = 0) -> dict:
         "bilinear_gather_2d": 0,
         "bilinear_gather_2d_backward": 6 * micro * iters,
         "bilinear_gather_planes_backward_coords": 0,
-        "gather_rows": iters + rows + topk + topk_evals,
+        "gather_rows": iters + rows + topk + topk_evals + 4 * packed,
         "occupancy_lookup": k3,
         "group_sample_compact": micro * iters + evals * chunks,
         "ray_march": 0,
@@ -2216,7 +2223,7 @@ def staged_launches(args, events: list[dict], wh: int, start: int = 0) -> dict:
         **NO_MODE_LAUNCHES,
         "ray_march_triplane_topk": topk + topk_evals,
         "ray_march_triplane_topk_backward": topk,
-        "scatter_rows": topk if args.fused_fetch else 0,
+        "scatter_rows": (topk if args.fused_fetch else 0) + 2 * packed,
     }
 
 
@@ -2383,6 +2390,105 @@ def group_gather_rows(case: str, x: torch.Tensor, idx: torch.Tensor, group: int)
         if name == "scatter_rows":
             row["route"] = cuda_kernels.scatter_rows_route(k, ng)
         print(f"[topk] {name} {case}: table ({R}, {D}) {x.dtype}, {B} rows, {lane}-byte words"
+              f"{', route ' + row['route'] if 'route' in row else ''}: {row['ms']:.5f} ms, in a "
+              f"CUDA graph {row['graph_ms']:.5f}, bound {bound:.5f} ({by}), plain "
+              f"{row['plain_ms']:.5f}, library {row['library_ms']:.5f}")
+        out.append(row)
+    return out
+
+
+@contextlib.contextmanager
+def packed_inputs():
+    """Records the row traffic of the first packed training render inside
+    the block: the slot ids of its kept groups (``render.volume._pack_map``),
+    its two ``gather_rows`` (the (n * capg, G * 3) coordinate table and the
+    view directions, strided rows of the batch) and its two ``scatter_rows``
+    (the decoded sigma (m, G) and colour (m, G * 3) rows and the slot rows
+    they are written into)."""
+    from ngf_tpu_torch.render import volume
+
+    seen: dict = {"gather": [], "scatter": []}
+    real_map, real_gather, real_scatter = volume._pack_map, volume.gather_rows, volume.scatter_rows
+
+    def spy_map(got):
+        ids = real_map(got)
+        seen.setdefault("map", (ids, int(got.sum()), tuple(got.shape)))
+        return ids
+
+    def spy_gather(tab, idx, *a):
+        if len(seen["gather"]) < 2:
+            seen["gather"].append((tab.detach(), idx))
+        return real_gather(tab, idx, *a)
+
+    def spy_scatter(src, idx, rows):
+        if len(seen["scatter"]) < 2:
+            seen["scatter"].append((src.detach(), idx, rows))
+        return real_scatter(src, idx, rows)
+
+    volume._pack_map, volume.gather_rows, volume.scatter_rows = spy_map, spy_gather, spy_scatter
+    try:
+        yield seen
+    finally:
+        volume._pack_map, volume.gather_rows, volume.scatter_rows = (real_map, real_gather,
+                                                                     real_scatter)
+
+
+def packed_step_rows(trainer, case: str) -> list[dict]:
+    """The row kernels of one packed step of ``trainer`` on that step's own
+    ids and rows: the forward's two ``gather_rows`` (coordinates, view
+    directions) and two ``scatter_rows`` (sigma, colour: per 0, so the fill
+    route), and the scatters' backward, ``gather_rows`` of a (random)
+    cotangent of the slot layout at the same ids. Each against its plain
+    version byte for byte, timed beside its bound (each row read and written
+    once, each id read once; a scatter also writes its whole output once),
+    the plain version and the library call (``index_select``; ``index_copy_``
+    into new zeros), with the word its kernel moved and the scatter's route."""
+    from ngf_tpu_torch.ops import cuda_kernels
+    from ngf_tpu_torch.ops.gather import gather_rows_plain, scatter_rows_plain
+
+    with packed_inputs() as seen:
+        trainer.compute_grads(*trainer.next_batch(), trainer.gen)
+    trainer.optimizer.zero_grad()
+    check("map" in seen and len(seen["gather"]) == 2 and len(seen["scatter"]) == 2,
+          f"{case}: no packed render ran ({ {k: len(v) for k, v in seen.items()} })")
+    ids, kept, (n, capg) = seen["map"]
+    check(ids.shape[0] == kept and 0 < kept < n * capg,
+          f"{case}: {ids.shape[0]} packed rows for {kept} kept of {n * capg} groups")
+    gen = torch.Generator(device=ids.device).manual_seed(SEED)
+    cases = []
+    for what, (tab, idx) in zip(("coordinates", "view directions"), seen["gather"]):
+        cases.append(("gather_rows", f"{case}: {what}", tab, idx, None))
+    for what, (src, idx, R) in zip(("sigma", "colour"), seen["scatter"]):
+        cases.append(("scatter_rows", f"{case}: {what}", src, idx, R))
+        g = torch.randn((R, src.shape[1]), generator=gen, device=src.device).to(src.dtype)
+        cases.append(("gather_rows", f"{case}: {what}'s gradient (the scatter's backward)", g,
+                      idx, None))
+    out = []
+    for name, label, a, idx, R in cases:
+        B, D = idx.shape[0], a.shape[1]
+        e, i = a.element_size(), idx.element_size()
+        if name == "gather_rows":
+            fn = lambda a=a, idx=idx: cuda_kernels.gather_rows(a, idx)  # noqa: E731
+            pfn = lambda a=a, idx=idx: gather_rows_plain(a, idx)  # noqa: E731
+            lib = lambda a=a, idx=idx: torch.index_select(a, 0, idx)  # noqa: E731
+            nbytes, table = B * (2 * D * e + i), [a.shape[0], D]
+        else:
+            fn = lambda a=a, idx=idx, R=R: cuda_kernels.scatter_rows(a, idx, R)  # noqa: E731
+            pfn = lambda a=a, idx=idx, R=R: scatter_rows_plain(a, idx, R)  # noqa: E731
+            lib = lambda a=a, idx=idx, R=R: a.new_zeros((R, D)).index_copy_(0, idx, a)  # noqa: E731
+            nbytes, table = R * D * e + B * (D * e + i), [R, D]
+        got = fn()
+        check(torch.equal(got, pfn()), f"{label}: {name} differs from its plain version")
+        bound, by = bytes_bound_ms(nbytes, 0.0)
+        row = {"kernel": name, "case": label, "table": table, "B": B, "dtype": str(a.dtype),
+               "row_stride": a.stride(0), "lane_bytes": cuda_kernels.rows_lane_bytes(a, got),
+               "ms": cuda_ms(fn, 50, 5), "graph_ms": graph_ms(fn), "bound_ms": bound,
+               "bound_by": by, "plain_ms": cuda_ms(pfn, 20), "library_ms": cuda_ms(lib, 50, 5),
+               "max_abs_err": 0.0}
+        if name == "scatter_rows":
+            row["route"] = cuda_kernels.scatter_rows_route(0, 0)
+        print(f"[packed] {name} {label}: table ({table[0]}, {D}) {a.dtype}, row stride "
+              f"{a.stride(0)}, {B} rows of {n * capg} slots, {row['lane_bytes']}-byte words"
               f"{', route ' + row['route'] if 'route' in row else ''}: {row['ms']:.5f} ms, in a "
               f"CUDA graph {row['graph_ms']:.5f}, bound {bound:.5f} ({by}), plain "
               f"{row['plain_ms']:.5f}, library {row['library_ms']:.5f}")
@@ -2817,6 +2923,7 @@ def gauge_phase(
     if cuda and full:
         result["k1_three_shapes"] = three_shape_row(
             [trainer.params[n].detach() for n in PLANE_NAMES], result["compare"]["coords"])
+        result["packed"] = packed_step_rows(trainer, f"{tag} upsampled step")
         result["upsampled_step_profile"] = profile_chunk(step, reps=2, unit="upsampled gauge step")
         result["k5_upsampled"] = step_k5_rows(
             "upsampled gauge step",
@@ -2935,7 +3042,8 @@ def gauge_launches(args, events: list[dict], wh: int) -> dict:
     ``gather_rows`` (the rebuilt table, the count subsample); the upsample's
     K3 count chunks and subsample; per evaluation chunk two K1 and one K4;
     one K5 tri-plane composite per step (and its backward) and per
-    evaluation chunk."""
+    evaluation chunk; per step chunk the packing's four ``gather_rows`` and
+    two ``scatter_rows`` (:func:`staged_launches`)."""
     iters, micro = args.n_iters, max(1, args.microbatch)
     mask, up = events
     r = args.alpha_grid_res
@@ -2953,7 +3061,7 @@ def gauge_launches(args, events: list[dict], wh: int) -> dict:
         "bilinear_gather_2d": 0,
         "bilinear_gather_2d_backward": 3 * steps,
         "bilinear_gather_planes_backward_coords": steps,
-        "gather_rows": iters + int(mask["refiltered"]) + 2 * subsample,
+        "gather_rows": iters + int(mask["refiltered"]) + 2 * subsample + 4 * steps,
         "occupancy_lookup": -(-mask["rays_before"] // 51200) + 2 * count_chunks,
         "group_sample_compact": steps + evals * chunks,
         "ray_march": 0,
@@ -2961,6 +3069,7 @@ def gauge_launches(args, events: list[dict], wh: int) -> dict:
         "ray_march_triplane": steps + evals * chunks,
         "ray_march_triplane_backward": steps,
         **NO_MODE_LAUNCHES,
+        "scatter_rows": 2 * steps,
     }
 
 
@@ -4988,15 +5097,19 @@ def main(argv: list[str] | None = None) -> int:
         for k in topk_runs}
     group_rows = [r for k in topk_runs for r in topk[k]["topk"]["rows"]]
     scatter = [r for r in group_rows if r["kernel"] == "scatter_rows"]
+    packed_rows = out["staged"]["packed"] + gauge["packed"]
     kernels.append(entry(
         "scatter_rows", "ngf_tpu_torch/ops/kernels/gather_rows.cu", "ngf_tpu/ops/compaction.py:50",
         next(r for r in scatter if r["case"].startswith("topk_fused")), 0.0,
         "the group gather's backward on the staged recipe's masked step at rgb_cap 64: the "
         "fused fetch's features of the kept groups as one table, the picked groups' rows "
-        "written, byte for byte", skip=tuple(p for p in paths if p not in topk_paths)))
+        "written, byte for byte (and, in packed_rows, the packed training render's scatters "
+        "back into the slot layout)"))
     kernels[-1]["rows"] = scatter
+    kernels[-1]["packed_rows"] = [r for r in packed_rows if r["kernel"] == "scatter_rows"]
     kernels[-1]["footprint"] = {k: v for k, v in rows_fp.items() if k.startswith("scatter")}
     kernels[2]["group_gather_rows"] = [r for r in group_rows if r["kernel"] == "gather_rows"]
+    kernels[2]["packed_rows"] = [r for r in packed_rows if r["kernel"] == "gather_rows"]
     kernels[2]["footprint"] = {k: v for k, v in rows_fp.items() if k.startswith("gather")}
     kernels[0]["rows"] = [
         {k: r[k] for k in ("case", "dtype", "ms", "bound_ms", "plain_ms", "library_ms",

@@ -1,5 +1,7 @@
 """Row gather ``out = tab[idx]`` and its backward, the row scatter: the
-trainer's batch assembly and the top-K renderers' group gather.
+trainer's batch assembly, the top-K renderers' group gather, and the
+packed training render's gather of its kept groups and scatter back
+(:func:`scatter_rows`, whose backward is the gather).
 
 The counterpart of the three Mosaic gather probes of `tools/probe_pallas.py`
 (``take``, ``take_along``, ``scalar_ds``), which all compute this function,
@@ -58,6 +60,13 @@ def _check_cpu(tab: torch.Tensor, idx: torch.Tensor) -> None:
         raise ValueError(f"gather_rows runs on cuda or cpu, not {tab.device}")
 
 
+def _scatter(src, idx, rows, per=0, seg=0):
+    if src.is_cuda:
+        return cuda_kernels.scatter_rows(src, idx, rows, per, seg)
+    _check_cpu(src, idx)
+    return scatter_rows_plain(src, idx, rows, per, seg)
+
+
 def _gather(tab, idx, per, seg):
     if tab.is_cuda:  # the kernel's wrapper checks that idx is on tab's device
         return cuda_kernels.gather_rows(tab, idx, per, seg)
@@ -78,9 +87,7 @@ class _GatherRows(torch.autograd.Function):
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         rows, per, seg = ctx.layout
-        if g.is_cuda:
-            return cuda_kernels.scatter_rows(g, idx, rows, per, seg), None, None, None
-        return scatter_rows_plain(g, idx, rows, per, seg), None, None, None
+        return _scatter(g, idx, rows, per, seg), None, None, None
 
 
 def gather_rows(tab: torch.Tensor, idx: torch.Tensor, per: int = 0, seg: int = 0) -> torch.Tensor:
@@ -114,3 +121,31 @@ def gather_group_rows(x: torch.Tensor, idx: torch.Tensor, group: int) -> torch.T
     tab = x.reshape(n * (s // group), group * d)
     out = gather_rows(tab, idx.reshape(-1), k, s // group)
     return out.view(n, k * group, d)
+
+
+class _ScatterRows(torch.autograd.Function):
+    """The row scatter as one autograd node; its backward is the gather at
+    the same ids."""
+
+    @staticmethod
+    def forward(ctx, src, idx, rows):
+        ctx.save_for_backward(idx)
+        return _scatter(src, idx, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return _gather(g.contiguous(), idx, 0, 0), None, None
+
+
+def scatter_rows(src: torch.Tensor, idx: torch.Tensor, rows: int) -> torch.Tensor:
+    """The converse of :func:`gather_rows`: an (rows, D) tensor of zeros
+    with the rows of the (B, D) ``src`` at the distinct rows ``idx`` of
+    [0, rows). Differentiable in ``src``: the gradient is
+    :func:`gather_rows` at ``idx``. One ``scatter_rows`` launch on the card
+    (a fill, then the rows) and one ``gather_rows`` backward. The packed
+    training render writes its decoded rows back into the slot layout with
+    it."""
+    if src.requires_grad and torch.is_grad_enabled():
+        return _ScatterRows.apply(src, idx, rows)
+    return _scatter(src, idx, rows)

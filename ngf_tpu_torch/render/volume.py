@@ -43,6 +43,19 @@ shading). While tracing is on a call counts its ``rays``, the sample
 ``slots`` the field decodes, the ``kept`` samples (in the box and the
 mask: the valid mask's sums, two kernels) and, in training, the ``shaded``
 ones (blend weight over the threshold, three kernels).
+
+Packing (the grouped path's training render with dense shading and no
+``sample_fn``): K4's layout gives every ray ``capg`` group slots, most of
+them empty. The kept groups' slot ids are read once to the host (the
+call's one synchronise), their coordinates and view directions gathered
+into consecutive rows (``gather_rows``), and only those rows decoded; the
+decoded sigma and colour are written back into the zero-filled slot layout
+(``scatter_rows``, backward ``gather_rows``) that K5 takes. Evaluation, top-K
+shading and ``sample_fn`` callers decode every slot. The trainer runs the
+batch and a packed render's front end on a second stream
+(``front_stream``), so that reading the count does not wait for the
+previous step's backward and update, which the card then runs while the
+host queues the field.
 """
 
 from __future__ import annotations
@@ -65,7 +78,7 @@ from ..fields.triplane import (
 )
 from ..ops.compaction import group_sample_compact
 from ..ops.compositing import composite, composite_topk, composite_weights
-from ..ops.gather import gather_group_rows
+from ..ops.gather import gather_group_rows, gather_rows, scatter_rows
 from ..ops.grid_sample import normalize_coord, occupancy_lookup
 from ..ops.rays import stratified_sample
 from ..utils.profiling import annotate, count, enabled
@@ -173,6 +186,7 @@ def render_rays(
     sample_fn=None,
     generator: torch.Generator | None = None,
     rows: tuple[int, int] | None = None,
+    front_stream: torch.cuda.Stream | None = None,
 ) -> dict[str, torch.Tensor]:
     """Render a chunk of rays (`ngf_tpu/render/volume.py:375-508`).
 
@@ -195,6 +209,13 @@ def render_rays(
         a batch of ``total`` whose draws are made whole on every rank of a
         data-parallel run (:func:`_jitter_rows`); None: the rays are the
         batch.
+      front_stream: a packed render's front end (the jitter, K4 and the
+        kept groups' ids, whose count the host reads) runs on this CUDA
+        stream, which the caller keeps ordered after every write to the
+        rays and the occupancy volume; the current stream then waits for
+        it. Reading the count then waits for the front end alone, not for
+        the work queued before it (the trainer's previous step). None: the
+        current stream.
 
     Returns:
       dict with 'rgb_map' (N, 3), 'depth_map' (N,, no gradient) and
@@ -204,10 +225,33 @@ def render_rays(
     if rcfg.rgb_cap < 0:
         raise ValueError(f"rgb_cap {rcfg.rgb_cap}: the renderer takes a resolved capacity "
                          "(the trainer resolves -1 and -2)")
-    path = _render_rays_grouped if rcfg.group_size > 0 else _render_rays_dense
+    kw = dict(iteration=iteration, alpha_volume=alpha_volume, alpha_aabb=alpha_aabb,
+              sample_fn=sample_fn, generator=generator, rows=rows)
     with annotate("ngf.render"):
-        return path(params, model_cfg, rcfg, rays, iteration=iteration, alpha_volume=alpha_volume,
-                    alpha_aabb=alpha_aabb, sample_fn=sample_fn, generator=generator, rows=rows)
+        if rcfg.group_size > 0:
+            return _render_rays_grouped(params, model_cfg, rcfg, rays, front_stream=front_stream,
+                                        **kw)
+        return _render_rays_dense(params, model_cfg, rcfg, rays, **kw)
+
+
+def join_stream(stream: torch.cuda.Stream, tensors) -> None:
+    """The current stream waits for the work queued on ``stream``, and each
+    of ``tensors`` made there stays allocated until the current stream's
+    work queued so far is done."""
+    current = torch.cuda.current_stream(stream.device)
+    current.wait_stream(stream)
+    for t in tensors:
+        t.record_stream(current)
+
+
+def _pack_map(got: torch.Tensor) -> torch.Tensor:
+    """The packed layout of K4's (n, capg) ``got``: the slot ids ``ray * capg
+    + j`` of the kept groups in ray order (K4 puts them at the front of each
+    ray's slots, in marching order); slot 0 alone where no group is kept, so
+    that every leaf still takes a gradient (zero: that slot's ``vmask`` is
+    0). The kept count sizes the rows, so reading it synchronises."""
+    ids = torch.nonzero(got.reshape(-1)).squeeze(1)
+    return ids if ids.shape[0] else ids.new_zeros(1)
 
 
 def _count_samples(n: int, slots: int, vmask: torch.Tensor) -> None:
@@ -380,6 +424,7 @@ def _render_rays_grouped(
     sample_fn,
     generator: torch.Generator | None,
     rows: tuple[int, int] | None,
+    front_stream: torch.cuda.Stream | None = None,
 ) -> dict[str, torch.Tensor]:
     """The group-compacted path (`ngf_tpu/render/volume.py:170-372`).
 
@@ -403,20 +448,34 @@ def _render_rays_grouped(
     cap = rcfg.sample_cap if rcfg.sample_cap else S
     capg = min(ng, -(-cap // G))
     train = generator is not None
-
-    with annotate("ngf.render.frontend"):
-        jitter = None if not train else _jitter_rows(generator, n, rays.device, rows)
-        volume = None if alpha_volume is None else _occupancy_bytes(alpha_volume)
-        _, _, z_c, vmask, xyz_n = group_sample_compact(
-            rays, jitter, aabb, rcfg.near, rcfg.far, S, rcfg.step_size, G, capg, volume, alpha_aabb
-        )
-        _count_samples(n, n * capg * G, vmask)
-
-    dist = float(np.float32(rcfg.step_size * rcfg.distance_scale))
     kg = min(capg, max(1, rcfg.rgb_cap // G)) if rcfg.rgb_cap else capg
     topk = kg < capg
+    pack = train and not topk and sample_fn is None
+    front = front_stream if pack else None
+
+    with annotate("ngf.render.frontend"):
+        with torch.cuda.stream(front):  # None: the current stream
+            jitter = None if not train else _jitter_rows(generator, n, rays.device, rows)
+            volume = None if alpha_volume is None else _occupancy_bytes(alpha_volume)
+            _, got, z_c, vmask, xyz_n = group_sample_compact(
+                rays, jitter, aabb, rcfg.near, rcfg.far, S, rcfg.step_size, G, capg, volume,
+                alpha_aabb, indices=pack,
+            )
+            if pack:
+                ids = _pack_map(got)
+        if front is not None:
+            join_stream(front, (z_c, vmask, xyz_n, ids))
+        _count_samples(n, (ids.shape[0] if pack else n * capg) * G, vmask)
+
+    dist = float(np.float32(rcfg.step_size * rcfg.distance_scale))
     with annotate("ngf.field"):
-        xy, yz, xz = triplane_project(xyz_n)
+        if pack:
+            # The kept groups' rows (m, G, 3) and their rays' view directions.
+            xyz = gather_rows(xyz_n.view(n * capg, G * 3), ids).view(-1, G, 3)
+            views = gather_rows(viewdirs, ids // capg)[:, None, :].expand(-1, G, 3)
+        else:
+            xyz, views = xyz_n, viewdirs[:, None, :].expand(n, capg * G, 3)
+        xy, yz, xz = triplane_project(xyz)
         xy, yz, xz = triplane_gauge(params, model_cfg, xy, yz, xz, iteration, sample_fn)
         rgb_feat = None
         if topk:
@@ -432,14 +491,15 @@ def _render_rays_grouped(
         else:
             if sample_fn is None:
                 sigma, rgb_feat = triplane_density_and_rgbfeat(params, model_cfg, xy, yz, xz)
-            else:
-                sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn)
-            sigma = sigma * vmask
-            views = viewdirs[:, None, :].expand(n, capg * G, 3)
-            if sample_fn is None:
                 rgb = triplane_rgb_from_feats(params, model_cfg, rgb_feat, views)
             else:
+                sigma = triplane_density(params, model_cfg, xy, yz, xz, sample_fn)
                 rgb = triplane_rgb(params, model_cfg, xy, yz, xz, views, sample_fn)
+            if pack:
+                # Back into the slot layout, zeros in the empty slots.
+                sigma = scatter_rows(sigma, ids, n * capg).view(n, capg * G)
+                rgb = scatter_rows(rgb.reshape(-1, G * 3), ids, n * capg).view(n, capg * G, 3)
+            sigma = sigma * vmask
 
     with annotate("ngf.render.composite"):
         background = _background(rcfg.white_bg, generator, rays.device)

@@ -95,7 +95,7 @@ from ..parallel import collectives
 from ..parallel.mesh import Mesh, shard_batch
 from ..parallel.sample_parallel import render_rays_sp
 from ..render.evaluation import evaluation
-from ..render.volume import RenderConfig, compute_alpha_grid_chunk, render_rays
+from ..render.volume import RenderConfig, compute_alpha_grid_chunk, join_stream, render_rays
 from ..utils.checkpoint import (
     AsyncCheckpointWriter,
     load_checkpoint,
@@ -194,6 +194,9 @@ class TriPlaneTrainer:
         # One generator on the device: initial weights, then the per-ray
         # jitter and random backgrounds of every step.
         self.gen = torch.Generator(device=self.device).manual_seed(args.seed)
+        # Inside :meth:`run` on a card, the stream of each step's batch and
+        # packed front end (:func:`render_rays`' ``front_stream``).
+        self._front_stream: torch.cuda.Stream | None = None
         params = init_triplane(self.model_cfg, self.gen, self.device) if init_params is None else init_params
         self.params = _leaf_params(params, self.device)
         self.l1_weight = args.L1_weight_initial
@@ -403,7 +406,7 @@ class TriPlaneTrainer:
             out = render_rays(
                 self.params, self.model_cfg, self._render_cfg(), rays,
                 iteration=self.iteration, sample_fn=sample_fn, generator=generator, rows=rows,
-                **self._alpha_kw(),
+                front_stream=self._front_stream, **self._alpha_kw(),
             )
         mse = ((out["rgb_map"] - rgbs) ** 2).mean()
         cnt = out.get("shaded_groups")
@@ -706,6 +709,14 @@ class TriPlaneTrainer:
         stage_it = self.iteration
         self._term_seen = self._stop_requested = False
         prev_term = None
+        # On a card each step's batch and packed front end run on a second
+        # stream, so that the host's one read a step (the kept-group count)
+        # waits for them alone while the card still runs the previous
+        # step's backward and update. That stream waits for this one before
+        # the first step and after each event: the batch table, the ids and
+        # the occupancy volume it reads are written here.
+        front = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._front_stream, fence = front, True
         if self._shared_io:
             try:
                 prev_term = signal.signal(signal.SIGTERM, self._on_sigterm)
@@ -717,11 +728,17 @@ class TriPlaneTrainer:
             with annotate("train_loop"):
                 while self.iteration < args.n_iters and not self._stop_requested:
                     with annotate("ngf.step", self.iteration + 1):
-                        with annotate("ngf.batch"):
-                            batch = self.next_batch()
+                        if fence and front is not None:
+                            front.wait_stream(torch.cuda.current_stream(self.device))
+                        with torch.cuda.stream(front):
+                            with annotate("ngf.batch"):
+                                batch = self.next_batch()
+                        if front is not None:
+                            join_stream(front, batch)
                         pending.append(self.train_step(*batch, self.gen))
                         it = self.iteration
                         event = it in masks or it in ups
+                        fence = event
                         self._agree_stop(it % args.progress_refresh_rate == 0 or event)
                         boundary = it == args.n_iters or event or self._stop_requested
                         if boundary:
@@ -773,6 +790,7 @@ class TriPlaneTrainer:
                         if progress_cb is not None:
                             progress_cb(it, mses[-1] if mses else None)
         finally:
+            self._front_stream = None
             if prev_term is not None:
                 signal.signal(signal.SIGTERM, prev_term)
         if pending:

@@ -37,7 +37,8 @@ and its backward, and the weight backward with the cotangent of w) against
 ``composite_backward_plain`` (dense and grouped picks, the backgrounds,
 alpha 1, empty rays, strided colours), its refusals and footprint, and the
 dense and grouped top-K training renders (their launches, no ``cumprod``,
-against the CPU); ``gather_rows`` on bfloat16 rows and with ids relative
+against the CPU), the packed grouped training render (its row gathers and
+scatters, against the CPU); ``gather_rows`` on bfloat16 rows and with ids relative
 to segments, in and out of their segment, and its backward
 ``scatter_rows``, byte for byte, on 16-byte and narrow words, aligned and
 unaligned tables, both scatter routes, and the group gather through
@@ -1673,6 +1674,92 @@ def _tree_map(tree, fn):
     if isinstance(tree, list):
         return [_tree_map(v, fn) for v in tree]
     return fn(tree)
+
+
+@pytest.mark.parametrize("variant", ["infoinv", "gauge"])
+def test_packed_train_render_launches_and_matches_the_cpu(cuda, variant, monkeypatch):
+    """A grouped training render with dense shading packs its kept groups:
+    K4 once, two ``gather_rows`` (the kept groups' coordinates and view
+    directions) and two ``scatter_rows`` (sigma and colour back into the
+    slot layout) forward, two ``gather_rows`` backward, and fewer rows
+    decoded than the slot layout holds; rgb, acc, depth and every leaf's
+    gradient against the same render on the CPU (plain versions) with the
+    same jitter. With its front end on a second stream (``front_stream``,
+    as the trainer runs it, after the current stream has queued other
+    work) the outputs are those of the render on one stream, bit for bit,
+    and the gradients within the atomics' rounding."""
+    from ngf_tpu_torch import convert
+
+    cfg, params, rays = _scene(cuda, seed=7)
+    if variant == "gauge":
+        cfg = dataclasses.replace(tt.TriPlaneConfig.gauge_preset(gauge_start=0), plane_res=32,
+                                  gauge_res=32)
+        params = tt.init_triplane(cfg, torch.Generator(device=cuda).manual_seed(7), cuda)
+        g = torch.Generator(device=cuda).manual_seed(8)
+        for name in ("plane_xy", "plane_yz", "plane_xz"):
+            params[name] = 3.0 * torch.randn(params[name].shape, generator=g, device=cuda)
+        for name in ("gauge_xy", "gauge_yz", "gauge_xz"):
+            params[name] = 0.02 * torch.randn((32, 32, 2), generator=g, device=cuda)
+    rcfg = tv.RenderConfig(aabb=((-1.5,) * 3, (1.5,) * 3), n_samples=60, step_size=0.09,
+                           group_size=8, tile_q=0)
+    vol = _ball((16, 16, 16), cuda)
+    jitter = torch.rand((rays.shape[0], 1), generator=torch.Generator(device=cuda).manual_seed(9),
+                        device=cuda)
+    monkeypatch.setattr(tv, "_ray_jitter", lambda g, n, device: jitter.to(device))
+    packed = []
+    pack_map = tv._pack_map
+
+    def spy(got):
+        ids = pack_map(got)
+        packed.append((ids.shape[0], int(got.sum()), got.numel()))
+        return ids
+
+    monkeypatch.setattr(tv, "_pack_map", spy)
+    names = ("gather_rows", "scatter_rows", "group_sample_compact", "bilinear_gather_planes")
+
+    def run(device, front=None):
+        p = _tree_map(params, lambda t: t.detach().to(device, copy=True))
+        leaves = dict(convert.named_leaves(p))
+        for t in leaves.values():
+            t.requires_grad_(True)
+        if front is not None:
+            # Inputs written here first, then unrelated work queued, as the
+            # trainer's previous step leaves the current stream.
+            front.wait_stream(torch.cuda.current_stream())
+            busy = torch.randn((2048, 2048), device=device)
+            for _ in range(20):
+                busy = busy @ busy.t() / 2048
+        out = tv.render_rays(p, cfg, rcfg, rays.to(device), iteration=1,
+                             alpha_volume=vol.to(device),
+                             generator=torch.Generator(device=device).manual_seed(3),
+                             front_stream=front)
+        (out["rgb_map"].sum() + out["acc_map"].sum()).backward()
+        return out, {k: t.grad for k, t in leaves.items()}
+
+    before = [cuda_kernels.KERNELS[k].launches for k in names]
+    out, grads = run(cuda)
+    counts = dict(zip(names, (cuda_kernels.KERNELS[k].launches - b for k, b in zip(names, before))))
+    assert counts == {"gather_rows": 4, "scatter_rows": 2, "group_sample_compact": 1,
+                      "bilinear_gather_planes": 2 if variant == "gauge" else 1}, counts
+    rows, kept, slots = packed[0]
+    assert 0 < kept == rows < slots
+    side, side_grads = run(cuda, torch.cuda.Stream(cuda))
+    for k in ("rgb_map", "acc_map", "depth_map"):
+        assert torch.equal(side[k], out[k]), k
+    for k, g in grads.items():
+        scale = max(g.abs().max().item(), 1e-30)
+        assert (side_grads[k] - g).abs().max().item() <= 1e-4 * scale, k
+    want, want_grads = run(torch.device("cpu"))
+    assert packed[1] == packed[0] == packed[2]
+    assert 0.02 < want["acc_map"].detach().mean().item() < 0.98
+    for k in ("rgb_map", "acc_map", "depth_map"):
+        assert (out[k].detach().cpu() - want[k].detach()).abs().max().item() <= RENDER_TOL, k
+    # As the top-K render's test: float32 sums of thousands of terms of both
+    # signs, rounded otherwise on the card and the CPU.
+    for k, w in want_grads.items():
+        scale = w.abs().max().item()
+        assert scale > 0, k
+        assert (grads[k].cpu() - w).abs().max().item() <= 1e-3 * scale, k
 
 
 def test_ray_march_triplane_topk_refuses_what_the_kernel_does_not_take(cuda):

@@ -13,7 +13,8 @@ benchmark's tiny shapes (`gpubench/tests/tiny.py`):
   the grouped and the dense path;
 - one training ``render_rays`` call's counters against the benchmark
   reference's independent count (``gpubench/reference/model.count_samples``)
-  on the same rays and jitter;
+  on the same rays and jitter, its ``slots`` the packed rows of its kept
+  groups;
 - the on/off rule at a span's entry and exit, and a fresh report each
   traced period.
 """
@@ -33,6 +34,7 @@ from ngf_tpu_torch.config import TrainArgs
 from ngf_tpu_torch.convert import named_leaves
 from ngf_tpu_torch.data import load_dataset
 from ngf_tpu_torch.ops import cuda_kernels
+from ngf_tpu_torch.ops.compaction import group_sample_compact
 from ngf_tpu_torch.render import volume
 from ngf_tpu_torch.render.volume import RenderConfig, render_rays
 from ngf_tpu_torch.train.loop import TriPlaneTrainer, model_config_from_args
@@ -81,8 +83,17 @@ def test_off_makes_no_span_event_or_count(tmp_path, monkeypatch):
     assert rep["spans"] == {} and rep["counters"] == {}
 
 
-def test_trace_holds_the_steps_spans(tmp_path):
+def test_trace_holds_the_steps_spans(tmp_path, monkeypatch):
     trainer = _trainer(tmp_path / "log")
+    packed = []
+    pack_map = volume._pack_map
+
+    def spy(got):
+        ids = pack_map(got)
+        packed.append((ids.shape[0], int(got.sum()), got.numel()))
+        return ids
+
+    monkeypatch.setattr(volume, "_pack_map", spy)
     with profiling.trace(str(tmp_path / "tb")):
         trainer.run()
     rep = profiling.report()
@@ -101,8 +112,11 @@ def test_trace_holds_the_steps_spans(tmp_path):
     c = rep["counters"]
     rc = trainer._render_cfg()
     capg = -(-(rc.sample_cap or rc.n_samples) // 8)
-    assert c["rays"] == 3 * 96 and c["slots"] == 3 * 96 * capg * 8
-    assert 0 < c["shaded"] <= c["kept"] <= c["slots"]
+    # Training decodes the packed rows: each step's kept groups.
+    assert len(packed) == 3 and all(g == 96 * capg for _, _, g in packed)
+    assert all(r == k > 0 for r, k, _ in packed)
+    assert c["rays"] == 3 * 96 and c["slots"] == 8 * sum(r for r, _, _ in packed)
+    assert 0 < c["shaded"] <= c["kept"] <= c["slots"] <= 3 * 96 * capg * 8
     files = os.listdir(tmp_path / "tb")
     chrome = [f for f in files if f.endswith(".pt.trace.json")]
     assert len(files) == 2 and "ngf_spans.json" in files and len(chrome) == 1
@@ -166,7 +180,13 @@ def test_counters_match_the_reference_count(tmp_path, cell):
     c = profiling.report()["counters"]
     kept, shaded = (int(x) for x in M.count_samples(tree, M.FieldCfg.from_config(cfg), rc, rays, 5,
                                                      vol, vol_aabb, jitter))
-    assert c["rays"] == n and c["slots"] == n * rc.capg * rc.group
+    # The packed rows: the kept groups of the port's front end on the same
+    # jitter.
+    _, got, *_ = group_sample_compact(rays, jitter, rcfg.aabb_tensor("cpu"), 2.0, 6.0, 48, 0.05,
+                                      8, rc.capg, vol.to(torch.uint8), vol_aabb, indices=True)
+    groups = int(got.sum())
+    assert 0 < groups <= n * rc.capg
+    assert c["rays"] == n and c["slots"] == groups * rc.group
     assert c["kept"] == kept > 0
     assert shaded > 0 and abs(c["shaded"] - shaded) <= 0.005 * shaded
 
