@@ -3553,34 +3553,33 @@ def _mean_losses(save_dir: str) -> list[dict]:
 
 
 def uv_step_row(trainer, device: torch.device, tag: str, reps: int = 20) -> dict:
-    """One run's step on the card, on its trained weights: ms a step by CUDA
-    events over a block of ``reps`` steps (the block's host stacking and one
-    read of its losses included), rays/s, K5 launches a step, peak memory,
-    one step's profile (device time, idle share under the profiler,
-    launches; the top device ops, the products' (``gemm``) and K5's shares),
-    and the block's idle share, 1 - that device time / its ms a step."""
-    from ngf_tpu_torch.ops import cuda_kernels
+    """One run's step on the card, on its trained weights, after the
+    warm-up and the capture (`UVTrainer`'s steps are replays from there):
+    ms a step by CUDA events over a block of ``reps`` steps (the block's
+    host stacking and one read of its losses included), rays/s, peak
+    memory, one step's profile (device time, idle share under the profiler,
+    launches; the top device ops, the products' (``gemm``) and K5's
+    shares), K5's kernels a step in that profile's device trace (the
+    replays launch none from the host), and the block's idle share, 1 -
+    that device time / its ms a step."""
+    from ngf_tpu_torch.train.uv_loop import GRAPH_WARMUP
 
     items = [trainer.dataset.sample() for _ in range(reps)]
     rays = items[0]["raydir"].shape[1]
-    trainer.train_block(items[:2])  # warm
+    trainer.train_block([trainer.dataset.sample() for _ in range(GRAPH_WARMUP + 2)])  # warm
     if device.type != "cuda":
         t0 = time.perf_counter()
         trainer.train_block(items)
         return {"ms": 1e3 * (time.perf_counter() - t0) / reps, "rays": rays}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    before = (cuda_kernels.ray_march.launches, cuda_kernels.ray_march_backward.launches)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     trainer.train_block(items)
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / reps
-    k5 = ((cuda_kernels.ray_march.launches - before[0]) / reps,
-          (cuda_kernels.ray_march_backward.launches - before[1]) / reps)
-    check(k5 == (1.0, 1.0), f"{tag}: K5 launches a step {k5}, want one forward and one backward")
-    out = {"ms": ms, "rays": rays, "rays_per_s": 1e3 * rays / ms, "k5_launches_per_step": k5,
+    out = {"ms": ms, "rays": rays, "rays_per_s": 1e3 * rays / ms,
            "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
     from torch.autograd import DeviceType
 
@@ -3595,6 +3594,11 @@ def uv_step_row(trainer, device: torch.device, tag: str, reps: int = 20) -> dict
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
             and not e.is_user_annotation]
     total = sum(e.self_device_time_total for e in kern) / 1e3 / 3
+    k5 = tuple(sum(e.count for e in kern if f"ray_march_neutex_{d}_kernel" in e.key) / 3
+               for d in ("forward", "backward"))
+    check(k5 == (1.0, 1.0), f"{tag}: K5 kernels a step in the device trace {k5}, want one "
+          "forward and one backward")
+    out["k5_kernels_per_step"] = k5
     if total > 0:
         by = sorted(kern, key=lambda e: -e.self_device_time_total)
         share = lambda pred: sum(e.self_device_time_total for e in kern if pred(e.key)) / 1e3 / 3 / total  # noqa: E731
@@ -3612,7 +3616,7 @@ def uv_step_row(trainer, device: torch.device, tag: str, reps: int = 20) -> dict
     else:
         out["profile"] = {"host_ms": wall, "device_ms": "not measured: the profiler saw no kernels"}
     print(f"[uv] {tag} step: {ms:.3f} ms by CUDA events ({out['rays_per_s']:.0f} rays/s), K5 "
-          f"{k5} launches a step, peak {out['peak_gib']:.2f} GiB, block idle share "
+          f"{k5} kernels a step, peak {out['peak_gib']:.2f} GiB, block idle share "
           f"{out.get('block_idle_share', 'not measured')}; profile " + json.dumps(out["profile"]))
     return out
 
@@ -3682,15 +3686,18 @@ def uv_phase(device: torch.device, views: int = UV_VIEWS, wh: int = UV_WH,
     import uv_train_torch
     from ngf_tpu_torch.fields.neutex import export_sphere_equirect, export_texture
     from ngf_tpu_torch.ops import cuda_kernels
-    from ngf_tpu_torch.train.uv_loop import UVTrainer
+    from ngf_tpu_torch.train.uv_loop import GRAPH_WARMUP, UVTrainer
     from ngf_tpu_torch.utils.cubemap import merge_cube_to_single_texture
     from ngf_tpu_torch.utils.image import write_png
 
     cuda = device.type == "cuda"
 
     def expect_k5(counts: dict, fwd: int, bwd: int, what: str) -> None:
-        """On the card: K5's launches over a run are exactly ``fwd`` forward
-        and ``bwd`` backward (one each a step, one forward a render chunk)."""
+        """On the card: the host's K5 launches over a run are exactly
+        ``fwd`` forward and ``bwd`` backward (one each an eager step and at
+        the capture, none a replayed step, one forward a render chunk);
+        `uv_step_row` counts a replayed step's K5 kernels in the device
+        trace."""
         if cuda:
             check((counts["ray_march"], counts["ray_march_backward"]) == (fwd, bwd),
                   f"{what}: K5 launched {counts['ray_march']} forward and "
@@ -3703,11 +3710,19 @@ def uv_phase(device: torch.device, views: int = UV_VIEWS, wh: int = UV_WH,
     test_freq = uv_train_torch.parse_args(["--sample_num", "1", "--primitive_type", "square",
                                            "--points_per_primitive", "1"]).test_freq
 
+    def launched(start: int, end: int) -> int:
+        """The host's K5 launches of one direction in a trainer's steps from
+        ``start`` to ``end``: on the card the eager warm-up's and the
+        capture's (the replays launch none), on the CPU one a step."""
+        n = end - start
+        return min(n, GRAPH_WARMUP) + (n > GRAPH_WARMUP) if cuda else n
+
     def steps_and_renders(start: int, end: int) -> int:
-        """K5 forward launches of training from ``start`` to ``end``: one a
-        step, and one a chunk of the test view the CLI renders at every
-        multiple of its ``test_freq`` (one view by default)."""
-        return end - start + per_view * (end // test_freq - start // test_freq)
+        """K5 forward launches of training from ``start`` to ``end``: the
+        steps' (``launched``), and one a chunk of the test view the CLI
+        renders at every multiple of its ``test_freq`` (one view by
+        default)."""
+        return launched(start, end) + per_view * (end // test_freq - start // test_freq)
     with tempfile.TemporaryDirectory() as tmp:
         x = np.indices((256, 256)).sum(0) // 32 % 2
         checker = os.path.join(tmp, "checker.png")
@@ -3773,7 +3788,8 @@ def uv_phase(device: torch.device, views: int = UV_VIEWS, wh: int = UV_WH,
         check(sigterm_at <= stopped < steps, f"SIGTERM saved step {stopped}")
         launches = {"uv square to SIGTERM": _parsed_counts(text, "uv_train_torch")}
         sub_s = time.perf_counter() - t0
-        expect_k5(launches["uv square to SIGTERM"], steps_and_renders(0, stopped), stopped,
+        expect_k5(launches["uv square to SIGTERM"], steps_and_renders(0, stopped),
+                  launched(0, stopped),
                   "square float32 to the SIGTERM")
         print(f"[uv] square float32: SIGTERM after step {sigterm_at} was logged, 'latest' at "
               f"{stopped}, {sub_s:.1f} s in the subprocess")
@@ -3783,7 +3799,7 @@ def uv_phase(device: torch.device, views: int = UV_VIEWS, wh: int = UV_WH,
         resume_s = time.perf_counter() - t0
         launches["uv square resumed"] = _counts()
         expect_k5(launches["uv square resumed"], steps_and_renders(stopped, steps),
-                  steps - stopped, "square float32 resumed")
+                  launched(stopped, steps), "square float32 resumed")
         cuda_kernels.reset_launch_counts()
         uv_test_torch.main(sq + ["--target_texture", checker])
         launches["uv test CLI"] = _counts()
@@ -3806,7 +3822,8 @@ def uv_phase(device: torch.device, views: int = UV_VIEWS, wh: int = UV_WH,
         uv_train_torch.main(argv("uv_sphere", "sphere", sphere_steps, sphere_dtype))
         train_s = time.perf_counter() - t0
         launches["uv sphere"] = _counts()
-        expect_k5(launches["uv sphere"], steps_and_renders(0, sphere_steps), sphere_steps, sphere)
+        expect_k5(launches["uv sphere"], steps_and_renders(0, sphere_steps),
+                  launched(0, sphere_steps), sphere)
         trainer, run = finish(sphere, "uv_sphere", "sphere", sphere_dtype, sphere_steps)
         faces = export_texture(trainer.params, trainer.cfg, texture_res).cpu().numpy()
         eq = export_sphere_equirect(trainer.params, trainer.cfg, texture_res).cpu().numpy()
@@ -3841,7 +3858,7 @@ def uv_phase(device: torch.device, views: int = UV_VIEWS, wh: int = UV_WH,
         uv_train_torch.main(argv("uv_bf16", "square", bf16_steps, "bfloat16"))
         train_s = time.perf_counter() - t0
         launches["uv bf16"] = _counts()
-        expect_k5(launches["uv bf16"], steps_and_renders(0, bf16_steps), bf16_steps,
+        expect_k5(launches["uv bf16"], steps_and_renders(0, bf16_steps), launched(0, bf16_steps),
                   "square bfloat16")
         trainer, run = finish("square bfloat16", "uv_bf16", "square", "bfloat16", bf16_steps)
         run.update(train_s=train_s,

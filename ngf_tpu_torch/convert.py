@@ -132,9 +132,11 @@ def adam_from_optax_leaves(
                 raise ValueError(f"optimizer leaf of shape {np.shape(leaf)} for a parameter "
                                  f"of shape {tuple(p.shape)}")
     count = float(np.asarray(leaves[0]))
+    # A fused or capturable Adam keeps its step counts on the parameters' device.
+    on_device = adam.defaults.get("fused") or adam.defaults.get("capturable")
     for i, p in enumerate(params):
         adam.state[p] = {
-            "step": torch.tensor(count, dtype=torch.float32),
+            "step": torch.tensor(count, dtype=torch.float32, device=p.device if on_device else None),
             "exp_avg": torch.as_tensor(np.array(leaves[1 + i]), dtype=p.dtype, device=p.device),
             "exp_avg_sq": torch.as_tensor(np.array(leaves[1 + n + i]), dtype=p.dtype, device=p.device),
         }

@@ -52,7 +52,7 @@ class _DtuSamplingBase:
 
     # subclasses set: campos, camat, focal, princpt, extrinsics, height,
     # width, indexes, gt_image (N,H,W,3), gt_mask (N,H,W), _rng,
-    # random_sample, random_sample_size
+    # random_sample, random_sample_size; then call _build_pixel_lists()
 
     def __len__(self) -> int:
         return len(self.indexes)
@@ -73,36 +73,48 @@ class _DtuSamplingBase:
             px = self._rng.integers(0, w, size=(s, s)).astype(np.float32)
             py = self._rng.integers(0, h, size=(s, s)).astype(np.float32)
         elif mode == "balanced":
-            px, py, trans = self._proportional_select(self.gt_mask[view])
+            px, py, trans = self._proportional_select(view)
         else:  # no_crop
             px, py = np.meshgrid(
                 np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32)
             )
         return px, py, trans
 
-    def _proportional_select(self, mask: np.ndarray):
+    def _build_pixel_lists(self) -> None:
+        """For the balanced mode, each view's foreground and background
+        pixels as flat indices ``y * width + x``, in the order ``np.where``
+        gives them, built once at load: at DTU's 1600 x 1200 a scan of the
+        mask costs more host time than a step."""
+        self._lists: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        if self.random_sample == "balanced":
+            for view in self.indexes:
+                flat = self.gt_mask[view].reshape(-1)
+                self._lists[view] = (np.flatnonzero(flat > 0).astype(np.int32),
+                                     np.flatnonzero(flat == 0).astype(np.int32))
+
+    def _proportional_select(self, view: int):
         """2/3 foreground (transmittance target 0) then 1/3 background
-        (target 1) (`dtu.py:184-225`)."""
+        (target 1) (`dtu.py:184-225`): the draws of a scan of the mask, on
+        the view's cached pixel lists."""
         s = self.random_sample_size
-        fg_yx = np.stack(np.where(mask > 0), 1)
-        bg_yx = np.stack(np.where(mask == 0), 1)
-        n_fg = min(int(s * s * 2.0 / 3.0), fg_yx.shape[0])
+        fg, bg = self._lists[view]
+        n_fg = min(int(s * s * 2.0 / 3.0), fg.shape[0])
         n_bg = s * s - n_fg
-        fi = self._rng.integers(0, fg_yx.shape[0], n_fg)
+        fi = self._rng.integers(0, fg.shape[0], n_fg)
         trans = np.zeros(n_fg + n_bg, np.float32)
-        if bg_yx.shape[0] == 0:
+        if bg.shape[0] == 0:
             # No background in this view: fill the bg slots with more
             # foreground pixels and give them the FOREGROUND target (a
             # transmittance-1 target on a real object ray would fight the
             # color loss every time the view is sampled).
-            bg_yx = fg_yx
-            bi = self._rng.integers(0, fg_yx.shape[0], n_bg)
+            bg = fg
+            bi = self._rng.integers(0, fg.shape[0], n_bg)
         else:
-            bi = self._rng.integers(0, bg_yx.shape[0], n_bg)
+            bi = self._rng.integers(0, bg.shape[0], n_bg)
             trans[n_fg:] = 1.0
-        px = np.concatenate([fg_yx[fi, 1], bg_yx[bi, 1]]).astype(np.float32)
-        py = np.concatenate([fg_yx[fi, 0], bg_yx[bi, 0]]).astype(np.float32)
-        return px, py, trans
+        yx = np.concatenate([fg[fi], bg[bi]])
+        w = self.width
+        return (yx % w).astype(np.float32), (yx // w).astype(np.float32), trans
 
     def get_item(self, idx: int) -> dict:
         """One view's sampled pixel batch, leading batch dim 1."""
@@ -192,6 +204,7 @@ class DtuDataset(_DtuSamplingBase):
         self.height = int(self.gt_image.shape[1])
         self.width = int(self.gt_image.shape[2])
         self.center_cam_pos = self.campos[min(33, self.total - 1)]
+        self._build_pixel_lists()
 
 
 def _sphere_texture(n: np.ndarray) -> np.ndarray:
@@ -290,3 +303,4 @@ class SyntheticDtuDataset(_DtuSamplingBase):
             color = np.where(hit[:, None], _sphere_texture(n), 0.0)
             self.gt_image[i] = color.reshape(self.height, self.width, 3)
             self.gt_mask[i] = hit.reshape(self.height, self.width).astype(np.float32)
+        self._build_pixel_lists()

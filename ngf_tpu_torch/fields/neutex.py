@@ -19,6 +19,12 @@ the JAX functions:
   loss weighs more than 0; XLA drops it otherwise), and the inverse network
   on the template only when template points are given. Rendering passes
   neither.
+- Tracing (`utils/profiling.py`): the span ``ngf.field`` holds the four
+  networks' forward, each in its own span (``ngf.uv.geometry``,
+  ``ngf.uv.gauge``, ``ngf.uv.texture``, ``ngf.uv.inverse`` for the template
+  and the samples), and ``ngf.render.composite`` K5; the host counters
+  ``rays``, ``slots`` (the samples decoded) and ``template`` (the template
+  points through the inverse network).
 - ``compute_dtype`` bfloat16: the stacks' products in bfloat16 with float32
   sums (``decoders.apply_linear``); PE, softplus, tanh / normalise,
   compositing and the losses in float32, block 1's output in bfloat16, as
@@ -46,6 +52,7 @@ from ..utils.cubemap import (
     sample_cubemap,
     sample_square,
 )
+from ..utils.profiling import annotate, count
 from .decoders import Params, apply_linear, init_linear
 
 LEAKY_SLOPE = 0.2
@@ -393,24 +400,30 @@ def neutex_forward(
         campos, raydir, cfg.sample_num, 1.0, cfg.jitter, u
     )
     ray_pos = ray_pos.detach()
-    density = apply_geometry_mlp(params["net_geometry_decoder"], cfg, ray_pos)["density"]
-    uv = apply_gauge_transform(params["gauge_network"], cfg, ray_pos)
-    radiance = apply_texture_mlp(params["net_texture"], cfg, uv, raydir[:, :, None, :],
-                                 edit_texture=edit_texture, edit_mode=edit_mode)
-    color, weight, t_total = march_rays(density, ray_valid, ray_dist, radiance[..., :3],
-                                        background_color)
-    out = {
-        "color": color,
-        "transmittance": t_total,
-        "points_original": ray_pos,
-        "points_inverse_weights": weight,
-        "uv": uv,
-    }
-    if template is not None:
-        points_3d = apply_inverse_network(params["inverse_network"], template, cfg.dtype)
-        out["points"] = points_3d.t()[None]  # (1, 3, P), the reference's permute
-    if inverse:
-        out["points_inverse"] = apply_inverse_network(params["inverse_network"], uv, cfg.dtype)
+    count("rays", raydir.shape[0] * raydir.shape[1])
+    count("slots", ray_pos.shape[0] * ray_pos.shape[1] * ray_pos.shape[2])
+    out = {"points_original": ray_pos}
+    with annotate("ngf.field"):
+        with annotate("ngf.uv.geometry"):
+            density = apply_geometry_mlp(params["net_geometry_decoder"], cfg, ray_pos)["density"]
+        with annotate("ngf.uv.gauge"):
+            uv = apply_gauge_transform(params["gauge_network"], cfg, ray_pos)
+        with annotate("ngf.uv.texture"):
+            radiance = apply_texture_mlp(params["net_texture"], cfg, uv, raydir[:, :, None, :],
+                                         edit_texture=edit_texture, edit_mode=edit_mode)
+        if template is not None or inverse:
+            with annotate("ngf.uv.inverse"):
+                if template is not None:
+                    count("template", template.shape[0])
+                    points_3d = apply_inverse_network(params["inverse_network"], template, cfg.dtype)
+                    out["points"] = points_3d.t()[None]  # (1, 3, P), the reference's permute
+                if inverse:
+                    out["points_inverse"] = apply_inverse_network(params["inverse_network"], uv,
+                                                                  cfg.dtype)
+    with annotate("ngf.render.composite"):
+        color, weight, t_total = march_rays(density, ray_valid, ray_dist, radiance[..., :3],
+                                            background_color)
+    out.update(color=color, transmittance=t_total, points_inverse_weights=weight, uv=uv)
     return out
 
 

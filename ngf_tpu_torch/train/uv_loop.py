@@ -30,6 +30,30 @@ Differences from the JAX trainer:
   it nor the template (XLA drops that dead work in the JAX trainer).
 - Products sum in float32 (no TF32, no bfloat16 reduction) while the steps
   and renders run (``utils.precision.float32_accumulation``).
+- ``run`` is `UV-Mapping/train.py`'s loop (`uv_train.py`'s in the JAX
+  package): blocks of at most ``steps_per_call`` steps between the print,
+  test and save boundaries, each block's items sampled on the host and
+  copied to the device at once, the logs, and SIGTERM's drain. The CLI and
+  the benchmark train through it.
+- Tracing (`utils/profiling.py`): per step the spans ``ngf.step`` (its id
+  the step), ``ngf.forward`` (with ``neutex_forward``'s ``ngf.field``, its
+  four networks and ``ngf.render.composite``), ``ngf.backward`` and
+  ``ngf.optimizer`` (``zero_grad`` and Adam, two regions; a replayed
+  step's rate too); per block ``ngf.batch`` (the items' sampling in
+  ``run`` and their copy to the device; a replayed step's inputs copied
+  into the graph's too) and ``ngf.log`` (the block's one read of the
+  losses, and the log lines).
+- On a card Adam is PyTorch's fused kernel (its rate and step counts on
+  the card), and after the first ``GRAPH_WARMUP`` steps each step replays
+  the captured eager step (forward, backward and update; the inputs copied
+  into the graph's own), so that the host queues a block's steps in a few
+  launches each and the device sets the pace at the dtu_train.sh shape;
+  ``run`` samples a block's items while the block before it runs. The
+  capture is split at the step's spans (`utils/profiling.py`'s
+  ``capture``), and a traced replay opens them around their graphs: a
+  traced step is the step that runs untraced. The kernels' launch counters
+  count the host's launches: a capture's once, a replay's none. Under a
+  mesh every step runs eager.
 - Under a ``mesh`` (`ngf_tpu_torch/parallel/mesh.py`, a 'data' axis; the
   JAX trainer's GSPMD sharding of the ray axis with the parameters
   replicated, `ngf_tpu/train/uv_loop.py:173-190`) every rank is a process
@@ -50,6 +74,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import signal
+import time
 
 import numpy as np
 import torch
@@ -69,6 +95,8 @@ from ..parallel.mesh import Mesh
 from ..utils.checkpoint import load_checkpoint, load_extra_arrays, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.precision import float32_accumulation
+from ..utils.profiling import annotate, capture, replay
+from ..utils.scalars import ScalarWriter
 
 SUBNETWORKS = {
     # `Model.get_subnetworks` (`UV-Mapping/model/model.py:375-381`)
@@ -78,6 +106,9 @@ SUBNETWORKS = {
     "texture": "net_texture",
 }
 LR_POLICIES = ("lambda", "step", "plateau")
+# Eager steps on a card before the first capture (lazy initialisations:
+# cuBLAS handles and workspaces, the fused update's state).
+GRAPH_WARMUP = 3
 
 
 def lambda_lr(step: int, niter: int, niter_decay: int) -> float:
@@ -142,7 +173,16 @@ class UVTrainer:
                           if path.split("/")[0] not in frozen]
         for t in self.trainable:
             t.requires_grad_(True)
-        self.adam = torch.optim.Adam(self.trainable, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        # On a card the update is one fused kernel over every leaf, its rate
+        # a device tensor, so that a step can be captured in a CUDA graph.
+        cuda = self.device.type == "cuda"
+        self.adam = torch.optim.Adam(
+            self.trainable, lr=torch.tensor(lr, device=self.device) if cuda else lr,
+            betas=(0.9, 0.999), eps=1e-8, fused=cuda, capturable=cuda)
+        # A card's steps after the first GRAPH_WARMUP replay the captured
+        # step (:meth:`_graph_step`), except under a mesh.
+        self._graph: dict | None = None
+        self._eager_steps = 0
         self.schedule_count = 0
         self._broadcast_params()
 
@@ -183,6 +223,13 @@ class UVTrainer:
         return {"u": u, "template": tmpl}
 
     def _step(self, campos, raydir, gt, bg, trans, u, template) -> dict[str, torch.Tensor]:
+        if self.device.type == "cuda" and self.mesh is None:
+            if self._eager_steps >= GRAPH_WARMUP:
+                return self._graph_step(campos, raydir, gt, bg, trans, u, template)
+            self._eager_steps += 1
+        return self._eager_step(campos, raydir, gt, bg, trans, u, template)
+
+    def _eager_step(self, campos, raydir, gt, bg, trans, u, template) -> dict[str, torch.Tensor]:
         weights = self.loss_weights
         mesh = self.mesh
         if mesh is not None:
@@ -193,21 +240,28 @@ class UVTrainer:
             rows = slice(mesh.data_index * (r // d), (mesh.data_index + 1) * (r // d))
             raydir, gt, u = raydir[:, rows], gt[:, rows], u[:, rows]
             trans = None if trans is None else trans[:, rows]
-        out = neutex_forward(self.params, self.cfg, campos, raydir, bg, u=u, template=template,
-                             inverse=weights.get("inverse_mapping", 0) > 0)
-        total, losses = neutex_losses(out, gt, trans, weights)
-        if mesh is not None:
-            # Every term times 1 / D: each ray mean by this rank's share of
-            # the rays, and origin, which every rank computes whole, once
-            # over the world.
-            total = total / mesh.n_data
-            losses = {k: v / mesh.n_data for k, v in losses.items()}
-        self.adam.zero_grad(set_to_none=True)
-        total.backward()
+        with annotate("ngf.forward"):
+            out = neutex_forward(self.params, self.cfg, campos, raydir, bg, u=u, template=template,
+                                 inverse=weights.get("inverse_mapping", 0) > 0)
+            total, losses = neutex_losses(out, gt, trans, weights)
+            if mesh is not None:
+                # Every term times 1 / D: each ray mean by this rank's share of
+                # the rays, and origin, which every rank computes whole, once
+                # over the world.
+                total = total / mesh.n_data
+                losses = {k: v / mesh.n_data for k, v in losses.items()}
+        with annotate("ngf.optimizer"):
+            if not self._capturing():
+                self.adam.zero_grad(set_to_none=True)
+        with annotate("ngf.backward"):
+            total.backward()
         if mesh is not None:
             losses = self._reduce_step(losses)
-        self._apply_update()
-        return losses
+        with annotate("ngf.optimizer"):
+            self._apply_update()
+        # Detached, so that nothing keeps the step's autograd graph (and the
+        # parameters' gradient accumulators on its stream) alive after it.
+        return {k: v.detach() for k, v in losses.items()}
 
     def _reduce_step(self, losses: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """The step's one all-reduce under a mesh: the gradients and the
@@ -223,44 +277,115 @@ class UVTrainer:
             t.grad.copy_(g.view_as(t.grad))
         return dict(zip(names, flat[sum(sizes):]))
 
-    def _apply_update(self) -> None:
-        """One Adam update from the gradients in ``.grad``, at ``lr`` times
-        the schedule at the update count times the plateau multiplier (optax:
-        ``scale_by_adam``, then ``scale_by_schedule`` from count 0)."""
+    def _capturing(self) -> bool:
+        return self.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+    def _set_rate(self) -> None:
+        """``lr`` times the schedule at the update count times the plateau
+        multiplier (optax: ``scale_by_adam``, then ``scale_by_schedule`` from
+        count 0), into the optimizer's rate: in place on a card, where a
+        captured update reads it."""
         mult = self._plateau["mult"] if self._plateau is not None else 1.0
+        rate = self.lr * self._schedule(self.schedule_count) * mult
         for g in self.adam.param_groups:
-            g["lr"] = self.lr * self._schedule(self.schedule_count) * mult
+            if torch.is_tensor(g["lr"]):
+                g["lr"].fill_(rate)
+            else:
+                g["lr"] = rate
+
+    def _apply_update(self) -> None:
+        """One Adam update from the gradients in ``.grad`` (a captured one
+        reads the rate that :meth:`_graph_step` sets before each replay)."""
+        if not self._capturing():
+            self._set_rate()
         self.adam.step()
         self.schedule_count += 1
 
-    @float32_accumulation()
-    def train_block(self, items: list[dict[str, np.ndarray]],
-                    draws: list[dict] | None = None) -> dict[str, np.ndarray]:
+    def _graph_step(self, campos, raydir, gt, bg, trans, u, template) -> dict[str, torch.Tensor]:
+        """One step as a replay of the captured step: the inputs copied into
+        the graph's own, the rate set, then forward, backward and the fused
+        update in one graph for each stretch between the step's spans. The
+        capture (at the first step of a new shape, or after
+        :meth:`load_networks`) records the eager step's kernels, which the
+        replays run again on the same memory."""
+        inputs = (campos, raydir, gt, bg, trans, u, template)
+        key = tuple(None if t is None else (tuple(t.shape), t.dtype) for t in inputs)
+        graph = self._graph
+        if graph is None or graph["key"] != key:
+            graph = self._graph = self._capture(inputs, key)
+        with annotate("ngf.batch"):
+            for mine, t in zip(graph["inputs"], inputs):
+                if t is not None:
+                    mine.copy_(t)
+        with annotate("ngf.optimizer"):
+            self._set_rate()
+        replay(graph["program"])
+        self.schedule_count += 1
+        row = graph["row"].clone()
+        return {k: row[i] for i, k in enumerate(graph["names"])}
+
+    def _capture(self, inputs: tuple, key: tuple) -> dict:
+        mine = tuple(None if t is None else t.clone() for t in inputs)
+        self.adam.zero_grad(set_to_none=True)
+        schedule_count = self.schedule_count
+        with capture() as program:
+            losses = self._eager_step(*mine)
+            names = list(losses)
+            row = torch.stack([losses[k].detach() for k in names])
+        self.schedule_count = schedule_count  # the capture ran no update
+        return {"program": program, "key": key, "inputs": mine, "names": names, "row": row}
+
+    def _load_block(self, items: list[dict[str, np.ndarray]]) -> dict:
+        """A block's items stacked and copied to the device, one copy a field."""
+        def stack(name):
+            return torch.as_tensor(np.stack([it[name] for it in items])).to(self.device)
+
+        return {"campos": stack("campos"), "raydir": stack("raydir"), "gt": stack("gt_image"),
+                "bg": stack("background_color"),
+                "trans": stack("transmittance") if "transmittance" in items[0] else None}
+
+    def train_block(self, items: list[dict[str, np.ndarray]], draws: list[dict] | None = None,
+                    progress_cb=None) -> dict[str, np.ndarray]:
         """``len(items)`` optimizer steps, one item (a view's pixel batch,
         `data.dtu`'s ``get_item``) each. ``draws``: per step ``u`` (B, R, S)
         and ``template`` (P, uv_dim), arrays or tensors, or None to draw them
-        from the generator. Returns each loss per step, (T,) numpy arrays,
-        read from the device once."""
+        from the generator. ``progress_cb(step)`` is called after each
+        step's update, with the step's number. Returns each loss per step,
+        (T,) numpy arrays, read from the device once."""
+        with annotate("ngf.batch"):
+            batch = self._load_block(items)
+        return self._read_block(*self._launch_block(batch, len(items), draws, progress_cb))
+
+    @float32_accumulation()
+    def _launch_block(self, batch: dict, n: int, draws: list[dict] | None, progress_cb):
+        """The block's steps, queued on the device; returns each step's loss
+        row (device tensors) and the losses' names."""
         dev = self.device
-
-        def stack(name):
-            return torch.as_tensor(np.stack([it[name] for it in items])).to(dev)
-
-        campos, raydir = stack("campos"), stack("raydir")
-        gt, bg = stack("gt_image"), stack("background_color")
-        trans = stack("transmittance") if "transmittance" in items[0] else None
-        if draws is None:
-            draws = [self._draw_one(raydir.shape[1], raydir.shape[2]) for _ in items]
+        raydir, trans = batch["raydir"], batch["trans"]
         rows, names = [], None
-        for t, d in enumerate(draws):
-            u = torch.as_tensor(d["u"], dtype=torch.float32, device=dev)
-            tmpl = torch.as_tensor(d["template"], dtype=torch.float32, device=dev)
-            losses = self._step(campos[t], raydir[t], gt[t], bg[t],
-                                None if trans is None else trans[t], u, tmpl)
-            names = list(losses)
-            rows.append(torch.stack([losses[k].detach() for k in names]))
-        self.step_count += len(items)
-        table = torch.stack(rows).cpu().numpy()
+        for t in range(n):
+            step = self.step_count + t + 1
+            with annotate("ngf.step", step):
+                # Each step's draws at its start: the generator's sequence is
+                # a block's drawn at once (jitter, template, jitter, ...).
+                d = draws[t] if draws is not None else self._draw_one(raydir.shape[1],
+                                                                      raydir.shape[2])
+                u = torch.as_tensor(d["u"], dtype=torch.float32, device=dev)
+                tmpl = torch.as_tensor(d["template"], dtype=torch.float32, device=dev)
+                losses = self._step(batch["campos"][t], raydir[t], batch["gt"][t], batch["bg"][t],
+                                    None if trans is None else trans[t], u, tmpl)
+                names = list(losses)
+                rows.append(torch.stack([losses[k].detach() for k in names]))
+            if progress_cb is not None:
+                progress_cb(step)
+        self.step_count += n
+        return rows, names
+
+    def _read_block(self, rows: list[torch.Tensor], names: list[str]) -> dict[str, np.ndarray]:
+        """The block's one read of its losses (the 'plateau' policy's update
+        from them)."""
+        with annotate("ngf.log"):
+            table = torch.stack(rows).cpu().numpy()
         out = {k: table[:, i] for i, k in enumerate(names)}
         if self._plateau is not None and "color" in out:
             self._plateau_update(float(out["color"].mean()))
@@ -269,6 +394,112 @@ class UVTrainer:
     def train_step(self, item: dict[str, np.ndarray]) -> dict[str, float]:
         """One step on one item."""
         return {k: float(v[-1]) for k, v in self.train_block([item]).items()}
+
+    def run(self, dataset=None, *, steps_per_call: int = 20, print_freq: int = 100,
+            test_freq: int = 10000, save_iter_freq: int = 5000, start_step: int | None = None,
+            test=None, progress_cb=None) -> dict:
+        """Train from ``start_step`` (the step count by default) to ``niter +
+        niter_decay`` (`UV-Mapping/train.py:84-175`): blocks of at most
+        ``steps_per_call`` steps that end at each multiple of ``print_freq``,
+        ``test_freq`` and ``save_iter_freq`` (0: none), each on items sampled
+        from ``dataset`` (the trainer's by default) while the block before it
+        runs on the device. At a print
+        boundary the mean losses since the last one go to standard output,
+        ``log.txt`` and ``scalars.jsonl`` in ``save_dir``; at a test boundary
+        ``test(step)`` runs; at a save boundary the step's and ``latest``'s
+        networks are saved. SIGTERM (installed from the main thread, the
+        previous handler restored on return) finishes the running block;
+        ``latest`` is saved at the end either way (with a ``save_dir``).
+        ``progress_cb(step)`` is called after each optimizer step. Returns
+        ``total_steps``, ``preempted`` and each loss of every step run,
+        ``losses`` ((T,) numpy arrays)."""
+        dataset = self.dataset if dataset is None else dataset
+        total = self.step_count if start_step is None else start_step
+        writes = self.save_dir is not None and (self.mesh is None or self.mesh.rank == 0)
+        log_path = os.path.join(self.save_dir, "log.txt") if writes else None
+        scalars = ScalarWriter(self.save_dir) if writes else None
+        acc: dict[str, float] = {}
+        n_acc = 0
+        parts: dict[str, list[np.ndarray]] = {}
+        t0 = time.time()
+
+        # SIGTERM drains the running block, saves 'latest' and returns
+        # (`uv_train.py:173-191`); a resume continues from it.
+        stop = {"v": False}
+
+        def on_term(signum, frame):
+            stop["v"] = True
+            print("[uv_train_torch] SIGTERM: will save 'latest' and exit at the next block "
+                  "boundary", flush=True)
+
+        try:
+            prev_term = signal.signal(signal.SIGTERM, on_term)
+        except ValueError:  # not the main thread
+            prev_term = None
+
+        end_step = self.niter + self.niter_decay
+
+        def block_after(step: int) -> int:
+            """Steps up to the next print/test/save boundary after ``step``,
+            at most steps_per_call; 0 at the end or once SIGTERM came."""
+            if step >= end_step or stop["v"]:
+                return 0
+            boundaries = [end_step]
+            for freq in (print_freq, test_freq, save_iter_freq):
+                if freq > 0:
+                    boundaries.append(((step // freq) + 1) * freq)
+            target = min(b for b in boundaries if b > step)
+            return min(max(1, steps_per_call), target - step)
+
+        def load(n: int) -> dict | None:
+            if not n:
+                return None
+            with annotate("ngf.batch"):
+                return self._load_block([dataset.sample() for _ in range(n)])
+
+        try:
+            block = block_after(total)
+            batch = load(block)
+            while block:
+                rows, names = self._launch_block(batch, block, None, progress_cb)
+                total += block
+                # The next block's items are sampled on the host while the
+                # device runs this block's steps, before its losses are read.
+                nxt = block_after(total)
+                batch = load(nxt)
+                losses = self._read_block(rows, names)
+                n_acc += block
+                for k, v in losses.items():
+                    acc[k] = acc.get(k, 0.0) + float(v.sum())
+                    parts.setdefault(k, []).append(v)
+
+                if print_freq > 0 and total % print_freq == 0:
+                    with annotate("ngf.log"):
+                        msg = (f"End of iteration {total} \t Number of batches {n_acc} "
+                               f"\t Time taken: {time.time() - t0:.2f}s\n[Average Loss] "
+                               + "   ".join(f"{k}: {v / n_acc:.10f}" for k, v in acc.items()))
+                        if writes:
+                            print(msg, flush=True)
+                            with open(log_path, "a") as f:
+                                f.write(msg + "\n")
+                            scalars.write(total, {f"loss/{k}": v / n_acc for k, v in acc.items()})
+                    acc, n_acc, t0 = {}, 0, time.time()
+
+                if test is not None and test_freq > 0 and total % test_freq == 0:
+                    test(total)
+
+                if save_iter_freq > 0 and total % save_iter_freq == 0 and self.save_dir:
+                    self.save_networks(total, {"total_steps": total})
+                    self.save_networks("latest", {"total_steps": total})
+                block = nxt if not stop["v"] else 0
+        finally:
+            if prev_term is not None:
+                signal.signal(signal.SIGTERM, prev_term)
+
+        if self.save_dir:
+            self.save_networks("latest", {"total_steps": total})
+        return {"total_steps": total, "preempted": stop["v"],
+                "losses": {k: np.concatenate(v) for k, v in parts.items()}}
 
     # ------------------------------------------------------------- rendering
 
@@ -358,6 +589,7 @@ class UVTrainer:
         try:
             self.schedule_count = adam_from_optax_leaves(
                 self.adam, self.trainable, [extra[f"opt/{i:04d}"] for i in range(n_opt)])
+            self._graph = None  # the captured update read the replaced state
         except (ValueError, KeyError) as e:
             print(f"{path}: optimizer state not restored ({e})")
         if "torch_generator" in extra:

@@ -38,15 +38,25 @@ starts a fresh report (``trace`` starts one at its entry, and a
   (``<host>_<pid>.<time>.pt.trace.json``, which TensorBoard's profile
   plugin reads) and the block's ``report()`` as ``ngf_spans.json`` are
   written into ``logdir``.
+- ``capture()`` / ``replay(program)``: a block captured into CUDA graphs,
+  one graph for each stretch between two span boundaries or counts (a
+  graph with nothing in it is not replayed), and replayed in order inside
+  the same spans, with the same counts at the same places. Inside the
+  capture a span or a count only marks its place (tracing on or off); a
+  replay with tracing on opens each span around its graphs, so that a
+  replayed step has each span's device time, as an eager one has, and a
+  replay with tracing off launches the graphs alone.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import os
 import time
+import warnings
 
 import torch
 from torch.profiler import ProfilerActivity
@@ -108,6 +118,7 @@ class _Tracer:
         self.on = False  # the last check's answer
         self.period: _Period | None = None
         self.open: list[list] = []  # records of the spans open now
+        self.capture: _Capture | None = None  # the capture running now
 
 
 _T = _Tracer()
@@ -159,6 +170,8 @@ class _Span:
 def annotate(name: str, id=None):
     """A span named ``name`` as a context manager (the module's docstring);
     ``id`` names the step or chunk it belongs to."""
+    if _T.capture is not None:
+        return _Mark(_T.capture, name, id)
     if not enabled():
         return NOOP
     return _Span(name, id)
@@ -167,6 +180,9 @@ def annotate(name: str, id=None):
 def count(name: str, value) -> None:
     """Add ``value`` (a host int, or a device tensor whose elements are
     counts) to the counter ``name`` while tracing is on."""
+    if _T.capture is not None:
+        _T.capture.mark(("count", name, value))
+        return
     if not enabled():
         return
     p = _T.period
@@ -215,6 +231,109 @@ def report() -> dict:
             counters[name] = counters.get(name, 0) + round(v)
     launches = {k: v - p.launches.get(k, 0) for k, v in _launch_counts().items()}
     return {"spans": spans, "counters": counters, "launches": launches}
+
+
+class _Capture:
+    """The program of a capture: ``("graph", CUDAGraph)``, ``("enter", name,
+    id)``, ``("exit",)`` and ``("count", name, value)`` in the order the
+    block ran them, and ``("empty", CUDAGraph)`` for a stretch that
+    captured nothing (kept, not replayed: a graph that goes releases its
+    hold on the pool). Its graphs share one memory pool and are replayed in
+    the order they were captured."""
+
+    def __init__(self):
+        self.program: list[tuple] = []
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graph = None
+
+    def begin(self) -> None:
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.capture_begin(pool=self.pool)
+
+    def end(self) -> None:
+        graph, self.graph = self.graph, None
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            graph.capture_end()
+        empty = False
+        for w in seen:
+            if "Graph is empty" in str(w.message):
+                empty = True
+            else:
+                warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+        self.program.append(("empty" if empty else "graph", graph))
+
+    def mark(self, op: tuple) -> None:
+        self.end()
+        self.program.append(op)
+        self.begin()
+
+
+class _Mark:
+    """A span inside a capture: its entry and exit end one graph and begin
+    the next."""
+
+    __slots__ = ("capture", "name", "id")
+
+    def __init__(self, capture: _Capture, name: str, id):
+        self.capture, self.name, self.id = capture, name, id
+
+    def __enter__(self):
+        self.capture.mark(("enter", self.name, self.id))
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            self.capture.mark(("exit",))
+        return False
+
+
+@contextlib.contextmanager
+def capture():
+    """Capture the block on a side stream into CUDA graphs split at its span
+    boundaries (the module's docstring); yields the program that
+    ``replay`` runs. The block's kernels do not run."""
+    if _T.capture is not None:
+        raise RuntimeError("a capture is running already")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cap = _Capture()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        cap.begin()
+        _T.capture = cap
+        try:
+            yield cap.program
+        finally:
+            _T.capture = None
+            cap.end()
+    torch.cuda.current_stream().wait_stream(stream)
+
+
+def replay(program: list[tuple]) -> None:
+    """Run a captured program (``capture``) on the current stream: its
+    graphs in order, inside its spans and with its counts while tracing is
+    on."""
+    if not enabled():
+        for op in program:
+            if op[0] == "graph":
+                op[1].replay()
+        return
+    spans = []
+    for op in program:
+        kind = op[0]
+        if kind == "graph":
+            op[1].replay()
+        elif kind == "enter":
+            span = annotate(op[1], op[2])
+            span.__enter__()
+            spans.append(span)
+        elif kind == "exit":
+            spans.pop().__exit__(None, None, None)
+        elif kind == "count":
+            count(op[1], op[2])
 
 
 @contextlib.contextmanager

@@ -1402,6 +1402,62 @@ def test_uv_train_steps_launch_k5_and_match_the_cpu(cuda):
             assert abs(got[k][step] - w[step]) <= rtol * max(abs(w[step]), 1e-6), (k, step)
 
 
+def test_uv_captured_steps_equal_eager_steps(cuda, tmp_path, monkeypatch):
+    """Nine `UVTrainer` steps on the card: the first `GRAPH_WARMUP` eager,
+    then the captured step replayed, against the same steps all eager (the
+    warm-up longer than the run): each loss and every parameter equal bit
+    for bit (the replays run the eager step's kernels on the same inputs),
+    the rate followed through the 'lambda' decay that starts at step 4. A
+    traced step between them runs as the untraced ones do, with its spans'
+    device time, and the device trace shows it running K5 once forward and
+    once backward. K5's launch counter counts the host's launches: one
+    forward and one backward an eager step and at the capture, none a
+    replay."""
+    import numpy as np
+
+    from ngf_tpu_torch.data.dtu import SyntheticDtuDataset
+    from ngf_tpu_torch.fields.neutex import NeuTexConfig
+    from ngf_tpu_torch.train import uv_loop
+    from ngf_tpu_torch.utils import profiling
+
+    cfg = NeuTexConfig(sample_num=16, points_per_primitive=64, geo_hidden=64, geo_layers=3,
+                       tex_width=64, tex_layers1=2, tex_layers2=1)
+    ds = SyntheticDtuDataset(n_views=4, wh=(16, 16), random_sample="balanced",
+                             random_sample_size=8, seed=0)
+    items = [ds.sample() for _ in range(9)]
+    weights = {"color": 1.0, "bg": 1.0, "origin": 1.0, "inverse_mapping": 1.0}
+    runs = []
+    for warmup, host in ((uv_loop.GRAPH_WARMUP, uv_loop.GRAPH_WARMUP + 1), (10 ** 9, 9)):
+        monkeypatch.setattr(uv_loop, "GRAPH_WARMUP", warmup)
+        tr = uv_loop.UVTrainer(cfg, ds, seed=3, niter=4, niter_decay=10, loss_weights=weights,
+                               device=cuda)
+        before = (cuda_kernels.ray_march.launches, cuda_kernels.ray_march_backward.launches)
+        losses = tr.train_block(items[:6])
+        with profiling.trace(str(tmp_path / f"tb{warmup}")) as prof:
+            losses_t = tr.train_block(items[6:7])
+            torch.cuda.synchronize()
+        rep = profiling.report()
+        losses_after = tr.train_block(items[7:])
+        assert (cuda_kernels.ray_march.launches - before[0],
+                cuda_kernels.ray_march_backward.launches - before[1]) == (host, host)
+        ran = [(e.key, e.count) for e in prof.key_averages()]
+        assert [sum(n for k, n in ran if f"ray_march_neutex_{d}_kernel" in k)
+                for d in ("forward", "backward")] == [1, 1], ran
+        spans = rep["spans"]
+        assert spans["ngf.field"]["count"] == 1 and spans["ngf.field"]["device_ms"] > 0
+        assert spans["ngf.uv.gauge"]["parents"] == ["ngf.field"]
+        assert spans["ngf.backward"]["device_ms"] > 0
+        assert rep["counters"]["slots"] == 8 * 8 * 16 and rep["counters"]["template"] == 64
+        assert (tr._graph is not None) == (warmup < 9)
+        runs.append((losses, losses_t, losses_after,
+                     [t.detach().cpu() for _, t in uv_loop.sorted_named_leaves(tr.params)]))
+    (a, at, aa, pa), (b, bt, bb, pb) = runs
+    for x, y in ((a, b), (at, bt), (aa, bb)):
+        for k in y:
+            assert np.array_equal(x[k], y[k]), k
+    assert all(torch.equal(s, t) for s, t in zip(pa, pb))
+
+
 def _shard_inputs(cuda, n, s, seed=0, t0="random"):
     """A shard of the sample-parallel path: sigma over five decades with
     runs of sigma dist = 20 on every other ray, the path's one length, rgb,

@@ -16,7 +16,11 @@ benchmark's tiny shapes (`gpubench/tests/tiny.py`):
   on the same rays and jitter, its ``slots`` the packed rows of its kept
   groups;
 - the on/off rule at a span's entry and exit, and a fresh report each
-  traced period.
+  traced period;
+- inside a capture, spans and counts mark the captured program (with
+  stand-in graphs: a capture needs a card), and a replay runs its graphs
+  in order, alone while off and inside the spans, with the counts, while
+  on.
 """
 
 import json
@@ -217,3 +221,56 @@ def test_on_off_at_entry_and_a_fresh_report_each_period(tmp_path):
             pass
     rep = profiling.report()
     assert set(rep["spans"]) == {"second"} and rep["counters"] == {}
+
+
+def test_a_capture_splits_at_spans_and_a_replay_reopens_them(tmp_path, monkeypatch):
+    _fresh_empty_report(tmp_path)
+    ran = []
+
+    class Graph:
+        def __init__(self):
+            self.work = []
+
+        def replay(self):
+            ran.extend(self.work)
+
+    class Capture(profiling._Capture):
+        """`_Capture`'s program on stand-in graphs."""
+
+        def __init__(self):
+            self.program, self.graph = [], None
+
+        def begin(self):
+            self.graph = Graph()
+
+        def end(self):
+            graph, self.graph = self.graph, None
+            self.program.append(("graph" if graph.work else "empty", graph))
+
+    cap = Capture()
+    cap.begin()
+    monkeypatch.setattr(profiling._T, "capture", cap)
+    cap.graph.work.append("a")
+    with profiling.annotate("outer", 7):
+        profiling.count("n", 3)
+        cap.graph.work.append("b")
+        with profiling.annotate("inner"):
+            cap.graph.work.append("c")
+    cap.graph.work.append("d")
+    monkeypatch.setattr(profiling._T, "capture", None)
+    cap.end()
+    assert [op[0] for op in cap.program] == [
+        "graph", "enter", "empty", "count", "graph", "enter", "graph", "exit", "empty", "exit",
+        "graph"]
+    rep = profiling.report()
+    assert rep["spans"] == {} and rep["counters"] == {}
+    profiling.replay(cap.program)  # off: the graphs alone
+    assert ran == list("abcd")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiling.replay(cap.program)
+        profiling.replay(cap.program)
+    rep = profiling.report()
+    assert ran == list("abcd") * 3
+    assert rep["counters"] == {"n": 6}
+    assert {k: (v["count"], v["ids"], v["parents"]) for k, v in rep["spans"].items()} == {
+        "outer": (2, 1, []), "inner": (2, 1, ["outer"])}

@@ -20,8 +20,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import signal
-import time
 
 import numpy as np
 
@@ -117,7 +115,6 @@ def main(argv=None) -> None:
     from ngf_tpu_torch.train.uv_loop import UVTrainer
     from ngf_tpu_torch.utils.device import resolve_device
     from ngf_tpu_torch.utils.image import write_png
-    from ngf_tpu_torch.utils.scalars import ScalarWriter
 
     opt = parse_args(argv)
     device = resolve_device(opt.device)
@@ -151,77 +148,23 @@ def main(argv=None) -> None:
         start_step = int(meta.get("total_steps", trainer.step_count))
         print(f"resumed at step {start_step}", flush=True)
 
-    total_steps = start_step
-    scalars = ScalarWriter(save_dir)
-    log_path = os.path.join(save_dir, "log.txt")
-    acc: dict[str, float] = {}
-    n_acc = 0
-    t0 = time.time()
+    def test(step):
+        test_ds = make_dataset(opt, use_test_data=True)
+        for vi in range(min(opt.test_num, len(test_ds.indexes))):
+            idx = test_ds.indexes[vi]
+            rgb, _ = trainer.render_view(
+                test_ds.campos[idx], test_ds.height, test_ds.width, test_ds.focal[idx],
+                test_ds.extrinsics[idx][0:3, 0:3], test_ds.princpt[idx],
+                chunk=opt.random_sample_size ** 2,
+            )
+            write_png(os.path.join(save_dir, f"{step:08d}-test-{vi}.png"), to_png(rgb))
+        print(f"test renders written at step {step}", flush=True)
 
-    # SIGTERM drains the running block, saves 'latest' and exits cleanly
-    # (`uv_train.py:173-191`); --resume_dir continues.
-    stop = {"v": False}
-
-    def on_term(signum, frame):
-        stop["v"] = True
-        print("[uv_train_torch] SIGTERM: will save 'latest' and exit at the next block boundary",
-              flush=True)
-
-    try:
-        prev_term = signal.signal(signal.SIGTERM, on_term)
-    except ValueError:  # not the main thread
-        prev_term = None
-
-    end_step = opt.niter + opt.niter_decay
-    try:
-        while total_steps < end_step and not stop["v"]:
-            # Steps up to the next print/test/save boundary, at most
-            # steps_per_call, in one train_block call.
-            boundaries = [end_step]
-            for freq in (opt.print_freq, opt.test_freq, opt.save_iter_freq):
-                if freq > 0:
-                    boundaries.append(((total_steps // freq) + 1) * freq)
-            target = min(b for b in boundaries if b > total_steps)
-            block = min(max(1, opt.steps_per_call), target - total_steps)
-            items = [dataset.sample() for _ in range(block)]
-            losses = trainer.train_block(items)
-            total_steps += block
-            n_acc += block
-            for k, v in losses.items():
-                acc[k] = acc.get(k, 0.0) + float(v.sum())
-
-            if opt.print_freq > 0 and total_steps % opt.print_freq == 0:
-                msg = (f"End of iteration {total_steps} \t Number of batches {n_acc} "
-                       f"\t Time taken: {time.time() - t0:.2f}s\n[Average Loss] "
-                       + "   ".join(f"{k}: {v / n_acc:.10f}" for k, v in acc.items()))
-                print(msg, flush=True)
-                with open(log_path, "a") as f:
-                    f.write(msg + "\n")
-                scalars.write(total_steps, {f"loss/{k}": v / n_acc for k, v in acc.items()})
-                acc, n_acc, t0 = {}, 0, time.time()
-
-            if opt.test_freq > 0 and total_steps % opt.test_freq == 0 and opt.train_and_test:
-                test_ds = make_dataset(opt, use_test_data=True)
-                for vi in range(min(opt.test_num, len(test_ds.indexes))):
-                    idx = test_ds.indexes[vi]
-                    rgb, _ = trainer.render_view(
-                        test_ds.campos[idx], test_ds.height, test_ds.width, test_ds.focal[idx],
-                        test_ds.extrinsics[idx][0:3, 0:3], test_ds.princpt[idx],
-                        chunk=opt.random_sample_size ** 2,
-                    )
-                    write_png(os.path.join(save_dir, f"{total_steps:08d}-test-{vi}.png"), to_png(rgb))
-                print(f"test renders written at step {total_steps}", flush=True)
-
-            if opt.save_iter_freq > 0 and total_steps % opt.save_iter_freq == 0:
-                trainer.save_networks(total_steps, {"total_steps": total_steps})
-                trainer.save_networks("latest", {"total_steps": total_steps})
-    finally:
-        if prev_term is not None:
-            signal.signal(signal.SIGTERM, prev_term)
-
-    trainer.save_networks("latest", {"total_steps": total_steps})
-    if stop["v"]:
-        print(f"preempted at step {total_steps}; 'latest' networks saved "
+    out = trainer.run(dataset, steps_per_call=opt.steps_per_call, print_freq=opt.print_freq,
+                      test_freq=opt.test_freq, save_iter_freq=opt.save_iter_freq,
+                      start_step=start_step, test=test if opt.train_and_test else None)
+    if out["preempted"]:
+        print(f"preempted at step {out['total_steps']}; 'latest' networks saved "
               f"(resume with --resume_dir {save_dir})", flush=True)
     else:
         print("training finished", flush=True)
